@@ -1,0 +1,411 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+drives the port's main path — R-MAT generator → partitioner → plans →
+channels → host-driven superstep loop → ``Engine.run`` → oracle check —
+for ``wcc:basic`` and ``pagerank:scatter`` on the card. Phases, one line
+each:
+
+  1. environment and kernel build;
+  2. each kernel against its plain PyTorch version on the card;
+  3. reference traffic counts at scale 12, W=8 (exact);
+  4. the main path at R-MAT scale 20, W=8, checked against the host
+     oracles, with each kernel's launch count and pagerank run twice
+     (bit-identical);
+  5. each kernel's time against its plain version, its bound and a
+     PyTorch yardstick at the scale-20 shapes, and one run of each
+     program under torch.profiler (device busy share, top kernels and
+     aten ops; ``chiprun_out/profile_*.txt``).
+
+Then the kernel table as one JSON line, the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``. Any failed check
+raises: the script exits non-zero and prints no result. Details go to
+``chiprun_out/chip_smoke.json``. It needs CUDA and the repository's
+``src/`` beside it.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+W = 8
+FULL_SCALE = 20
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_run(eng, prog, pg):
+    """``eng.run(prog, pg)`` and its host wall time in ms, from a synced
+    device to the device's end of the run."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run(prog, pg)
+    torch.cuda.synchronize()
+    return res, 1e3 * (time.perf_counter() - t0)
+
+
+def profile_runs(eng, jobs, out_dir: Path) -> dict:
+    """One traced run per (key, program, graph, untraced wall ms) under
+    torch.profiler, and the kernels and aten ops that take the device
+    time. Two busy shares, both for one stream: ``busy_share`` is the
+    traced run's device time over its own wall time (one run, slowed by
+    the profiler); ``busy_vs_untraced`` is the same device time over the
+    wall time of the untraced phase-4 run of that program (two runs)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e, total=False):
+        name = "device_time_total" if total else "self_device_time_total"
+        return getattr(e, name)
+
+    out = {}
+    for key, prog, pg, untraced_ms in jobs:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res, wall_ms = timed_run(eng, prog, pg)
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        ops_ = [e for e in events if e.device_type == DeviceType.CPU
+                and e.key.startswith("aten::")]
+        device_ms = sum(dev_us(e) for e in kernels) / 1e3
+        top_k = sorted(kernels, key=dev_us, reverse=True)[:12]
+        top_o = sorted(ops_, key=lambda e: dev_us(e, True), reverse=True)[:12]
+        out[key] = dict(
+            steps=res.steps, wall_ms=wall_ms, device_ms=device_ms,
+            busy_share=device_ms / wall_ms, untraced_wall_ms=untraced_ms,
+            busy_vs_untraced=device_ms / untraced_ms,
+            kernels=[(e.key[:90], dev_us(e) / 1e3, e.count) for e in top_k],
+            aten_ops=[(e.key, dev_us(e, True) / 1e3, e.count) for e in top_o])
+        rows = "\n".join(f"{ms:10.3f} ms {n:6d}x  {k}"
+                         for k, ms, n in out[key]["kernels"] +
+                         [("--- aten ops (device time incl. children)", 0, 0)]
+                         + out[key]["aten_ops"])
+        (out_dir / f"profile_{key.replace(':', '_')}.txt").write_text(
+            f"{key}: {res.steps} steps, traced wall {wall_ms:.3f} ms, device "
+            f"{device_ms:.3f} ms, busy {device_ms / wall_ms:.3f}; untraced "
+            f"wall {untraced_ms:.3f} ms, device/untraced "
+            f"{device_ms / untraced_ms:.3f}\n{rows}\n")
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: no port package under {SRC}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+
+    from repro_torch.algorithms import REGISTRY, get_program
+    from repro_torch.core import combiners as cb
+    from repro_torch.core import routing
+    from repro_torch.graph import generators as gen, pgraph
+    from repro_torch.kernels import build, ops, ref as kref
+    from repro_torch.pregel.engine import Engine
+
+    dev = torch.device("cuda")
+    detail = {}
+
+    # -- 1. environment and build ------------------------------------------
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    t = time.perf_counter()
+    logs = build.build_all()
+    build_s = time.perf_counter() - t
+    regs = [ln.strip() for log in logs.values() for ln in log.splitlines()
+            if "registers" in ln]
+    detail["env"] = dict(device=name, nvidia_smi=smi, torch=torch.__version__,
+                         cuda=torch.version.cuda, build_s=build_s,
+                         ptxas=regs)
+    print(f"[1/5] env: {name} | {smi} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda} | kernels built in {build_s:.1f} s "
+          f"({len(logs)} nvcc)", flush=True)
+
+    # -- 2. kernels against their plain versions on the card ----------------
+    t = time.perf_counter()
+    pr_graph = REGISTRY["pagerank:scatter"].make_graph(FULL_SCALE, 0)
+    pr_pg = pgraph.partition_graph(pr_graph, W, "random",
+                                   build=REGISTRY["pagerank:scatter"].build)
+    pr_host_s = time.perf_counter() - t
+    plan = pr_pg.scatter_out
+    g = torch.Generator(device=dev).manual_seed(0)
+    errs = {}
+
+    keys = torch.randint(0, W + 1, (W, 1 << 21), device=dev,
+                         dtype=torch.int32, generator=g)
+    rk, ck = ops.bucket_ranks(keys, W)
+    rr, cr = kref.bucket_ranks_ref(keys, W)
+    check(torch.equal(rk, rr) and torch.equal(ck, cr),
+          "bucket_ranks differs from its plain version at (8, 2^21)")
+    errs["bucket_ranks"] = 0.0
+
+    def seg_case(vals, seg, n, comb, rtol=0.0, atol=0.0, what=""):
+        out = ops.segment_combine(vals, seg, n, comb)
+        want = kref.segment_combine_ref(vals, seg, n, comb)
+        if rtol == 0.0 and atol == 0.0:
+            check(torch.equal(out, want),
+                  f"segment_combine {what} {comb} differs from plain")
+            return 0.0
+        torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+        return float((out - want).abs().max())
+
+    e_cap, u_cap = plan.e_cap, plan.u_cap
+    recv_n = W * plan.slot_cap
+    f32 = torch.rand((W, e_cap, 1), device=dev, generator=g)
+    i32 = torch.randint(-1000, 1000, (W, e_cap, 1), device=dev,
+                        dtype=torch.int32, generator=g)
+    # f32 sum: sums of up to a hub's in-degree of U[0, 1) values in another
+    # order than index_add's atomics — reassociation only
+    e1 = seg_case(f32, plan.edge_seg, u_cap, "sum", 1e-4, 1e-5, "send f32")
+    rv = torch.rand((W, recv_n, 1), device=dev, generator=g)
+    e2 = seg_case(rv, plan.recv_sorted, pr_pg.n_loc, "sum", 1e-4, 1e-5,
+                  "recv f32")
+    for comb in ("min", "max"):
+        seg_case(f32, plan.edge_seg, u_cap, comb, what="send f32")
+    seg_case(i32, plan.edge_seg, u_cap, "sum", what="send i32")
+    inf = float("inf")
+    probe_v = torch.tensor([[inf], [inf], [5.0], [inf], [2.0], [inf]],
+                           device=dev)
+    probe_s = torch.tensor([0, 0, 1, 2, 2, 3], device=dev, dtype=torch.int32)
+    got = ops.segment_combine(probe_v, probe_s, 4, "min")
+    check(torch.equal(got[:, 0], torch.tensor([inf, 5.0, 2.0, inf],
+                                              device=dev)),
+          f"fault-1 probe: min gave {got[:, 0].tolist()}")
+    for comb in ("sum", "max"):
+        seg_case(probe_v, probe_s, 4, comb, what="fault-1 probe")
+    empty_s = torch.tensor([1, 1, 4, 7, 9], device=dev, dtype=torch.int32)
+    for vals in (torch.tensor([[1.5], [2.0], [-3.0], [4.0], [5.0]],
+                              device=dev),
+                 torch.tensor([[3], [-2], [7], [1], [1]], device=dev,
+                              dtype=torch.int32)):
+        for comb in ("sum", "min", "max"):
+            seg_case(vals, empty_s, 6, comb, what="empty/dropped")
+    seg_case(torch.tensor([True, False, False, True, True], device=dev),
+             empty_s, 6, "or", what="empty/dropped bool")
+    torch.cuda.synchronize()
+    errs["segment_combine"] = max(e1, e2)
+    detail["kernel_checks"] = dict(errs, pagerank_host_setup_s=pr_host_s)
+    print(f"[2/5] kernels vs plain on the card: bucket_ranks (8, 2^21) "
+          f"exact; segment_combine at the pagerank plan (W={W}, "
+          f"e_cap={e_cap}, u_cap={u_cap}, recv {recv_n}) f32 sum max|err| "
+          f"{errs['segment_combine']:.3g} (rtol 1e-4, atol 1e-5), min/max/"
+          f"int32 sum exact, fault-1 probe [inf,5,2,inf], empty segments "
+          f"hold the identity ({time.perf_counter() - t:.1f} s)", flush=True)
+
+    # -- 3. reference counts at scale 12 ------------------------------------
+    t = time.perf_counter()
+    eng = Engine()
+    refs = {
+        "wcc:basic": (gen.rmat(12, edge_factor=8, seed=2).symmetrized(), {},
+                      (6, 42027, 336216)),
+        "pagerank:scatter": (gen.rmat(12, edge_factor=12, seed=1,
+                                      directed=True), {"iters": 10},
+                             (10, 98130, 392520)),
+    }
+    counts = {}
+    for key, (graph, knobs, want) in refs.items():
+        pg = pgraph.partition_graph(graph, W, "random",
+                                    build=REGISTRY[key].build)
+        res = eng.run(get_program(key, **knobs), pg)
+        got = (res.steps, res.total_msgs, res.total_bytes)
+        check(got == want, f"{key} scale-12 counts {got} != {want}")
+        counts[key] = dict(steps=got[0], msgs=got[1], bytes=got[2],
+                           bytes_by_channel=res.bytes_by_channel)
+    detail["reference_counts"] = counts
+    print(f"[3/5] scale-12 reference counts exact: " + "; ".join(
+        f"{k} {v['steps']}/{v['msgs']}/{v['bytes']}"
+        for k, v in counts.items()) +
+        f" ({time.perf_counter() - t:.1f} s)", flush=True)
+
+    # -- 4. the main path at full size --------------------------------------
+    t = time.perf_counter()
+    wcc_spec = REGISTRY["wcc:basic"]
+    wcc_graph = wcc_spec.make_graph(FULL_SCALE, 0)
+    wcc_pg = pgraph.partition_graph(wcc_graph, W, "random",
+                                    build=wcc_spec.build)
+    wcc_host_s = time.perf_counter() - t
+    pr_prog = get_program("pagerank:scatter", iters=30)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    wcc_res, wcc_ms = timed_run(eng, get_program("wcc:basic"), wcc_pg)
+    pr_res, pr_ms = timed_run(eng, pr_prog, pr_pg)
+    launches = ops.launch_counts()
+    check(launches["bucket_ranks"] > 0, "wcc:basic never launched bucket_ranks")
+    check(launches["segment_combine"] > 0,
+          "pagerank:scatter never launched segment_combine")
+    pr_again = eng.run(pr_prog, pr_pg)
+    check(torch.equal(pr_res.state["pr"], pr_again.state["pr"]),
+          "pagerank:scatter ranks differ between two runs on the card")
+    t_or = time.perf_counter()
+    wcc_spec.check(wcc_graph, wcc_pg, wcc_res)
+    REGISTRY["pagerank:scatter"].check(pr_graph, pr_pg, pr_res)
+    oracle_s = time.perf_counter() - t_or
+    main = {}
+    for key, res, pg in (("wcc:basic", wcc_res, wcc_pg),
+                         ("pagerank:scatter", pr_res, pr_pg)):
+        ms = [1e3 * s for s in res.step_times_s]
+        main[key] = dict(n=pg.n, edges=int(
+            (wcc_graph if key == "wcc:basic" else pr_graph).num_edges),
+            steps=res.steps, halted=res.halted, msgs=res.total_msgs,
+            bytes=res.total_bytes, bytes_by_channel=res.bytes_by_channel,
+            step_ms=ms, loop_wall_s=res.wall_time_s,
+            run_wall_ms=wcc_ms if key == "wcc:basic" else pr_ms,
+            route_cap=pg.route_cap)
+    detail["main_path"] = dict(main, launches=launches,
+                               wcc_host_setup_s=wcc_host_s, oracle_s=oracle_s)
+
+    def fmt_ms(ms):
+        return ",".join(f"{x:.2f}" for x in ms)
+
+    print(f"[4/5] main path scale {FULL_SCALE}, W={W}: wcc:basic n="
+          f"{wcc_pg.n} {main['wcc:basic']['edges']} edges, "
+          f"{wcc_res.steps} steps, {wcc_res.total_bytes} bytes, oracle ok, "
+          f"step ms [{fmt_ms(main['wcc:basic']['step_ms'])}]; "
+          f"pagerank:scatter {main['pagerank:scatter']['edges']} edges, "
+          f"{pr_res.steps} steps, oracle ok (rtol 1e-4, atol 1e-7), two runs "
+          f"bit-identical, step ms [{fmt_ms(main['pagerank:scatter']['step_ms'])}]"
+          f"; launches {launches} ({time.perf_counter() - t:.1f} s)",
+          flush=True)
+
+    # -- 5. times at the scale-20 shapes ------------------------------------
+    t = time.perf_counter()
+    raw = wcc_pg.raw_out
+    n_total = W * wcc_pg.n_loc
+    u_dst, _ = routing.dedup_dense(raw.dst_global, raw.mask, n_total)
+    # the first superstep's route keys: owner of each unique destination
+    rkeys = torch.where(u_dst != routing.BIG, u_dst // wcc_pg.n_loc,
+                        W).to(torch.int32)
+    b_ms = cuda_ms(lambda: ops.bucket_ranks(rkeys, W))
+    b_plain = cuda_ms(lambda: kref.bucket_ranks_ref(rkeys, W), reps=5)
+    b_sort = cuda_ms(lambda: torch.sort(rkeys, dim=1, stable=True), reps=10)
+    b_bytes = rkeys.numel() * 8 + W * W * 4
+    b_bound = 1e3 * b_bytes / HBM_BYTES_PER_S
+
+    contrib = torch.rand((W, pr_pg.n_loc, 1), device=dev, generator=g)
+    send_vals = contrib.gather(
+        1, plan.edge_src.long()[..., None])  # (W, e_cap, 1), as the channel
+    recv_vals = torch.rand((W, recv_n, 1), device=dev, generator=g)
+    sides = ((send_vals, plan.edge_seg, u_cap),
+             (recv_vals, plan.recv_sorted, pr_pg.n_loc))
+
+    def both(fn):
+        return sum(cuda_ms(lambda v=v, s=s, n=n: fn(v, s, n))
+                   for v, s, n in sides)
+
+    s_ms = both(lambda v, s, n: ops.segment_combine(
+        v, s, n, cb.SUM))
+    s_plain = both(lambda v, s, n: kref.segment_combine_ref(v, s, n, cb.SUM))
+    lib = []
+    for v, s, n in sides:
+        # torch.segment_reduce over one flat row: N + 1 segments per worker,
+        # the last one swallowing the dropped pad entries
+        lengths = torch.stack([torch.bincount(row.long(), minlength=n + 1)
+                               for row in s]).reshape(-1)
+        flat = v.reshape(-1, 1)
+        lib.append(cuda_ms(lambda flat=flat, lengths=lengths:
+                           torch.segment_reduce(flat, "sum", lengths=lengths,
+                                                unsafe=True)))
+    s_lib = sum(lib)
+    s_bytes = sum(v.numel() * 4 + s.numel() * 4 + W * n * 4
+                  for v, s, n in sides)
+    s_bound = 1e3 * s_bytes / HBM_BYTES_PER_S
+    kernels = [
+        dict(name="bucket_ranks", route="cuda",
+             source="src/repro_torch/kernels/csrc/bucket_route.cu",
+             replaces="src/repro/kernels/bucket_route.py:87",
+             launches=launches["bucket_ranks"],
+             max_abs_err=errs["bucket_ranks"], ms=b_ms, plain_ms=b_plain,
+             bound_ms=b_bound, bound_by="bytes", library_ms=None),
+        dict(name="segment_combine", route="cuda",
+             source="src/repro_torch/kernels/csrc/segment_combine.cu",
+             replaces="src/repro/kernels/segment_combine.py:101",
+             launches=launches["segment_combine"],
+             max_abs_err=errs["segment_combine"], ms=s_ms, plain_ms=s_plain,
+             bound_ms=s_bound, bound_by="bytes", library_ms=s_lib),
+    ]
+    detail["timings"] = dict(
+        bucket_ranks=dict(shape=list(rkeys.shape), ms=b_ms, plain_ms=b_plain,
+                          stable_sort_ms=b_sort, bytes=b_bytes,
+                          bound_ms=b_bound),
+        segment_combine=dict(
+            shapes=[[list(v.shape), n] for v, _, n in sides],
+            ms=s_ms, plain_ms=s_plain, library_ms=s_lib,
+            library_ms_sides=lib, bytes=s_bytes, bound_ms=s_bound))
+    print(f"[5/5] times at scale {FULL_SCALE}: bucket_ranks {list(rkeys.shape)}"
+          f" {b_ms:.3f} ms (plain {b_plain:.3f}, bound {b_bound:.3f}, library "
+          f"none; stable torch.sort {b_sort:.3f}); segment_combine per "
+          f"superstep (send {list(send_vals.shape)} + recv "
+          f"{list(recv_vals.shape)}) {s_ms:.3f} ms (plain {s_plain:.3f}, "
+          f"bound {s_bound:.3f}, torch.segment_reduce {s_lib:.3f}) "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    detail["profile"] = profile_runs(
+        eng, (("wcc:basic", get_program("wcc:basic"), wcc_pg, wcc_ms),
+              ("pagerank:scatter", pr_prog, pr_pg, pr_ms)), out_dir)
+    print("[5/5] profiled runs: " + "; ".join(
+        f"{k}: traced wall {v['wall_ms']:.1f} ms, device "
+        f"{v['device_ms']:.1f} ms, busy {v['busy_share']:.2f} (traced run); "
+        f"untraced phase-4 wall {v['untraced_wall_ms']:.1f} ms, device/"
+        f"untraced {v['busy_vs_untraced']:.2f}; top kernel "
+        f"{v['kernels'][0][0][:40]} {v['kernels'][0][1]:.1f} ms"
+        for k, v in detail["profile"].items()), flush=True)
+    (out_dir / "chip_smoke.json").write_text(
+        json.dumps(dict(detail, kernels=kernels), indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

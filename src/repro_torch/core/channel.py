@@ -1,0 +1,127 @@
+"""Channel base machinery: per-step context, registry, message accounting
+(paper §IV — the channel interface every §IV-C optimization implements).
+
+The port of ``repro.core.channel``. A channel is a plain function over
+``(W, ...)`` tensors — every worker's shard at once — and the
+``ChannelContext`` carries the worker count, the per-worker vertex width
+and the per-channel traffic statistics: logical bytes and message counts
+that cross worker boundaries, one int32 counter per worker (stat leaves
+of shape ``(W,)``, as the JAX package's ``vmap`` surfaces them).
+
+Per-step counters are ``TRAFFIC_DTYPE`` (int32) on the device and wrap
+like the JAX ones; the host-driven loop accumulates them across
+supersteps in Python ints and raises ``TrafficWrapError`` on a negative
+per-step delta.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+TRAFFIC_DTYPE = torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class ChannelRegistry:
+    """A declared, fixed set of channel stat keys. In host mode it only
+    seeds zero stats for every declared key and rejects undeclared ones."""
+
+    names: Tuple[str, ...]
+
+    @classmethod
+    def declare(cls, names) -> "ChannelRegistry":
+        return cls(names=tuple(sorted(names)))
+
+
+@dataclasses.dataclass
+class ChannelContext:
+    num_workers: int
+    n_loc: int
+    device: torch.device
+    registry: Optional[ChannelRegistry] = None
+    stats_bytes: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+    stats_msgs: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+    # per-channel overflow latches (bool (W,)), same key set as the
+    # traffic stats
+    stats_ovf: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+    # capacity-scale overrides keyed by channel name (or the "*"
+    # wildcard); see scale_capacity()
+    cap_scales: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # names that actually reached add_traffic
+    touched: set = dataclasses.field(default_factory=set)
+    # partition-derived per-peer capacity bound for edge-derived routed
+    # sends (PartitionedGraph.route_cap; 0 = unknown). See edge_capacity().
+    route_cap: int = 0
+
+    def __post_init__(self):
+        if self.registry is not None:
+            for n in self.registry.names:
+                self.stats_bytes.setdefault(n, self._zeros())
+                self.stats_msgs.setdefault(n, self._zeros())
+                self.stats_ovf.setdefault(n, self._zeros(torch.bool))
+
+    def _zeros(self, dtype=TRAFFIC_DTYPE) -> torch.Tensor:
+        return torch.zeros(self.num_workers, dtype=dtype, device=self.device)
+
+    def _per_worker(self, x, dtype) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device).to(dtype).expand(
+            self.num_workers)
+
+    def me(self) -> torch.Tensor:
+        """(W,) worker index — the port of ``axis_index``."""
+        return torch.arange(self.num_workers, device=self.device)
+
+    def add_traffic(self, name: str, nbytes, nmsgs):
+        """Add per-worker ``(W,)`` (or scalar, broadcast) byte and message
+        counts under ``name``."""
+        self.touched.add(name)
+        if self.registry is not None and name not in self.registry.names:
+            raise KeyError(
+                f"channel {name!r} is not in the registry "
+                f"{self.registry.names}")
+        self.stats_bytes[name] = self.stats_bytes.get(
+            name, self._zeros()) + self._per_worker(nbytes, TRAFFIC_DTYPE)
+        self.stats_msgs[name] = self.stats_msgs.get(
+            name, self._zeros()) + self._per_worker(nmsgs, TRAFFIC_DTYPE)
+
+    def add_overflow(self, name: str, flag):
+        """Latch a channel's per-worker overflow flag under its stat key."""
+        prev = self.stats_ovf.get(name, self._zeros(torch.bool))
+        self.stats_ovf[name] = prev | self._per_worker(flag, torch.bool)
+
+    def edge_capacity(self, default: int) -> int:
+        """Per-peer slot capacity for a deduping routed send whose
+        destinations are graph edge endpoints: the partition's
+        ``route_cap`` bound, never above ``default`` (see the JAX
+        package's ``ChannelContext.edge_capacity`` for the proof)."""
+        return min(self.route_cap, default) if self.route_cap else default
+
+    def scale_capacity(self, name: str, capacity: int) -> int:
+        """Apply a capacity-scale override for this channel (its name
+        beats the "*" wildcard; absent/1.0 leaves it unchanged). Scaled
+        caps re-bucket to the next power of two."""
+        scale = self.cap_scales.get(name, self.cap_scales.get("*", 1.0))
+        if not self.cap_scales or scale == 1.0:
+            return capacity
+        scaled = max(1, int(capacity * scale))
+        return 1 << (scaled - 1).bit_length()
+
+    def stats(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        return dict(self.stats_bytes), dict(self.stats_msgs)
+
+
+def payload_width(payload: Dict[str, torch.Tensor]) -> int:
+    """Total bytes per message for a dict payload of ``(W, M, ...)``
+    leaves."""
+    total = 0
+    for leaf in payload.values():
+        per = 1
+        for d in leaf.shape[2:]:
+            per *= d
+        total += per * leaf.element_size()
+    return total

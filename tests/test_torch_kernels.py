@@ -1,0 +1,202 @@
+"""The port's kernel layer (repro_torch.kernels) against the JAX package.
+
+On the CPU every wrapper takes its plain PyTorch version; those are held
+to the JAX reference (and to the JAX Pallas kernels in interpret mode)
+on the same numpy inputs. The reference's known faults appear as named
+cases (ROADMAP "Faults found"). The CUDA kernels themselves are held to
+their plain versions on the card by tests/test_torch_gpu.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import bucket_route as kbucket
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels import ops, ref
+
+INF = float("inf")
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# bucket_ranks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,m,seed", [(4, 1000, 0), (8, 1536, 1), (1, 7, 2),
+                                      (31, 600, 3)])
+def test_bucket_ranks_ref_matches_jax(b, m, seed):
+    """Exact: integer counts. Keys include the sentinel bucket b."""
+    keys = np.random.default_rng(seed).integers(0, b + 1, m).astype(np.int32)
+    rank, counts = ref.bucket_ranks_ref(torch.from_numpy(keys), b)
+    j_rank, j_counts = jref.bucket_ranks_ref(jnp.asarray(keys), b)
+    k_rank, k_counts = jops.bucket_ranks(jnp.asarray(keys), b,
+                                         use_kernel=True, interpret=True)
+    for want_r, want_c in ((j_rank, j_counts), (k_rank, k_counts)):
+        np.testing.assert_array_equal(rank.numpy(), _np(want_r))
+        np.testing.assert_array_equal(counts.numpy(), _np(want_c))
+
+
+def test_bucket_ranks_rows_are_independent():
+    keys = np.random.default_rng(5).integers(0, 5, (3, 200)).astype(np.int32)
+    rank, counts = ref.bucket_ranks_ref(torch.from_numpy(keys), 4)
+    for r in range(3):
+        j_rank, j_counts = jref.bucket_ranks_ref(jnp.asarray(keys[r]), 4)
+        np.testing.assert_array_equal(rank[r].numpy(), _np(j_rank))
+        np.testing.assert_array_equal(counts[r].numpy(), _np(j_counts))
+
+
+def test_bucket_ranks_kernel_rejects_too_many_buckets():
+    keys = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 63 buckets"):
+        kbucket.bucket_ranks_cuda(keys, kbucket.MAX_BUCKETS)
+
+
+# ---------------------------------------------------------------------------
+# segment_combine
+# ---------------------------------------------------------------------------
+
+
+def _seg_inputs(seed, e=300, n=40, d=2, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, n + 5, e).astype(np.int32)  # some ids >= n: dropped
+    if dtype == np.int32:
+        vals = rng.integers(-1000, 1000, (e, d)).astype(np.int32)
+    elif dtype == np.bool_:
+        vals = rng.random((e, d)) < 0.3
+    else:
+        vals = rng.normal(size=(e, d)).astype(np.float32)
+    return vals, seg, n
+
+
+@pytest.mark.parametrize("name,dtype", [
+    ("min", np.float32), ("max", np.float32), ("min", np.int32),
+    ("max", np.int32), ("sum", np.int32)])
+def test_segment_combine_ref_matches_jax_exact(name, dtype):
+    """Lattice combiners and int32 sum: bit for bit (the JAX Pallas
+    kernel refuses int32 sum — ROADMAP fault 2; the port supports it)."""
+    vals, seg, n = _seg_inputs(7, dtype=dtype)
+    got = ref.segment_combine_ref(torch.from_numpy(vals),
+                                  torch.from_numpy(seg), n, name)
+    want = jref.segment_combine_ref(jnp.asarray(vals), jnp.asarray(seg), n,
+                                    name)
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
+def test_segment_combine_f32_sum_fault4_tolerance():
+    """ROADMAP fault 4: float32 sum differs between the JAX kernel and its
+    reference by reassociation (~4.8e-7), so float-sum parity is held to
+    rtol 1e-6 / atol 1e-6 against both, not bit for bit."""
+    vals, seg, n = _seg_inputs(8)
+    got = ref.segment_combine_ref(torch.from_numpy(vals),
+                                  torch.from_numpy(seg), n, "sum").numpy()
+    want_ref = _np(jref.segment_combine_ref(jnp.asarray(vals),
+                                            jnp.asarray(seg), n, "sum"))
+    want_kernel = _np(jops.segment_combine(
+        jnp.asarray(vals), jnp.asarray(seg), n, "sum", use_kernel=True,
+        interpret=True))
+    np.testing.assert_allclose(got, want_ref, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got, want_kernel, rtol=1e-6, atol=1e-6)
+
+
+def test_segment_combine_fault1_inf_probe():
+    """ROADMAP fault 1: the JAX Pallas kernel's one-hot extraction turns
+    +inf into NaN for the whole row block. The port keeps inf, as the
+    JAX reference does."""
+    vals = np.array([[INF], [INF], [5.0], [INF], [2.0], [INF]], np.float32)
+    seg = np.array([0, 0, 1, 2, 2, 3], np.int32)
+    for name, want in (("min", [INF, 5.0, 2.0, INF]),
+                       ("max", [INF, 5.0, INF, INF]),
+                       ("sum", [INF, 5.0, INF, INF])):
+        got = ref.segment_combine_ref(torch.from_numpy(vals),
+                                      torch.from_numpy(seg), 4, name)
+        np.testing.assert_array_equal(got[:, 0].numpy(), want)
+        np.testing.assert_array_equal(
+            got.numpy(),
+            _np(jref.segment_combine_ref(jnp.asarray(vals), jnp.asarray(seg),
+                                         4, name)))
+
+
+def test_segment_combine_fault3_or_empty_segments():
+    """ROADMAP fault 3: the JAX reference's ``or`` fills empty segments
+    with True (a segment_max cast); the port holds the identity False
+    there, like the JAX kernel, and matches the reference elsewhere."""
+    vals, seg, n = _seg_inputs(9, e=30, n=40, d=1, dtype=np.bool_)
+    got = ref.segment_combine_ref(torch.from_numpy(vals),
+                                  torch.from_numpy(seg), n, "or").numpy()
+    want = _np(jref.segment_combine_ref(jnp.asarray(vals), jnp.asarray(seg),
+                                        n, "or"))
+    empty = np.bincount(seg[seg < n], minlength=n) == 0
+    assert empty.any() and not got[empty].any()
+    assert want[empty].all()  # the reference's fault, pinned
+    np.testing.assert_array_equal(got[~empty], want[~empty])
+
+
+def test_segment_combine_min_by_first_not_ported():
+    """ROADMAP fault 4's other half (min_by_first empty-segment payload)
+    waits with the combiner: it is refused, not approximated."""
+    with pytest.raises(ValueError, match="not ported yet"):
+        ref.segment_combine_ref(torch.zeros(3, 2), torch.zeros(3), 2,
+                                "min_by_first")
+
+
+def test_segment_combine_batched_rows():
+    """(W, E, D) rows reduce independently (the channels' layout)."""
+    rng = np.random.default_rng(10)
+    vals = rng.normal(size=(3, 50, 2)).astype(np.float32)
+    seg = np.sort(rng.integers(0, 12, (3, 50)), axis=1).astype(np.int32)
+    got = ref.segment_combine_ref(torch.from_numpy(vals),
+                                  torch.from_numpy(seg), 10, "max")
+    for r in range(3):
+        np.testing.assert_array_equal(
+            got[r].numpy(),
+            _np(jref.segment_combine_ref(jnp.asarray(vals[r]),
+                                         jnp.asarray(seg[r]), 10, "max")))
+
+
+# ---------------------------------------------------------------------------
+# dispatch and build
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_version():
+    ops.reset_launch_counts()
+    keys = torch.tensor([0, 1, 0, 2], dtype=torch.int32)
+    for use_kernel in (None, True):
+        rank, counts = ops.bucket_ranks(keys, 2, use_kernel=use_kernel)
+        assert rank.tolist() == [0, 0, 1, 0] and counts.tolist() == [2, 1]
+        out = ops.segment_combine(torch.ones(4, 1), keys, 2, "sum",
+                                  use_kernel=use_kernel)
+        assert out[:, 0].tolist() == [2.0, 1.0]
+    assert ops.launch_counts() == {"bucket_ranks": 0, "segment_combine": 0}
+
+
+class _OnCard:
+    """Stands in for a CUDA tensor: only ``is_cuda`` is read before the
+    dispatch refuses."""
+
+    is_cuda = True
+
+
+def test_use_kernel_false_on_the_card_raises():
+    with pytest.raises(ValueError, match="use_kernel=False with a CUDA"):
+        ops.bucket_ranks(_OnCard(), 4, use_kernel=False)
+    with pytest.raises(ValueError, match="use_kernel=False with a CUDA"):
+        ops.segment_combine(_OnCard(), None, 4, "sum", use_kernel=False)
+
+
+def test_build_keys_libraries_by_source_and_writes_inside_checkout():
+    root = kbuild.BUILD_DIR.parents[1]
+    assert (root / "src" / "repro_torch").is_dir()
+    assert "build/" in (root / ".gitignore").read_text().splitlines()
+    for name in kbuild.SOURCES:
+        path = kbuild.library_path(name)
+        assert path.parent == kbuild.BUILD_DIR
+        assert path.name.startswith(name + "-") and path.suffix == ".so"
