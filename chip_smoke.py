@@ -4,21 +4,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives the port's main path — R-MAT generator → partitioner → plans →
-channels → host-driven superstep loop → ``Engine.run`` → oracle check —
-for ``wcc:basic`` and ``pagerank:scatter`` on the card. Phases, one line
-each:
+drives the port's two main paths on the card: R-MAT generator →
+partitioner → plans → channels → host-driven superstep loop →
+``Engine.run`` → oracle check for ``wcc:basic`` and ``pagerank:scatter``,
+and the batched query plane — ``Engine.run_batch`` of Q=32 sources of
+``reach:basic`` and ``sssp:basic`` through the union CombinedMessage —
+checked against solo runs and the host oracles. Phases, one line each:
 
   1. environment and kernel build;
   2. each kernel against its plain PyTorch version on the card;
-  3. reference traffic counts at scale 12, W=8 (exact);
-  4. the main path at R-MAT scale 20, W=8, checked against the host
-     oracles, with each kernel's launch count and pagerank run twice
-     (bit-identical);
+  3. reference traffic counts at scale 12, W=8 (exact), solo and batched
+     (every batched lane bit-identical to its solo run);
+  4. both main paths at R-MAT scale 20, W=8, checked against the host
+     oracles, each with its kernels' launch counts (counts reset just
+     before the path and read just after): pagerank run twice
+     (bit-identical); every lane of the batched runs bit-identical to
+     its solo run, queries/s batched and solo, peak device memory;
   5. each kernel's time against its plain version, its bound and a
      PyTorch yardstick at the scale-20 shapes, and one run of each
-     program under torch.profiler (device busy share, top kernels and
-     aten ops; ``chiprun_out/profile_*.txt``).
+     program (the batched sssp among them) under torch.profiler (device
+     busy share, top kernels and aten ops; ``chiprun_out/profile_*.txt``).
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -38,6 +43,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 W = 8
 FULL_SCALE = 20
+NQ = 32  # queries per batched run
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 
 
@@ -74,20 +80,41 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timed_run(eng, prog, pg):
-    """``eng.run(prog, pg)`` and its host wall time in ms, from a synced
-    device to the device's end of the run."""
+def timed(fn):
+    """``fn()`` and its host wall time in ms, from a synced device to the
+    device's end of the run."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = eng.run(prog, pg)
+    res = fn()
     torch.cuda.synchronize()
     return res, 1e3 * (time.perf_counter() - t0)
 
 
-def profile_runs(eng, jobs, out_dir: Path) -> dict:
-    """One traced run per (key, program, graph, untraced wall ms) under
+def same_run(a, b) -> bool:
+    """Two runs of one query: equal outputs, steps, halt flags and
+    per-channel bytes and messages."""
+    import numpy as np
+
+    return (np.array_equal(a[0], b[0]) and a[1:] == b[1:])
+
+
+def lane_of(res, qi):
+    """(output, steps, halted, bytes, msgs) of lane ``qi`` of a batched
+    result."""
+    return (res.outputs[qi], int(res.query_steps[qi]),
+            bool(res.query_halted[qi]), res.query_bytes(qi),
+            res.query_msgs(qi))
+
+
+def solo_of(res):
+    return (res.output, res.steps, res.halted, res.bytes_by_channel,
+            res.msgs_by_channel)
+
+
+def profile_runs(jobs, out_dir: Path) -> dict:
+    """One traced run per (key, run function, untraced wall ms) under
     torch.profiler, and the kernels and aten ops that take the device
     time. Two busy shares, both for one stream: ``busy_share`` is the
     traced run's device time over its own wall time (one run, slowed by
@@ -102,10 +129,10 @@ def profile_runs(eng, jobs, out_dir: Path) -> dict:
         return getattr(e, name)
 
     out = {}
-    for key, prog, pg, untraced_ms in jobs:
+    for key, fn, untraced_ms in jobs:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            res, wall_ms = timed_run(eng, prog, pg)
+            res, wall_ms = timed(fn)
         events = prof.key_averages()
         kernels = [e for e in events if e.device_type == DeviceType.CUDA]
         ops_ = [e for e in events if e.device_type == DeviceType.CPU
@@ -123,7 +150,8 @@ def profile_runs(eng, jobs, out_dir: Path) -> dict:
                          for k, ms, n in out[key]["kernels"] +
                          [("--- aten ops (device time incl. children)", 0, 0)]
                          + out[key]["aten_ops"])
-        (out_dir / f"profile_{key.replace(':', '_')}.txt").write_text(
+        stem = key.replace(":", "_").replace(" ", "_")
+        (out_dir / f"profile_{stem}.txt").write_text(
             f"{key}: {res.steps} steps, traced wall {wall_ms:.3f} ms, device "
             f"{device_ms:.3f} ms, busy {device_ms / wall_ms:.3f}; untraced "
             f"wall {untraced_ms:.3f} ms, device/untraced "
@@ -185,6 +213,26 @@ def main() -> int:
           "bucket_ranks differs from its plain version at (8, 2^21)")
     errs["bucket_ranks"] = 0.0
 
+    # the batched plane's union route keys at scale 20: the owners of the
+    # union of every edge destination (u_cap = min(Q * e_cap, W * n_loc),
+    # as the union CombinedMessage sizes it), half of the Q lanes member
+    # of each real entry, none of a sentinel entry
+    raw = pr_pg.raw_out
+    n_total = W * pr_pg.n_loc
+    union_cap = min(NQ * raw.e_cap, n_total)
+    u_dst, _ = routing.dedup_dense(raw.dst_global, raw.mask, n_total,
+                                   union_cap)
+    lkeys = torch.where(u_dst != routing.BIG, u_dst // pr_pg.n_loc,
+                        W).to(torch.int32)
+    lanes = ((torch.rand((W, union_cap, NQ), device=dev, generator=g)
+              < 0.5) & (lkeys < W)[..., None])
+    got_l = ops.bucket_ranks_lanes(lkeys, lanes, W)
+    want_l = kref.bucket_ranks_lanes_ref(lkeys, lanes, W)
+    check(all(torch.equal(a, b) for a, b in zip(got_l, want_l)),
+          f"bucket_ranks_lanes differs from its plain version at "
+          f"({W}, {union_cap}, {NQ})")
+    errs["bucket_ranks_lanes"] = 0.0
+
     def seg_case(vals, seg, n, comb, rtol=0.0, atol=0.0, what=""):
         out = ops.segment_combine(vals, seg, n, comb)
         want = kref.segment_combine_ref(vals, seg, n, comb)
@@ -232,7 +280,8 @@ def main() -> int:
     errs["segment_combine"] = max(e1, e2)
     detail["kernel_checks"] = dict(errs, pagerank_host_setup_s=pr_host_s)
     print(f"[2/5] kernels vs plain on the card: bucket_ranks (8, 2^21) "
-          f"exact; segment_combine at the pagerank plan (W={W}, "
+          f"exact; bucket_ranks_lanes ({W}, {union_cap}, {NQ}) exact; "
+          f"segment_combine at the pagerank plan (W={W}, "
           f"e_cap={e_cap}, u_cap={u_cap}, recv {recv_n}) f32 sum max|err| "
           f"{errs['segment_combine']:.3g} (rtol 1e-4, atol 1e-5), min/max/"
           f"int32 sum exact, fault-1 probe [inf,5,2,inf], empty segments "
@@ -257,11 +306,35 @@ def main() -> int:
         check(got == want, f"{key} scale-12 counts {got} != {want}")
         counts[key] = dict(steps=got[0], msgs=got[1], bytes=got[2],
                            bytes_by_channel=res.bytes_by_channel)
-    detail["reference_counts"] = counts
+    # the batched plane: Q=32 sources of the registry recipe, W=8 (the
+    # JAX package's host-mode run_batch gives these counts)
+    t_b = time.perf_counter()
+    batch_refs = {"reach:basic": (7, 118509, 948072),
+                  "sssp:basic": (16, 333297, 2666376)}
+    for key, want in batch_refs.items():
+        spec = REGISTRY[key]
+        graph = spec.make_graph(12, 0)
+        pg = pgraph.partition_graph(graph, W, "random", build=spec.build)
+        queries = spec.queries(graph, 0, NQ)
+        res = eng.run_batch(spec.factory(), pg, queries)
+        got = (res.steps, res.total_msgs, res.total_bytes)
+        check(got == want, f"{key} scale-12 batched counts {got} != {want}")
+        check(res.num_pad_lanes == 0, f"{key}: {res.num_pad_lanes} pad lanes")
+        for qi, source in enumerate(queries):
+            solo = eng.run(spec.factory(source=source), pg)
+            check(same_run(lane_of(res, qi), solo_of(solo)),
+                  f"{key} scale-12 lane {qi} differs from its solo run")
+        counts[f"{key} batched"] = dict(
+            steps=got[0], msgs=got[1], bytes=got[2], queries=NQ,
+            query_steps=res.query_steps.tolist())
+    batch3_s = time.perf_counter() - t_b
+    detail["reference_counts"] = dict(counts, batched_part_s=batch3_s)
     print(f"[3/5] scale-12 reference counts exact: " + "; ".join(
         f"{k} {v['steps']}/{v['msgs']}/{v['bytes']}"
         for k, v in counts.items()) +
-        f" ({time.perf_counter() - t:.1f} s)", flush=True)
+        f"; all {NQ} lanes of each batched run bit-identical to their solo "
+        f"runs ({time.perf_counter() - t:.1f} s, batched part "
+        f"{batch3_s:.1f} s)", flush=True)
 
     # -- 4. the main path at full size --------------------------------------
     t = time.perf_counter()
@@ -273,8 +346,8 @@ def main() -> int:
     pr_prog = get_program("pagerank:scatter", iters=30)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    wcc_res, wcc_ms = timed_run(eng, get_program("wcc:basic"), wcc_pg)
-    pr_res, pr_ms = timed_run(eng, pr_prog, pr_pg)
+    wcc_res, wcc_ms = timed(lambda: eng.run(get_program("wcc:basic"), wcc_pg))
+    pr_res, pr_ms = timed(lambda: eng.run(pr_prog, pr_pg))
     launches = ops.launch_counts()
     check(launches["bucket_ranks"] > 0, "wcc:basic never launched bucket_ranks")
     check(launches["segment_combine"] > 0,
@@ -313,6 +386,79 @@ def main() -> int:
           f"; launches {launches} ({time.perf_counter() - t:.1f} s)",
           flush=True)
 
+    # the batched query plane at full size: Q=32 sources per program.
+    # reach's recipe graph is pagerank's (_directed_rmat), so its
+    # partition is reused; sssp has its own weighted graph
+    t = time.perf_counter()
+    check(REGISTRY["reach:basic"].make_graph is
+          REGISTRY["pagerank:scatter"].make_graph,
+          "reach:basic no longer shares pagerank's recipe graph")
+    sssp_spec = REGISTRY["sssp:basic"]
+    sssp_graph = sssp_spec.make_graph(FULL_SCALE, 0)
+    sssp_pg = pgraph.partition_graph(sssp_graph, W, "random",
+                                     build=sssp_spec.build)
+    batch_host_s = time.perf_counter() - t
+    batch_jobs = {"reach:basic": (pr_graph, pr_pg),
+                  "sssp:basic": (sssp_graph, sssp_pg)}
+    runs = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for key, (graph, pg) in batch_jobs.items():
+        spec = REGISTRY[key]
+        queries = spec.queries(graph, 0, NQ)
+        prog = spec.factory()
+        res, ms = timed(lambda: eng.run_batch(prog, pg, queries))
+        runs[key] = (queries, prog, res, ms)
+    b_launches = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(b_launches["bucket_ranks_lanes"] > 0,
+          "the batched runs never launched bucket_ranks_lanes")
+    batched = {}
+    for key, (queries, prog, res, ms) in runs.items():
+        spec = REGISTRY[key]
+        graph, pg = batch_jobs[key]
+        # every lane against its solo run (the serial baseline of the
+        # queries/s comparison); the host oracles on the two lanes with
+        # the most supersteps (ties: lower lane)
+        oracle_lanes = sorted(range(NQ), key=lambda qi: (
+            -res.query_steps[qi], qi))[:2]
+        solo_ms = []
+        for qi, source in enumerate(queries):
+            solo, s_ms = timed(lambda: eng.run(spec.factory(source=source),
+                                               pg))
+            solo_ms.append(s_ms)
+            check(same_run(lane_of(res, qi), solo_of(solo)),
+                  f"{key} scale-{FULL_SCALE} lane {qi} differs from its "
+                  "solo run")
+            if qi in oracle_lanes:
+                spec.check(graph, pg, solo, {"source": source})
+        batched[key] = dict(
+            n=pg.n, edges=int(graph.num_edges), e_cap=pg.raw_out.e_cap,
+            route_cap=pg.route_cap, steps=res.steps,
+            query_steps=res.query_steps.tolist(), msgs=res.total_msgs,
+            bytes=res.total_bytes, run_wall_ms=ms,
+            step_ms=[1e3 * x for x in res.step_times_s],
+            batched_qps=NQ / (ms / 1e3), solo_ms=solo_ms,
+            solo_qps=NQ / (sum(solo_ms) / 1e3), oracle_lanes=oracle_lanes)
+    batch4_s = time.perf_counter() - t
+    detail["batched_path"] = dict(batched, launches=b_launches,
+                                  peak_gib=peak_gib,
+                                  sssp_host_setup_s=batch_host_s,
+                                  phase_s=batch4_s)
+    rows = "; ".join(
+        f"{k} {v['steps']} steps (lanes {min(v['query_steps'])}-"
+        f"{max(v['query_steps'])}), {v['bytes']} bytes, run "
+        f"{v['run_wall_ms']:.1f} ms = {v['batched_qps']:.1f} q/s batched vs "
+        f"{v['solo_qps']:.1f} q/s solo ({NQ} solo runs, "
+        f"{sum(v['solo_ms']):.1f} ms; every lane bit-identical to its solo "
+        f"run, oracle ok on lanes {v['oracle_lanes']})"
+        for k, v in batched.items())
+    print(f"[4/5] batched plane scale {FULL_SCALE}, W={W}, Q={NQ}: {rows}; "
+          f"launches {b_launches}; peak device memory {peak_gib:.2f} GiB "
+          f"({batch4_s:.1f} s, {batch_host_s:.1f} s of it sssp graph set-up)",
+          flush=True)
+
     # -- 5. times at the scale-20 shapes ------------------------------------
     t = time.perf_counter()
     raw = wcc_pg.raw_out
@@ -326,6 +472,15 @@ def main() -> int:
     b_sort = cuda_ms(lambda: torch.sort(rkeys, dim=1, stable=True), reps=10)
     b_bytes = rkeys.numel() * 8 + W * W * 4
     b_bound = 1e3 * b_bytes / HBM_BYTES_PER_S
+
+    l_ms = cuda_ms(lambda: ops.bucket_ranks_lanes(lkeys, lanes, W))
+    l_plain = cuda_ms(lambda: kref.bucket_ranks_lanes_ref(lkeys, lanes, W),
+                      reps=5)
+    l_sort = cuda_ms(lambda: torch.sort(lkeys, dim=1, stable=True), reps=10)
+    # key and rank 4 bytes each plus Q membership bytes per entry, and
+    # the (B + 1) x (Q + 1) counts per row
+    l_bytes = lkeys.numel() * (8 + NQ) + W * (W + 1) * (NQ + 1) * 4
+    l_bound = 1e3 * l_bytes / HBM_BYTES_PER_S
 
     contrib = torch.rand((W, pr_pg.n_loc, 1), device=dev, generator=g)
     send_vals = contrib.gather(
@@ -368,11 +523,21 @@ def main() -> int:
              launches=launches["segment_combine"],
              max_abs_err=errs["segment_combine"], ms=s_ms, plain_ms=s_plain,
              bound_ms=s_bound, bound_by="bytes", library_ms=s_lib),
+        dict(name="bucket_ranks_lanes", route="cuda",
+             source="src/repro_torch/kernels/csrc/bucket_route.cu",
+             replaces="src/repro/kernels/bucket_route.py:128",
+             launches=b_launches["bucket_ranks_lanes"],
+             max_abs_err=errs["bucket_ranks_lanes"], ms=l_ms,
+             plain_ms=l_plain, bound_ms=l_bound, bound_by="bytes",
+             library_ms=None),
     ]
     detail["timings"] = dict(
         bucket_ranks=dict(shape=list(rkeys.shape), ms=b_ms, plain_ms=b_plain,
                           stable_sort_ms=b_sort, bytes=b_bytes,
                           bound_ms=b_bound),
+        bucket_ranks_lanes=dict(shape=list(lanes.shape), ms=l_ms,
+                                plain_ms=l_plain, stable_sort_ms=l_sort,
+                                bytes=l_bytes, bound_ms=l_bound),
         segment_combine=dict(
             shapes=[[list(v.shape), n] for v, _, n in sides],
             ms=s_ms, plain_ms=s_plain, library_ms=s_lib,
@@ -382,14 +547,22 @@ def main() -> int:
           f"none; stable torch.sort {b_sort:.3f}); segment_combine per "
           f"superstep (send {list(send_vals.shape)} + recv "
           f"{list(recv_vals.shape)}) {s_ms:.3f} ms (plain {s_plain:.3f}, "
-          f"bound {s_bound:.3f}, torch.segment_reduce {s_lib:.3f}) "
+          f"bound {s_bound:.3f}, torch.segment_reduce {s_lib:.3f}); "
+          f"bucket_ranks_lanes {list(lanes.shape)} {l_ms:.3f} ms (plain "
+          f"{l_plain:.3f}, bound {l_bound:.3f}, library none; stable "
+          f"torch.sort of the keys {l_sort:.3f}) "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    s_queries, s_prog, _, s_ms = runs["sssp:basic"]
     detail["profile"] = profile_runs(
-        eng, (("wcc:basic", get_program("wcc:basic"), wcc_pg, wcc_ms),
-              ("pagerank:scatter", pr_prog, pr_pg, pr_ms)), out_dir)
+        (("wcc:basic", lambda: eng.run(get_program("wcc:basic"), wcc_pg),
+          wcc_ms),
+         ("pagerank:scatter", lambda: eng.run(pr_prog, pr_pg), pr_ms),
+         ("sssp:basic batched", lambda: eng.run_batch(s_prog, sssp_pg,
+                                                      s_queries), s_ms)),
+        out_dir)
     print("[5/5] profiled runs: " + "; ".join(
         f"{k}: traced wall {v['wall_ms']:.1f} ms, device "
         f"{v['device_ms']:.1f} ms, busy {v['busy_share']:.2f} (traced run); "

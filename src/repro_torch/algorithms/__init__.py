@@ -1,15 +1,17 @@
 """The port's algorithm registry: ``"algorithm:variant"`` → program
 factory plus its problem recipe, as in ``repro.algorithms``, for the
-programs ported so far (``wcc:basic``, ``pagerank:scatter``).
+programs ported so far (``wcc:basic``, ``pagerank:scatter``,
+``reach:basic``, ``sssp:basic``).
 
     from repro_torch.algorithms import REGISTRY, get_program
     spec = REGISTRY["pagerank:scatter"]
     prog = get_program("pagerank:scatter", iters=10)
 
-The recipes (default graphs, oracle checks) are the JAX registry's. The
-``wcc:basic`` recipe builds ``("scatter_out", "raw_out")``: the JAX one
-also builds ``prop_out``, which the port has not yet, and which neither
-the program nor ``route_cap`` depends on.
+The recipes (default graphs, problem inputs, query batches, oracle
+checks) are the JAX registry's. The ``wcc:basic`` and ``sssp:basic``
+recipes build without ``prop_out``: the JAX ones also build it, but the
+port has no prop plans yet, and neither those programs nor ``route_cap``
+depend on it.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.algorithms import pagerank, wcc
+from repro_torch.algorithms import pagerank, reachability, sssp, wcc
 from repro_torch.graph import generators as gen, oracles
 from repro_torch.pregel.program import VertexProgram
 
@@ -35,8 +37,19 @@ class ProgramSpec:
     factory: ``factory(**knobs) -> VertexProgram`` (variant pre-bound).
     build: the ``partition_graph(build=...)`` plans the program needs.
     make_graph: ``(scale, seed) -> EdgeList`` default problem graph.
+    make_inputs: optional ``(graph, seed) -> knobs`` problem inputs that
+      must reach the factory (e.g. a SSSP source).
     check: ``(graph, pg, res, inputs) -> None`` — asserts a run's
       ``res.output`` against the host oracle.
+    make_queries: optional ``(graph, seed, q) -> list`` of Q query values
+      for the program's query axis (``Engine.run_batch``) — set iff the
+      factory's programs declare ``query_init``.
+    query_knob: the factory knob one query value binds to (e.g.
+      ``"source"``) — how a batched query is replayed as a solo run.
+    channel_class: ``"static"`` (plan-driven channels) or ``"routed"``
+      (bucket-routed channels, the ones the batched plane shares one
+      union route pass across).
+    test_scale: graph scale the tests default to.
     """
 
     key: str
@@ -45,7 +58,21 @@ class ProgramSpec:
     factory: Callable[..., VertexProgram]
     build: Tuple[str, ...]
     make_graph: Callable[[int, int], gen.EdgeList]
+    make_inputs: Optional[Callable] = None
     check: Optional[Callable] = None
+    make_queries: Optional[Callable] = None
+    query_knob: Optional[str] = None
+    channel_class: str = "static"
+    test_scale: int = 8
+
+    def inputs(self, graph: gen.EdgeList, seed: int = 0) -> Dict[str, Any]:
+        return dict(self.make_inputs(graph, seed)) if self.make_inputs else {}
+
+    def queries(self, graph: gen.EdgeList, seed: int = 0,
+                q: int = 8) -> list:
+        if self.make_queries is None:
+            raise ValueError(f"{self.key} has no query axis")
+        return list(self.make_queries(graph, seed, q))
 
 
 def _sym_rmat(scale, seed):
@@ -56,6 +83,22 @@ def _directed_rmat(scale, seed):
     return gen.rmat(scale, edge_factor=4, seed=2 + seed)
 
 
+def _weighted_rmat(scale, seed):
+    return gen.rmat(scale, edge_factor=4, seed=5 + seed, weighted=True)
+
+
+def _random_sources(graph, seed, q):
+    """Q distinct source vertices — the default query batch (landmark
+    distances / reachability fan-out)."""
+    rng = np.random.default_rng(33 + seed)
+    return rng.choice(graph.n, size=min(q, graph.n),
+                      replace=False).astype(int).tolist()
+
+
+def _source0(graph, seed):
+    return {"source": 0}
+
+
 def _check_components(graph, pg, res, inputs=None):
     truth = gen.components_ground_truth(graph)
     np.testing.assert_array_equal(_canon(res.output), _canon(truth))
@@ -64,6 +107,18 @@ def _check_components(graph, pg, res, inputs=None):
 def _check_pagerank(graph, pg, res, inputs=None):
     want = oracles.pagerank_oracle(graph, iters=res.steps)
     np.testing.assert_allclose(res.output, want, rtol=1e-4, atol=1e-7)
+
+
+def _check_reach(graph, pg, res, inputs):
+    want = reachability.bfs_oracle(graph, source=inputs.get("source", 0))
+    np.testing.assert_array_equal(res.output, want)
+
+
+def _check_sssp(graph, pg, res, inputs):
+    want = oracles.sssp_oracle(graph, source=inputs.get("source", 0))
+    finite = ~np.isinf(want)
+    np.testing.assert_allclose(res.output[finite], want[finite], rtol=1e-5)
+    assert np.isinf(res.output[~finite]).all()
 
 
 def _bind(program_fn, variant):
@@ -81,7 +136,25 @@ REGISTRY: Dict[str, ProgramSpec] = {
         factory=_bind(pagerank.program, "scatter"),
         build=("scatter_out", "raw_out"),
         make_graph=_directed_rmat, check=_check_pagerank),
+    "reach:basic": ProgramSpec(
+        key="reach:basic", algorithm="reach", variant="basic",
+        factory=_bind(reachability.program, "basic"),
+        build=("raw_out",),
+        make_graph=_directed_rmat, make_inputs=_source0, check=_check_reach,
+        make_queries=_random_sources, query_knob="source",
+        channel_class="routed"),
+    "sssp:basic": ProgramSpec(
+        key="sssp:basic", algorithm="sssp", variant="basic",
+        factory=_bind(sssp.program, "basic"),
+        build=("raw_out",),
+        make_graph=_weighted_rmat, make_inputs=_source0, check=_check_sssp,
+        make_queries=_random_sources, query_knob="source",
+        channel_class="routed"),
 }
+
+#: specs with a query axis — what ``Engine.run_batch`` runs
+BATCHED: Tuple[str, ...] = tuple(
+    sorted(k for k, s in REGISTRY.items() if s.make_queries is not None))
 
 
 def resolve(name: str) -> ProgramSpec:

@@ -32,6 +32,10 @@ def aggregate(
     Returns:
       (W, ...) the global combined value, replicated on every worker.
     """
+    if ctx.batched:
+        raise NotImplementedError(
+            "aggregate under the batched query plane is not ported yet "
+            "(see ROADMAP)")
     combiner = cb.get(combiner)
     if valid is not None:
         mask = valid.reshape(valid.shape + (1,) * (values.dim() - valid.dim()))
@@ -58,6 +62,8 @@ def aggregate(
 
 def all_halted(ctx: ChannelContext, local_halt) -> torch.Tensor:
     """Voting-to-halt: a 0-d bool, true iff every worker votes halt
-    (``local_halt`` is a (W,) vote or one scalar vote for all)."""
+    (``local_halt`` is a (W,) vote or one scalar vote for all). Under the
+    batched query plane the votes are (W, Q) and the result is (Q,), one
+    verdict per query lane."""
     votes = torch.as_tensor(local_halt, device=ctx.device).to(torch.bool)
-    return votes.expand(ctx.num_workers).all()
+    return votes.expand(ctx.stat_shape).all(dim=0)

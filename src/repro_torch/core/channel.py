@@ -12,6 +12,13 @@ Per-step counters are ``TRAFFIC_DTYPE`` (int32) on the device and wrap
 like the JAX ones; the host-driven loop accumulates them across
 supersteps in Python ints and raises ``TrafficWrapError`` on a negative
 per-step delta.
+
+Under the batched query plane (``num_queries=Q``) the context also
+carries the query axis: every state leaf is ``(W, Q, n_loc, ...)``, the
+``(Q,)`` pre-step liveness ``query_live`` tells the routed channels which
+lanes may send, and every stat and overflow leaf is ``(W, Q)`` — per
+worker and per lane — so ``add_traffic``/``add_overflow`` take ``(W, Q)``
+deltas (or a scalar, broadcast).
 """
 from __future__ import annotations
 
@@ -57,6 +64,10 @@ class ChannelContext:
     # partition-derived per-peer capacity bound for edge-derived routed
     # sends (PartitionedGraph.route_cap; 0 = unknown). See edge_capacity().
     route_cap: int = 0
+    # batched query plane: the lane count Q (None on a solo run) and each
+    # lane's pre-step liveness, a (Q,) bool tensor (None = all live)
+    num_queries: Optional[int] = None
+    query_live: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.registry is not None:
@@ -65,20 +76,38 @@ class ChannelContext:
                 self.stats_msgs.setdefault(n, self._zeros())
                 self.stats_ovf.setdefault(n, self._zeros(torch.bool))
 
+    @property
+    def batched(self) -> bool:
+        """True when this step runs under the batched query plane."""
+        return self.num_queries is not None
+
+    @property
+    def stat_shape(self) -> Tuple[int, ...]:
+        """``(W,)``, or ``(W, Q)`` under the batched query plane."""
+        if self.batched:
+            return (self.num_workers, self.num_queries)
+        return (self.num_workers,)
+
     def _zeros(self, dtype=TRAFFIC_DTYPE) -> torch.Tensor:
-        return torch.zeros(self.num_workers, dtype=dtype, device=self.device)
+        return torch.zeros(self.stat_shape, dtype=dtype, device=self.device)
 
     def _per_worker(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device).to(dtype).expand(
-            self.num_workers)
+            self.stat_shape)
 
     def me(self) -> torch.Tensor:
         """(W,) worker index — the port of ``axis_index``."""
         return torch.arange(self.num_workers, device=self.device)
 
+    def query_index(self) -> torch.Tensor:
+        """(Q,) lane index — what the JAX package's per-lane
+        ``query_index`` holds under its query ``vmap``."""
+        return torch.arange(self.num_queries, device=self.device)
+
     def add_traffic(self, name: str, nbytes, nmsgs):
-        """Add per-worker ``(W,)`` (or scalar, broadcast) byte and message
-        counts under ``name``."""
+        """Add per-worker byte and message counts under ``name``: ``(W,)``
+        deltas, ``(W, Q)`` under the batched query plane, or a scalar
+        (broadcast)."""
         self.touched.add(name)
         if self.registry is not None and name not in self.registry.names:
             raise KeyError(
@@ -90,7 +119,8 @@ class ChannelContext:
             name, self._zeros()) + self._per_worker(nmsgs, TRAFFIC_DTYPE)
 
     def add_overflow(self, name: str, flag):
-        """Latch a channel's per-worker overflow flag under its stat key."""
+        """Latch a channel's per-worker (per-lane, when batched) overflow
+        flag under its stat key."""
         prev = self.stats_ovf.get(name, self._zeros(torch.bool))
         self.stats_ovf[name] = prev | self._per_worker(flag, torch.bool)
 

@@ -13,6 +13,12 @@ charged once per *wire* message. Both combines are plain PyTorch
 scatter reductions, as in the JAX package (which runs its reference
 there, not the kernel); with the lattice combiners (min/max/or) they are
 exact and order-independent on the card.
+
+Under the batched query plane (a context with ``num_queries=Q``) a
+CombinedMessage with a union-exact combiner dedups and routes ONCE over
+the union frontier of all Q lanes (``_combined_send_union``): values are
+``(W, Q, M[, D])``, the route pass is the ``bucket_ranks_lanes`` kernel,
+and per-lane results and traffic are bit-identical to Q solo sends.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ import torch
 
 from repro_torch.core import combiners as cb
 from repro_torch.core import routing
-from repro_torch.core.channel import ChannelContext, payload_width
+from repro_torch.core.channel import (TRAFFIC_DTYPE, ChannelContext,
+                                      payload_width)
 
 
 @dataclasses.dataclass
@@ -62,6 +69,10 @@ def direct_send(
     wire_width: Optional[int] = None,
 ) -> Delivery:
     """DirectMessage: deliver (dst, payload) messages to dst's owner."""
+    if ctx.batched:
+        raise NotImplementedError(
+            "direct_send under the batched query plane needs route_union, "
+            "which is not ported yet (see ROADMAP)")
     capacity = ctx.scale_capacity(name, capacity)
     routed = routing.route(ctx, dst, valid, payload, capacity)
     remote = routing.remote_count(ctx, routed.sent_count)
@@ -70,6 +81,20 @@ def direct_send(
     ctx.add_traffic(name, remote * width, remote)
     ctx.add_overflow(name, routed.overflow)
     return _delivery(ctx, routed, capacity)
+
+
+# combiners whose segment reductions are order-independent for any dtype
+_UNION_EXACT_LATTICE = ("min", "max", "or")
+
+
+def _union_exact(combiner, dtype: torch.dtype) -> bool:
+    """Whether the union-frontier batched path reproduces serial results
+    bit for bit for this combiner: lattice ops are order-independent
+    under the union's slot reordering; sum/prod only on an exact dtype
+    (float reassociation would round differently)."""
+    if combiner.name in _UNION_EXACT_LATTICE:
+        return True
+    return combiner.name in ("sum", "prod") and not dtype.is_floating_point
 
 
 def _combined_send_serial(ctx, dst, valid, v, combiner, capacity, use_kernel):
@@ -99,6 +124,83 @@ def _combined_send_serial(ctx, dst, valid, v, combiner, capacity, use_kernel):
     return out, got, routed.overflow, remote
 
 
+def _combined_send_union(ctx, dst, valid, v, combiner, capacity,
+                         use_kernel):
+    """CombinedMessage across the Q query lanes with ONE dedup and route
+    pass over their union frontier. ``dst`` is (W, M) (lane-invariant,
+    e.g. graph edges) or (W, Q, M); ``valid`` (W, M) or (W, Q, M); ``v``
+    (W, Q, M, D). Lanes that voted halt send nothing. Per-lane combined
+    values ride the wire as a (slots, Q, D) lane matrix beside a
+    (slots, Q) membership matrix.
+
+    Returns (out (W, Q, n_loc, D), got (W, Q, n_loc), overflow (W, Q),
+    remote (W, Q)); per lane bit-identical to the serial body whenever
+    the union pass does not overflow and the combiner is union-exact.
+    A lane's union rank dominates its solo rank, so ``overflow`` is a
+    superset of the solo overflow, never a silent drop."""
+    W, n_loc, q = ctx.num_workers, ctx.n_loc, ctx.num_queries
+    n_total = W * n_loc
+    m, d = v.shape[2], v.shape[3]
+    c = capacity
+    routing._check_slot_range(W, c)
+    ident = combiner.ident_for(v.dtype)
+    live = routing.lane_live(ctx)
+    dst_l = (dst if dst.dim() == 3 else dst[:, None]).expand(W, q, m)
+    valid_l = ((valid if valid.dim() == 3 else valid[:, None])
+               & live[None, :, None])
+
+    # ---- union dedup over the id space (one histogram, all lanes) ----
+    u_cap = min(q * m, n_total)
+    u_dst, pos = routing.union_dedup(dst_l, valid_l, n_total, u_cap)
+    u_valid = u_dst != routing.BIG
+    # each lane combines into the SHARED compact space: entry u of lane l
+    # is column u * Q + l of a (W, u_cap * Q) grid (dump column u_cap * Q)
+    # (in place: at scale these are (W, Q·M) int64 index tensors)
+    lane_seg = pos.gather(1, torch.clamp(
+        dst_l.reshape(W, q * m).long(), 0, n_total - 1)).long()
+    lane_seg.view(W, q, m).mul_(q).add_(ctx.query_index()[None, :, None])
+    lane_seg.masked_fill_(~valid_l.reshape(W, q * m), u_cap * q)
+    u_vals = combiner.segment_reduce(
+        v.reshape(W, q * m, d), lane_seg, u_cap * q).reshape(W, u_cap, q, d)
+    lanes = torch.zeros((W, u_cap * q + 1), dtype=torch.bool,
+                        device=v.device).scatter_(1, lane_seg, True)
+    lanes = lanes[:, :u_cap * q].reshape(W, u_cap, q)  # (W, u_cap, Q)
+
+    # ---- ONE bucket-route pass over the union unique list ----
+    owner = torch.clamp(u_dst // n_loc, 0, W - 1)
+    key_u = torch.where(u_valid, owner, W).to(torch.int32)
+    rank, _, lane_counts = routing.union_ranks(key_u, lanes, W,
+                                               use_kernel=use_kernel)
+    fits = rank < c
+    slot = torch.where(u_valid & fits, key_u * c + rank, W * c)
+    overflow = (lanes & ~fits[..., None]).any(dim=1)  # (W, Q)
+    sent_l = torch.clamp(lane_counts, max=c)  # (W, W_dst, Q)
+    me = ctx.me()
+    remote = (sent_l.sum(dim=1) - sent_l[me, me]).to(TRAFFIC_DTYPE)
+
+    # ---- pack + exchange: ids, lane membership, lane values ----
+    recv_ids = routing.exchange(
+        routing.pack(slot, u_dst, W * c, routing.BIG).reshape(W, W, c))
+    recv_has = routing.exchange(
+        routing.pack(slot, lanes, W * c, False).reshape(W, W, c, q))
+    # a lane that does not send an entry holds the identity there (an
+    # empty segment), so the values need no membership mask
+    recv_v = routing.exchange(
+        routing.pack(slot, u_vals, W * c, ident).reshape(W, W, c, q, d))
+
+    # ---- receiver-side per-lane combine: one segment pass over Q·D ----
+    flat_ids = recv_ids.reshape(W, W * c)
+    dst_local = torch.where(flat_ids != routing.BIG,
+                            flat_ids - (me * n_loc)[:, None],
+                            n_loc).to(torch.int32)
+    out = combiner.segment_reduce(recv_v.reshape(W, W * c, q * d),
+                                  dst_local, n_loc)
+    out = out.reshape(W, n_loc, q, d).permute(0, 2, 1, 3)
+    got = cb.SUM.segment_reduce(recv_has.reshape(W, W * c, q).to(torch.int32),
+                                dst_local, n_loc) > 0
+    return out, got.transpose(1, 2), overflow, remote
+
+
 def combined_send(
     ctx: ChannelContext,
     dst: torch.Tensor,
@@ -117,15 +219,27 @@ def combined_send(
     Args:
       dst: (W, M) int32 global destination ids; valid: (W, M) bool;
       vals: (W, M) or (W, M, D) values.
+    Under the batched query plane (``ctx.batched``) ``vals`` is
+    (W, Q, M[, D]), ``valid`` (W, M) or (W, Q, M) and ``dst`` (W, M) or
+    (W, Q, M), and every result gains the Q dim after W.
     Returns:
       (combined (W, n_loc[, D]), got_any (W, n_loc) bool, overflow (W,)).
     """
     combiner = cb.get(combiner)
     capacity = ctx.scale_capacity(name, capacity)
-    squeeze = vals.dim() == 2
+    squeeze = vals.dim() == (3 if ctx.batched else 2)
     v = vals[..., None] if squeeze else vals
-    d = v.shape[2]
-    out, got, overflow, remote = _combined_send_serial(
+    d = v.shape[-1]
+    if ctx.batched:
+        if not _union_exact(combiner, v.dtype):
+            raise NotImplementedError(
+                f"a batched CombinedMessage with a {combiner.name} combiner "
+                f"over {v.dtype} is not union-exact; the per-lane route "
+                "pass it needs is not ported yet (see ROADMAP)")
+        send = _combined_send_union
+    else:
+        send = _combined_send_serial
+    out, got, overflow, remote = send(
         ctx, dst, valid, v, combiner, capacity, use_kernel)
     width = 4 + (wire_width if wire_width is not None
                  else d * v.element_size())

@@ -26,6 +26,13 @@ Traffic accounting contract: ``sent_count`` counts *wire* messages —
 valid entries actually packed into a peer's capacity-bounded block.
 Enqueued sends beyond the capacity latch ``overflow`` but are never
 charged.
+
+Under the batched query plane the routed channels share one route pass
+across the Q query lanes: ``union_dedup`` compacts the union of every
+lane's destinations and ``union_ranks`` ranks it once, with each lane's
+per-owner occupancy (the ``bucket_ranks_lanes`` kernel on the card). The
+JAX package reaches the same functions from inside its query ``vmap``
+through ``custom_vmap``; here Q is an explicit dim.
 """
 from __future__ import annotations
 
@@ -193,3 +200,48 @@ def dedup_dense(dst: torch.Tensor, valid: torch.Tensor, n_total: int,
     u_dst = pack(torch.where(got, pos, m_cap), ids.expand(w, n_total),
                  m_cap, BIG)
     return u_dst, pos
+
+
+# ---------------------------------------------------------------------------
+# union-frontier batched routing (the query-aware data plane)
+# ---------------------------------------------------------------------------
+
+
+def lane_live(ctx) -> torch.Tensor:
+    """(Q,) per-lane liveness for the batched channels: the runtime's
+    pre-step halt vote, or all True when none was given (e.g. a context
+    built by hand in a test)."""
+    if ctx.query_live is None:
+        return torch.ones(ctx.num_queries, dtype=torch.bool,
+                          device=ctx.device)
+    return ctx.query_live.to(torch.bool)
+
+
+def union_dedup(dst_l: torch.Tensor, valid_l: torch.Tensor, n_total: int,
+                u_cap: int):
+    """:func:`dedup_dense` across Q lanes at once: per worker, the compact
+    ascending list of the UNION of every lane's valid destinations.
+
+    Args:
+      dst_l: (W, Q, M) int32 global destination ids per lane.
+      valid_l: (W, Q, M) bool.
+      n_total: id-space bound (W * n_loc).
+      u_cap: compact-list capacity — ``min(Q * M, n_total)`` never
+        truncates (the union cannot exceed either bound).
+    Returns:
+      ``(u_dst (W, u_cap) ascending, BIG-padded; pos (W, n_total) int32
+      compact index of each id)``.
+    """
+    w = dst_l.shape[0]
+    return dedup_dense(dst_l.reshape(w, -1), valid_l.reshape(w, -1),
+                       n_total, u_cap)
+
+
+def union_ranks(key: torch.Tensor, lanes: torch.Tensor, w: int, *,
+                use_kernel: Optional[bool] = None):
+    """Shared ranks plus per-lane per-owner counts over a union key list —
+    the one route pass of the batched data plane. ``key`` (W, U) int32
+    owners (``w`` = invalid), ``lanes`` (W, U, Q) bool membership.
+    Returns ``(rank (W, U), count (W, W), lane_counts (W, W, Q))``; as in
+    :func:`route` there is no sort baseline on the card."""
+    return kops.bucket_ranks_lanes(key, lanes, w, use_kernel=use_kernel)

@@ -39,6 +39,10 @@ def plan_broadcast_combine(
     ``PlannedExchange`` whose payload is the packed positional
     ``(W, W, C, D)`` send buffer and whose ``finish`` does the
     receive-side combine."""
+    if ctx.batched:
+        raise NotImplementedError(
+            "ScatterCombine under the batched query plane is not ported yet "
+            "(see ROADMAP: pagerank:personal)")
     combiner = cb.get(combiner)
     w, c = ctx.num_workers, plan.slot_cap
     squeeze = vertex_vals.dim() == 2

@@ -29,6 +29,30 @@
 // Limits: B + 1 <= kMaxBuckets (64); the wrapper raises above it. Keys
 // outside [0, B] are ranked as the sentinel B so that no input can index
 // outside shared memory.
+//
+// bucket_ranks_lanes replaces: src/repro/kernels/bucket_route.py,
+// bucket_ranks_lanes_pallas (`_kernel_lanes`), the one route pass of the
+// batched query plane. Besides the shared ranks and histogram above it
+// counts, per row, lane_counts[b][q] = #{i : key[i] == b and lanes[i][q]}
+// for Q query lanes whose membership arrives as (M, Q) bytes.
+//
+// Bound: memory. Per key it must read 4 + Q bytes (key and membership) and
+// write 4 (the rank), plus (B + 1)(Q + 1) counts per row.
+//
+// Design: the TPU kernel gets the lane counts from an f32 one-hot matmul
+// on the MXU. Here they are a counting pass folded into pass 1
+// (count_lanes_kernel): each thread reads its key's Q membership bytes in
+// 16-byte loads; for each lane a warp ballots the membership bit and the
+// lowest thread of every group of equal keys (the __match_any_sync peers)
+// adds the popcount of its group's bits into a (B + 1) x (Q + 1) int32
+// tile in shared memory (the extra column spreads the buckets over the
+// banks). One integer atomicAdd per non-zero tile entry then adds the
+// block's tile into lane_counts, which the wrapper zeroes. Integer atomics
+// are exact and order-free, so the result is bit-identical to the plain
+// version on every run. Passes 2 and 3 are bucket_ranks' own. The tile must
+// fit kMaxLaneTileBytes of dynamic shared memory; the wrapper raises above.
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -37,6 +61,9 @@ constexpr int kChunk = 1024;  // keys per block, one per thread
 constexpr int kWarps = kChunk / 32;
 constexpr int kMaxBuckets = 64;
 constexpr unsigned kFull = 0xffffffffu;
+// dynamic shared memory for the lane tile; with the 8 KB static wcount it
+// stays under the 48 KB a block gets without an opt-in
+constexpr int kMaxLaneTileBytes = 32768;
 
 __device__ __forceinline__ int load_key(const int* keys, long long i,
                                         long long m, int nb) {
@@ -74,6 +101,72 @@ __global__ void count_kernel(const int* __restrict__ keys,
     for (int w = 0; w < kWarps; ++w) total += wcount[w][threadIdx.x];
     chunk_counts[((long long)row * nb + threadIdx.x) * nchunks + chunk] =
         total;
+  }
+}
+
+// Byte j (0..15, a constant after unrolling) of a 16-byte load.
+__device__ __forceinline__ unsigned byte_of(const uint4& v, int j) {
+  const unsigned w = j < 4 ? v.x : j < 8 ? v.y : j < 12 ? v.z : v.w;
+  return (w >> (8 * (j & 3))) & 0xffu;
+}
+
+// Pass 1 of bucket_ranks_lanes: count_kernel's chunk counts, plus the
+// chunk's per-(bucket, lane) membership counts added into lane_counts
+// ((nb, q) per row). vec16: q % 16 == 0 and lanes 16-byte aligned.
+__global__ void count_lanes_kernel(const int* __restrict__ keys,
+                                   const unsigned char* __restrict__ lanes,
+                                   int* __restrict__ chunk_counts,
+                                   int* __restrict__ lane_counts, long long m,
+                                   int nb, int nchunks, int q, bool vec16) {
+  __shared__ int wcount[kWarps][kMaxBuckets + 1];
+  extern __shared__ int tile[];  // nb rows of q + 1 (one pad column)
+  const int row = blockIdx.y, chunk = blockIdx.x;
+  const int stride = q + 1;
+  const long long i = (long long)chunk * kChunk + threadIdx.x;
+  const int key = load_key(keys + (long long)row * m, i, m, nb);
+  for (int j = threadIdx.x; j < nb * stride; j += blockDim.x) tile[j] = 0;
+  warp_ranks(key, wcount);  // its barriers also publish the zeroed tile
+  if ((int)threadIdx.x < nb) {
+    int total = 0;
+    for (int w = 0; w < kWarps; ++w) total += wcount[w][threadIdx.x];
+    chunk_counts[((long long)row * nb + threadIdx.x) * nchunks + chunk] =
+        total;
+  }
+
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned peers = __match_any_sync(kFull, key);
+  const bool leader = (peers & ((1u << lane) - 1u)) == 0u;
+  const bool in_row = i < m;
+  // past-the-row threads (key nb) read nothing and set no bit, and their
+  // peers are past-the-row threads only, so they never touch the tile
+  const unsigned char* mine =
+      lanes + ((long long)row * m + (in_row ? i : 0)) * q;
+  for (int q0 = 0; q0 < q; q0 += 16) {
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (in_row) {
+      if (vec16) {
+        v = *reinterpret_cast<const uint4*>(mine + q0);
+      } else {
+        unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (q0 + j < q) w[j >> 2] |= (unsigned)mine[q0 + j] << (8 * (j & 3));
+        v = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (q0 + j >= q) break;  // uniform: every thread of the warp breaks
+      const unsigned set = __ballot_sync(kFull, byte_of(v, j) != 0u);
+      const int n = __popc(set & peers);
+      if (leader && n) atomicAdd(&tile[key * stride + q0 + j], n);
+    }
+  }
+  __syncthreads();
+  int* out = lane_counts + (long long)row * nb * q;
+  for (int j = threadIdx.x; j < nb * q; j += blockDim.x) {
+    const int t = tile[(j / q) * stride + j % q];
+    if (t) atomicAdd(&out[j], t);
   }
 }
 
@@ -153,6 +246,36 @@ extern "C" int bucket_ranks_launch(const int* keys, int* rank, int* counts,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)nchunks, (unsigned)rows);
   count_kernel<<<grid, kChunk, 0, s>>>(keys, scratch, m, nb, (int)nchunks);
+  scan_kernel<<<dim3((unsigned)nb, (unsigned)rows), 1024, 0, s>>>(
+      scratch, counts, nb, (int)nchunks);
+  rank_kernel<<<grid, kChunk, 0, s>>>(keys, scratch, rank, m, nb,
+                                      (int)nchunks);
+  return (int)cudaGetLastError();
+}
+
+// keys, rank: (rows, m) int32; lanes: (rows, m, q) bytes, 0 = not a
+// member; counts: (rows, nb) int32; lane_counts: (rows, nb, q) int32,
+// zeroed by the caller; scratch: rows * nb * ceil(m / 1024) int32.
+// nb = B + 1. Returns cudaGetLastError().
+extern "C" int bucket_ranks_lanes_launch(const int* keys,
+                                         const unsigned char* lanes,
+                                         int* rank, int* counts,
+                                         int* lane_counts, int* scratch,
+                                         int rows, long long m, int nb, int q,
+                                         void* stream) {
+  if (nb < 1 || nb > kMaxBuckets || rows < 1 || rows > 65535 || m < 1 ||
+      q < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long tile_bytes = (long long)nb * (q + 1) * (long long)4;
+  if (tile_bytes > kMaxLaneTileBytes) return (int)cudaErrorInvalidValue;
+  const long long nchunks = (m + kChunk - 1) / kChunk;
+  if (nchunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec16 =
+      q % 16 == 0 && (reinterpret_cast<std::uintptr_t>(lanes) & 15u) == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)nchunks, (unsigned)rows);
+  count_lanes_kernel<<<grid, kChunk, (size_t)tile_bytes, s>>>(
+      keys, lanes, scratch, lane_counts, m, nb, (int)nchunks, q, vec16);
   scan_kernel<<<dim3((unsigned)nb, (unsigned)rows), 1024, 0, s>>>(
       scratch, counts, nb, (int)nchunks);
   rank_kernel<<<grid, kChunk, 0, s>>>(keys, scratch, rank, m, nb,

@@ -38,11 +38,13 @@ def _launches_kernel(x: torch.Tensor, use_kernel: Optional[bool],
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {"bucket_ranks": kbucket.launches,
+            "bucket_ranks_lanes": kbucket.lane_launches,
             "segment_combine": kseg.launches}
 
 
 def reset_launch_counts() -> None:
     kbucket.launches = 0
+    kbucket.lane_launches = 0
     kseg.launches = 0
 
 
@@ -76,3 +78,24 @@ def bucket_ranks(keys, num_buckets: int, *,
     if _launches_kernel(keys, use_kernel, "bucket_ranks"):
         return kbucket.bucket_ranks_cuda(keys, num_buckets)
     return kref.bucket_ranks_ref(keys, num_buckets)
+
+
+def bucket_ranks_lanes(keys, lanes, num_buckets: int, *,
+                       use_kernel: Optional[bool] = None):
+    """:func:`bucket_ranks` over a union key list plus each query lane's
+    per-bucket membership histogram, in one pass — the route pass of the
+    batched query plane (see ``repro_torch.core.routing.union_ranks``).
+
+    Args:
+      keys: ``(*B, M)`` int32 bucket per union entry in
+        ``[0, num_buckets]`` (``num_buckets`` = the invalid sentinel).
+      lanes: ``(*B, M, Q)`` bool lane membership, all-False on sentinel
+        rows.
+      num_buckets: the bucket count (the worker count W).
+    Returns:
+      ``(rank (*B, M), counts (*B, num_buckets), lane_counts (*B,
+      num_buckets, Q))`` int32.
+    """
+    if _launches_kernel(keys, use_kernel, "bucket_ranks_lanes"):
+        return kbucket.bucket_ranks_lanes_cuda(keys, lanes, num_buckets)
+    return kref.bucket_ranks_lanes_ref(keys, lanes, num_buckets)

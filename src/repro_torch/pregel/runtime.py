@@ -12,6 +12,19 @@ them. Per-step traffic counters are int32 per worker; the loop sums them
 host-side in Python ints and raises ``TrafficWrapError`` on a negative
 per-step total, ``ChannelOverflowError`` on a capacity overflow — the
 JAX host mode's contract.
+
+Batched query plane (:func:`run_batched_supersteps`, under
+``Engine.run_batch``): one loop advances Q query instances per
+superstep, state leaves ``(W, Q, n_loc, ...)``. Halting is per query: a
+``(Q,)`` halted mask lives on the device, a lane that voted halt keeps
+its state bit for bit (a ``torch.where`` over the pre-step live mask),
+sends nothing and is charged nothing from the next step on — the halting
+step itself still charges, as a solo run would. Pad lanes start halted.
+One readback per superstep brings back the ``(Q,)`` halt and overflow
+flags and the per-lane stats; per-lane totals are summed on the host in
+int64. So per-query steps, outputs and per-channel bytes/msgs are
+bit-identical to Q solo runs; overflow raises ``ChannelOverflowError``
+naming the offending lanes (``qids``).
 """
 from __future__ import annotations
 
@@ -19,6 +32,7 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import aggregator
@@ -44,7 +58,24 @@ class RunResult:
     program: str = ""
     output: Any = None
     converged: bool = False
-    overflow_by_channel: Optional[Dict[str, bool]] = None
+    # name -> bool, or name -> (Q,) bool for batched runs
+    overflow_by_channel: Optional[Dict[str, Any]] = None
+    # Batched-query metadata (num_queries > 0 iff the loop carried a query
+    # axis): host numpy views of the Q real lanes; bytes_by_channel and
+    # msgs_by_channel hold their totals. ``outputs`` is the per-query
+    # extracted answer list (Engine.run_batch).
+    num_queries: int = 0
+    query_steps: Any = None            # (Q,) int64
+    query_halted: Any = None           # (Q,) bool
+    query_bytes_by_channel: Optional[Dict[str, Any]] = None  # name->(Q,)
+    query_msgs_by_channel: Optional[Dict[str, Any]] = None   # name->(Q,)
+    outputs: Any = None
+    # Pad-lane audit: the pow2 padding lanes start halted, so they never
+    # step, occupy wire slots or get charged — all three stay zero
+    num_pad_lanes: int = 0
+    pad_steps: int = 0
+    pad_bytes: int = 0
+    pad_msgs: int = 0
 
     @property
     def total_bytes(self) -> int:
@@ -53,6 +84,14 @@ class RunResult:
     @property
     def total_msgs(self) -> int:
         return int(sum(self.msgs_by_channel.values()))
+
+    def query_bytes(self, q: int) -> Dict[str, int]:
+        """Per-channel byte totals attributed to query ``q``."""
+        return {k: int(v[q]) for k, v in self.query_bytes_by_channel.items()}
+
+    def query_msgs(self, q: int) -> Dict[str, int]:
+        """Per-channel message totals attributed to query ``q``."""
+        return {k: int(v[q]) for k, v in self.query_msgs_by_channel.items()}
 
 
 def _readback(halt_all, overflow, nbytes, nmsgs, novf):
@@ -71,6 +110,27 @@ def _readback(halt_all, overflow, nbytes, nmsgs, novf):
             {k: int(per[0, i]) for i, k in enumerate(keys)},
             {k: int(per[1, i]) for i, k in enumerate(keys)},
             {k: bool(ovf[i]) for i, k in enumerate(okeys)})
+
+
+def _check_declared(registry, touched: set) -> None:
+    """A declared channel that no step reached is a stale or misspelled
+    declaration."""
+    phantom = set(registry.names) - touched
+    if phantom:
+        raise ValueError(
+            f"declared channels {tuple(sorted(phantom))} were never "
+            f"reached by the step function (reached: "
+            f"{tuple(sorted(touched))}) — stale or misspelled "
+            "declaration")
+
+
+def _call_step(step_fn, ctx, graph, state, step):
+    """``(new_state, halt, overflow)`` of one step (overflow False when
+    the step returns none)."""
+    out = step_fn(ctx, graph, state, step)
+    if len(out) == 3:
+        return out
+    return out[0], out[1], False
 
 
 def run_supersteps(
@@ -111,11 +171,7 @@ def run_supersteps(
         ts = time.perf_counter()
         ctx = ChannelContext(W, n_loc, graph.device, registry=registry,
                              route_cap=graph.route_cap)
-        out = step_fn(ctx, graph, state, step)
-        if len(out) == 3:
-            state, halt, overflow = out
-        else:
-            (state, halt), overflow = out, False
+        state, halt, overflow = _call_step(step_fn, ctx, graph, state, step)
         touched |= ctx.touched
         halt_all = aggregator.all_halted(ctx, halt)
         overflow_any = torch.as_tensor(overflow, device=graph.device).any()
@@ -139,13 +195,7 @@ def run_supersteps(
             halted = True
             break
     if registry is not None and step >= 0:
-        phantom = set(registry.names) - touched
-        if phantom:
-            raise ValueError(
-                f"declared channels {tuple(sorted(phantom))} were never "
-                f"reached by the step function (reached: "
-                f"{tuple(sorted(touched))}) — stale or misspelled "
-                "declaration")
+        _check_declared(registry, touched)
     res = RunResult(
         state=state,
         steps=step + 1,
@@ -170,3 +220,161 @@ def run_supersteps(
             f"at superstep {step} — per-step traffic exceeds int32 range",
             superstep=step, channels=bad, result=res)
     return res
+
+
+# ---------------------------------------------------------------------------
+# batched query plane: one loop advances Q query instances per superstep,
+# with per-query halt voting, frozen state for halted queries, and
+# per-query step/traffic attribution (Engine.run_batch rides this)
+# ---------------------------------------------------------------------------
+
+
+def _qmask(live: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """Broadcast a (Q,) liveness mask against a (W, Q, ...) state leaf."""
+    return live.reshape((1,) + live.shape + (1,) * (leaf.dim() - 2))
+
+
+def _readback_lanes(halted, overflow, nbytes, nmsgs, novf):
+    """One device-to-host copy of everything the batched loop reads per
+    step: the (Q,) halt and overflow flags, the (W, Q) per-lane stats
+    (summed over W on the host in int64) and the per-channel overflow
+    latches. Returns (halted, overflow, {key: bytes (Q,)}, {key: msgs
+    (Q,)}, {key: ovf (Q,)}) as numpy."""
+    q = halted.numel()
+    keys, okeys = sorted(nbytes), sorted(novf)
+    parts = [halted, overflow] + [nbytes[k] for k in keys]
+    parts += [nmsgs[k] for k in keys] + [novf[k].any(dim=0) for k in okeys]
+    flat = torch.cat([p.reshape(-1).to(torch.int64) for p in parts])
+    flat = flat.cpu().numpy()
+    off = 2 * q + 2 * sum(nbytes[k].numel() for k in keys)
+    w = nbytes[keys[0]].shape[0] if keys else 0
+    per = flat[2 * q:off].reshape(2, len(keys), w, q).sum(axis=2)
+    ovf = flat[off:].reshape(len(okeys), q).astype(bool)
+    return (flat[:q].astype(bool), flat[q:2 * q].astype(bool),
+            {k: per[0, i] for i, k in enumerate(keys)},
+            {k: per[1, i] for i, k in enumerate(keys)},
+            {k: ovf[i] for i, k in enumerate(okeys)})
+
+
+def _batched_result(state, steps, halted_q, overflow_q, q_bytes, q_msgs,
+                    steps_q, q_real, wall, step_times, check_overflow,
+                    ovf_by, wrapped) -> RunResult:
+    # report only the real leading lanes: the pad lanes (which start
+    # halted) surface only in the all-zero pad audit
+    pad = slice(q_real, None)
+    res = RunResult(
+        state=state,
+        steps=steps,
+        halted=bool(halted_q[:q_real].all()),
+        bytes_by_channel={k: int(v[:q_real].sum())
+                          for k, v in q_bytes.items()},
+        msgs_by_channel={k: int(v[:q_real].sum()) for k, v in q_msgs.items()},
+        wall_time_s=wall,
+        step_times_s=step_times,
+        mode="host",
+        converged=bool(halted_q[:q_real].all()),
+        overflow_by_channel={k: v[:q_real] for k, v in ovf_by.items()},
+        num_queries=q_real,
+        query_steps=steps_q[:q_real],
+        query_halted=halted_q[:q_real],
+        query_bytes_by_channel={k: v[:q_real] for k, v in q_bytes.items()},
+        query_msgs_by_channel={k: v[:q_real] for k, v in q_msgs.items()},
+        num_pad_lanes=len(steps_q) - q_real,
+        pad_steps=int(steps_q[pad].sum()),
+        pad_bytes=int(sum(v[pad].sum() for v in q_bytes.values())),
+        pad_msgs=int(sum(v[pad].sum() for v in q_msgs.values())),
+    )
+    if check_overflow and overflow_q[:q_real].any():
+        qs = np.flatnonzero(overflow_q[:q_real]).tolist()
+        bad = sorted(k for k, v in res.overflow_by_channel.items()
+                     if v.any())
+        raise errors.ChannelOverflowError(
+            errors.overflow_message(steps - 1, bad, qids=qs),
+            superstep=steps - 1, channels=bad, result=res, qids=qs)
+    if wrapped:
+        bad = sorted(wrapped)
+        raise errors.TrafficWrapError(
+            f"int32 traffic counter wrapped in channel(s) {', '.join(bad)} "
+            f"at superstep {steps - 1} — per-step traffic exceeds int32 "
+            "range", superstep=steps - 1, channels=bad, result=res)
+    return res
+
+
+def run_batched_supersteps(
+    graph: PartitionedGraph,
+    step_fn: Callable,
+    state0: Dict[str, torch.Tensor],
+    num_real_queries: int,
+    max_steps: int = 10_000,
+    check_overflow: bool = True,
+    channels: Optional[Sequence[str]] = None,
+) -> RunResult:
+    """Run Q query lanes of ``step_fn`` to halt in one host-driven loop.
+
+    state0: dict of ``(W, Q, n_loc, ...)`` tensors on ``graph.device``;
+    lanes ``num_real_queries`` and up are padding and start halted. The
+    step sees a batched ``ChannelContext`` (``num_queries=Q``) and
+    returns ``(new_state, halt[, overflow])`` with ``(W, Q)`` (or scalar)
+    votes. Returns a RunResult with the per-query views of the real lanes.
+    """
+    registry = ChannelRegistry.declare(channels) if channels else None
+    W, n_loc, dev = graph.num_workers, graph.n_loc, graph.device
+    q = next(iter(state0.values())).shape[1]
+    q_real = num_real_queries
+    halted = torch.arange(q, device=dev) >= q_real
+    halted_np = np.arange(q) >= q_real
+    overflow_np = np.zeros(q, bool)
+    steps_q = np.zeros(q, np.int64)
+    q_bytes: Dict[str, np.ndarray] = {}
+    q_msgs: Dict[str, np.ndarray] = {}
+    q_ovf: Dict[str, np.ndarray] = {}
+    wrapped: set = set()
+    touched: set = set()
+    step_times = []
+    state = state0
+    steps = 0
+    t0 = time.perf_counter()
+    for step in range(max_steps):
+        live_np = ~halted_np
+        if not live_np.any():
+            break
+        ts = time.perf_counter()
+        live = ~halted
+        ctx = ChannelContext(W, n_loc, dev, registry=registry,
+                             route_cap=graph.route_cap, num_queries=q,
+                             query_live=live)
+        new_state, halt, overflow = _call_step(step_fn, ctx, graph, state,
+                                               step)
+        touched |= ctx.touched
+        state = {k: torch.where(_qmask(live, v), v, state[k])
+                 for k, v in new_state.items()}
+        halted = halted | aggregator.all_halted(ctx, halt)
+        ovf_q = torch.as_tensor(overflow, device=dev).to(torch.bool).expand(
+            W, q).any(dim=0) & live
+        nbytes, nmsgs = ctx.stats()
+        halted_np, ovf_now, db, dm, dovf = _readback_lanes(
+            halted, ovf_q,
+            {k: torch.where(live, v, 0) for k, v in nbytes.items()},
+            {k: torch.where(live, v, 0) for k, v in nmsgs.items()},
+            {k: v & live for k, v in ctx.stats_ovf.items()})
+        step_times.append(time.perf_counter() - ts)
+        steps = step + 1
+        steps_q += live_np
+        for acc, delta in ((q_bytes, db), (q_msgs, dm)):
+            for k, row in delta.items():
+                if (row < 0).any():
+                    wrapped.add(k)
+                acc[k] = acc.get(k, 0) + row
+        for k, row in dovf.items():
+            q_ovf[k] = q_ovf.get(k, False) | row
+        overflow_np |= ovf_now
+        if check_overflow and overflow_np[:q_real].any():
+            break
+        if wrapped:
+            break
+    if registry is not None and steps:
+        _check_declared(registry, touched)
+    return _batched_result(
+        state, steps, halted_np, overflow_np, q_bytes, q_msgs, steps_q,
+        q_real, time.perf_counter() - t0, step_times, check_overflow, q_ovf,
+        wrapped)

@@ -60,6 +60,78 @@ def test_bucket_ranks_kernel_rejects_too_many_buckets():
 
 
 # ---------------------------------------------------------------------------
+# bucket_ranks_lanes
+# ---------------------------------------------------------------------------
+
+
+def _lane_inputs(seed, rows, m, b, q):
+    """Keys with the sentinel b, membership all-False on sentinel rows."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, b + 1, (rows, m)).astype(np.int32)
+    lanes = (rng.random((rows, m, q)) < 0.4) & (keys < b)[..., None]
+    return keys, lanes
+
+
+@pytest.mark.parametrize("b,m,q,seed", [(4, 700, 1, 0), (8, 1100, 5, 1),
+                                        (3, 513, 33, 2), (8, 512, 5, 3)])
+def test_bucket_ranks_lanes_ref_matches_jax(b, m, q, seed):
+    """Exact: integer counts. M not a multiple of the Pallas block (512)
+    except in the last case; each worker row against its own JAX call,
+    both the JAX reference and the Pallas kernel in interpret mode."""
+    keys, lanes = _lane_inputs(seed, 3, m, b, q)
+    rank, counts, lane_counts = ref.bucket_ranks_lanes_ref(
+        torch.from_numpy(keys), torch.from_numpy(lanes), b)
+    assert lane_counts.shape == (3, b, q) and lane_counts.dtype == torch.int32
+    for r in range(3):
+        jk, jl = jnp.asarray(keys[r]), jnp.asarray(lanes[r])
+        wants = [jref.bucket_ranks_lanes_ref(jk, jl, b),
+                 jops.bucket_ranks_lanes(jk, jl, b, use_kernel=True,
+                                         interpret=True)]
+        for want in wants:
+            np.testing.assert_array_equal(rank[r].numpy(), _np(want[0]))
+            np.testing.assert_array_equal(counts[r].numpy(), _np(want[1]))
+            np.testing.assert_array_equal(lane_counts[r].numpy(),
+                                          _np(want[2]))
+
+
+def test_bucket_ranks_lanes_ref_matches_the_pallas_kernel_unpadded():
+    """The Pallas kernel itself at a block multiple (no padding by the
+    dispatch): its (B + 1, Q) histogram minus the sentinel row."""
+    keys, lanes = _lane_inputs(4, 1, 1024, 6, 7)
+    _, _, lane_counts = ref.bucket_ranks_lanes_ref(
+        torch.from_numpy(keys[0]), torch.from_numpy(lanes[0]), 6)
+    from repro.kernels import bucket_route as jbucket
+    j_rank, _, j_lanes = jbucket.bucket_ranks_lanes_pallas(
+        jnp.asarray(keys[0]), jnp.asarray(lanes[0]), num_buckets=6,
+        interpret=True)
+    np.testing.assert_array_equal(lane_counts.numpy(), _np(j_lanes)[:6])
+    assert not _np(j_lanes)[6].any()  # sentinel rows carry no lane bits
+
+
+def test_bucket_ranks_lanes_sentinel_bucket_is_dropped():
+    """Lane bits on a sentinel row (outside the contract) do not reach
+    lane_counts: the sentinel bucket is dropped, as in JAX."""
+    keys = torch.tensor([[2, 0, 2, 1]], dtype=torch.int32)
+    lanes = torch.ones(1, 4, 2, dtype=torch.bool)
+    rank, counts, lane_counts = ref.bucket_ranks_lanes_ref(keys, lanes, 2)
+    assert rank.tolist() == [[0, 0, 1, 0]] and counts.tolist() == [[1, 1]]
+    assert lane_counts.tolist() == [[[1, 1], [1, 1]]]
+
+
+def test_bucket_ranks_lanes_kernel_rejects_what_it_cannot_hold():
+    keys = torch.zeros(2, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 63 buckets"):
+        kbucket.bucket_ranks_lanes_cuda(
+            keys, torch.zeros(2, 4, 1, dtype=torch.bool), kbucket.MAX_BUCKETS)
+    with pytest.raises(ValueError, match="lane tile exceeds"):
+        kbucket.bucket_ranks_lanes_cuda(
+            keys, torch.zeros(2, 4, 1000, dtype=torch.bool), 8)
+    with pytest.raises(ValueError, match="do not match keys"):
+        kbucket.bucket_ranks_lanes_cuda(
+            keys, torch.zeros(2, 5, 3, dtype=torch.bool), 8)
+
+
+# ---------------------------------------------------------------------------
 # segment_combine
 # ---------------------------------------------------------------------------
 
@@ -175,7 +247,13 @@ def test_cpu_tensors_take_the_plain_version():
         out = ops.segment_combine(torch.ones(4, 1), keys, 2, "sum",
                                   use_kernel=use_kernel)
         assert out[:, 0].tolist() == [2.0, 1.0]
-    assert ops.launch_counts() == {"bucket_ranks": 0, "segment_combine": 0}
+        _, _, lane_counts = ops.bucket_ranks_lanes(
+            keys, torch.tensor([[1], [0], [1], [0]], dtype=torch.bool), 2,
+            use_kernel=use_kernel)
+        assert lane_counts.tolist() == [[2], [0]]
+    assert ops.launch_counts() == {"bucket_ranks": 0,
+                                   "bucket_ranks_lanes": 0,
+                                   "segment_combine": 0}
 
 
 class _OnCard:
@@ -190,6 +268,8 @@ def test_use_kernel_false_on_the_card_raises():
         ops.bucket_ranks(_OnCard(), 4, use_kernel=False)
     with pytest.raises(ValueError, match="use_kernel=False with a CUDA"):
         ops.segment_combine(_OnCard(), None, 4, "sum", use_kernel=False)
+    with pytest.raises(ValueError, match="use_kernel=False with a CUDA"):
+        ops.bucket_ranks_lanes(_OnCard(), None, 4, use_kernel=False)
 
 
 def test_build_keys_libraries_by_source_and_writes_inside_checkout():
