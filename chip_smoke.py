@@ -64,12 +64,20 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+HOLD_CYCLES = 1_000_000  # ~0.5 ms of the card's clock per queued call
+
+
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events)."""
+    """Mean device time of ``fn()`` over ``reps`` back-to-back launches
+    (CUDA events). A spin kernel holds the card while the host queues all
+    ``reps`` calls, so a call whose Python wrapper takes longer than its
+    kernels is still timed on the device, not on the host."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES * reps)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -78,6 +86,27 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps: int = 20) -> float:
+    """Mean device time of one ``fn()`` after the 50 MB L2 cache was
+    flushed (a 256 MB buffer written just before each launch)."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def timed(fn):
@@ -111,6 +140,63 @@ def lane_of(res, qi):
 def solo_of(res):
     return (res.output, res.steps, res.halted, res.bytes_by_channel,
             res.msgs_by_channel)
+
+
+def segment_edge_cases(plan, g, seg_case) -> dict:
+    """``segment_combine`` against its plain version where a tiled
+    reduction can break, at the pagerank plan's sender shape (W,
+    e_cap = 2^20): a hub of 2^20 entries in one row, every id dropped,
+    N = 1, long gaps of empty segments at tile edges, a dropped tail of
+    half the row, D = 1, 3 and 5, NaN and +-inf for min/max, int32 sums
+    that wrap. Exact, except float32 sums of random values (rtol 1e-4,
+    atol 1e-5: reassociation only). Small-integer values make every
+    other float32 sum exact in any order."""
+    import torch
+
+    w, e = plan.edge_seg.shape
+    dev, n = plan.edge_seg.device, plan.u_cap
+    pos = torch.arange(e, device=dev, dtype=torch.int32)
+    tile = 2048  # the kernel's tile: 256 threads x 8 entries
+
+    def rand(d=1):
+        return torch.rand((w, e, d), device=dev, generator=g)
+
+    small = torch.randint(-3, 4, (w, e, 1), device=dev, generator=g).float()
+    hub = plan.edge_seg.clone()
+    hub[0] = 0  # row 0: one segment of 2^20 entries
+    gaps = ((pos // tile) * 5000 + (pos % tile) // 256 * 20).expand(w, e)
+    half = torch.sort(torch.randint(0, n, (w, e // 2), device=dev,
+                                    generator=g, dtype=torch.int32))[0]
+    tail = torch.cat([half, torch.full_like(half, n)], dim=1)
+    special = rand()
+    pick = rand()
+    special[pick < 0.01] = float("nan")
+    special[(pick >= 0.01) & (pick < 0.03)] = float("inf")
+    special[(pick >= 0.03) & (pick < 0.05)] = -float("inf")
+    wrap = torch.randint(2**30, 2**31 - 1, (w, e, 1), device=dev,
+                         generator=g, dtype=torch.int32)
+    all3 = ("sum", "min", "max")
+    cases = [("hub", small, hub, n, all3),
+             ("hub i32", small.int(), hub, n, ("sum",)),
+             ("all dropped", small, torch.full_like(hub, n), n, all3),
+             ("all dropped bool", rand() < 0.5, torch.full_like(hub, -1), n,
+              ("or",)),
+             ("N=1", small, (plan.edge_seg >= n // 2).int(), 1, all3),
+             ("tile-edge gaps", small, gaps, int(gaps.max()) + 1, all3),
+             ("half-row tail", small, tail, n, all3),
+             ("half-row tail bool", rand() < 0.5, tail, n, ("or",)),
+             ("NaN/inf", special, plan.edge_seg, n, ("min", "max")),
+             ("int32 wrap", wrap, plan.edge_seg, n, ("sum",))]
+    for d in (3, 5):
+        cases.append((f"D={d}", rand(d), plan.edge_seg, n, ("min", "max")))
+        cases.append((f"D={d} i32", (rand(d) * 2000 - 1000).int(),
+                      plan.edge_seg, n, ("sum",)))
+    for what, vals, seg, nseg, combs in cases:
+        for comb in combs:
+            seg_case(vals, seg, nseg, comb, what=what)
+    err = max(seg_case(rand(d), plan.edge_seg, n, "sum", 1e-4, 1e-5,
+                       f"D={d}") for d in (1, 3, 5))
+    return dict(max_abs_err=err, cases=len(cases) + 3)
 
 
 def profile_runs(jobs, out_dir: Path) -> dict:
@@ -234,13 +320,15 @@ def main() -> int:
     errs["bucket_ranks_lanes"] = 0.0
 
     def seg_case(vals, seg, n, comb, rtol=0.0, atol=0.0, what=""):
+        """Kernel against plain: exact (NaN where the plain version has
+        NaN) unless a tolerance is given; the max |error| of a float sum."""
         out = ops.segment_combine(vals, seg, n, comb)
         want = kref.segment_combine_ref(vals, seg, n, comb)
+        torch.testing.assert_close(
+            out, want, rtol=rtol, atol=atol, equal_nan=True,
+            msg=lambda m: f"segment_combine {what} {comb}: {m}")
         if rtol == 0.0 and atol == 0.0:
-            check(torch.equal(out, want),
-                  f"segment_combine {what} {comb} differs from plain")
             return 0.0
-        torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
         return float((out - want).abs().max())
 
     e_cap, u_cap = plan.e_cap, plan.u_cap
@@ -276,8 +364,14 @@ def main() -> int:
             seg_case(vals, empty_s, 6, comb, what="empty/dropped")
     seg_case(torch.tensor([True, False, False, True, True], device=dev),
              empty_s, 6, "or", what="empty/dropped bool")
+    edge = segment_edge_cases(plan, g, seg_case)
+    # two runs of pagerank's send side: bit-identical (no float atomics)
+    send_a = ops.segment_combine(f32, plan.edge_seg, u_cap, "sum")
+    send_b = ops.segment_combine(f32, plan.edge_seg, u_cap, "sum")
+    check(torch.equal(send_a, send_b),
+          "segment_combine send side differs between two runs")
     torch.cuda.synchronize()
-    errs["segment_combine"] = max(e1, e2)
+    errs["segment_combine"] = max(e1, e2, edge["max_abs_err"])
     detail["kernel_checks"] = dict(errs, pagerank_host_setup_s=pr_host_s)
     print(f"[2/5] kernels vs plain on the card: bucket_ranks (8, 2^21) "
           f"exact; bucket_ranks_lanes ({W}, {union_cap}, {NQ}) exact; "
@@ -285,7 +379,11 @@ def main() -> int:
           f"e_cap={e_cap}, u_cap={u_cap}, recv {recv_n}) f32 sum max|err| "
           f"{errs['segment_combine']:.3g} (rtol 1e-4, atol 1e-5), min/max/"
           f"int32 sum exact, fault-1 probe [inf,5,2,inf], empty segments "
-          f"hold the identity ({time.perf_counter() - t:.1f} s)", flush=True)
+          f"hold the identity; {edge['cases']} edge cases at ({W}, {e_cap}) "
+          f"(a 2^20-entry hub, all dropped, N=1, tile-edge gaps, half-row "
+          f"tail, D=1/3/5, NaN/inf, int32 wrap) exact but for random f32 "
+          f"sums; send side bit-identical in two runs "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
 
     # -- 3. reference counts at scale 12 ------------------------------------
     t = time.perf_counter()
@@ -489,27 +587,57 @@ def main() -> int:
     sides = ((send_vals, plan.edge_seg, u_cap),
              (recv_vals, plan.recv_sorted, pr_pg.n_loc))
 
-    def both(fn):
-        return sum(cuda_ms(lambda v=v, s=s, n=n: fn(v, s, n))
-                   for v, s, n in sides)
+    def real(s, n):  # entries whose id the kernel must read with a value
+        return int(((s >= 0) & (s < n)).sum())
 
-    s_ms = both(lambda v, s, n: ops.segment_combine(
-        v, s, n, cb.SUM))
-    s_plain = both(lambda v, s, n: kref.segment_combine_ref(v, s, n, cb.SUM))
-    lib = []
-    for v, s, n in sides:
-        # torch.segment_reduce over one flat row: N + 1 segments per worker,
-        # the last one swallowing the dropped pad entries
-        lengths = torch.stack([torch.bincount(row.long(), minlength=n + 1)
-                               for row in s]).reshape(-1)
-        flat = v.reshape(-1, 1)
-        lib.append(cuda_ms(lambda flat=flat, lengths=lengths:
-                           torch.segment_reduce(flat, "sum", lengths=lengths,
-                                                unsafe=True)))
-    s_lib = sum(lib)
-    s_bytes = sum(v.numel() * 4 + s.numel() * 4 + W * n * 4
-                  for v, s, n in sides)
-    s_bound = 1e3 * s_bytes / HBM_BYTES_PER_S
+    seg_t = {}
+    for side, (v, s, n) in zip(("send", "recv"), sides):
+        rows, e, d = v.shape
+        out_bytes = rows * n * d * 4
+        # one-call yardsticks on a precomputed int64 index of the real
+        # entries only, into a preset buffer (the identity fill is not
+        # counted). Beside them the same index_add_ with every dropped
+        # entry sent to one dump row per worker: a figure of the contention
+        # that construction adds, not a yardstick.
+        seg64 = s.long()
+        keep = (seg64 >= 0) & (seg64 < n)
+        idx_all = (torch.where(keep, seg64, n) + torch.arange(
+            rows, device=dev)[:, None] * (n + 1)).reshape(-1)
+        flat = v.reshape(-1, d)
+        idx, real_vals = idx_all[keep.reshape(-1)], flat[keep.reshape(-1)]
+        buf = torch.zeros((rows * (n + 1), d), device=dev)
+        idx2 = idx[:, None].expand_as(real_vals)
+        # torch.segment_reduce over one flat row: N + 1 segments per
+        # worker, the last one swallowing the dropped pad entries
+        lengths = torch.stack([torch.bincount(r.long(), minlength=n + 1)
+                               for r in s]).reshape(-1)
+        seg_t[side] = dict(
+            shape=list(v.shape), n=n, real_entries=real(s, n),
+            ms=cuda_ms(lambda: ops.segment_combine(v, s, n, cb.SUM)),
+            cold_ms=cuda_ms_cold(lambda: ops.segment_combine(v, s, n, cb.SUM)),
+            min_ms=cuda_ms(lambda: ops.segment_combine(v, s, n, cb.MIN)),
+            plain_ms=cuda_ms(lambda: kref.segment_combine_ref(v, s, n, cb.SUM),
+                             reps=5),
+            index_add_ms=cuda_ms(lambda: buf.index_add_(0, idx, real_vals)),
+            scatter_reduce_amin_ms=cuda_ms(lambda: buf.scatter_reduce_(
+                0, idx2, real_vals, "amin", include_self=True)),
+            dump_row_index_add_ms=cuda_ms(
+                lambda: buf.index_add_(0, idx_all, flat)),
+            segment_reduce_ms=cuda_ms(lambda: torch.segment_reduce(
+                flat, "sum", lengths=lengths, unsafe=True)),
+            bytes=real(s, n) * (4 + 4 * d) + out_bytes,
+            all_entry_bytes=rows * e * (4 + 4 * d) + out_bytes)
+    st = {k: sum(x[k] for x in seg_t.values()) for k in (
+        "ms", "cold_ms", "min_ms", "plain_ms", "index_add_ms",
+        "scatter_reduce_amin_ms", "dump_row_index_add_ms",
+        "segment_reduce_ms", "bytes", "all_entry_bytes")}
+    s_ms, s_plain = st["ms"], st["plain_ms"]
+    # the same function as the kernel's timed sum, one PyTorch call a side
+    s_lib_name, s_lib = min((("index_add_", st["index_add_ms"]),
+                             ("segment_reduce", st["segment_reduce_ms"])),
+                            key=lambda x: x[1])
+    s_bound = 1e3 * st["bytes"] / HBM_BYTES_PER_S
+    s_bound_all = 1e3 * st["all_entry_bytes"] / HBM_BYTES_PER_S
     kernels = [
         dict(name="bucket_ranks", route="cuda",
              source="src/repro_torch/kernels/csrc/bucket_route.cu",
@@ -522,7 +650,9 @@ def main() -> int:
              replaces="src/repro/kernels/segment_combine.py:101",
              launches=launches["segment_combine"],
              max_abs_err=errs["segment_combine"], ms=s_ms, plain_ms=s_plain,
-             bound_ms=s_bound, bound_by="bytes", library_ms=s_lib),
+             bound_ms=s_bound, bound_by="bytes", library_ms=s_lib,
+             library=s_lib_name, cold_ms=st["cold_ms"],
+             all_entry_bound_ms=s_bound_all),
         dict(name="bucket_ranks_lanes", route="cuda",
              source="src/repro_torch/kernels/csrc/bucket_route.cu",
              replaces="src/repro/kernels/bucket_route.py:128",
@@ -538,16 +668,23 @@ def main() -> int:
         bucket_ranks_lanes=dict(shape=list(lanes.shape), ms=l_ms,
                                 plain_ms=l_plain, stable_sort_ms=l_sort,
                                 bytes=l_bytes, bound_ms=l_bound),
-        segment_combine=dict(
-            shapes=[[list(v.shape), n] for v, _, n in sides],
-            ms=s_ms, plain_ms=s_plain, library_ms=s_lib,
-            library_ms_sides=lib, bytes=s_bytes, bound_ms=s_bound))
+        segment_combine=dict(seg_t, **st, library=s_lib_name,
+                             bound_ms=s_bound, all_entry_bound_ms=s_bound_all))
     print(f"[5/5] times at scale {FULL_SCALE}: bucket_ranks {list(rkeys.shape)}"
           f" {b_ms:.3f} ms (plain {b_plain:.3f}, bound {b_bound:.3f}, library "
           f"none; stable torch.sort {b_sort:.3f}); segment_combine per "
           f"superstep (send {list(send_vals.shape)} + recv "
-          f"{list(recv_vals.shape)}) {s_ms:.3f} ms (plain {s_plain:.3f}, "
-          f"bound {s_bound:.3f}, torch.segment_reduce {s_lib:.3f}); "
+          f"{list(recv_vals.shape)}) {s_ms:.4f} ms warm [send "
+          f"{seg_t['send']['ms']:.4f}, recv {seg_t['recv']['ms']:.4f}], "
+          f"{st['cold_ms']:.4f} ms L2 flushed [send "
+          f"{seg_t['send']['cold_ms']:.4f}, recv "
+          f"{seg_t['recv']['cold_ms']:.4f}], min {st['min_ms']:.4f} (plain "
+          f"{s_plain:.3f}, bound {s_bound:.4f} on real entries, "
+          f"{s_bound_all:.4f} on all e_cap entries; on the real entries "
+          f"index_add_ {st['index_add_ms']:.4f}, scatter_reduce_ amin "
+          f"{st['scatter_reduce_amin_ms']:.4f}; index_add_ with a dump row "
+          f"{st['dump_row_index_add_ms']:.4f}; torch.segment_reduce "
+          f"{st['segment_reduce_ms']:.4f}); "
           f"bucket_ranks_lanes {list(lanes.shape)} {l_ms:.3f} ms (plain "
           f"{l_plain:.3f}, bound {l_bound:.3f}, library none; stable "
           f"torch.sort of the keys {l_sort:.3f}) "

@@ -8,39 +8,64 @@
 // with the combiner's identity for empty segments; ids outside [0, N)
 // are dropped.
 //
-// Bound: memory. Each value and id is read once and each output written
-// once: E * (4 D + 4) + N * 4 D bytes per row, against one combine per
-// value — far below the card's arithmetic rate.
+// Bound: memory, counted on the entries the input needs. Each real id
+// and value is read once and each output written once: R * (4 + 4 D)
+// + N * 4 D bytes per row for R ids in [0, N). The dropped tail (the
+// plan pads each row with id N after its real entries) costs one id per
+// tile. One combine per value is far below the card's arithmetic rate.
 //
-// Design: the TPU kernel pulls segment-end partials out of a segmented
-// scan with a one-hot matmul on the MXU; that product turns any +-inf
-// into NaN and refuses int32 sums. Here there is no matmul:
-//   1. offsets_kernel: one thread per position finds the segment ids it
-//      starts, and its warp writes their lower bounds (a CSR offset table,
-//      N + 1 per row) from the sorted ids alone — O(E + N);
-//   2. combine_kernel: one warp per output segment reads its [lo, hi)
-//      range; lanes stride over the edges (one column of D at a time) and
-//      a fixed-order shuffle tree combines the 32 lane partials.
-// The order of every combine depends only on (lo, hi), never on
-// scheduling, so two runs give bit-identical results: exact for min,
-// max and int32 sum (two's-complement wrap, as the plain version), and
-// float32 sum differs from a sequential order only by reassociation. min
-// and max keep +-inf and propagate NaN like torch.minimum/maximum.
-// Offsets are clamped to [0, E] before use, so unsorted input gives a
-// wrong answer but no out-of-bounds read.
+// Design: a flat segmented reduction over entries, not over segments.
+//   1. tile_kernel: each block takes one tile of kTile = 256 x 8 entries
+//      of a row. A thread loads its 8 entries contiguously (16-byte loads
+//      for D = 1), reduces its own runs, and a segmented scan with head
+//      flags (warp shuffles, then the 8 warp totals through shared
+//      memory) carries runs across threads. A segment that starts and
+//      ends inside the tile is written once, by the thread holding its
+//      last entry. A segment that crosses a tile boundary leaves a
+//      partial instead: the tile's first run (if it continues from the
+//      previous tile and ends here) and its last run (if it continues
+//      into the next), in a (rows, tiles) scratch table.
+//   2. join_kernel: one block per row scans the tiles' last-run partials
+//      in tile order (a segmented scan, reset where a run starts inside a
+//      tile) and writes each crossing segment where it ends.
+//   Both passes share one block-wide segmented scan (block_seg_scan).
+//   Empty segments need no offsets table: the thread holding position p
+//   fills the segments strictly between seg[p] and seg[p + 1] (and tile
+//   0 those below seg[0]) with the identity. Short gaps are stored by the
+//   thread, longer ones by its warp together with 16-byte stores. A tile
+//   whose first id is dropped past N exits after reading it: the tile
+//   before it filled up to N. So every output element is written exactly
+//   once, with no initialisation pass.
 //
-// Known weakness: an R-MAT hub segment leaves one warp with most of a
-// row's edges while the others idle.
+// What this does about the previous design (one warp per output
+// segment after a CSR offsets pass): no lane idles on a short segment,
+// a hub segment is spread over as many tiles as it has entries and
+// joined by the light second pass, and the (rows, N + 1) offsets table
+// is neither written nor read. No float atomics: the order of every
+// combine depends only on positions, so two runs give bit-identical
+// results. min, max and int32 sum are exact (int32 sum wraps in two's
+// complement, as the plain version); float32 sum differs from a
+// sequential order only by reassociation; min and max keep +-inf and
+// propagate NaN like torch.minimum/maximum. Ids are clamped to [-1, N]
+// before use, so unsorted input gives a wrong answer but no
+// out-of-bounds access.
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
+#include <cstdint>
+#include <cstring>
 
 namespace {
 
 enum Op { kSum = 0, kMin = 1, kMax = 2 };
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kItems = 8;
+constexpr long long kTile = (long long)kThreads * kItems;
+constexpr long long kSmallGap = 8;  // elements a thread fills alone
+static_assert(kItems % 4 == 0, "16-byte loads of a thread's entries");
 
 template <typename T, int OP>
 struct Combine;
@@ -69,106 +94,310 @@ struct Combine<int, OP> {
   }
 };
 
-// Segment id of position i as the offset search sees it: -1 below the
-// range, n for every dropped id at or past it.
-__device__ __forceinline__ long long seg_key(const int* seg, long long i,
-                                             int n) {
-  const int s = seg[i];
-  return s < 0 ? -1 : (s > n ? n : s);
+template <typename T>
+__device__ __forceinline__ T from_bits(int b) {
+  T x;
+  memcpy(&x, &b, sizeof(T));
+  return x;
 }
 
-// off[row, s] = first position whose id is >= s, for s in [0, n].
-// Position i starts every id in (key(i - 1), key(i)]. Such a range is
-// long where ids skip many segments — at the latest before the dropped
-// tail, which skips every empty segment up to n — so the warp writes its
-// lanes' ranges together, 32 entries per store, instead of one thread
-// looping alone over a long range.
-__global__ void offsets_kernel(const int* __restrict__ seg,
-                               int* __restrict__ off, long long e, int n) {
-  const int row = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int* s = seg + (long long)row * e;
-  int* o = off + (long long)row * (n + 1);
-  long long prev = 0, cur = 0;  // past the row: an empty range
-  if (i <= e) {
-    prev = i == 0 ? -1 : seg_key(s, i - 1, n);
-    cur = i == e ? (long long)n : seg_key(s, i, n);
-  }
-  unsigned todo = __ballot_sync(kFull, cur > prev);
-  while (todo) {
-    const int src = __ffs(todo) - 1;
-    todo &= todo - 1;
-    const long long a = __shfl_sync(kFull, prev, src) + 1;
-    const long long b = __shfl_sync(kFull, cur, src);
-    const int pos = (int)__shfl_sync(kFull, i, src);
-    for (long long t = a + lane; t <= b; t += 32) o[t] = pos;
+// kItems 4-byte values from p, 16 bytes per load (p 16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, T* x) {
+#pragma unroll
+  for (int q = 0; q < kItems / 4; ++q) {
+    const int4 a = *reinterpret_cast<const int4*>(p + 4 * q);
+    x[4 * q] = from_bits<T>(a.x);
+    x[4 * q + 1] = from_bits<T>(a.y);
+    x[4 * q + 2] = from_bits<T>(a.z);
+    x[4 * q + 3] = from_bits<T>(a.w);
   }
 }
 
+// Column j of a thread's kItems entries from base; the identity past the
+// row. full: all kItems entries lie in the row and 16-byte loads may be
+// used.
+template <typename T>
+__device__ __forceinline__ void load_column(const T* v, long long base,
+                                            long long e, int d, int j,
+                                            bool full, T ident, T* x) {
+  if (full && d == 1) {
+    load4<T>(v + base, x);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+      x[k] = base + k < e ? v[(base + k) * d + j] : ident;
+  }
+}
+
+// Segment id of position i as the kernel sees it: -1 below the range, n
+// for every dropped id at or past it and for positions past the row.
+__device__ __forceinline__ int key_at(const int* s, long long i, long long e,
+                                      int n) {
+  if (i >= e) return n;
+  const int k = s[i];
+  return k < 0 ? -1 : (k > n ? n : k);
+}
+
+// Identity into o[lo, hi) by `count` threads of which this is `rank`:
+// scalar stores up to a 16-byte boundary, then 16-byte stores.
+template <typename T>
+__device__ void range_fill(T* o, long long lo, long long hi, T ident,
+                           int rank, int count) {
+  static_assert(sizeof(T) == 4, "4-byte values only");
+  const long long mis = ((uintptr_t)(o + lo) >> 2) & 3;
+  const long long head = mis ? min(hi - lo, 4 - mis) : 0;
+  if (rank < head) o[lo + rank] = ident;
+  lo += head;
+  int bits;
+  memcpy(&bits, &ident, 4);
+  const int4 pat = make_int4(bits, bits, bits, bits);
+  int4* o4 = reinterpret_cast<int4*>(o + lo);
+  const long long nv = (hi - lo) >> 2;
+  for (long long t = rank; t < nv; t += count) o4[t] = pat;
+  for (long long t = lo + nv * 4 + rank; t < hi; t += count) o[t] = ident;
+}
+
+// Block-wide inclusive segmented scan of one (flag, value) a thread, in
+// thread order, with carry in front of thread 0:
+//   (f1, v1) . (f2, v2) = (f1 | f2, f2 ? v2 : v1 + v2).
+// Returns the thread's exclusive prefix (the value of the run that
+// reaches it from earlier threads, or the carry) and sets *total to the
+// whole block's result, the carry of what follows. Every thread calls it.
 template <typename T, int OP>
-__global__ void combine_kernel(const T* __restrict__ vals,
-                               const int* __restrict__ off,
-                               T* __restrict__ out, int rows, long long e,
-                               int n, int d) {
+__device__ __forceinline__ T block_seg_scan(T val, int flag, T carry,
+                                            T* total) {
   using C = Combine<T, OP>;
-  const long long warp =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= (long long)rows * n) return;  // uniform across the warp
-  const long long row = warp / n;
-  const long long s = warp % n;
-  const int* o = off + row * (n + 1);
-  const long long lo = min(max((long long)o[s], 0LL), e);
-  const long long hi = min(max((long long)o[s + 1], lo), e);
+  __shared__ T warp_val[kWarps];
+  __shared__ int warp_flag[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T inc = val;
+  int finc = flag;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T ov = __shfl_up_sync(kFull, inc, off);
+    const int of = __shfl_up_sync(kFull, finc, off);
+    if (lane >= off) {
+      if (!finc) inc = C::apply(ov, inc);
+      finc |= of;
+    }
+  }
+  const T ex = __shfl_up_sync(kFull, inc, 1);
+  const int fex = __shfl_up_sync(kFull, finc, 1);
+  if (lane == 31) {
+    warp_val[warp] = inc;
+    warp_flag[warp] = finc;
+  }
+  __syncthreads();
+  T pre = carry, tot = carry;  // the earlier warps' trailing run, in order
+  for (int w = 0; w < kWarps; ++w) {
+    if (w == warp) pre = tot;
+    tot = warp_flag[w] ? warp_val[w] : C::apply(tot, warp_val[w]);
+  }
+  if (lane > 0) pre = fex ? ex : C::apply(pre, ex);
+  __syncthreads();  // warp_val is reused by the next call
+  *total = tot;
+  return pre;
+}
+
+// Pass 1: one tile of one row. meta[row, tile] = (key of the tile's
+// first run if that run continues from the previous tile and ends here,
+// else -1; 1 if the tile's last run starts inside the tile or does not
+// continue into the next, else 0). part[row, tile, 0, :] = that first
+// run's value, part[row, tile, 1, :] = the last run's value.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kThreads)
+    tile_kernel(const T* __restrict__ vals, const int* __restrict__ seg,
+                T* __restrict__ out, int2* __restrict__ meta,
+                T* __restrict__ part, long long e, int n, int d,
+                long long ntiles, int vec) {
+  using C = Combine<T, OP>;
+  const long long row = blockIdx.y, tile = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int* s = seg + row * e;
   const T* v = vals + row * e * d;
-  T* dst = out + (row * n + s) * d;
+  T* o = out + row * (long long)n * d;
+  const long long cell = row * ntiles + tile;
+  T* hpart = part + cell * 2 * d;
+  T* tpart = hpart + d;
+  const long long t0 = tile * kTile;
+  const T ident = C::ident();
+
+  const int first = key_at(s, t0, e, n);
+  if (first == n && t0 > 0) {  // dropped tail: the tile before filled to n
+    if (tid == 0) meta[cell] = make_int2(-1, 1);
+    return;
+  }
+  const int before = t0 == 0 ? -2 : key_at(s, t0 - 1, e, n);
+  const int last = key_at(s, t0 + kTile - 1, e, n);
+  const int after = key_at(s, t0 + kTile, e, n);
+  const bool cont = before == first;  // the first run began in a tile before
+
+  const long long base = t0 + (long long)tid * kItems;
+  const bool full = vec && base + kItems <= e;
+  int key[kItems];
+  if (full) {
+    load4<int>(s + base, key);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+      key[k] = key[k] < 0 ? -1 : (key[k] > n ? n : key[k]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) key[k] = key_at(s, base + k, e, n);
+  }
+  T x[kItems];  // column 0's values, in flight while the gaps are filled
+  load_column(v, base, e, d, 0, full, ident, x);
+  const int prev = tid == 0 ? before : key_at(s, base - 1, e, n);
+  const int next = key_at(s, base + kItems, e, n);
+  unsigned head = 0, end = 0;  // bit k: a run starts / ends at entry k
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int pk = k == 0 ? prev : key[k - 1];
+    const int nk = k == kItems - 1 ? next : key[k + 1];
+    if ((k == 0 && tid == 0) || key[k] != pk) head |= 1u << k;
+    if (key[k] != nk) end |= 1u << k;
+  }
+
+  // -- empty segments: between key[k] and the key after it ------------------
+  for (int k = -1; k < kItems; ++k) {
+    int a, b;
+    if (k < 0) {  // below the row's first id, by tile 0's first thread
+      a = -1;
+      b = (tid == 0 && t0 == 0) ? key[0] : -1;
+    } else {
+      a = key[k];
+      b = k == kItems - 1 ? next : key[k + 1];
+    }
+    const long long lo = (long long)(a + 1) * d;
+    const long long hi = b > a + 1 ? (long long)b * d : lo;
+    const bool by_warp = hi - lo > kSmallGap;
+    if (!by_warp)
+      for (long long t = lo; t < hi; ++t) o[t] = ident;
+    unsigned todo = __ballot_sync(kFull, by_warp);
+    while (todo) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1;
+      range_fill(o, __shfl_sync(kFull, lo, src), __shfl_sync(kFull, hi, src),
+                 ident, lane, 32);
+    }
+  }
+
+  // -- values, one column at a time ------------------------------------------
   for (int j = 0; j < d; ++j) {
-    T acc = C::ident();
-#pragma unroll 4
-    for (long long k = lo + lane; k < hi; k += 32)
-      acc = C::apply(acc, v[k * d + j]);
-    for (int sh = 16; sh > 0; sh >>= 1)
-      acc = C::apply(acc, __shfl_down_sync(kFull, acc, sh));
-    if (lane == 0) dst[j] = acc;
+    if (j > 0) load_column(v, base, e, d, j, full, ident, x);
+    // the thread's own part: the value of its last run, and whether a run
+    // starts inside it
+    T agg = x[0];
+#pragma unroll
+    for (int k = 1; k < kItems; ++k)
+      agg = (head >> k & 1) ? x[k] : C::apply(agg, x[k]);
+    T block_total;
+    const T carry = block_seg_scan<T, OP>(agg, head != 0, ident, &block_total);
+
+    T run = carry;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      run = (head >> k & 1) ? x[k] : C::apply(run, x[k]);
+      if (end >> k & 1) {
+        const int sk = key[k];
+        if (sk >= 0 && sk < n) {
+          if (sk == first && cont) hpart[j] = run;  // joined by pass 2
+          else o[(long long)sk * d + j] = run;
+        }
+      }
+    }
+    if (tid == kThreads - 1) tpart[j] = run;
+  }
+  if (tid == 0) {
+    const bool hvalid = cont && first >= 0 && first < n &&
+                        (last != first || after != first);
+    const bool tstarts = !(after == last && last == first && cont);
+    meta[cell] = make_int2(hvalid ? first : -1, tstarts ? 1 : 0);
   }
 }
 
+// Pass 2: one block per row joins the segments that cross tile
+// boundaries. S[t] = (reset[t] ? 0 : S[t - 1]) + last-run partial of
+// tile t, by a segmented scan in tile order; a tile whose first run ends
+// inside it and began earlier writes S[t - 1] + its first-run partial.
 template <typename T, int OP>
-void launch_combine(const void* vals, const int* off, void* out, int rows,
-                    long long e, int n, int d, cudaStream_t s) {
-  const long long threads = (long long)rows * n * 32;
-  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
-  combine_kernel<T, OP><<<blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(vals), off, static_cast<T*>(out), rows, e, n, d);
+__global__ void __launch_bounds__(kThreads)
+    join_kernel(const int2* __restrict__ meta, const T* __restrict__ part,
+                T* __restrict__ out, long long ntiles, int n, int d) {
+  using C = Combine<T, OP>;
+  const long long row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int2* m = meta + row * ntiles;
+  const T* p = part + row * ntiles * 2 * d;
+  T* o = out + row * (long long)n * d;
+  const T ident = C::ident();
+  for (int j = 0; j < d; ++j) {
+    T carry = ident;  // S of the previous chunk's last tile
+    for (long long c0 = 0; c0 < ntiles; c0 += kThreads) {
+      const long long t = c0 + tid;
+      const bool in = t < ntiles;
+      const int2 mt = in ? m[t] : make_int2(-1, 1);
+      const T pre = block_seg_scan<T, OP>(
+          in ? p[(2 * t + 1) * d + j] : ident, mt.y, carry, &carry);
+      if (in && mt.x >= 0 && mt.x < n)  // S[t - 1] + the first-run partial
+        o[(long long)mt.x * d + j] = C::apply(pre, p[2 * t * d + j]);
+    }
+  }
+}
+
+long long tiles_per_row(long long e) {
+  return e > 0 ? (e + kTile - 1) / kTile : 1;
+}
+
+template <typename T, int OP>
+void launch(const void* vals, const int* seg, void* out, void* scratch,
+            int rows, long long e, int n, int d, int vec, cudaStream_t s) {
+  const long long ntiles = tiles_per_row(e);
+  int2* meta = static_cast<int2*>(scratch);
+  T* part = reinterpret_cast<T*>(meta + (long long)rows * ntiles);
+  tile_kernel<T, OP><<<dim3((unsigned)ntiles, (unsigned)rows), kThreads, 0,
+                       s>>>(static_cast<const T*>(vals), seg,
+                            static_cast<T*>(out), meta, part, e, n, d,
+                            ntiles, vec);
+  join_kernel<T, OP><<<rows, kThreads, 0, s>>>(meta, part,
+                                               static_cast<T*>(out), ntiles,
+                                               n, d);
 }
 
 }  // namespace
 
+// 4-byte words of scratch that segment_combine_launch needs for (rows, e,
+// d): per tile an int2 of flags and two d-wide partials.
+extern "C" long long segment_combine_scratch_words(int rows, long long e,
+                                                   int d) {
+  return (long long)rows * tiles_per_row(e) * (2 + 2 * (long long)d);
+}
+
 // vals: (rows, e, d); seg: (rows, e) int32 sorted per row; out: (rows, n,
-// d); offsets: (rows, n + 1) int32 scratch. dtype 0 = float32, 1 = int32;
-// op 0 = sum, 1 = min, 2 = max. Returns cudaGetLastError().
+// d); scratch: segment_combine_scratch_words(rows, e, d) 4-byte words,
+// 8-byte aligned. dtype 0 = float32, 1 = int32; op 0 = sum, 1 = min,
+// 2 = max. Rows ride on gridDim.y (at most 65535), a row's tiles of 2048
+// entries on gridDim.x. Returns cudaGetLastError().
 extern "C" int segment_combine_launch(const void* vals, const int* seg,
-                                      void* out, int* offsets, int rows,
+                                      void* out, void* scratch, int rows,
                                       long long e, int n, int d, int dtype,
                                       int op, void* stream) {
   if (rows < 1 || rows > 65535 || n < 1 || d < 1 || e < 0 || dtype < 0 ||
-      dtype > 1 || op < 0 || op > 2)
+      dtype > 1 || op < 0 || op > 2 || tiles_per_row(e) > INT_MAX ||
+      ((uintptr_t)scratch & 7))
     return (int)cudaErrorInvalidValue;
-  if ((long long)rows * n * 32 / kThreads >= 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+  // 16-byte loads of a thread's 8 entries: every row starts 16-byte aligned
+  const int vec = e % 4 == 0 && ((uintptr_t)seg & 15) == 0 &&
+                  ((uintptr_t)vals & 15) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 ogrid((unsigned)((e + 1 + kThreads - 1) / kThreads),
-                   (unsigned)rows);
-  offsets_kernel<<<ogrid, kThreads, 0, s>>>(seg, offsets, e, n);
   if (dtype == 0) {
-    if (op == kSum) launch_combine<float, kSum>(vals, offsets, out, rows, e, n, d, s);
-    if (op == kMin) launch_combine<float, kMin>(vals, offsets, out, rows, e, n, d, s);
-    if (op == kMax) launch_combine<float, kMax>(vals, offsets, out, rows, e, n, d, s);
+    if (op == kSum) launch<float, kSum>(vals, seg, out, scratch, rows, e, n, d, vec, s);
+    if (op == kMin) launch<float, kMin>(vals, seg, out, scratch, rows, e, n, d, vec, s);
+    if (op == kMax) launch<float, kMax>(vals, seg, out, scratch, rows, e, n, d, vec, s);
   } else {
-    if (op == kSum) launch_combine<int, kSum>(vals, offsets, out, rows, e, n, d, s);
-    if (op == kMin) launch_combine<int, kMin>(vals, offsets, out, rows, e, n, d, s);
-    if (op == kMax) launch_combine<int, kMax>(vals, offsets, out, rows, e, n, d, s);
+    if (op == kSum) launch<int, kSum>(vals, seg, out, scratch, rows, e, n, d, vec, s);
+    if (op == kMin) launch<int, kMin>(vals, seg, out, scratch, rows, e, n, d, vec, s);
+    if (op == kMax) launch<int, kMax>(vals, seg, out, scratch, rows, e, n, d, vec, s);
   }
   return (int)cudaGetLastError();
 }

@@ -12,32 +12,38 @@ from repro_torch.kernels import build
 
 _OPS = {"sum": 0, "min": 1, "max": 2}
 _DTYPES = {torch.float32: 0, torch.int32: 1}
+#: rows ride on the launch grid's y dimension
+MAX_ROWS = 65535
 
-_fn = None
+_fns = None
 #: launches of the kernel since the last reset (kernels.ops owns resets)
 launches = 0
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
-        fn = build.library("segment_combine").segment_combine_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
+def _library():
+    global _fns
+    if _fns is None:
+        lib = build.library("segment_combine")
+        launch, words = (lib.segment_combine_launch,
+                         lib.segment_combine_scratch_words)
+        launch.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        launch.restype = ctypes.c_int
+        words.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+        words.restype = ctypes.c_longlong
+        _fns = launch, words
+    return _fns
 
 
 def segment_combine_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
                          num_segments: int, combiner) -> torch.Tensor:
     """``(*B, N, *F)`` segment combine of CUDA ``vals`` (``(*B, E, *F)``)
     by ``seg_ids`` (``(*B, E)``); ids outside ``[0, N)`` are dropped.
-    Each row's ids must be sorted ascending (the kernel clamps its offsets,
-    so unsorted ids give a wrong result but no out-of-bounds read).
-    float32/int32 for sum/min/max; bool ``or`` runs as max over 0/1
-    int32."""
+    Each row's ids must be sorted ascending (unsorted ids give a wrong
+    result but no out-of-bounds access). float32/int32 for sum/min/max;
+    bool ``or`` runs as max over 0/1 int32. At most :data:`MAX_ROWS`
+    rows (the product of ``*B``)."""
     global launches
     if not (vals.is_cuda and seg_ids.is_cuda):
         raise ValueError("segment_combine_cuda needs CUDA tensors")
@@ -52,16 +58,20 @@ def segment_combine_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
     batch, e = tuple(seg_ids.shape[:-1]), seg_ids.shape[-1]
     feat = tuple(vals.shape[seg_ids.dim():])
     rows, n, d = math.prod(batch), num_segments, math.prod(feat)
+    if rows > MAX_ROWS:
+        raise ValueError(f"segment_combine kernel takes at most {MAX_ROWS} "
+                         f"rows, got {rows}")
     v = work.reshape(rows, e, d).contiguous()
     seg = seg_ids.reshape(rows, e).to(torch.int32).contiguous()
     out = torch.empty((rows, n, d), dtype=work.dtype, device=vals.device)
     if rows and n and d:
-        offsets = torch.empty((rows, n + 1), dtype=torch.int32,
+        launch, words = _library()
+        scratch = torch.empty(words(rows, e, d), dtype=torch.int32,
                               device=vals.device)
         stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = _launcher()(v.data_ptr(), seg.data_ptr(), out.data_ptr(),
-                          offsets.data_ptr(), rows, e, n, d,
-                          _DTYPES[work.dtype], op, stream)
+        err = launch(v.data_ptr(), seg.data_ptr(), out.data_ptr(),
+                     scratch.data_ptr(), rows, e, n, d, _DTYPES[work.dtype],
+                     op, stream)
         if err:
             raise RuntimeError(f"segment_combine kernel launch failed: CUDA "
                                f"error {err}")

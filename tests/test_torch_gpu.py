@@ -32,26 +32,107 @@ def test_bucket_ranks_kernel_matches_plain(cuda, b, m):
     assert torch.equal(rank, want_r) and torch.equal(counts, want_c)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("name,dtype", [
-    ("sum", torch.float32), ("min", torch.float32), ("max", torch.float32),
-    ("sum", torch.int32), ("min", torch.int32), ("or", torch.bool)])
-def test_segment_combine_kernel_matches_plain(cuda, name, dtype):
-    seg = torch.sort(torch.randint(0, 70, (4, 3000), device=cuda))[0]
-    if dtype == torch.float32:
-        vals = torch.randn(4, 3000, 3, device=cuda)
-    elif dtype == torch.int32:
-        vals = torch.randint(-99, 99, (4, 3000, 3), device=cuda,
+# One tile of the kernel is 256 threads x 8 entries.
+TILE = 2048
+
+
+def _segment_case(case, dtype, dev):
+    """(vals, seg, n) of a named case, made on the CPU from a seed. Values
+    of the long sums are small integers, so a float32 sum is exact in any
+    order."""
+    g = torch.Generator().manual_seed(len(case))
+    d = {"random": 3, "d5": 5, "gaps": 3}.get(case, 1)
+    if case in ("random", "d1", "d5"):
+        rows, e, n = 4, 3000, 64
+        seg = torch.sort(torch.randint(0, 70, (rows, e), generator=g))[0]
+    elif case == "hub":  # one segment over 110 tiles in row 0
+        rows, e, n = 2, 120 * TILE + 77, 50
+        seg = torch.sort(torch.randint(0, n, (rows, e), generator=g))[0]
+        seg[0, 5 * TILE + 3:115 * TILE + 9] = seg[0, 5 * TILE + 3]
+        seg = torch.sort(seg)[0]
+    elif case == "dropped":  # every id outside [0, n)
+        rows, e, n = 3, 5 * TILE + 1, 64
+        seg = torch.where(torch.rand(rows, e, generator=g) < 0.3, -4, n + 2)
+        seg = torch.sort(seg)[0]
+    elif case == "n1":
+        rows, e, n = 3, 3 * TILE + 5, 1
+        seg = torch.sort(torch.randint(-1, 3, (rows, e), generator=g))[0]
+    elif case == "gaps":  # gaps of 1..9000 empty segments at tile edges
+        rows, e, n = 2, 6 * TILE, 60000
+        pos = torch.arange(e)
+        seg = (pos // TILE) * 9000 + (pos % TILE) // 300 * 7
+        seg = seg.expand(rows, e).clone()
+        seg[1] += 11
+    elif case == "tail":  # the real entries, then half the row as pad n
+        rows, e, n = 3, 40 * TILE, 30000
+        real = torch.sort(torch.randint(0, n // 2, (rows, e // 2),
+                                        generator=g))[0]
+        seg = torch.cat([real, torch.full((rows, e // 2), n)], dim=1)
+    elif case == "nan_inf":
+        rows, e, n = 2, 3 * TILE, 500
+        seg = torch.sort(torch.randint(0, n, (rows, e), generator=g))[0]
+    else:  # "wrap": int32 sums that overflow
+        rows, e, n = 2, 4 * TILE, 40
+        seg = torch.sort(torch.randint(0, n, (rows, e), generator=g))[0]
+    shape = (rows, e, d)
+    if case == "wrap":
+        vals = torch.randint(2**30, 2**31 - 1, shape, generator=g,
                              dtype=torch.int32)
+    elif dtype == torch.bool:
+        vals = torch.rand(shape, generator=g) < 0.2
+    elif case in ("hub", "tail", "gaps", "n1", "dropped") or \
+            dtype == torch.int32:
+        vals = torch.randint(-99, 99, shape, generator=g).to(dtype)
     else:
-        vals = torch.rand(4, 3000, 3, device=cuda) < 0.2
-    got = ops.segment_combine(vals, seg, 64, name)
-    want = ref.segment_combine_ref(vals, seg, 64, cb.get(name))
+        vals = torch.randn(shape, generator=g)
+    if case == "nan_inf":
+        pick = torch.rand(shape, generator=g)
+        vals[pick < 0.01] = float("nan")
+        vals[(pick >= 0.01) & (pick < 0.05)] = float("inf")
+        vals[(pick >= 0.05) & (pick < 0.09)] = -float("inf")
+    return vals.to(dev), seg.to(torch.int32).to(dev), n
+
+
+_SEG_CASES = [("random", "sum", torch.float32), ("random", "min", torch.float32),
+              ("random", "max", torch.float32), ("random", "sum", torch.int32),
+              ("random", "min", torch.int32), ("random", "or", torch.bool)]
+_SEG_CASES += [(c, name, torch.float32)
+               for c in ("hub", "dropped", "n1", "gaps", "tail", "d1", "d5")
+               for name in ("sum", "min", "max")]
+_SEG_CASES += [("hub", "sum", torch.int32), ("gaps", "max", torch.int32),
+               ("dropped", "or", torch.bool), ("tail", "or", torch.bool),
+               ("nan_inf", "min", torch.float32),
+               ("nan_inf", "max", torch.float32),
+               ("wrap", "sum", torch.int32), ("d5", "sum", torch.int32),
+               ("d5", "min", torch.int32), ("d5", "or", torch.bool)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,name,dtype", _SEG_CASES)
+def test_segment_combine_kernel_matches_plain(cuda, case, name, dtype):
+    vals, seg, n = _segment_case(case, dtype, cuda)
+    got = ops.segment_combine(vals, seg, n, name)
+    want = ref.segment_combine_ref(vals, seg, n, cb.get(name))
+    torch.cuda.synchronize()
     if name == "sum" and dtype == torch.float32:
         # reassociation only: another summation order than index_add
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    else:
-        assert torch.equal(got, want)
+        again = ops.segment_combine(vals, seg, n, name)
+        assert torch.equal(got, again), "two launches differ"
+    else:  # exact; NaN where the plain version has NaN
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_segment_combine_kernel_takes_a_long_square_row(cuda):
+    """E = N = 2^20 in one row launches (a 512-tile grid row)."""
+    e = 1 << 20
+    seg = torch.arange(e, dtype=torch.int32, device=cuda) // 3 * 2
+    vals = torch.ones(1, e, device=cuda)
+    got = ops.segment_combine(vals, seg[None], e, "sum")
+    want = ref.segment_combine_ref(vals, seg[None], e, cb.SUM)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

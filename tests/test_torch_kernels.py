@@ -233,6 +233,49 @@ def test_segment_combine_batched_rows():
                                          jnp.asarray(seg[r]), 10, "max")))
 
 
+def _seg_shape(case, seed):
+    """(vals (E, D) float32, sorted seg (E,), N) of a shape the CUDA
+    kernel splits across tiles. Values are small integers, so every sum
+    is exact in any order and all three paths agree bit for bit."""
+    rng = np.random.default_rng(seed)
+    d = 5 if case == "d5" else 1
+    if case == "hub":  # one segment of 2000 of the 3000 entries
+        e, n = 3000, 200
+        seg = rng.integers(0, n, e)
+        seg[400:2400] = 77
+    elif case == "gaps":  # gaps of 3..1500 empty segments at block edges
+        e, n = 2048, 6000
+        pos = np.arange(e)
+        seg = (pos // 512) * 1500 + (pos % 512) // 64 * 3
+    elif case == "tail":  # real ids, then half the row dropped past n
+        e, n = 3000, 400
+        seg = np.concatenate([rng.integers(0, n, e // 2),
+                              rng.integers(n, n + 3, e - e // 2)])
+    else:  # "d5": five columns, a few ids dropped
+        e, n = 1500, 120
+        seg = rng.integers(0, n + 4, e)
+    vals = rng.integers(-50, 50, (e, d)).astype(np.float32)
+    return vals, np.sort(seg).astype(np.int32), n
+
+
+@pytest.mark.parametrize("name", ["sum", "min", "max"])
+@pytest.mark.parametrize("case", ["hub", "gaps", "tail", "d5"])
+def test_segment_combine_ref_matches_jax_on_tile_crossing_shapes(case, name):
+    """The oracle the CUDA kernel is held to, against the JAX reference
+    and the Pallas kernel in interpret mode, at a long hub, long gaps of
+    empty segments, a dropped tail of half the row and D = 5."""
+    vals, seg, n = _seg_shape(case, 11)
+    got = ref.segment_combine_ref(torch.from_numpy(vals),
+                                  torch.from_numpy(seg), n, name).numpy()
+    jv, js = jnp.asarray(vals), jnp.asarray(seg)
+    want_ref = _np(jref.segment_combine_ref(jv, js, n, name))
+    want_kernel = _np(jops.segment_combine(jv, js, n, name, use_kernel=True,
+                                           interpret=True,
+                                           assume_sorted=True))
+    np.testing.assert_array_equal(got, want_ref)
+    np.testing.assert_array_equal(got, want_kernel)
+
+
 # ---------------------------------------------------------------------------
 # dispatch and build
 # ---------------------------------------------------------------------------
