@@ -12,7 +12,9 @@ and the batched query plane — ``Engine.run_batch`` of Q=32 sources of
 checked against solo runs and the host oracles. Phases, one line each:
 
   1. environment and kernel build;
-  2. each kernel against its plain PyTorch version on the card;
+  2. each kernel against its plain PyTorch version on the card, the two
+     bucket kernels at the main path's full shapes on random, sorted,
+     one-bucket, all-sentinel and out-of-range keys;
   3. reference traffic counts at scale 12, W=8 (exact), solo and batched
      (every batched lane bit-identical to its solo run);
   4. both main paths at R-MAT scale 20, W=8, checked against the host
@@ -21,7 +23,9 @@ checked against solo runs and the host oracles. Phases, one line each:
      (bit-identical); every lane of the batched runs bit-identical to
      its solo run, queries/s batched and solo, peak device memory;
   5. each kernel's time against its plain version, its bound and a
-     PyTorch yardstick at the scale-20 shapes, and one run of each
+     PyTorch yardstick at the scale-20 shapes (the bucket kernels also on
+     random keys, warm and L2-flushed, and checked to run one device
+     kernel a call, fills and memsets counted), and one run of each
      program (the batched sssp among them) under torch.profiler (device
      busy share, top kernels and aten ops; ``chiprun_out/profile_*.txt``).
 
@@ -107,6 +111,67 @@ def cuda_ms_cold(fn, reps: int = 20) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def kernels_per_call(fn, calls: int = 10) -> dict:
+    """{device kernel name: [launches, device ms] per call} of ``fn()``,
+    from torch.profiler over ``calls`` calls (fills and memsets count)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: [e.count / calls,
+                         e.self_device_time_total / 1e3 / calls]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def bucket_edge_cases(dev, g, lkeys) -> list:
+    """``bucket_ranks`` at wcc's route-key shape (W, 2^21) and
+    ``bucket_ranks_lanes`` at the batched plane's (W, M, Q), each exact
+    against its plain version where a chained scan over tiles can break:
+    random keys, sorted runs, one hub bucket (ranks up to M - 1 down a
+    row's whole chain of tiles), every key the sentinel, keys outside
+    [0, W] (rank 0, no count); for the lanes kernel also the main path's
+    union keys ``lkeys``. Membership: half the lanes of each entry that is
+    not a sentinel. Returns the case names."""
+    import torch
+    from repro_torch.kernels import ops, ref as kref
+
+    def cases(shape):
+        rnd = torch.randint(0, W + 1, shape, device=dev, dtype=torch.int32,
+                            generator=g)
+        bad = rnd.clone()
+        pick = torch.rand(shape, device=dev, generator=g)
+        bad[pick < 0.05] = -1
+        bad[(pick >= 0.05) & (pick < 0.1)] = W + 3
+        return {"random": rnd, "sorted": torch.sort(rnd, dim=1)[0],
+                "hub": torch.full_like(rnd, 3),
+                "all sentinel": torch.full_like(rnd, W), "out of range": bad}
+
+    names = []
+    for what, keys in cases((W, 1 << 21)).items():
+        got, want = ops.bucket_ranks(keys, W), kref.bucket_ranks_ref(keys, W)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"bucket_ranks {what} at ({W}, 2^21) differs from plain")
+        names.append(f"bucket_ranks {what}")
+    for what, keys in dict(cases(tuple(lkeys.shape)), union=lkeys).items():
+        lanes = ((torch.rand(keys.shape + (NQ,), device=dev, generator=g)
+                  < 0.5) & (keys != W)[..., None])
+        got = ops.bucket_ranks_lanes(keys, lanes, W)
+        want = kref.bucket_ranks_lanes_ref(keys, lanes, W)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"bucket_ranks_lanes {what} at {tuple(lanes.shape)} differs "
+              "from plain")
+        names.append(f"bucket_ranks_lanes {what}")
+    return names
 
 
 def timed(fn):
@@ -291,14 +356,6 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     errs = {}
 
-    keys = torch.randint(0, W + 1, (W, 1 << 21), device=dev,
-                         dtype=torch.int32, generator=g)
-    rk, ck = ops.bucket_ranks(keys, W)
-    rr, cr = kref.bucket_ranks_ref(keys, W)
-    check(torch.equal(rk, rr) and torch.equal(ck, cr),
-          "bucket_ranks differs from its plain version at (8, 2^21)")
-    errs["bucket_ranks"] = 0.0
-
     # the batched plane's union route keys at scale 20: the owners of the
     # union of every edge destination (u_cap = min(Q * e_cap, W * n_loc),
     # as the union CombinedMessage sizes it), half of the Q lanes member
@@ -312,12 +369,8 @@ def main() -> int:
                         W).to(torch.int32)
     lanes = ((torch.rand((W, union_cap, NQ), device=dev, generator=g)
               < 0.5) & (lkeys < W)[..., None])
-    got_l = ops.bucket_ranks_lanes(lkeys, lanes, W)
-    want_l = kref.bucket_ranks_lanes_ref(lkeys, lanes, W)
-    check(all(torch.equal(a, b) for a, b in zip(got_l, want_l)),
-          f"bucket_ranks_lanes differs from its plain version at "
-          f"({W}, {union_cap}, {NQ})")
-    errs["bucket_ranks_lanes"] = 0.0
+    bucket_cases = bucket_edge_cases(dev, g, lkeys)
+    errs["bucket_ranks"] = errs["bucket_ranks_lanes"] = 0.0
 
     def seg_case(vals, seg, n, comb, rtol=0.0, atol=0.0, what=""):
         """Kernel against plain: exact (NaN where the plain version has
@@ -372,9 +425,13 @@ def main() -> int:
           "segment_combine send side differs between two runs")
     torch.cuda.synchronize()
     errs["segment_combine"] = max(e1, e2, edge["max_abs_err"])
-    detail["kernel_checks"] = dict(errs, pagerank_host_setup_s=pr_host_s)
-    print(f"[2/5] kernels vs plain on the card: bucket_ranks (8, 2^21) "
-          f"exact; bucket_ranks_lanes ({W}, {union_cap}, {NQ}) exact; "
+    detail["kernel_checks"] = dict(errs, pagerank_host_setup_s=pr_host_s,
+                                   bucket_cases=bucket_cases)
+    print(f"[2/5] kernels vs plain on the card: bucket_ranks ({W}, 2^21) "
+          f"and bucket_ranks_lanes ({W}, {union_cap}, {NQ}) exact on "
+          f"{len(bucket_cases)} cases (random, sorted, one hub bucket, all "
+          f"sentinel, out of range; the lanes kernel also on the main "
+          f"path's union keys); "
           f"segment_combine at the pagerank plan (W={W}, "
           f"e_cap={e_cap}, u_cap={u_cap}, recv {recv_n}) f32 sum max|err| "
           f"{errs['segment_combine']:.3g} (rtol 1e-4, atol 1e-5), min/max/"
@@ -565,20 +622,56 @@ def main() -> int:
     # the first superstep's route keys: owner of each unique destination
     rkeys = torch.where(u_dst != routing.BIG, u_dst // wcc_pg.n_loc,
                         W).to(torch.int32)
-    b_ms = cuda_ms(lambda: ops.bucket_ranks(rkeys, W))
+
+    def bucket_times(what, fn):
+        """Warm and L2-flushed device ms of one call, and the device
+        kernels it runs: one launch of the kernel, no fill or memset."""
+        per_call = kernels_per_call(fn)
+        fills = sum(n for k, (n, _) in per_call.items()
+                    if "Memset" in k or "Fill" in k)
+        n = sum(n for n, _ in per_call.values())
+        check(n - fills == 1 and fills <= 1,
+              f"{what}: {n} device kernels per call ({fills} fills): "
+              f"{per_call}")
+        return dict(ms=cuda_ms(fn), cold_ms=cuda_ms_cold(fn),
+                    kernels_per_call=per_call)
+
+    rnd = torch.randint(0, W + 1, rkeys.shape, device=dev, dtype=torch.int32,
+                        generator=g)
+    b_t = {"sorted": bucket_times("bucket_ranks sorted",
+                                  lambda: ops.bucket_ranks(rkeys, W)),
+           "random": bucket_times("bucket_ranks random",
+                                  lambda: ops.bucket_ranks(rnd, W))}
+    b_ms = b_t["sorted"]["ms"]
     b_plain = cuda_ms(lambda: kref.bucket_ranks_ref(rkeys, W), reps=5)
     b_sort = cuda_ms(lambda: torch.sort(rkeys, dim=1, stable=True), reps=10)
     b_bytes = rkeys.numel() * 8 + W * W * 4
     b_bound = 1e3 * b_bytes / HBM_BYTES_PER_S
 
-    l_ms = cuda_ms(lambda: ops.bucket_ranks_lanes(lkeys, lanes, W))
+    l_rnd = torch.randint(0, W + 1, lkeys.shape, device=dev,
+                          dtype=torch.int32, generator=g)
+    lanes_rnd = ((torch.rand(lanes.shape, device=dev, generator=g) < 0.5)
+                 & (l_rnd < W)[..., None])
+    l_t = {"sorted": bucket_times(
+        "bucket_ranks_lanes sorted",
+        lambda: ops.bucket_ranks_lanes(lkeys, lanes, W)),
+        "random": bucket_times(
+        "bucket_ranks_lanes random",
+        lambda: ops.bucket_ranks_lanes(l_rnd, lanes_rnd, W))}
+    l_ms = l_t["sorted"]["ms"]
     l_plain = cuda_ms(lambda: kref.bucket_ranks_lanes_ref(lkeys, lanes, W),
                       reps=5)
     l_sort = cuda_ms(lambda: torch.sort(lkeys, dim=1, stable=True), reps=10)
-    # key and rank 4 bytes each plus Q membership bytes per entry, and
-    # the (B + 1) x (Q + 1) counts per row
-    l_bytes = lkeys.numel() * (8 + NQ) + W * (W + 1) * (NQ + 1) * 4
+    # key and rank 4 bytes each per entry, the Q membership bytes of each
+    # real entry (a sentinel entry's are zero by contract and dropped), and
+    # the (B + 1) x (Q + 1) counts per row; beside it the bound that reads
+    # every entry's membership (PRs 12-13's reckoning)
+    l_real = int((lkeys < W).sum())
+    l_counts_bytes = W * (W + 1) * (NQ + 1) * 4
+    l_bytes = lkeys.numel() * 8 + l_real * NQ + l_counts_bytes
+    l_bytes_all = lkeys.numel() * (8 + NQ) + l_counts_bytes
     l_bound = 1e3 * l_bytes / HBM_BYTES_PER_S
+    l_bound_all = 1e3 * l_bytes_all / HBM_BYTES_PER_S
 
     contrib = torch.rand((W, pr_pg.n_loc, 1), device=dev, generator=g)
     send_vals = contrib.gather(
@@ -644,7 +737,9 @@ def main() -> int:
              replaces="src/repro/kernels/bucket_route.py:87",
              launches=launches["bucket_ranks"],
              max_abs_err=errs["bucket_ranks"], ms=b_ms, plain_ms=b_plain,
-             bound_ms=b_bound, bound_by="bytes", library_ms=None),
+             bound_ms=b_bound, bound_by="bytes", library_ms=None,
+             cold_ms=b_t["sorted"]["cold_ms"], random_ms=b_t["random"]["ms"],
+             random_cold_ms=b_t["random"]["cold_ms"]),
         dict(name="segment_combine", route="cuda",
              source="src/repro_torch/kernels/csrc/segment_combine.cu",
              replaces="src/repro/kernels/segment_combine.py:101",
@@ -659,20 +754,33 @@ def main() -> int:
              launches=b_launches["bucket_ranks_lanes"],
              max_abs_err=errs["bucket_ranks_lanes"], ms=l_ms,
              plain_ms=l_plain, bound_ms=l_bound, bound_by="bytes",
-             library_ms=None),
+             library_ms=None, cold_ms=l_t["sorted"]["cold_ms"],
+             random_ms=l_t["random"]["ms"],
+             random_cold_ms=l_t["random"]["cold_ms"],
+             all_entry_bound_ms=l_bound_all),
     ]
     detail["timings"] = dict(
-        bucket_ranks=dict(shape=list(rkeys.shape), ms=b_ms, plain_ms=b_plain,
+        bucket_ranks=dict(shape=list(rkeys.shape), **b_t, plain_ms=b_plain,
                           stable_sort_ms=b_sort, bytes=b_bytes,
                           bound_ms=b_bound),
-        bucket_ranks_lanes=dict(shape=list(lanes.shape), ms=l_ms,
+        bucket_ranks_lanes=dict(shape=list(lanes.shape), **l_t,
                                 plain_ms=l_plain, stable_sort_ms=l_sort,
-                                bytes=l_bytes, bound_ms=l_bound),
+                                real_entries=l_real, bytes=l_bytes,
+                                bound_ms=l_bound, all_entry_bytes=l_bytes_all,
+                                all_entry_bound_ms=l_bound_all),
         segment_combine=dict(seg_t, **st, library=s_lib_name,
                              bound_ms=s_bound, all_entry_bound_ms=s_bound_all))
+
+    def warm_cold(t):
+        s, r = t["sorted"], t["random"]
+        return (f"sorted {s['ms']:.4f} / {s['cold_ms']:.4f}, random "
+                f"{r['ms']:.4f} / {r['cold_ms']:.4f} ms warm / L2 flushed, "
+                f"1 device kernel a call")
+
     print(f"[5/5] times at scale {FULL_SCALE}: bucket_ranks {list(rkeys.shape)}"
-          f" {b_ms:.3f} ms (plain {b_plain:.3f}, bound {b_bound:.3f}, library "
-          f"none; stable torch.sort {b_sort:.3f}); segment_combine per "
+          f" {warm_cold(b_t)} (plain {b_plain:.3f}, bound {b_bound:.4f}, "
+          f"library none; stable torch.sort {b_sort:.3f}); segment_combine "
+          f"per "
           f"superstep (send {list(send_vals.shape)} + recv "
           f"{list(recv_vals.shape)}) {s_ms:.4f} ms warm [send "
           f"{seg_t['send']['ms']:.4f}, recv {seg_t['recv']['ms']:.4f}], "
@@ -685,9 +793,10 @@ def main() -> int:
           f"{st['scatter_reduce_amin_ms']:.4f}; index_add_ with a dump row "
           f"{st['dump_row_index_add_ms']:.4f}; torch.segment_reduce "
           f"{st['segment_reduce_ms']:.4f}); "
-          f"bucket_ranks_lanes {list(lanes.shape)} {l_ms:.3f} ms (plain "
-          f"{l_plain:.3f}, bound {l_bound:.3f}, library none; stable "
-          f"torch.sort of the keys {l_sort:.3f}) "
+          f"bucket_ranks_lanes {list(lanes.shape)} {warm_cold(l_t)} (plain "
+          f"{l_plain:.3f}, bound {l_bound:.4f} reading the membership of the "
+          f"{l_real} real entries, {l_bound_all:.4f} of all entries; library "
+          f"none; stable torch.sort of the keys {l_sort:.3f}) "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
     out_dir = ROOT / "chiprun_out"

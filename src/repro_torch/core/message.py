@@ -162,7 +162,9 @@ def _combined_send_union(ctx, dst, valid, v, combiner, capacity,
     lane_seg.masked_fill_(~valid_l.reshape(W, q * m), u_cap * q)
     u_vals = combiner.segment_reduce(
         v.reshape(W, q * m, d), lane_seg, u_cap * q).reshape(W, u_cap, q, d)
-    lanes = torch.zeros((W, u_cap * q + 1), dtype=torch.bool,
+    # (dump column u_cap * Q, padded so that rows stay 16-byte aligned for
+    # the route kernel, which reads the rows in place)
+    lanes = torch.zeros((W, u_cap * q + 16), dtype=torch.bool,
                         device=v.device).scatter_(1, lane_seg, True)
     lanes = lanes[:, :u_cap * q].reshape(W, u_cap, q)  # (W, u_cap, Q)
 

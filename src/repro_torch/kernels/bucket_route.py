@@ -2,11 +2,14 @@
 ranks on the card (the routed exchange's permutation core; the port of
 the Pallas ``bucket_ranks_pallas``), and the same ranks with per-lane
 bucket histograms for the batched query plane (the port of
-``bucket_ranks_lanes_pallas``)."""
+``bucket_ranks_lanes_pallas``). Each call is one kernel launch and no
+memset: the kernels' scratch lives on here between calls (see
+:func:`_scratch`)."""
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -14,69 +17,114 @@ from repro_torch.kernels import build
 
 #: the kernel's bucket limit: B + 1 (buckets plus the sentinel) <= 64
 MAX_BUCKETS = 64
-CHUNK = 1024  # keys per block, fixed in the source
+#: rows ride on the launch grid's y dimension
+MAX_ROWS = 65535
 #: the lanes kernel's shared tile, (B + 1) x (Q + 1) int32, must fit this
 MAX_LANE_TILE_BYTES = 32768
+#: the status words' epochs run 1 .. EPOCH_LIMIT, then the words are zeroed
+EPOCH_LIMIT = 1 << 30
 
-_fn = None
-_lanes_fn = None
+_fns = None
 #: launches of each kernel since the last reset (kernels.ops owns resets)
 launches = 0
 lane_launches = 0
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
-        fn = build.library("bucket_route").bucket_ranks_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+class _Scratch:
+    """The kernels' scratch for one (device, stream): ``status``, the
+    look-back's status words, tagged with the call's epoch so that no call
+    reads another's; ``zero``, the ticket, the rows' finished-tile counts
+    and the lane accumulator, which every launch leaves zero. Both start
+    zeroed and are replaced, zeroed, only when a call needs more."""
+
+    def __init__(self, device):
+        self.device = device
+        self.status = torch.zeros(0, dtype=torch.int64, device=device)
+        self.zero = torch.zeros(0, dtype=torch.int64, device=device)
+        self.epoch = EPOCH_LIMIT
+
+    def take(self, status_words: int, zero_words: int):
+        """``(status, zero, epoch)`` for a call: at least that many 8-byte
+        status words and 4-byte zero words, and an epoch the status words
+        have not seen."""
+        if self.status.numel() < status_words or self.epoch >= EPOCH_LIMIT:
+            self.status = torch.zeros(max(status_words, 1), dtype=torch.int64,
+                                      device=self.device)
+            self.epoch = 0
+        if 2 * self.zero.numel() < zero_words:
+            self.zero = torch.zeros(-(-zero_words // 2), dtype=torch.int64,
+                                    device=self.device)
+        self.epoch += 1
+        return self.status, self.zero, self.epoch
 
 
-def _lanes_launcher():
-    global _lanes_fn
-    if _lanes_fn is None:
-        fn = build.library("bucket_route").bucket_ranks_lanes_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lanes_fn = fn
-    return _lanes_fn
+_scratches: Dict[Tuple[int, int], _Scratch] = {}
 
 
-def _check_buckets(num_buckets: int, what: str) -> int:
+def _scratch(device, stream: int) -> _Scratch:
+    """One scratch per (device, stream): launches on one stream run in
+    order, so they never share their scratch with a running launch."""
+    key = (device.index, stream)
+    if key not in _scratches:
+        _scratches[key] = _Scratch(device)
+    return _scratches[key]
+
+
+def _library():
+    global _fns
+    if _fns is None:
+        lib = build.library("bucket_route")
+        plain, lanes, words = (lib.bucket_ranks_launch,
+                               lib.bucket_ranks_lanes_launch,
+                               lib.bucket_ranks_status_words)
+        tail = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+        plain.argtypes = [ctypes.c_void_p] * 5 + tail + [
+            ctypes.c_uint, ctypes.c_void_p]
+        lanes.argtypes = [ctypes.c_void_p] * 7 + tail + [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_uint, ctypes.c_void_p]
+        plain.restype = lanes.restype = ctypes.c_int
+        words.argtypes = tail
+        words.restype = ctypes.c_longlong
+        _fns = plain, lanes, words
+    return _fns
+
+
+def _check(num_buckets: int, rows: int, what: str) -> int:
     nb = num_buckets + 1
     if nb > MAX_BUCKETS:
         raise ValueError(
             f"{what} kernel supports at most {MAX_BUCKETS - 1} buckets "
             f"plus the sentinel; got num_buckets={num_buckets}")
+    if rows > MAX_ROWS:
+        raise ValueError(f"{what} kernel takes at most {MAX_ROWS} rows, got "
+                         f"{rows}")
     return nb
 
 
 def bucket_ranks_cuda(keys: torch.Tensor, num_buckets: int):
     """``(rank (*B, M) int32, counts (*B, num_buckets) int32)`` for CUDA
     ``keys`` (``(*B, M)`` int32 in ``[0, num_buckets]``), ranked along the
-    last axis. Raises above the kernel's bucket limit."""
-    nb = _check_buckets(num_buckets, "bucket_ranks")
+    last axis; a key outside that range gets rank 0 and no count. Raises
+    above the kernel's bucket and row limits."""
+    batch, m = tuple(keys.shape[:-1]), keys.shape[-1]
+    rows = math.prod(batch)
+    nb = _check(num_buckets, rows, "bucket_ranks")
     if not keys.is_cuda:
         raise ValueError("bucket_ranks_cuda needs a CUDA tensor")
     global launches
-    batch, m = tuple(keys.shape[:-1]), keys.shape[-1]
-    rows = math.prod(batch)
     k = keys.reshape(rows, m).to(torch.int32).contiguous()
     rank = torch.empty_like(k)
-    counts = torch.zeros((rows, nb), dtype=torch.int32, device=k.device)
-    if rows and m:
-        nchunks = -(-m // CHUNK)
-        scratch = torch.empty(rows * nb * nchunks, dtype=torch.int32,
-                              device=k.device)
+    if not (rows and m):
+        counts = torch.zeros((rows, nb), dtype=torch.int32, device=k.device)
+    else:
+        plain, _, words = _library()
+        counts = torch.empty((rows, nb), dtype=torch.int32, device=k.device)
         stream = torch.cuda.current_stream(k.device).cuda_stream
-        err = _launcher()(k.data_ptr(), rank.data_ptr(), counts.data_ptr(),
-                          scratch.data_ptr(), rows, m, nb, stream)
+        status, zero, epoch = _scratch(k.device, stream).take(
+            words(rows, m, nb), 2)
+        err = plain(k.data_ptr(), rank.data_ptr(), counts.data_ptr(),
+                    status.data_ptr(), zero.data_ptr(), rows, m, nb, epoch,
+                    stream)
         if err:
             raise RuntimeError(f"bucket_ranks kernel launch failed: CUDA "
                                f"error {err}")
@@ -89,12 +137,15 @@ def bucket_ranks_lanes_cuda(keys: torch.Tensor, lanes: torch.Tensor,
                             num_buckets: int):
     """``(rank (*B, M), counts (*B, num_buckets), lane_counts (*B,
     num_buckets, Q))`` int32 for CUDA ``keys`` (``(*B, M)`` int32 in
-    ``[0, num_buckets]``) and ``lanes`` (``(*B, M, Q)`` bool or uint8
-    membership, all-False on sentinel rows — not checked here). Raises
-    above the bucket limit or when the (B + 1) x (Q + 1) int32 tile
-    exceeds ``MAX_LANE_TILE_BYTES``."""
-    nb = _check_buckets(num_buckets, "bucket_ranks_lanes")
+    ``[0, num_buckets]``) and ``lanes`` (``(*B, M, Q)`` bool, or uint8
+    0/1, membership, all-False on sentinel rows — the kernel does not read
+    them; each row's (M, Q) block dense, the rows read in place wherever
+    they lie). A key outside ``[0, num_buckets]`` gets rank 0 and no count.
+    Raises above the bucket and row limits or when the (B + 1) x (Q + 1)
+    int32 tile exceeds ``MAX_LANE_TILE_BYTES``."""
     batch, m = tuple(keys.shape[:-1]), keys.shape[-1]
+    rows = math.prod(batch)
+    nb = _check(num_buckets, rows, "bucket_ranks_lanes")
     if tuple(lanes.shape[:-1]) != tuple(keys.shape):
         raise ValueError(f"lanes {tuple(lanes.shape)} do not match keys "
                          f"{tuple(keys.shape)} + (Q,)")
@@ -110,22 +161,27 @@ def bucket_ranks_lanes_cuda(keys: torch.Tensor, lanes: torch.Tensor,
     elif lanes.dtype != torch.uint8:
         raise ValueError(f"lanes must be bool or uint8, got {lanes.dtype}")
     global lane_launches
-    rows = math.prod(batch)
     k = keys.reshape(rows, m).to(torch.int32).contiguous()
-    lm = lanes.reshape(rows, m, q).contiguous()
+    lm = lanes.reshape(rows, m, q)
+    if lm.stride(2) != 1 or lm.stride(1) != q:
+        lm = lm.contiguous()  # rows may lie apart; within a row, (M, Q) dense
     rank = torch.empty_like(k)
-    counts = torch.zeros((rows, nb), dtype=torch.int32, device=k.device)
-    lane_counts = torch.zeros((rows, nb, q), dtype=torch.int32,
-                              device=k.device)
-    if rows and m and q:
-        nchunks = -(-m // CHUNK)
-        scratch = torch.empty(rows * nb * nchunks, dtype=torch.int32,
-                              device=k.device)
+    if not (rows and m):
+        counts = torch.zeros((rows, nb), dtype=torch.int32, device=k.device)
+        lane_counts = torch.zeros((rows, nb, q), dtype=torch.int32,
+                                  device=k.device)
+    else:
+        _, launch, words = _library()
+        counts = torch.empty((rows, nb), dtype=torch.int32, device=k.device)
+        lane_counts = torch.empty((rows, nb, q), dtype=torch.int32,
+                                  device=k.device)
         stream = torch.cuda.current_stream(k.device).cuda_stream
-        err = _lanes_launcher()(
-            k.data_ptr(), lm.data_ptr(), rank.data_ptr(), counts.data_ptr(),
-            lane_counts.data_ptr(), scratch.data_ptr(), rows, m, nb, q,
-            stream)
+        status, zero, epoch = _scratch(k.device, stream).take(
+            words(rows, m, nb), 2 + rows + rows * nb * q)
+        err = launch(k.data_ptr(), lm.data_ptr(), rank.data_ptr(),
+                     counts.data_ptr(), lane_counts.data_ptr(),
+                     status.data_ptr(), zero.data_ptr(), rows, m, nb, q,
+                     lm.stride(0), epoch, stream)
         if err:
             raise RuntimeError(f"bucket_ranks_lanes kernel launch failed: "
                                f"CUDA error {err}")

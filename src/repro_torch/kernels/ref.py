@@ -34,7 +34,8 @@ def bucket_ranks_ref(keys, num_buckets: int):
     Returns:
       ``(rank (*B, M) int32, counts (*B, B) int32)``: the stable arrival
       rank of each key within its bucket along the last axis, and the
-      occupancy of the real buckets.
+      occupancy of the real buckets. A key outside ``[0, num_buckets]``
+      gets rank 0 and no count, as in the Pallas kernel.
 
     O(M·B) work, one masked prefix count per bucket.
     """
@@ -64,7 +65,8 @@ def bucket_ranks_lanes_ref(keys, lanes, num_buckets: int):
     Returns:
       ``(rank (*B, M), counts (*B, B), lane_counts (*B, B, Q))`` int32;
       ``lane_counts[..., b, q]`` counts lane q's entries in bucket b (the
-      sentinel bucket is dropped).
+      sentinel bucket, and keys outside ``[0, num_buckets]``, are
+      dropped).
     """
     rank, counts = bucket_ranks_ref(keys, num_buckets)
     batch, m, q = tuple(keys.shape[:-1]), keys.shape[-1], lanes.shape[-1]

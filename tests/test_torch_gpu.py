@@ -32,7 +32,136 @@ def test_bucket_ranks_kernel_matches_plain(cuda, b, m):
     assert torch.equal(rank, want_r) and torch.equal(counts, want_c)
 
 
-# One tile of the kernel is 256 threads x 8 entries.
+# One tile of the bucket kernels is 512 threads x 16 keys.
+RANK_TILE = 8192
+
+
+def _rank_keys(case, rows, m, b):
+    """Keys of a named case, made on the CPU from a seed: cases where a
+    chained scan over tiles can break."""
+    g = torch.Generator().manual_seed(len(case) + m)
+    if case == "hub":  # one bucket: ranks up to M - 1, a long tile chain
+        return torch.full((rows, m), 3, dtype=torch.int32)
+    if case == "sentinel":
+        return torch.full((rows, m), b, dtype=torch.int32)
+    keys = torch.randint(0, b + 1, (rows, m), generator=g, dtype=torch.int32)
+    if case == "sorted":  # runs of 0, 1, ..., then the sentinel tail
+        keys = torch.sort(keys, dim=1)[0]
+        keys[:, m // 2:] = b
+    elif case == "out of range":  # -1 and B + 3: rank 0, no count
+        pick = torch.rand(rows, m, generator=g)
+        keys[pick < 0.1] = -1
+        keys[(pick >= 0.1) & (pick < 0.2)] = b + 3
+    return keys
+
+
+_RANK_CASES = [("hub", 2, (1 << 21) + 5, 8),
+               ("sorted", 8, 3 * RANK_TILE + 17, 8),
+               ("random", 8, 3 * RANK_TILE + 17, 8),
+               ("sentinel", 3, RANK_TILE + 1, 8), ("random", 8, 1, 8),
+               ("random", 1, RANK_TILE - 1, 8), ("random", 1, RANK_TILE, 8),
+               ("random", 1, RANK_TILE + 1, 8), ("random", 3, 5000, 63),
+               ("sorted", 1, 40 * RANK_TILE, 63),
+               ("out of range", 4, 3 * RANK_TILE + 5, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,rows,m,b", _RANK_CASES)
+def test_bucket_ranks_kernel_chain_cases(cuda, case, rows, m, b):
+    """Exact against the plain version where the look-back can go wrong."""
+    keys = _rank_keys(case, rows, m, b).to(cuda)
+    rank, counts = ops.bucket_ranks(keys, b)
+    want_r, want_c = ref.bucket_ranks_ref(keys, b)
+    torch.cuda.synchronize()
+    assert torch.equal(rank, want_r) and torch.equal(counts, want_c)
+    if case == "out of range":
+        assert not rank[(keys < 0) | (keys > b)].any()
+
+
+def _lane_bits(keys, q, b, seed):
+    """Membership, half the lanes of each real entry, none of a sentinel
+    entry (the union route's contract); out-of-range entries carry bits."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(keys.shape + (q,), generator=g) < 0.5) & \
+        (keys != b)[..., None]
+
+
+_LANE_CASES = [(c, 4, 2 * RANK_TILE + 3, 8, q)
+               for c in ("sorted", "random") for q in (1, 5, 16, 32, 33, 64)]
+_LANE_CASES += [("hub", 1, (1 << 20) + 5, 8, 32),
+                ("sentinel", 3, RANK_TILE + 1, 8, 32), ("random", 8, 1, 8, 32),
+                ("random", 1, RANK_TILE + 1, 63, 7),
+                ("random", 2, 100, 8, 0),
+                ("out of range", 4, 3 * RANK_TILE + 5, 8, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,rows,m,b,q", _LANE_CASES)
+def test_bucket_ranks_lanes_kernel_chain_cases(cuda, case, rows, m, b, q):
+    """Exact against the plain version; rows 1 of the multi-row cases hold
+    only sentinels."""
+    keys = _rank_keys(case, rows, m, b)
+    if rows > 1:
+        keys[1] = b
+    lanes = _lane_bits(keys, q, b, m).to(cuda)
+    keys = keys.to(cuda)
+    got = ops.bucket_ranks_lanes(keys, lanes, b)
+    want = ref.bucket_ranks_lanes_ref(keys, lanes, b)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,pad,q,dtype", [
+    ("random", 1, 32, torch.bool), ("sorted", 16, 32, torch.bool),
+    ("random", 16, 32, torch.uint8), ("random", 16, 5, torch.bool),
+    ("random", 3, 64, torch.bool)])
+def test_bucket_ranks_lanes_kernel_reads_rows_in_place(cuda, case, pad, q,
+                                                      dtype):
+    """Membership rows that lie apart, as the union CombinedMessage leaves
+    them (a slice of a (rows, M * Q + pad) buffer), read where they lie,
+    aligned for 16-byte loads or not; uint8 0/1 membership as bool. Exact."""
+    keys = _rank_keys(case, 4, 2 * RANK_TILE + 3, 8)
+    rows, m = keys.shape
+    buf = torch.zeros(rows, m * q + pad, dtype=dtype)
+    buf[:, :m * q] = _lane_bits(keys, q, 8, pad).reshape(rows, m * q)
+    lanes = buf.to(cuda)[:, :m * q].reshape(rows, m, q)
+    assert not lanes.is_contiguous()
+    keys = keys.to(cuda)
+    got = ops.bucket_ranks_lanes(keys, lanes, 8)
+    want = ref.bucket_ranks_lanes_ref(keys, lanes, 8)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.gpu
+def test_bucket_kernels_are_bit_identical_over_50_launches(cuda):
+    """50 launches of each kernel, two shapes in turn, so every call meets
+    status words and a ticket left by a call of another shape: the epoch
+    and the zero-restored scratch must keep them apart."""
+    small = _rank_keys("random", 8, 3 * RANK_TILE + 17, 8).to(cuda)
+    big = _rank_keys("random", 8, 40 * RANK_TILE + 1, 8).to(cuda)
+    lanes = _lane_bits(small.cpu(), 32, 8, 1).to(cuda)
+    first = {}
+    for i in range(50):
+        for name, keys in (("small", small), ("big", big)):
+            got = ops.bucket_ranks(keys, 8)
+            first.setdefault(name, got)
+            assert all(torch.equal(a, w) for a, w in zip(got, first[name]))
+        got = ops.bucket_ranks_lanes(small, lanes, 8)
+        first.setdefault("lanes", got)
+        assert all(torch.equal(a, w) for a, w in zip(got, first["lanes"]))
+    torch.cuda.synchronize()
+    for name, keys in (("small", small), ("big", big)):
+        want = ref.bucket_ranks_ref(keys, 8)
+        assert all(torch.equal(a, w) for a, w in zip(first[name], want))
+    want = ref.bucket_ranks_lanes_ref(small, lanes, 8)
+    assert all(torch.equal(a, w) for a, w in zip(first["lanes"], want))
+
+
+# One tile of the segment kernel is 256 threads x 8 entries.
 TILE = 2048
 
 

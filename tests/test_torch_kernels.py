@@ -118,6 +118,74 @@ def test_bucket_ranks_lanes_sentinel_bucket_is_dropped():
     assert lane_counts.tolist() == [[[1, 1], [1, 1]]]
 
 
+@pytest.mark.parametrize("b,q,seed", [(4, 5, 6), (8, 33, 7)])
+def test_bucket_ranks_out_of_range_keys_get_rank_zero_and_no_count(b, q, seed):
+    """Keys -1 and B + 3 lie outside the [0, B] contract. The Pallas
+    kernels give them rank 0 and count them in no bucket and no lane, and
+    so do the plain versions (the CUDA kernels: tests/test_torch_gpu.py).
+    The JAX reference agrees on every count and on the rank of every key
+    in range; its rank of an out-of-range key is what take_along_axis
+    gathers there (ROADMAP fault 6), so ranks are held to it in range
+    only. Out-of-range entries carry lane bits, which every version drops."""
+    rng = np.random.default_rng(seed)
+    m = 700
+    keys = rng.integers(0, b + 1, m).astype(np.int32)
+    bad = rng.random(m) < 0.2
+    keys[bad] = np.where(rng.random(int(bad.sum())) < 0.5, -1, b + 3)
+    lanes = (rng.random((m, q)) < 0.4) & (keys != b)[:, None]
+    inside = ~bad
+    rank, counts = ref.bucket_ranks_ref(torch.from_numpy(keys), b)
+    l_rank, l_counts, lane_counts = ref.bucket_ranks_lanes_ref(
+        torch.from_numpy(keys), torch.from_numpy(lanes), b)
+    assert (rank.numpy()[bad] == 0).all()
+    np.testing.assert_array_equal(l_rank.numpy(), rank.numpy())
+    np.testing.assert_array_equal(l_counts.numpy(), counts.numpy())
+    jk, jl = jnp.asarray(keys), jnp.asarray(lanes)
+    k_rank, k_counts = jops.bucket_ranks(jk, b, use_kernel=True,
+                                         interpret=True)
+    kl_rank, kl_counts, kl_lanes = jops.bucket_ranks_lanes(
+        jk, jl, b, use_kernel=True, interpret=True)
+    for want in (k_rank, kl_rank):
+        np.testing.assert_array_equal(rank.numpy(), _np(want))
+    j_rank, j_counts = jref.bucket_ranks_ref(jk, b)
+    _, jl_counts, jl_lanes = jref.bucket_ranks_lanes_ref(jk, jl, b)
+    np.testing.assert_array_equal(rank.numpy()[inside], _np(j_rank)[inside])
+    for want in (k_counts, kl_counts, j_counts, jl_counts):
+        np.testing.assert_array_equal(counts.numpy(), _np(want))
+    for want in (kl_lanes, jl_lanes):
+        np.testing.assert_array_equal(lane_counts.numpy(), _np(want))
+
+
+def test_bucket_kernels_reject_too_many_rows():
+    keys = torch.zeros(kbucket.MAX_ROWS + 1, 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 65535 rows"):
+        kbucket.bucket_ranks_cuda(keys, 4)
+    with pytest.raises(ValueError, match="at most 65535 rows"):
+        kbucket.bucket_ranks_lanes_cuda(
+            keys, torch.zeros(kbucket.MAX_ROWS + 1, 1, 1, dtype=torch.bool), 4)
+
+
+def test_bucket_scratch_epochs_and_growth():
+    """The kernels' scratch: a new epoch every call; zeroed status words
+    (epoch 1 again) when a call needs more of them or the epochs run out;
+    zero words that only grow."""
+    s = kbucket._Scratch(torch.device("cpu"))
+    status, zero, epoch = s.take(10, 2)
+    assert epoch == 1 and status.numel() == 10 and zero.numel() == 1
+    assert not status.any() and not zero.any()
+    again, zero2, epoch = s.take(6, 2)
+    assert epoch == 2 and again is status and zero2 is zero
+    status.fill_(7)  # what a launch leaves in its status words
+    grown, zero3, epoch = s.take(11, 9)
+    assert epoch == 1 and grown.numel() == 11 and not grown.any()
+    assert 2 * zero3.numel() >= 9 and not zero3.any()
+    s.epoch = kbucket.EPOCH_LIMIT - 1
+    assert s.take(5, 2)[2] == kbucket.EPOCH_LIMIT
+    grown.fill_(7)
+    fresh, _, epoch = s.take(5, 2)
+    assert epoch == 1 and fresh is not grown and not fresh.any()
+
+
 def test_bucket_ranks_lanes_kernel_rejects_what_it_cannot_hold():
     keys = torch.zeros(2, 4, dtype=torch.int32)
     with pytest.raises(ValueError, match="at most 63 buckets"):
