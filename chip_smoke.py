@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives the port's two main paths on the card: R-MAT generator →
+drives the port's main paths on the card: R-MAT generator →
 partitioner → plans → channels → host-driven superstep loop →
-``Engine.run`` → oracle check for ``wcc:basic`` and ``pagerank:scatter``,
+``Engine.run`` → oracle check for ``wcc:basic``, ``pagerank:scatter`` and
+the composed S-V program ``sv:composed`` (RequestRespond, ScatterCombine,
+CombinedMessage and full pointer jumping under one ``compose.Stacked``),
 and the batched query plane — ``Engine.run_batch`` of Q=32 sources of
 ``reach:basic`` and ``sssp:basic`` through the union CombinedMessage —
 checked against solo runs and the host oracles. Phases, one line each:
@@ -14,20 +16,32 @@ checked against solo runs and the host oracles. Phases, one line each:
   1. environment and kernel build;
   2. each kernel against its plain PyTorch version on the card, the two
      bucket kernels at the main path's full shapes on random, sorted,
-     one-bucket, all-sentinel and out-of-range keys;
+     one-bucket, all-sentinel and out-of-range keys, and
+     ``segment_combine`` as the S-V neighbour minimum's int32 ``min`` at
+     the scale-20 S-V plan (sender and receiver side: vertex ids,
+     INT32_MAX/INT32_MIN, one hub segment, every id dropped);
   3. reference traffic counts at scale 12, W=8 (exact), solo and batched
-     (every batched lane bit-identical to its solo run);
-  4. both main paths at R-MAT scale 20, W=8, checked against the host
+     (every batched lane bit-identical to its solo run), and the nine
+     composition-layer programs (six S-V variants, ``wcc:switch``,
+     ``pj:basic``/``reqresp``) with their bytes per channel, the S-V
+     variants' labels identical and ``sv:composed`` ahead of ``sv:basic``
+     on supersteps and bytes;
+  4. the main paths at R-MAT scale 20, W=8, checked against the host
      oracles, each with its kernels' launch counts (counts reset just
      before the path and read just after): pagerank run twice
-     (bit-identical); every lane of the batched runs bit-identical to
-     its solo run, queries/s batched and solo, peak device memory;
+     (bit-identical); ``sv:composed`` against ``sv:basic`` (supersteps,
+     bytes, ms a superstep, wall time, peak memory), ``wcc:switch`` and
+     ``pj:reqresp`` beside them; every lane of the batched runs
+     bit-identical to its solo run, queries/s batched and solo, peak
+     device memory;
   5. each kernel's time against its plain version, its bound and a
      PyTorch yardstick at the scale-20 shapes (the bucket kernels also on
      random keys, warm and L2-flushed, and checked to run one device
-     kernel a call, fills and memsets counted), and one run of each
-     program (the batched sssp among them) under torch.profiler (device
-     busy share, top kernels and aten ops; ``chiprun_out/profile_*.txt``).
+     kernel a call, fills and memsets counted; ``segment_combine`` also
+     as int32 ``min`` at the S-V plan), and one run of each program (the
+     batched sssp and ``sv:composed`` among them) under torch.profiler
+     (device busy share, top kernels and aten ops;
+     ``chiprun_out/profile_*.txt``).
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -49,6 +63,40 @@ W = 8
 FULL_SCALE = 20
 NQ = 32  # queries per batched run
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+INT32_MAX, INT32_MIN = 2**31 - 1, -2**31
+
+# (supersteps, messages, bytes, bytes by channel) of the composition
+# layer's programs at scale 12, W=8, random partitioner: the S-V variants
+# and wcc:switch on rmat(12, edge_factor=8, seed=2) symmetrised, pointer
+# jumping on the registry's scale-12 forest (the JAX package's host-mode
+# Engine gives these counts)
+SV_REFS = {
+    "sv:composed": (3, 39526, 159356, {
+        "sv/neighbor_min": 132204, "sv/jump": 21776, "sv/merge": 2504,
+        "sv/pointer/request": 1436, "sv/pointer/respond": 1436}),
+    "sv:basic": (4, 78907, 631256, {
+        "combined_message": 352544, "basic_reqresp/request": 138112,
+        "basic_reqresp/respond": 138112, "merge_message": 2488}),
+    "sv:reqresp": (4, 49005, 373536, {
+        "combined_message": 352544, "request_respond/request": 9252,
+        "request_respond/respond": 9252, "merge_message": 2488}),
+    "sv:scatter": (4, 78907, 454984, {
+        "scatter_combine": 176272, "basic_reqresp/request": 138112,
+        "basic_reqresp/respond": 138112, "merge_message": 2488}),
+    "sv:both": (4, 49005, 197264, {
+        "scatter_combine": 176272, "request_respond/request": 9252,
+        "request_respond/respond": 9252, "merge_message": 2488}),
+    "sv:monolithic": (4, 222294, 1778352, {
+        "mono_message": 1502128, "basic_reqresp/request": 138112,
+        "basic_reqresp/respond": 138112}),
+    "wcc:switch": (6, 55092, 220396, {
+        "wcc/dense/scatter_combine": 220340,
+        "wcc/sparse/combined_message": 56}),
+    "pj:basic": (6, 42990, 343920, {
+        "basic_reqresp/request": 171960, "basic_reqresp/respond": 171960}),
+    "pj:reqresp": (6, 14346, 57384, {
+        "request_respond/request": 28692, "request_respond/respond": 28692}),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -113,24 +161,42 @@ def cuda_ms_cold(fn, reps: int = 20) -> float:
     return total / reps
 
 
+def traced(fn, attempts: int = 3):
+    """``fn()`` under torch.profiler (CPU and CUDA activity): its result
+    and the trace's ``key_averages()``. Every traced call here launches
+    device kernels, so a trace without a single device event is a
+    failure of the tracer, not a measurement: it is taken again, up to
+    ``attempts`` times, and then the run fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(e.device_type == DeviceType.CUDA for e in events):
+            return out, events
+        print("chip_smoke: torch.profiler recorded no device event; "
+              "tracing again", file=sys.stderr, flush=True)
+    raise SmokeFailure(
+        f"torch.profiler recorded no device event in {attempts} traces")
+
+
 def kernels_per_call(fn, calls: int = 10) -> dict:
     """{device kernel name: [launches, device ms] per call} of ``fn()``,
     from torch.profiler over ``calls`` calls (fills and memsets count)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    _, events = traced(lambda: [fn() for _ in range(calls)])
     return {e.key[:80]: [e.count / calls,
                          e.self_device_time_total / 1e3 / calls]
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+            for e in events if e.device_type == DeviceType.CUDA}
 
 
 def bucket_edge_cases(dev, g, lkeys) -> list:
@@ -264,6 +330,53 @@ def segment_edge_cases(plan, g, seg_case) -> dict:
     return dict(max_abs_err=err, cases=len(cases) + 3)
 
 
+def canon(labels):
+    """Component labels renumbered by first occurrence (numpy): two
+    labelings of one partition into components give equal arrays."""
+    import numpy as np
+
+    _, first, inv = np.unique(labels, return_index=True, return_inverse=True)
+    rank = np.empty(len(first), np.int64)
+    rank[np.argsort(first)] = np.arange(len(first))
+    return rank[inv.reshape(-1)]
+
+
+def sv_min_cases(plan, n_loc, g, seg_case) -> list:
+    """``segment_combine`` as the S-V neighbour minimum's int32 ``min`` on
+    the scatter plan, exact against its plain version: the sender side
+    (per-edge vertex ids into ``u_cap`` segments, as the channel gathers
+    them) and the receiver side (the wire into ``n_loc`` segments in
+    ``recv_sorted`` order), each with vertex ids, INT32_MAX (the identity,
+    what pads carry) and INT32_MIN among them, one hub segment over row
+    0, and every id dropped. Returns the case names."""
+    import torch
+
+    dev = plan.edge_seg.device
+    ids = torch.arange(plan.num_workers * n_loc, dtype=torch.int32,
+                       device=dev).reshape(plan.num_workers, n_loc)
+    sides = {
+        "send": (ids.gather(1, plan.edge_src.long())[..., None],
+                 plan.edge_seg, plan.u_cap),
+        "recv": (torch.randint(0, plan.num_workers * n_loc,
+                               plan.recv_sorted.shape + (1,), device=dev,
+                               generator=g, dtype=torch.int32),
+                 plan.recv_sorted, n_loc)}
+    names = []
+    for side, (vals, seg, n) in sides.items():
+        extreme = vals.clone()
+        pick = torch.rand(vals.shape, device=dev, generator=g)
+        extreme[pick < 0.3] = INT32_MAX
+        extreme[(pick >= 0.3) & (pick < 0.4)] = INT32_MIN
+        hub = seg.clone()
+        hub[0] = 0
+        for what, v, sg in (("ids", vals, seg), ("extremes", extreme, seg),
+                            ("hub", vals, hub),
+                            ("all dropped", vals, torch.full_like(seg, n))):
+            seg_case(v, sg, n, "min", what=f"sv {side} {what}")
+            names.append(f"{side} {what}")
+    return names
+
+
 def profile_runs(jobs, out_dir: Path) -> dict:
     """One traced run per (key, run function, untraced wall ms) under
     torch.profiler, and the kernels and aten ops that take the device
@@ -271,9 +384,7 @@ def profile_runs(jobs, out_dir: Path) -> dict:
     traced run's device time over its own wall time (one run, slowed by
     the profiler); ``busy_vs_untraced`` is the same device time over the
     wall time of the untraced phase-4 run of that program (two runs)."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def dev_us(e, total=False):
         name = "device_time_total" if total else "self_device_time_total"
@@ -281,10 +392,7 @@ def profile_runs(jobs, out_dir: Path) -> dict:
 
     out = {}
     for key, fn, untraced_ms in jobs:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            res, wall_ms = timed(fn)
-        events = prof.key_averages()
+        (res, wall_ms), events = traced(lambda: timed(fn))
         kernels = [e for e in events if e.device_type == DeviceType.CUDA]
         ops_ = [e for e in events if e.device_type == DeviceType.CPU
                 and e.key.startswith("aten::")]
@@ -311,6 +419,7 @@ def profile_runs(jobs, out_dir: Path) -> dict:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -321,8 +430,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
 
-    from repro_torch.algorithms import REGISTRY, get_program
+    from repro_torch.algorithms import REGISTRY, common, get_program
+    from repro_torch.algorithms.common import pj_converge
     from repro_torch.core import combiners as cb
+    from repro_torch.core import compose
     from repro_torch.core import routing
     from repro_torch.graph import generators as gen, pgraph
     from repro_torch.kernels import build, ops, ref as kref
@@ -353,6 +464,19 @@ def main() -> int:
                                    build=REGISTRY["pagerank:scatter"].build)
     pr_host_s = time.perf_counter() - t
     plan = pr_pg.scatter_out
+    # the wcc:basic partition: its recipe and plans are the S-V ones, so
+    # sv:composed, sv:basic and wcc:switch run on it too
+    t_w = time.perf_counter()
+    wcc_spec = REGISTRY["wcc:basic"]
+    check(all(REGISTRY[k].make_graph is wcc_spec.make_graph
+              and REGISTRY[k].build == wcc_spec.build
+              for k in ("sv:composed", "sv:basic", "wcc:switch")),
+          "the S-V programs no longer share wcc:basic's recipe and plans")
+    wcc_graph = wcc_spec.make_graph(FULL_SCALE, 0)
+    wcc_pg = pgraph.partition_graph(wcc_graph, W, "random",
+                                    build=wcc_spec.build)
+    wcc_host_s = time.perf_counter() - t_w
+    sv_plan = wcc_pg.scatter_out
     g = torch.Generator(device=dev).manual_seed(0)
     errs = {}
 
@@ -418,6 +542,7 @@ def main() -> int:
     seg_case(torch.tensor([True, False, False, True, True], device=dev),
              empty_s, 6, "or", what="empty/dropped bool")
     edge = segment_edge_cases(plan, g, seg_case)
+    sv_cases = sv_min_cases(sv_plan, wcc_pg.n_loc, g, seg_case)
     # two runs of pagerank's send side: bit-identical (no float atomics)
     send_a = ops.segment_combine(f32, plan.edge_seg, u_cap, "sum")
     send_b = ops.segment_combine(f32, plan.edge_seg, u_cap, "sum")
@@ -426,7 +551,9 @@ def main() -> int:
     torch.cuda.synchronize()
     errs["segment_combine"] = max(e1, e2, edge["max_abs_err"])
     detail["kernel_checks"] = dict(errs, pagerank_host_setup_s=pr_host_s,
-                                   bucket_cases=bucket_cases)
+                                   wcc_host_setup_s=wcc_host_s,
+                                   bucket_cases=bucket_cases,
+                                   sv_int32_min_cases=sv_cases)
     print(f"[2/5] kernels vs plain on the card: bucket_ranks ({W}, 2^21) "
           f"and bucket_ranks_lanes ({W}, {union_cap}, {NQ}) exact on "
           f"{len(bucket_cases)} cases (random, sorted, one hub bucket, all "
@@ -439,8 +566,11 @@ def main() -> int:
           f"hold the identity; {edge['cases']} edge cases at ({W}, {e_cap}) "
           f"(a 2^20-entry hub, all dropped, N=1, tile-edge gaps, half-row "
           f"tail, D=1/3/5, NaN/inf, int32 wrap) exact but for random f32 "
-          f"sums; send side bit-identical in two runs "
-          f"({time.perf_counter() - t:.1f} s)", flush=True)
+          f"sums; send side bit-identical in two runs; int32 min at the "
+          f"S-V plan (send ({W}, {sv_plan.e_cap}) into {sv_plan.u_cap}, "
+          f"recv {tuple(sv_plan.recv_sorted.shape)} into {wcc_pg.n_loc}) "
+          f"exact on {len(sv_cases)} cases (ids, INT32_MAX/MIN, one hub, "
+          f"all dropped) ({time.perf_counter() - t:.1f} s)", flush=True)
 
     # -- 3. reference counts at scale 12 ------------------------------------
     t = time.perf_counter()
@@ -483,21 +613,58 @@ def main() -> int:
             steps=got[0], msgs=got[1], bytes=got[2], queries=NQ,
             query_steps=res.query_steps.tolist())
     batch3_s = time.perf_counter() - t_b
-    detail["reference_counts"] = dict(counts, batched_part_s=batch3_s)
+    # the composition layer's programs: every count and every channel's
+    # bytes exact, each oracle, the S-V variants' labels identical
+    t_s = time.perf_counter()
+    social = refs["wcc:basic"][0]
+    social_pg = pgraph.partition_graph(social, W, "random",
+                                       build=REGISTRY["sv:composed"].build)
+    pj_spec = REGISTRY["pj:basic"]
+    forest = pj_spec.make_graph(12, 0)
+    forest_in = pj_spec.inputs(forest, 0)
+    forest_pg = pgraph.partition_graph(forest, W, "random",
+                                       build=pj_spec.build)
+    sv_labels = {}
+    for key, want in SV_REFS.items():
+        spec = REGISTRY[key]
+        graph, pg, inputs = (
+            (forest, forest_pg, forest_in) if key.startswith("pj:")
+            else (social, social_pg, {}))
+        res = eng.run(spec.factory(**inputs), pg)
+        got = (res.steps, res.total_msgs, res.total_bytes,
+               res.bytes_by_channel)
+        check(got == want, f"{key} scale-12 counts {got} != {want}")
+        check(res.halted, f"{key} scale-12 did not halt")
+        spec.check(graph, pg, res, inputs)
+        if key.startswith("sv:"):
+            sv_labels[key] = res.output
+        counts[key] = dict(steps=got[0], msgs=got[1], bytes=got[2],
+                           bytes_by_channel=res.bytes_by_channel)
+    for key, labels in sv_labels.items():
+        check(np.array_equal(labels, sv_labels["sv:basic"]),
+              f"{key} labels differ from sv:basic's at scale 12")
+    composed, basic = counts["sv:composed"], counts["sv:basic"]
+    check(composed["steps"] < basic["steps"]
+          and composed["bytes"] < basic["bytes"],
+          "sv:composed does not beat sv:basic on supersteps and bytes at "
+          "scale 12")
+    sv3_s = time.perf_counter() - t_s
+    detail["reference_counts"] = dict(counts, batched_part_s=batch3_s,
+                                      composition_part_s=sv3_s)
     print(f"[3/5] scale-12 reference counts exact: " + "; ".join(
         f"{k} {v['steps']}/{v['msgs']}/{v['bytes']}"
         for k, v in counts.items()) +
         f"; all {NQ} lanes of each batched run bit-identical to their solo "
-        f"runs ({time.perf_counter() - t:.1f} s, batched part "
-        f"{batch3_s:.1f} s)", flush=True)
+        f"runs; bytes of every channel of the {len(SV_REFS)} composition-"
+        f"layer programs exact, their oracles ok, the six S-V variants' "
+        f"labels identical, sv:composed ahead of sv:basic "
+        f"({composed['steps']} vs {basic['steps']} supersteps, "
+        f"{composed['bytes']} vs {basic['bytes']} bytes) "
+        f"({time.perf_counter() - t:.1f} s, batched part {batch3_s:.1f} s, "
+        f"composition part {sv3_s:.1f} s)", flush=True)
 
     # -- 4. the main path at full size --------------------------------------
     t = time.perf_counter()
-    wcc_spec = REGISTRY["wcc:basic"]
-    wcc_graph = wcc_spec.make_graph(FULL_SCALE, 0)
-    wcc_pg = pgraph.partition_graph(wcc_graph, W, "random",
-                                    build=wcc_spec.build)
-    wcc_host_s = time.perf_counter() - t
     pr_prog = get_program("pagerank:scatter", iters=30)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -511,7 +678,11 @@ def main() -> int:
     check(torch.equal(pr_res.state["pr"], pr_again.state["pr"]),
           "pagerank:scatter ranks differ between two runs on the card")
     t_or = time.perf_counter()
-    wcc_spec.check(wcc_graph, wcc_pg, wcc_res)
+    # the components' ground truth, computed once: wcc:basic, sv:composed,
+    # sv:basic and wcc:switch are held to it
+    truth = canon(gen.components_ground_truth(wcc_graph))
+    check(np.array_equal(canon(wcc_res.output), truth),
+          "wcc:basic labels differ from the ground truth")
     REGISTRY["pagerank:scatter"].check(pr_graph, pr_pg, pr_res)
     oracle_s = time.perf_counter() - t_or
     main = {}
@@ -540,6 +711,111 @@ def main() -> int:
           f"bit-identical, step ms [{fmt_ms(main['pagerank:scatter']['step_ms'])}]"
           f"; launches {launches} ({time.perf_counter() - t:.1f} s)",
           flush=True)
+
+    # the composed S-V program at full size against the unoptimized one,
+    # both on the wcc:basic partition; the inner rounds of the composed
+    # program's jump loop are counted through a wrapper of pj_converge
+    t = time.perf_counter()
+    jump_rounds = []
+
+    def counted_pj_converge(*args, **kw):
+        out = pj_converge(*args, **kw)
+        jump_rounds.append(out[1])
+        return out
+
+    sv_runs = {}
+    for key in ("sv:composed", "sv:basic"):
+        prog = get_program(key)
+        torch.cuda.synchronize()
+        base_gib = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        common.pj_converge = counted_pj_converge
+        try:
+            res, ms = timed(lambda: eng.run(prog, wcc_pg))
+        finally:
+            common.pj_converge = pj_converge
+        sv_runs[key] = dict(
+            res=res, run_wall_ms=ms, launches=ops.launch_counts(),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            base_gib=base_gib)
+    sv_launches = sv_runs["sv:composed"]["launches"]
+    check(sv_launches["bucket_ranks"] > 0,
+          "sv:composed never launched bucket_ranks")
+    check(sv_launches["segment_combine"] > 0,
+          "sv:composed never launched segment_combine")
+    check(len(jump_rounds) == sv_runs["sv:composed"]["res"].steps,
+          f"sv:composed ran its jump loop {len(jump_rounds)} times")
+    t_or = time.perf_counter()
+    for key, run in sv_runs.items():
+        res = run["res"]
+        check(res.halted and np.array_equal(canon(res.output), truth),
+              f"{key} at scale {FULL_SCALE} differs from the ground truth")
+    sv_oracle_s = time.perf_counter() - t_or
+    composed, basic = sv_runs["sv:composed"]["res"], sv_runs["sv:basic"]["res"]
+    check(composed.steps < basic.steps
+          and composed.total_bytes < basic.total_bytes,
+          f"sv:composed ({composed.steps} supersteps, {composed.total_bytes} "
+          f"bytes) does not beat sv:basic ({basic.steps}, "
+          f"{basic.total_bytes}) at scale {FULL_SCALE}")
+    sv_main = {}
+    for key, run in sv_runs.items():
+        res = run.pop("res")
+        sv_main[key] = dict(
+            run, steps=res.steps, msgs=res.total_msgs, bytes=res.total_bytes,
+            bytes_by_channel=res.bytes_by_channel,
+            bytes_by_group=compose.group_stats(res.bytes_by_channel),
+            step_ms=[1e3 * x for x in res.step_times_s],
+            loop_wall_s=res.wall_time_s)
+    sv_main["sv:composed"]["jump_rounds"] = jump_rounds
+    wall_ratio = (sv_main["sv:basic"]["run_wall_ms"]
+                  / sv_main["sv:composed"]["run_wall_ms"])
+
+    # wcc:switch on the same partition: wcc:basic's labels and supersteps;
+    # pj:reqresp on the scale-20 forest
+    sw_res, sw_ms = timed(lambda: eng.run(get_program("wcc:switch"), wcc_pg))
+    check(np.array_equal(sw_res.output, wcc_res.output)
+          and sw_res.steps == wcc_res.steps,
+          "wcc:switch differs from wcc:basic at full size")
+    check(np.array_equal(canon(sw_res.output), truth),
+          "wcc:switch differs from the ground truth")
+    pj_forest = pj_spec.make_graph(FULL_SCALE, 0)
+    pj_in = pj_spec.inputs(pj_forest, 0)
+    pj_pg = pgraph.partition_graph(pj_forest, W, "random",
+                                   build=pj_spec.build)
+    pj_res, pj_ms = timed(lambda: eng.run(
+        REGISTRY["pj:reqresp"].factory(**pj_in), pj_pg))
+    REGISTRY["pj:reqresp"].check(pj_forest, pj_pg, pj_res, pj_in)
+    sv_main["wcc:switch"] = dict(
+        steps=sw_res.steps, bytes=sw_res.total_bytes,
+        bytes_by_channel=sw_res.bytes_by_channel, run_wall_ms=sw_ms,
+        step_ms=[1e3 * x for x in sw_res.step_times_s])
+    sv_main["pj:reqresp"] = dict(
+        n=pj_pg.n, steps=pj_res.steps, bytes=pj_res.total_bytes,
+        bytes_by_channel=pj_res.bytes_by_channel, run_wall_ms=pj_ms,
+        step_ms=[1e3 * x for x in pj_res.step_times_s])
+    detail["sv_path"] = dict(sv_main, composed_launches=sv_launches,
+                             wall_ratio_basic_over_composed=wall_ratio,
+                             oracle_s=sv_oracle_s,
+                             phase_s=time.perf_counter() - t)
+
+    def sv_row(key):
+        v = sv_main[key]
+        return (f"{key} {v['steps']} steps, {v['bytes']} bytes "
+                f"{v['bytes_by_channel']}, step ms [{fmt_ms(v['step_ms'])}], "
+                f"run {v['run_wall_ms']:.1f} ms, peak {v['peak_gib']:.2f} GiB "
+                f"({v['base_gib']:.2f} before the run)")
+
+    print(f"[4/5] composed S-V scale {FULL_SCALE}, W={W}: "
+          f"{sv_row('sv:composed')}, jump rounds a superstep {jump_rounds}; "
+          f"{sv_row('sv:basic')}; both oracle ok; sv:composed ahead on "
+          f"supersteps and bytes, wall time sv:basic/sv:composed "
+          f"{wall_ratio:.2f}x; launches in sv:composed {sv_launches}; "
+          f"wcc:switch {sw_res.steps} steps, {sw_res.total_bytes} bytes "
+          f"{sw_res.bytes_by_channel}, labels = wcc:basic's, run "
+          f"{sw_ms:.1f} ms; pj:reqresp on the {pj_pg.n}-vertex forest "
+          f"{pj_res.steps} steps, {pj_res.total_bytes} bytes, oracle ok, run "
+          f"{pj_ms:.1f} ms ({time.perf_counter() - t:.1f} s)", flush=True)
 
     # the batched query plane at full size: Q=32 sources per program.
     # reach's recipe graph is pagerank's (_directed_rmat), so its
@@ -731,11 +1007,58 @@ def main() -> int:
                             key=lambda x: x[1])
     s_bound = 1e3 * st["bytes"] / HBM_BYTES_PER_S
     s_bound_all = 1e3 * st["all_entry_bytes"] / HBM_BYTES_PER_S
+
+    # segment_combine as the S-V neighbour minimum: int32 min per
+    # superstep at the sv plan (send: the vertex ids per edge, as the
+    # first superstep gathers them; recv: random ids on the wire), beside
+    # one scatter_reduce_ amin a side on the real entries into a preset
+    # buffer (the identity fill not counted)
+    sv_ids = wcc_pg.global_ids()
+    sv_sides = (
+        (sv_ids.gather(1, sv_plan.edge_src.long())[..., None],
+         sv_plan.edge_seg, sv_plan.u_cap),
+        (torch.randint(0, W * wcc_pg.n_loc, sv_plan.recv_sorted.shape + (1,),
+                       device=dev, dtype=torch.int32, generator=g),
+         sv_plan.recv_sorted, wcc_pg.n_loc))
+    sv_t = {}
+    for side, (v, s, n) in zip(("send", "recv"), sv_sides):
+        rows, e, d = v.shape
+        seg64 = s.long()
+        keep = (seg64 >= 0) & (seg64 < n)
+        idx = (seg64 + torch.arange(rows, device=dev)[:, None] * (n + 1))[
+            keep]
+        real_vals = v.reshape(-1, d)[keep.reshape(-1)]
+        buf = torch.full((rows * (n + 1), d), INT32_MAX, dtype=torch.int32,
+                         device=dev)
+        idx2 = idx[:, None].expand_as(real_vals)
+        sv_t[side] = dict(
+            shape=list(v.shape), n=n, real_entries=real(s, n),
+            ms=cuda_ms(lambda: ops.segment_combine(v, s, n, cb.MIN)),
+            cold_ms=cuda_ms_cold(lambda: ops.segment_combine(v, s, n, cb.MIN)),
+            plain_ms=cuda_ms(lambda: kref.segment_combine_ref(v, s, n, cb.MIN),
+                             reps=5),
+            scatter_reduce_amin_ms=cuda_ms(lambda: buf.scatter_reduce_(
+                0, idx2, real_vals, "amin", include_self=True)),
+            bytes=real(s, n) * (4 + 4 * d) + rows * n * d * 4)
+    svs = {k: sum(x[k] for x in sv_t.values()) for k in (
+        "ms", "cold_ms", "plain_ms", "scatter_reduce_amin_ms", "bytes")}
+    sv_bound = 1e3 * svs["bytes"] / HBM_BYTES_PER_S
+    sv_min_entry = dict(
+        what=f"int32 min, send + recv at the scale-{FULL_SCALE} S-V plan",
+        send_shape=sv_t["send"]["shape"], recv_shape=sv_t["recv"]["shape"],
+        launches=sv_launches["segment_combine"], max_abs_err=0.0,
+        ms=svs["ms"], cold_ms=svs["cold_ms"], plain_ms=svs["plain_ms"],
+        bound_ms=sv_bound, bound_by="bytes",
+        library_ms=svs["scatter_reduce_amin_ms"],
+        library="scatter_reduce_ amin")
     kernels = [
         dict(name="bucket_ranks", route="cuda",
              source="src/repro_torch/kernels/csrc/bucket_route.cu",
              replaces="src/repro/kernels/bucket_route.py:87",
-             launches=launches["bucket_ranks"],
+             launches=launches["bucket_ranks"] + sv_launches["bucket_ranks"],
+             launches_by_path=dict(
+                 wcc_basic=launches["bucket_ranks"],
+                 sv_composed=sv_launches["bucket_ranks"]),
              max_abs_err=errs["bucket_ranks"], ms=b_ms, plain_ms=b_plain,
              bound_ms=b_bound, bound_by="bytes", library_ms=None,
              cold_ms=b_t["sorted"]["cold_ms"], random_ms=b_t["random"]["ms"],
@@ -743,11 +1066,15 @@ def main() -> int:
         dict(name="segment_combine", route="cuda",
              source="src/repro_torch/kernels/csrc/segment_combine.cu",
              replaces="src/repro/kernels/segment_combine.py:101",
-             launches=launches["segment_combine"],
+             launches=(launches["segment_combine"]
+                       + sv_launches["segment_combine"]),
+             launches_by_path=dict(
+                 pagerank_scatter=launches["segment_combine"],
+                 sv_composed=sv_launches["segment_combine"]),
              max_abs_err=errs["segment_combine"], ms=s_ms, plain_ms=s_plain,
              bound_ms=s_bound, bound_by="bytes", library_ms=s_lib,
              library=s_lib_name, cold_ms=st["cold_ms"],
-             all_entry_bound_ms=s_bound_all),
+             all_entry_bound_ms=s_bound_all, int32_min_sv=sv_min_entry),
         dict(name="bucket_ranks_lanes", route="cuda",
              source="src/repro_torch/kernels/csrc/bucket_route.cu",
              replaces="src/repro/kernels/bucket_route.py:128",
@@ -769,7 +1096,8 @@ def main() -> int:
                                 bound_ms=l_bound, all_entry_bytes=l_bytes_all,
                                 all_entry_bound_ms=l_bound_all),
         segment_combine=dict(seg_t, **st, library=s_lib_name,
-                             bound_ms=s_bound, all_entry_bound_ms=s_bound_all))
+                             bound_ms=s_bound, all_entry_bound_ms=s_bound_all),
+        segment_combine_int32_min_sv=dict(sv_t, **svs, bound_ms=sv_bound))
 
     def warm_cold(t):
         s, r = t["sorted"], t["random"]
@@ -796,7 +1124,14 @@ def main() -> int:
           f"bucket_ranks_lanes {list(lanes.shape)} {warm_cold(l_t)} (plain "
           f"{l_plain:.3f}, bound {l_bound:.4f} reading the membership of the "
           f"{l_real} real entries, {l_bound_all:.4f} of all entries; library "
-          f"none; stable torch.sort of the keys {l_sort:.3f}) "
+          f"none; stable torch.sort of the keys {l_sort:.3f}); "
+          f"segment_combine int32 min per S-V superstep (send "
+          f"{sv_t['send']['shape']} + recv {sv_t['recv']['shape']}) "
+          f"{svs['ms']:.4f} ms warm [send {sv_t['send']['ms']:.4f}, recv "
+          f"{sv_t['recv']['ms']:.4f}], {svs['cold_ms']:.4f} L2 flushed "
+          f"(plain {svs['plain_ms']:.3f}, bound {sv_bound:.4f} on real "
+          f"entries, scatter_reduce_ amin on the real entries "
+          f"{svs['scatter_reduce_amin_ms']:.4f}) "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
     out_dir = ROOT / "chiprun_out"
@@ -807,7 +1142,9 @@ def main() -> int:
           wcc_ms),
          ("pagerank:scatter", lambda: eng.run(pr_prog, pr_pg), pr_ms),
          ("sssp:basic batched", lambda: eng.run_batch(s_prog, sssp_pg,
-                                                      s_queries), s_ms)),
+                                                      s_queries), s_ms),
+         ("sv:composed", lambda: eng.run(get_program("sv:composed"), wcc_pg),
+          sv_main["sv:composed"]["run_wall_ms"])),
         out_dir)
     print("[5/5] profiled runs: " + "; ".join(
         f"{k}: traced wall {v['wall_ms']:.1f} ms, device "

@@ -1,14 +1,15 @@
 """The port's algorithm registry: ``"algorithm:variant"`` → program
 factory plus its problem recipe, as in ``repro.algorithms``, for the
-programs ported so far (``wcc:basic``, ``pagerank:scatter``,
-``reach:basic``, ``sssp:basic``).
+programs ported so far (``wcc:basic``/``switch``, ``pagerank:scatter``,
+``reach:basic``, ``sssp:basic``, the six ``sv`` variants and
+``pj:basic``/``reqresp``).
 
     from repro_torch.algorithms import REGISTRY, get_program
     spec = REGISTRY["pagerank:scatter"]
     prog = get_program("pagerank:scatter", iters=10)
 
 The recipes (default graphs, problem inputs, query batches, oracle
-checks) are the JAX registry's. The ``wcc:basic`` and ``sssp:basic``
+checks) are the JAX registry's. The ``wcc``, ``sv`` and ``sssp:basic``
 recipes build without ``prop_out``: the JAX ones also build it, but the
 port has no prop plans yet, and neither those programs nor ``route_cap``
 depend on it.
@@ -20,7 +21,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.algorithms import pagerank, reachability, sssp, wcc
+from repro_torch.algorithms import (pagerank, pointer_jumping, reachability,
+                                    sssp, sv, wcc)
 from repro_torch.graph import generators as gen, oracles
 from repro_torch.pregel.program import VertexProgram
 
@@ -87,6 +89,15 @@ def _weighted_rmat(scale, seed):
     return gen.rmat(scale, edge_factor=4, seed=5 + seed, weighted=True)
 
 
+def _forest_graph(scale, seed):
+    n = 1 << scale
+    return gen.EdgeList(n, np.zeros((0, 2), np.int64), None, True, "pj")
+
+
+def _forest_inputs(graph, seed):
+    return {"parents": gen.random_tree_parents(graph.n, seed=1 + seed)}
+
+
 def _random_sources(graph, seed, q):
     """Q distinct source vertices — the default query batch (landmark
     distances / reachability fan-out)."""
@@ -121,16 +132,40 @@ def _check_sssp(graph, pg, res, inputs):
     assert np.isinf(res.output[~finite]).all()
 
 
+def _check_pj(graph, pg, res, inputs):
+    p = inputs["parents"].copy()
+    for _ in range(graph.n):
+        nxt = p[p]
+        if (nxt == p).all():
+            break
+        p = nxt
+    np.testing.assert_array_equal(res.output, pg.new_of_old[p])
+    assert res.halted
+
+
 def _bind(program_fn, variant):
     return lambda **kw: program_fn(variant=variant, **kw)
 
 
 REGISTRY: Dict[str, ProgramSpec] = {
-    "wcc:basic": ProgramSpec(
-        key="wcc:basic", algorithm="wcc", variant="basic",
-        factory=_bind(wcc.program, "basic"),
+    **{f"wcc:{v}": ProgramSpec(
+        key=f"wcc:{v}", algorithm="wcc", variant=v,
+        factory=_bind(wcc.program, v),
         build=("scatter_out", "raw_out"),
-        make_graph=_sym_rmat, check=_check_components),
+        make_graph=_sym_rmat, check=_check_components)
+       for v in wcc.VARIANTS},
+    **{f"sv:{v}": ProgramSpec(
+        key=f"sv:{v}", algorithm="sv", variant=v,
+        factory=_bind(sv.program, v),
+        build=("scatter_out", "raw_out"),
+        make_graph=_sym_rmat, check=_check_components)
+       for v in sv.VARIANTS},
+    **{f"pj:{v}": ProgramSpec(
+        key=f"pj:{v}", algorithm="pj", variant=v,
+        factory=_bind(pointer_jumping.program, v),
+        build=(), make_graph=_forest_graph, make_inputs=_forest_inputs,
+        check=_check_pj, channel_class="routed", test_scale=9)
+       for v in pointer_jumping.VARIANTS},
     "pagerank:scatter": ProgramSpec(
         key="pagerank:scatter", algorithm="pagerank", variant="scatter",
         factory=_bind(pagerank.program, "scatter"),

@@ -30,6 +30,13 @@ import torch
 TRAFFIC_DTYPE = torch.int32
 
 
+def key_under(key: str, prefix: str) -> bool:
+    """Whether a "/"-namespaced stat key belongs to ``prefix`` (exact
+    match or nested below it) — the namespace convention of the
+    composition layer (``repro_torch.core.compose``)."""
+    return key == prefix or key.startswith(prefix + "/")
+
+
 @dataclasses.dataclass(frozen=True)
 class ChannelRegistry:
     """A declared, fixed set of channel stat keys. In host mode it only
@@ -59,6 +66,9 @@ class ChannelContext:
     # capacity-scale overrides keyed by channel name (or the "*"
     # wildcard); see scale_capacity()
     cap_scales: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # namespace prefix composed by the composition layer's child contexts,
+    # so scale_capacity sees the same full names the registry records
+    name_prefix: str = ""
     # names that actually reached add_traffic
     touched: set = dataclasses.field(default_factory=set)
     # partition-derived per-peer capacity bound for edge-derived routed
@@ -131,11 +141,17 @@ class ChannelContext:
         package's ``ChannelContext.edge_capacity`` for the proof)."""
         return min(self.route_cap, default) if self.route_cap else default
 
+    def full_name(self, name: str) -> str:
+        """``name`` qualified by the composition-layer namespace prefix —
+        the key the registry sees."""
+        return f"{self.name_prefix}/{name}" if self.name_prefix else name
+
     def scale_capacity(self, name: str, capacity: int) -> int:
-        """Apply a capacity-scale override for this channel (its name
-        beats the "*" wildcard; absent/1.0 leaves it unchanged). Scaled
-        caps re-bucket to the next power of two."""
-        scale = self.cap_scales.get(name, self.cap_scales.get("*", 1.0))
+        """Apply a capacity-scale override for this channel (its full
+        name beats the "*" wildcard; absent/1.0 leaves it unchanged).
+        Scaled caps re-bucket to the next power of two."""
+        scale = self.cap_scales.get(
+            self.full_name(name), self.cap_scales.get("*", 1.0))
         if not self.cap_scales or scale == 1.0:
             return capacity
         scaled = max(1, int(capacity * scale))

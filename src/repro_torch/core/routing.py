@@ -22,6 +22,10 @@ Out-of-range scatter slots (dropped or overflowing messages) go to a
 dump column that is cut off: JAX drops them (``mode="drop"``), PyTorch
 would raise or fault.
 
+RequestRespond answers along the same slots: :func:`reply` runs the
+exchange in the other direction and gathers each answer back to its
+original message through ``Routed.slot`` — no ids on the respond wire.
+
 Traffic accounting contract: ``sent_count`` counts *wire* messages —
 valid entries actually packed into a peer's capacity-bounded block.
 Enqueued sends beyond the capacity latch ``overflow`` but are never
@@ -166,6 +170,30 @@ def route(
             for k, leaf in payload.items()}
     return Routed(ids=recv_ids, mask=recv_ids != BIG, payload=recv_payload,
                   slot=slot, sent_count=sent_count, overflow=overflow)
+
+
+def reply(routed: Routed, resp: Dict[str, torch.Tensor]):
+    """Send per-slot responses back positionally (no ids on the wire) and
+    deliver them in the original message order.
+
+    Args:
+      routed: the ``Routed`` of the request phase.
+      resp: dict of ``(W_resp, W_req, C, ...)`` responses aligned with
+        ``routed.ids`` (``[p, q]`` answers the block that q sent to p).
+    Returns:
+      dict of ``(W, M, ...)`` responses in each requester's original
+      message order; messages that were never packed (``slot == W * C``)
+      read a zero pad row.
+    """
+    out = {}
+    for k, leaf in resp.items():
+        back = exchange(leaf)  # [q, p] = p's answers to q's block
+        w, rest = back.shape[0], tuple(back.shape[3:])
+        flat = back.reshape((w, -1) + rest)
+        flat = torch.cat([flat, flat.new_zeros((w, 1) + rest)], dim=1)
+        idx = routed.slot.long().reshape(routed.slot.shape + (1,) * len(rest))
+        out[k] = flat.gather(1, idx.expand(routed.slot.shape + rest))
+    return out
 
 
 def remote_count(ctx, sent_count: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ from typing import Any, Callable, Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch.core import compose
 from repro_torch.graph.pgraph import PartitionedGraph
 
 
@@ -57,7 +58,9 @@ class VertexProgram:
       ``step_idx`` is the superstep number as a Python int.
     extract: ``extract(pg, final_state) -> output`` (e.g. global labels in
       old-id space), stored on ``RunResult.output``.
-    channels: optional explicit declaration of the stat-key names.
+    channels: optional explicit declaration of the stat keys: names, a
+      composed channel with ``channel_names()`` (``compose.Stacked``), or
+      a mixed sequence of both.
     query_init: optional ``query_init(pg, query) -> state0`` — the
       query-parametric init that makes the program batchable:
       ``Engine.run_batch(prog, pg, queries)`` stacks one state per query
@@ -73,7 +76,7 @@ class VertexProgram:
     init: Callable[[PartitionedGraph], Any]
     step: Callable
     extract: Callable[[PartitionedGraph, Any], Any] = _identity_extract
-    channels: Optional[Tuple[str, ...]] = None
+    channels: Optional[Any] = None
     query_init: Optional[Callable[[PartitionedGraph, Any], Any]] = None
     max_steps: int = 10_000
     check_overflow: bool = True
@@ -81,7 +84,9 @@ class VertexProgram:
 
     def channel_names(self) -> Tuple[str, ...]:
         """The declared stat-key set ('()' when relying on discovery)."""
-        return tuple(sorted(self.channels)) if self.channels else ()
+        if self.channels is None:
+            return ()
+        return tuple(sorted(compose.channel_names_of(self.channels)))
 
     def __repr__(self) -> str:
         chans = ",".join(self.channel_names()) or "<discovered>"

@@ -30,12 +30,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core import aggregator
+from repro_torch.core import aggregator, compose
 from repro_torch.core.channel import ChannelContext, ChannelRegistry
 from repro_torch.graph.pgraph import PartitionedGraph
 from repro_torch.pregel import errors
@@ -112,6 +112,14 @@ def _readback(halt_all, overflow, nbytes, nmsgs, novf):
             {k: bool(ovf[i]) for i, k in enumerate(okeys)})
 
 
+def _registry(channels) -> Optional[ChannelRegistry]:
+    """The registry of a ``channels=`` declaration (names, a composed
+    channel such as ``compose.Stacked``, or a mixed sequence), or None
+    when nothing is declared."""
+    names = compose.channel_names_of(channels) if channels else ()
+    return ChannelRegistry.declare(names) if names else None
+
+
 def _check_declared(registry, touched: set) -> None:
     """A declared channel that no step reached is a stale or misspelled
     declaration."""
@@ -140,22 +148,24 @@ def run_supersteps(
     max_steps: int = 10_000,
     check_overflow: bool = True,
     mode: str = "host",
-    channels: Optional[Sequence[str]] = None,
+    channels: Optional[Any] = None,
 ) -> RunResult:
     """Run ``step_fn(ctx, graph, state, step)`` to halt, host-driven.
 
     state0: dict of ``(W, n_loc, ...)`` tensors on ``graph.device``.
     step_fn returns ``(new_state, halt)`` or ``(new_state, halt,
     overflow)``; halt/overflow are per-worker ``(W,)`` or scalar.
-    channels: optional declaration of the stat-key names; every key then
-    appears in the result and an undeclared key raises.
+    channels: optional declaration of the stat keys (names, a composed
+    channel such as ``compose.Stacked``, or a mixed sequence); every key
+    then appears in the result, an undeclared key raises, and a declared
+    key that no step reached raises.
     """
     if mode not in MODES:
         raise NotImplementedError(
             f"mode={mode!r} is not ported yet: only the host-driven loop "
             "runs (see ROADMAP: fused/chunked modes come after the batched "
             "plane)")
-    registry = ChannelRegistry.declare(channels) if channels else None
+    registry = _registry(channels)
     W, n_loc = graph.num_workers, graph.n_loc
     bytes_acc: Dict[str, int] = {}
     msgs_acc: Dict[str, int] = {}
@@ -307,7 +317,7 @@ def run_batched_supersteps(
     num_real_queries: int,
     max_steps: int = 10_000,
     check_overflow: bool = True,
-    channels: Optional[Sequence[str]] = None,
+    channels: Optional[Any] = None,
 ) -> RunResult:
     """Run Q query lanes of ``step_fn`` to halt in one host-driven loop.
 
@@ -317,7 +327,7 @@ def run_batched_supersteps(
     returns ``(new_state, halt[, overflow])`` with ``(W, Q)`` (or scalar)
     votes. Returns a RunResult with the per-query views of the real lanes.
     """
-    registry = ChannelRegistry.declare(channels) if channels else None
+    registry = _registry(channels)
     W, n_loc, dev = graph.num_workers, graph.n_loc, graph.device
     q = next(iter(state0.values())).shape[1]
     q_real = num_real_queries

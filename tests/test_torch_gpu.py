@@ -5,14 +5,18 @@ PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.algorithms import REGISTRY
 from repro_torch.core import combiners as cb
 from repro_torch.core import message as msg
 from repro_torch.core import routing
 from repro_torch.core.channel import ChannelContext
+from repro_torch.graph import pgraph
 from repro_torch.kernels import ops, ref
+from repro_torch.pregel.engine import Engine
 
 
 @pytest.fixture
@@ -315,3 +319,75 @@ def test_use_kernel_false_with_cuda_tensors_raises(cuda):
         ops.bucket_ranks_lanes(keys, lanes, 4, use_kernel=False)
     with pytest.raises(ValueError, match="use_kernel=False with a CUDA"):
         ops.bucket_ranks(keys, 4, use_kernel=False)
+
+
+INT32_MAX, INT32_MIN = 2**31 - 1, -2**31
+
+
+def _sv_min_case(plan, n_loc, side, case):
+    """(vals, seg, n) of the S-V neighbour minimum's int32 ``min`` on a
+    scatter plan (CPU tensors): the sender side (per-edge values into
+    ``u_cap`` segments) or the receiver side (the received wire in
+    ``recv_order`` into ``n_loc`` segments). ``ids``: vertex ids;
+    ``extremes``: INT32_MAX (what pads carry) and INT32_MIN among them;
+    ``hub``: row 0 one segment; ``dropped``: every id out of range."""
+    g = torch.Generator().manual_seed(len(case) + len(side))
+    if side == "send":
+        seg, n = plan.edge_seg.clone(), plan.u_cap
+    else:
+        seg, n = plan.recv_sorted.clone(), n_loc
+    shape = seg.shape + (1,)
+    vals = torch.randint(0, plan.num_workers * n_loc, shape, generator=g,
+                         dtype=torch.int32)
+    if case == "extremes":
+        pick = torch.rand(shape, generator=g)
+        vals[pick < 0.3] = INT32_MAX
+        vals[(pick >= 0.3) & (pick < 0.4)] = INT32_MIN
+    elif case == "hub":
+        seg[0] = 0
+    elif case == "dropped":
+        seg[:] = n
+    return vals, seg, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ids", "extremes", "hub", "dropped"])
+@pytest.mark.parametrize("side", ["send", "recv"])
+def test_segment_combine_int32_min_on_the_sv_plan(cuda, side, case):
+    """The S-V neighbour minimum's combine: exact against plain."""
+    spec = REGISTRY["sv:composed"]
+    pg = pgraph.partition_graph(spec.make_graph(10, 0), 8, "random",
+                                build=spec.build, device="cpu")
+    vals, seg, n = _sv_min_case(pg.scatter_out, pg.n_loc, side, case)
+    want = ref.segment_combine_ref(vals, seg, n, cb.MIN)
+    got = ops.segment_combine(vals.to(cuda), seg.to(cuda), n, "min")
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    if case == "dropped":
+        assert (want == INT32_MAX).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", ["sv:composed", "pj:reqresp"])
+def test_slice_on_the_card_matches_the_cpu_run(cuda, key):
+    """Scale 10, W = 8, the same plan on both devices: labels, supersteps
+    and per-channel counts identical; the run launches the kernels."""
+    spec = REGISTRY[key]
+    graph = spec.make_graph(10, 0)
+    inputs = spec.inputs(graph, 0)
+    tables = pgraph.partition_tables(graph, 8, "random", build=spec.build)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        pg = pgraph.from_arrays(*tables, device=dev)
+        ops.reset_launch_counts()
+        runs[dev] = Engine(device=dev).run(spec.factory(**inputs), pg)
+        launches = ops.launch_counts()
+    cpu, card = runs["cpu"], runs["cuda"]
+    np.testing.assert_array_equal(card.output, cpu.output)
+    assert (card.steps, card.halted) == (cpu.steps, cpu.halted)
+    assert card.bytes_by_channel == cpu.bytes_by_channel
+    assert card.msgs_by_channel == cpu.msgs_by_channel
+    spec.check(graph, pg, card, inputs)
+    assert launches["bucket_ranks"] > 0
+    if key == "sv:composed":
+        assert launches["segment_combine"] > 0
