@@ -6,12 +6,17 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's main paths on the card: R-MAT generator →
 partitioner → plans → channels → host-driven superstep loop →
-``Engine.run`` → oracle check for ``wcc:basic``, ``pagerank:scatter`` and
+``Engine.run`` → oracle check for ``wcc:basic``, ``pagerank:scatter``,
 the composed S-V program ``sv:composed`` (RequestRespond, ScatterCombine,
 CombinedMessage and full pointer jumping under one ``compose.Stacked``),
-and the batched query plane — ``Engine.run_batch`` of Q=32 sources of
+the rest of the paper's table (``pagerank:basic``, whose float32 sums go
+through the stable sort and the kernel, and Boruvka ``msf:channels``/
+``monolithic``, whose candidate combine is the kernel's ``min_by_first``)
+with the port's paper table (``repro_torch.paper_tables``), and the
+batched query plane — ``Engine.run_batch`` of Q=32 sources of
 ``reach:basic`` and ``sssp:basic`` through the union CombinedMessage —
-checked against solo runs and the host oracles. Phases, one line each:
+checked against solo runs and the host oracles. Phases, one or more
+lines each:
 
   1. environment and kernel build;
   2. each kernel against its plain PyTorch version on the card, the two
@@ -20,26 +25,40 @@ checked against solo runs and the host oracles. Phases, one line each:
      ``segment_combine`` as the S-V neighbour minimum's int32 ``min`` at
      the scale-20 S-V plan (sender and receiver side: vertex ids,
      INT32_MAX/INT32_MIN, one hub segment, every id dropped);
+     ``min_by_first`` bit-exact on the first superstep's msf candidate
+     combine (D = 1, 3, 4, 5, int32, a hub of tied keys, NaN/+-inf/-0.0
+     keys, all dropped), ``prod``, and the order-sensitive dispatch twice
+     bit-identical on pagerank:basic's float32 sums;
   3. reference traffic counts at scale 12, W=8 (exact), solo and batched
      (every batched lane bit-identical to its solo run), and the nine
      composition-layer programs (six S-V variants, ``wcc:switch``,
      ``pj:basic``/``reqresp``) with their bytes per channel, the S-V
      variants' labels identical and ``sv:composed`` ahead of ``sv:basic``
-     on supersteps and bytes;
+     on supersteps and bytes; ``pagerank:basic`` and both MSF variants
+     with their bytes per channel, and the port's paper table row for
+     row against the reference's counts, headline held;
   4. the main paths at R-MAT scale 20, W=8, checked against the host
      oracles, each with its kernels' launch counts (counts reset just
      before the path and read just after): pagerank run twice
      (bit-identical); ``sv:composed`` against ``sv:basic`` (supersteps,
      bytes, ms a superstep, wall time, peak memory), ``wcc:switch`` and
-     ``pj:reqresp`` beside them; every lane of the batched runs
-     bit-identical to its solo run, queries/s batched and solo, peak
+     ``pj:reqresp`` beside them; ``pagerank:basic`` twice bit-identical,
+     both MSF variants against Kruskal (|weight - oracle| <= 1e-2 +
+     1e-5 * oracle: float32 sums near 1.4e5), the ground truth and
+     n - #components edges, ``msf:channels`` below ``msf:monolithic`` in
+     bytes; the port's paper table at scale 20 (host mode, headline held,
+     ``chiprun_out/paper_tables_torch.json``); every lane of the batched
+     runs bit-identical to its solo run, queries/s batched and solo, peak
      device memory;
   5. each kernel's time against its plain version, its bound and a
      PyTorch yardstick at the scale-20 shapes (the bucket kernels also on
      random keys, warm and L2-flushed, and checked to run one device
      kernel a call, fills and memsets counted; ``segment_combine`` also
-     as int32 ``min`` at the S-V plan), and one run of each program (the
-     batched sssp and ``sv:composed`` among them) under torch.profiler
+     as int32 ``min`` at the S-V plan, as ``min_by_first`` at the msf plan
+     and as the float32 sum of pagerank:basic's CombinedMessage, each also
+     with its stable sort), and one run of each program (the batched
+     sssp, ``sv:composed``, ``pagerank:basic`` and ``msf:channels`` among
+     them) under torch.profiler
      (device busy share, top kernels and aten ops;
      ``chiprun_out/profile_*.txt``).
 
@@ -97,6 +116,43 @@ SV_REFS = {
     "pj:reqresp": (6, 14346, 57384, {
         "request_respond/request": 28692, "request_respond/respond": 28692}),
 }
+
+# the rest of the paper's table at scale 12, W=8: pagerank:basic (10
+# iterations) on rmat(12, edge_factor=12, seed=1) directed; both MSF
+# variants on rmat(10, edge_factor=8, seed=4, weighted) symmetrised (the
+# paper table's MSF instance at --scale 12), forest 160.16527 with 798
+# edges (the JAX package's host-mode Engine gives these counts)
+NEW_REFS = {
+    "pagerank:basic": (10, 98130, 780560, {
+        "combined_message": 776080, "aggregator": 4480}),
+    "msf:channels": (4, 29197, 120644, {
+        "msf/nbrcomp/request": 49264, "msf/nbrcomp/respond": 49264,
+        "msf/jump": 10752, "msf/candidate": 4820,
+        "msf/cycle/request": 2196, "msf/cycle/respond": 2196,
+        "msf/relabel/request": 1076, "msf/relabel/respond": 1076}),
+    "msf:monolithic": (4, 96711, 1934220, {
+        "nbrcomp/request": 853600, "nbrcomp/respond": 853600,
+        "pj_loop": 109840, "relabel/request": 40680,
+        "relabel/respond": 40680, "cycle/request": 15500,
+        "cycle/respond": 15500, "candidate": 4820}),
+}
+MSF_REF_EDGES, MSF_REF_WEIGHT = 798, 160.16527
+
+# (program, supersteps, messages, bytes) of every row of the paper table
+# at --scale 12, host mode (the JAX package's host-mode Engine on the
+# benchmarks' datasets gives these counts)
+PAPER_REFS = [
+    ("sv:basic", 4, 78907, 631256),
+    ("sv:composed", 3, 39526, 159356),
+    ("wcc:basic", 6, 42027, 336216),
+    ("wcc:switch", 6, 55092, 220396),
+    ("pagerank:basic", 10, 98130, 780560),
+    ("pagerank:scatter", 10, 98130, 392520),
+    ("pj:basic", 6, 42990, 343920),
+    ("pj:reqresp", 6, 14346, 57384),
+    ("msf:monolithic", 4, 96711, 1934220),
+    ("msf:channels", 4, 29197, 120644),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -377,6 +433,219 @@ def sv_min_cases(plan, n_loc, g, seg_case) -> list:
     return names
 
 
+def bits_equal(a, b) -> bool:
+    """Bit-identical tensors (NaN payloads and -0.0 included)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def captured_reduces(run) -> list:
+    """``(vals, ids, n, combiner)`` of every call ``run()`` makes to the
+    channels' order-sensitive dispatch (``kernels.ops.segment_reduce``),
+    in call order: the shapes and data a path gives the kernel."""
+    from repro_torch.core import combiners as cb
+    from repro_torch.kernels import ops
+
+    calls = []
+    real = ops.segment_reduce
+
+    def spy(vals, ids, n, combiner, **kw):
+        calls.append((vals, ids, n, cb.get(combiner)))
+        return real(vals, ids, n, combiner, **kw)
+
+    ops.segment_reduce = spy
+    try:
+        run()
+    finally:
+        ops.segment_reduce = real
+    return calls
+
+
+def stable_sorted(vals, ids):
+    """``(vals, ids)`` in the order of a stable sort of ``ids`` along the
+    last axis: what the dispatch hands the kernel."""
+    import torch
+
+    ids, order = torch.sort(ids, dim=-1, stable=True)
+    return vals.gather(1, order[..., None].expand_as(vals)), ids
+
+
+def by_first_cases(calls, g) -> dict:
+    """``segment_combine`` as ``min_by_first`` against its plain version
+    (the sorted scan of ``core.segmented``), bit for bit, at the msf
+    plan's shapes: the first superstep's candidate combine, sender side
+    (the (W, e_cap, 4) rows (weight, component, src, dst) sorted by
+    compact segment; R-MAT float32 weights tie at this scale) with D = 1,
+    3, 4, 5 and int32, one hub segment over a whole row of tied keys (the
+    last occurrence must win), +-inf, NaN and -0.0 keys, every id
+    dropped; the receiver side (the wire, unsorted) through the
+    order-sensitive dispatch, twice bit-identical. Returns the case
+    names and shapes."""
+    import torch
+    from repro_torch.core import combiners as cb
+    from repro_torch.kernels import ops, ref as kref
+
+    (send, send_ids, m, _), (recv, recv_ids, n_loc, _) = calls[:2]
+    vals, seg = stable_sorted(send, send_ids)
+    w, e, _ = vals.shape
+    dev = vals.device
+    names = []
+
+    def case(what, v, sg, n):
+        got = ops.segment_combine(v, sg, n, cb.MIN_BY_FIRST)
+        want = kref.segment_combine_ref(v, sg, n, cb.MIN_BY_FIRST)
+        check(bits_equal(got, want),
+              f"min_by_first {what} differs from the plain version")
+        names.append(what)
+        return got
+
+    case("candidates D=4", vals, seg, m)
+    case("D=1", vals[..., :1].contiguous(), seg, m)
+    case("D=3", vals[..., :3].contiguous(), seg, m)
+    extra = torch.rand((w, e, 1), device=dev, generator=g)
+    case("D=5", torch.cat([vals, extra], dim=-1), seg, m)
+    case("int32 D=4", (vals * 1000).int(), seg, m)
+    hub = seg.clone()
+    hub[0] = 7
+    tied = vals.clone()
+    tied[..., 0] = 0.5
+    got = case("hub of tied keys", tied, hub, m)
+    check(bits_equal(got[0, 7], tied[0, -1]),
+          "min_by_first hub: the last of the tied keys did not win")
+    special = vals.clone()
+    pick = torch.rand((w, e), device=dev, generator=g)
+    key = special[..., 0]
+    key[pick < 0.01] = float("nan")
+    key[(pick >= 0.01) & (pick < 0.03)] = float("inf")
+    key[(pick >= 0.03) & (pick < 0.05)] = -float("inf")
+    key[(pick >= 0.05) & (pick < 0.07)] = -0.0
+    case("NaN/+-inf/-0.0 keys", special, seg, m)
+    got = case("all dropped", vals, torch.full_like(seg, m), m)
+    check(bool((got[..., 0] == float("inf")).all()
+               and (got[..., 1:] == 0).all()),
+          "min_by_first all dropped: not identity_like")
+    first = ops.segment_reduce(recv, recv_ids, n_loc, cb.MIN_BY_FIRST)
+    again = ops.segment_reduce(recv, recv_ids, n_loc, cb.MIN_BY_FIRST)
+    want = cb.MIN_BY_FIRST.segment_reduce(recv, recv_ids, n_loc)
+    check(bits_equal(first, want) and bits_equal(first, again),
+          "min_by_first receiver side through the dispatch differs from "
+          "plain or between two runs")
+    names.append("recv dispatch x2")
+    return dict(cases=names, send_shape=list(vals.shape), send_segments=m,
+                recv_shape=list(recv.shape), recv_segments=n_loc)
+
+
+def prod_cases(plan, n_loc, g, seg_case) -> list:
+    """``segment_combine`` as ``prod`` against its plain version on the
+    pagerank plan (sender and receiver side): int32 exact (wrapping),
+    float32 of signs and powers of two exact (the exponent stays in
+    range), float32 in [0.999, 1.001] within rtol 1e-4 (reassociation of
+    up to a hub's in-degree of products)."""
+    import torch
+
+    names = []
+    dev = plan.edge_seg.device
+    for side, (seg, n) in (("send", (plan.edge_seg, plan.u_cap)),
+                           ("recv", (plan.recv_sorted, n_loc))):
+        shape = tuple(seg.shape) + (1,)
+        pick = torch.rand(shape, device=dev, generator=g)
+        signs = torch.where(pick < 0.5, 1.0, -1.0)
+        pow2 = torch.where(pick < 0.01, 2.0, torch.where(pick > 0.99, 0.5,
+                                                         1.0)) * signs
+        near1 = 0.999 + 0.002 * torch.rand(shape, device=dev, generator=g)
+        ints = torch.randint(-3, 4, shape, device=dev, generator=g,
+                             dtype=torch.int32)
+        seg_case(pow2, seg, n, "prod", what=f"prod {side} powers of two")
+        seg_case(ints, seg, n, "prod", what=f"prod {side} int32")
+        seg_case(near1, seg, n, "prod", 1e-4, 0.0, f"prod {side} near 1")
+        names += [f"{side} powers of two", f"{side} int32",
+                  f"{side} near 1"]
+    return names
+
+
+def real_entries(v, ids, n):
+    """The entries of a (rows, E, D) combine whose id lies in [0, n): flat
+    row-major output index, their (R, D) values and the nonempty segment
+    count."""
+    import torch
+
+    rows, _, d = v.shape
+    keep = (ids >= 0) & (ids < n)
+    idx = (ids.long() + torch.arange(rows, device=v.device)[:, None] * n)[
+        keep]
+    return idx, v.reshape(-1, d)[keep.reshape(-1)], int(idx.unique().numel())
+
+
+def index_add_yardstick(v, ids, n):
+    """One ``index_add_`` of the real entries into a preset buffer."""
+    import torch
+
+    idx, src, _ = real_entries(v, ids, n)
+    buf = torch.zeros((v.shape[0] * n, v.shape[2]), device=v.device)
+    return lambda: buf.index_add_(0, idx, src)
+
+
+def two_pass_yardstick(v, ids, n):
+    """``min_by_first`` in plain PyTorch calls on the real entries: a
+    ``scatter_reduce_`` amin of the keys, a ``scatter_reduce_`` amax of
+    the position among each segment's tied minima (the later wins), then
+    a gather of the winning rows."""
+    import torch
+
+    idx, src, _ = real_entries(v, ids, n)
+    key = src[:, 0].contiguous()
+    pos = torch.arange(idx.numel(), device=v.device)
+    kbuf = torch.empty(v.shape[0] * n, device=v.device)
+    pbuf = torch.empty(v.shape[0] * n, dtype=torch.int64, device=v.device)
+
+    def fn():
+        kbuf.fill_(float("inf"))
+        kbuf.scatter_reduce_(0, idx, key, "amin", include_self=True)
+        tie = key == kbuf[idx]
+        pbuf.fill_(-1)
+        pbuf.scatter_reduce_(0, idx, torch.where(tie, pos, -1), "amax",
+                             include_self=True)
+        return src[pbuf.clamp(min=0)]
+
+    return fn
+
+
+def dispatch_times(calls, yardstick) -> dict:
+    """Per side of a path's order-sensitive combine (as captured): the
+    kernel alone on the stable-sorted inputs (warm, L2-flushed), the
+    dispatch (sort, gather and kernel), the plain version, the yardstick,
+    and the bytes the function must move — each real id and value read
+    once, each output written once; ``min_by_first`` reads each real id
+    and key (column 0) once and each winning row once more, as the
+    kernel's header counts. Then their sums over both sides."""
+    from repro_torch.kernels import ops
+
+    sides = {}
+    for side, (v, ids, n, comb) in zip(("send", "recv"), calls):
+        vs, ss = stable_sorted(v, ids)
+        rows, _, d = v.shape
+        _, src, winners = real_entries(v, ids, n)
+        r = src.shape[0]
+        read = (r * 8 + winners * 4 * d if comb.name == "min_by_first"
+                else r * (4 + 4 * d))
+        sides[side] = dict(
+            shape=list(v.shape), n=n, real_entries=r, nonempty=winners,
+            ms=cuda_ms(lambda: ops.segment_combine(vs, ss, n, comb)),
+            cold_ms=cuda_ms_cold(lambda: ops.segment_combine(vs, ss, n,
+                                                             comb)),
+            dispatch_ms=cuda_ms(lambda: ops.segment_reduce(v, ids, n, comb)),
+            plain_ms=cuda_ms(lambda: comb.segment_reduce(v, ids, n), reps=3),
+            library_ms=cuda_ms(yardstick(v, ids, n)),
+            bytes=read + rows * n * 4 * d)
+    total = {k: sum(x[k] for x in sides.values()) for k in (
+        "ms", "cold_ms", "dispatch_ms", "plain_ms", "library_ms", "bytes")}
+    total["bound_ms"] = 1e3 * total["bytes"] / HBM_BYTES_PER_S
+    return dict(sides, **total)
+
+
 def profile_runs(jobs, out_dir: Path) -> dict:
     """One traced run per (key, run function, untraced wall ms) under
     torch.profiler, and the kernels and aten ops that take the device
@@ -430,17 +699,20 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
 
+    from repro_torch import paper_tables
     from repro_torch.algorithms import REGISTRY, common, get_program
     from repro_torch.algorithms.common import pj_converge
     from repro_torch.core import combiners as cb
     from repro_torch.core import compose
     from repro_torch.core import routing
-    from repro_torch.graph import generators as gen, pgraph
+    from repro_torch.graph import generators as gen, oracles, pgraph
     from repro_torch.kernels import build, ops, ref as kref
     from repro_torch.pregel.engine import Engine
 
     dev = torch.device("cuda")
     detail = {}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
 
     # -- 1. environment and build ------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -572,9 +844,74 @@ def main() -> int:
           f"exact on {len(sv_cases)} cases (ids, INT32_MAX/MIN, one hub, "
           f"all dropped) ({time.perf_counter() - t:.1f} s)", flush=True)
 
-    # -- 3. reference counts at scale 12 ------------------------------------
+    # the rest of the paper's table: msf's min_by_first candidate combine
+    # and pagerank:basic's float32 sums as their first superstep hands them
+    # to the order-sensitive dispatch (captured from a one-superstep run),
+    # and prod on the pagerank plan
     t = time.perf_counter()
     eng = Engine()
+    msf_spec = REGISTRY["msf:channels"]
+    check(REGISTRY["msf:monolithic"].make_graph is msf_spec.make_graph,
+          "the MSF variants no longer share one recipe")
+    msf_graph = msf_spec.make_graph(FULL_SCALE, 0)
+    msf_pg = pgraph.partition_graph(msf_graph, W, "random",
+                                    build=msf_spec.build)
+    msf_host_s = time.perf_counter() - t
+    msf_calls = captured_reduces(lambda: eng.run(
+        get_program("msf:channels"), msf_pg, max_steps=1))
+    pr_calls = captured_reduces(lambda: eng.run(
+        get_program("pagerank:basic", iters=30), pr_pg, max_steps=1))
+    check(len(msf_calls) == 2 and len(pr_calls) == 2
+          and all(c[3].name == "min_by_first" for c in msf_calls)
+          and all(c[3].name == "sum" for c in pr_calls),
+          "the first supersteps of msf:channels and pagerank:basic no "
+          "longer make two order-sensitive combines each")
+    by_first = by_first_cases(msf_calls, g)
+    prod = prod_cases(plan, pr_pg.n_loc, g, seg_case)
+    # the contributions are pr / deg, about 1e-7 an edge and 1e-6 a
+    # vertex's sum: the tolerance is relative, with an atol far below
+    # any nonzero sum
+    sum_err = sum_rel = 0.0
+    for side, (v, ids, n, comb) in zip(("send", "recv"), pr_calls):
+        a = ops.segment_reduce(v, ids, n, comb)
+        b = ops.segment_reduce(v, ids, n, comb)
+        check(bits_equal(a, b), f"pagerank:basic float32 sum, {side} side: "
+              "two runs through the dispatch differ")
+        want = comb.segment_reduce(v, ids, n)
+        torch.testing.assert_close(
+            a, want, rtol=1e-4, atol=1e-12,
+            msg=lambda m: f"pagerank:basic float32 sum {side}: {m}")
+        sum_err = max(sum_err, float((a - want).abs().max()))
+        nz = want != 0
+        sum_rel = max(sum_rel, float(((a - want)[nz] / want[nz]).abs()
+                                     .max()))
+    torch.cuda.synchronize()
+    errs["min_by_first"] = 0.0
+    errs["combined_sum"] = sum_err
+    detail["kernel_checks"].update(
+        min_by_first=by_first, prod_cases=prod, msf_host_setup_s=msf_host_s,
+        pagerank_basic_sum=dict(
+            max_abs_err=sum_err, max_rel_err=sum_rel,
+            shapes=[list(c[0].shape) for c in pr_calls],
+            segments=[c[2] for c in pr_calls]))
+    print(f"[2/5] the new ops on the card: min_by_first bit-exact against "
+          f"plain at the scale-{FULL_SCALE} msf plan on "
+          f"{len(by_first['cases'])} cases (send {by_first['send_shape']} "
+          f"into {by_first['send_segments']}: the first superstep's "
+          f"candidates, D=1/3/5, int32, a hub of tied keys won by the last, "
+          f"NaN/+-inf/-0.0 keys, all dropped; recv "
+          f"{by_first['recv_shape']} into {by_first['recv_segments']} "
+          f"through the dispatch, two runs bit-identical); prod exact for "
+          f"int32 and powers of two, rtol 1e-4 near 1, on {len(prod)} "
+          f"cases; pagerank:basic's float32 sums through the dispatch "
+          f"(stable sort + kernel; {[list(c[0].shape) for c in pr_calls]}) "
+          f"two runs bit-identical, max|err| {sum_err:.3g}, max relative "
+          f"{sum_rel:.3g} against plain (rtol 1e-4, atol 1e-12) (msf graph "
+          f"set-up {msf_host_s:.1f} s; "
+          f"{time.perf_counter() - t:.1f} s)", flush=True)
+
+    # -- 3. reference counts at scale 12 ------------------------------------
+    t = time.perf_counter()
     refs = {
         "wcc:basic": (gen.rmat(12, edge_factor=8, seed=2).symmetrized(), {},
                       (6, 42027, 336216)),
@@ -649,8 +986,45 @@ def main() -> int:
           "sv:composed does not beat sv:basic on supersteps and bytes at "
           "scale 12")
     sv3_s = time.perf_counter() - t_s
+    # the rest of the paper's table: pagerank:basic on the table's web
+    # dataset, both MSF variants on its weighted instance, then the port's
+    # whole paper table (python -m repro_torch.paper_tables --scale 12)
+    t_n = time.perf_counter()
+    new_graphs = {"web": paper_tables.dataset("web", 12),
+                  "weighted": paper_tables.dataset("weighted", 10)}
+    for key, want in NEW_REFS.items():
+        spec = REGISTRY[key]
+        graph = new_graphs["weighted" if key.startswith("msf") else "web"]
+        knobs = {"iters": 10} if key == "pagerank:basic" else {}
+        pg = pgraph.partition_graph(graph, W, "random", build=spec.build)
+        res = eng.run(get_program(key, **knobs), pg)
+        got = (res.steps, res.total_msgs, res.total_bytes,
+               res.bytes_by_channel)
+        check(got == want, f"{key} scale-12 counts {got} != {want}")
+        spec.check(graph, pg, res, {})
+        counts[key] = dict(steps=got[0], msgs=got[1], bytes=got[2],
+                           bytes_by_channel=res.bytes_by_channel)
+        if key.startswith("msf"):
+            out = res.output
+            check(out["edges"] == MSF_REF_EDGES
+                  and abs(out["weight"] - MSF_REF_WEIGHT) < 1e-3,
+                  f"{key} scale-12 forest {out['weight']} / {out['edges']} "
+                  f"edges != {MSF_REF_WEIGHT} / {MSF_REF_EDGES}")
+            counts[key].update(weight=out["weight"], edges=out["edges"])
+    try:
+        table12 = paper_tables.run_and_write(
+            12, str(out_dir / "paper_tables_torch_12.json"))
+    except SystemExit as err:
+        raise SmokeFailure(f"paper table at scale 12: {err}") from None
+    rows12 = [(r["variant"], r["supersteps"], r["messages"], r["bytes"])
+              for r in table12["rows"]]
+    check(rows12 == [tuple(r) for r in PAPER_REFS],
+          f"paper table at scale 12: rows {rows12} != {PAPER_REFS}")
+    new3_s = time.perf_counter() - t_n
     detail["reference_counts"] = dict(counts, batched_part_s=batch3_s,
-                                      composition_part_s=sv3_s)
+                                      composition_part_s=sv3_s,
+                                      paper_table_part_s=new3_s,
+                                      paper_table_12=table12)
     print(f"[3/5] scale-12 reference counts exact: " + "; ".join(
         f"{k} {v['steps']}/{v['msgs']}/{v['bytes']}"
         for k, v in counts.items()) +
@@ -660,8 +1034,12 @@ def main() -> int:
         f"labels identical, sv:composed ahead of sv:basic "
         f"({composed['steps']} vs {basic['steps']} supersteps, "
         f"{composed['bytes']} vs {basic['bytes']} bytes) "
+        f"; the port's paper table at scale 12: all {len(rows12)} rows' "
+        f"supersteps, messages and bytes equal the reference's, headline "
+        f"held; msf edges {MSF_REF_EDGES} "
         f"({time.perf_counter() - t:.1f} s, batched part {batch3_s:.1f} s, "
-        f"composition part {sv3_s:.1f} s)", flush=True)
+        f"composition part {sv3_s:.1f} s, paper-table part {new3_s:.1f} s)",
+        flush=True)
 
     # -- 4. the main path at full size --------------------------------------
     t = time.perf_counter()
@@ -816,6 +1194,142 @@ def main() -> int:
           f"{sw_ms:.1f} ms; pj:reqresp on the {pj_pg.n}-vertex forest "
           f"{pj_res.steps} steps, {pj_res.total_bytes} bytes, oracle ok, run "
           f"{pj_ms:.1f} ms ({time.perf_counter() - t:.1f} s)", flush=True)
+
+    # the rest of the paper's table at full size: pagerank:basic on the
+    # pagerank:scatter graph (run twice: bit-identical), both MSF variants
+    # on the registry's weighted symmetrised R-MAT; each path with its own
+    # launch counts (reset just before it, read just after)
+    t = time.perf_counter()
+
+    def run_path(prog, pg):
+        torch.cuda.synchronize()
+        base_gib = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res, ms = timed(lambda: eng.run(prog, pg))
+        return dict(res=res, run_wall_ms=ms, launches=ops.launch_counts(),
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    base_gib=base_gib)
+
+    prb_prog = get_program("pagerank:basic", iters=30)
+    new_runs = {"pagerank:basic": run_path(prb_prog, pr_pg)}
+    for key in ("msf:channels", "msf:monolithic"):
+        new_runs[key] = run_path(get_program(key), msf_pg)
+    for key, run in new_runs.items():
+        check(run["launches"]["bucket_ranks"] > 0
+              and run["launches"]["segment_combine"] > 0,
+              f"{key} did not launch both main-path kernels: "
+              f"{run['launches']}")
+    prb_res = new_runs["pagerank:basic"]["res"]
+    prb_again = eng.run(prb_prog, pr_pg)
+    check(bits_equal(prb_res.state["pr"], prb_again.state["pr"]),
+          "pagerank:basic ranks differ between two runs on the card")
+    t_or = time.perf_counter()
+    REGISTRY["pagerank:basic"].check(pr_graph, pr_pg, prb_res)
+    prb_oracle_s = time.perf_counter() - t_or
+    vs_scatter = np.abs(prb_res.output - pr_res.output)
+    vs_scatter_rel = vs_scatter / np.maximum(np.abs(pr_res.output), 1e-30)
+    t_or = time.perf_counter()
+    msf_truth = gen.components_ground_truth(msf_graph)
+    msf_comps = len(np.unique(msf_truth))
+    msf_truth_canon = canon(msf_truth)
+    truth_s = time.perf_counter() - t_or
+    t_or = time.perf_counter()
+    msf_w_oracle = oracles.msf_weight_oracle(msf_graph)
+    kruskal_s = time.perf_counter() - t_or
+    msf_bound = 1e-2 + 1e-5 * msf_w_oracle
+    # Boruvka assumes unique weights; float32 weights collide at this size
+    # (scripts/msf_weight_ties.py counts the same at other scales)
+    und = msf_graph.edges[:, 0] < msf_graph.edges[:, 1]
+    _, wcounts = np.unique(msf_graph.weights[und], return_counts=True)
+    msf_ties = dict(undirected_edges=int(und.sum()),
+                    shared_values=int((wcounts > 1).sum()),
+                    edges_sharing=int(wcounts[wcounts > 1].sum()))
+    for key in ("msf:channels", "msf:monolithic"):
+        out = new_runs[key]["res"].output
+        check(new_runs[key]["res"].halted,
+              f"{key} at scale {FULL_SCALE} did not halt")
+        check(out["edges"] == msf_graph.n - msf_comps,
+              f"{key}: {out['edges']} forest edges, want "
+              f"{msf_graph.n - msf_comps}")
+        check(np.array_equal(canon(out["labels"]), msf_truth_canon),
+              f"{key} labels differ from the components' ground truth")
+        check(abs(out["weight"] - msf_w_oracle) <= msf_bound,
+              f"{key} forest weight {out['weight']} vs Kruskal "
+              f"{msf_w_oracle}: off by more than {msf_bound}")
+    msf_c, msf_m = (new_runs[k]["res"] for k in ("msf:channels",
+                                                 "msf:monolithic"))
+    check(msf_c.total_bytes < msf_m.total_bytes,
+          f"msf:channels ({msf_c.total_bytes} bytes) does not beat "
+          f"msf:monolithic ({msf_m.total_bytes}) at scale {FULL_SCALE}")
+    new_main = {}
+    for key, run in new_runs.items():
+        res = run.pop("res")
+        graph = pr_graph if key == "pagerank:basic" else msf_graph
+        new_main[key] = dict(
+            run, n=graph.n, edges=int(graph.num_edges), steps=res.steps,
+            halted=res.halted, msgs=res.total_msgs, bytes=res.total_bytes,
+            bytes_by_channel=res.bytes_by_channel,
+            step_ms=[1e3 * x for x in res.step_times_s],
+            ms_per_superstep=run["run_wall_ms"] / max(res.steps, 1),
+            loop_wall_s=res.wall_time_s)
+        if key.startswith("msf"):
+            new_main[key].update(weight=res.output["weight"],
+                                 forest_edges=res.output["edges"])
+    detail["new_programs"] = dict(
+        new_main, pagerank_basic_vs_scatter=dict(
+            max_abs=float(vs_scatter.max()),
+            max_rel=float(vs_scatter_rel.max())),
+        msf_weight_oracle=msf_w_oracle, msf_weight_bound=msf_bound,
+        msf_weight_ties=msf_ties,
+        msf_components=msf_comps, pagerank_oracle_s=prb_oracle_s,
+        components_truth_s=truth_s, kruskal_s=kruskal_s,
+        phase_s=time.perf_counter() - t)
+
+    def new_row(key):
+        v = new_main[key]
+        extra = (f", forest {v['weight']:.4f} with {v['forest_edges']} edges"
+                 if key.startswith("msf") else "")
+        return (f"{key} {v['steps']} steps, {v['bytes']} bytes{extra}, "
+                f"{v['ms_per_superstep']:.2f} ms a superstep, run "
+                f"{v['run_wall_ms']:.1f} ms, peak {v['peak_gib']:.2f} GiB "
+                f"({v['base_gib']:.2f} before), launches {v['launches']}")
+
+    print(f"[4/5] the rest of the paper's table at scale {FULL_SCALE}, "
+          f"W={W}: {new_row('pagerank:basic')}; two runs bit-identical, "
+          f"oracle ok (rtol 1e-4, atol 1e-7), against pagerank:scatter's "
+          f"ranks max |diff| {vs_scatter.max():.3g}, max rel "
+          f"{vs_scatter_rel.max():.3g} (not gated); msf on "
+          f"{msf_graph.n} vertices, {msf_graph.num_edges} directed edges: "
+          f"{new_row('msf:channels')}; {new_row('msf:monolithic')}; both "
+          f"{msf_graph.n - msf_comps} edges = n - #components, labels = "
+          f"the ground truth, |weight - {msf_w_oracle:.4f}| <= "
+          f"{msf_bound:.4f} ({msf_ties['shared_values']} weight values "
+          f"shared among {msf_ties['undirected_edges']} undirected edges); "
+          f"msf:channels below msf:monolithic in bytes "
+          f"(ground truth {truth_s:.1f} s, Kruskal {kruskal_s:.1f} s; "
+          f"{time.perf_counter() - t:.1f} s)", flush=True)
+
+    # the port's paper table at full size (python -m repro_torch.paper_tables
+    # --scale 20): host mode, headline held
+    t = time.perf_counter()
+    try:
+        table20 = paper_tables.run_and_write(
+            FULL_SCALE, str(out_dir / "paper_tables_torch.json"))
+    except SystemExit as err:
+        raise SmokeFailure(f"paper table at scale {FULL_SCALE}: {err}") \
+            from None
+    detail["paper_table"] = table20
+    print(f"[4/5] paper table at scale {FULL_SCALE} (host mode): " + "; ".join(
+        f"{r['algorithm']} {r['program']} {r['variant']} "
+        f"{r['supersteps']}/{r['bytes']} B/{r['ms_per_superstep']:.2f} ms a "
+        f"superstep/run {1e3 * r['wall_time_s']:.1f} ms/peak "
+        f"{r['peak_gib']:.2f} GiB/launches bucket_ranks "
+        f"{r['launches']['bucket_ranks']}, segment_combine "
+        f"{r['launches']['segment_combine']}" for r in table20["rows"]) +
+        f"; headline held ({table20['headline']['round_reduction']:.2f}x "
+        f"rounds, {table20['headline']['traffic_reduction']:.2f}x bytes) "
+        f"({time.perf_counter() - t:.1f} s)", flush=True)
 
     # the batched query plane at full size: Q=32 sources per program.
     # reach's recipe graph is pagerank's (_directed_rmat), so its
@@ -1051,6 +1565,39 @@ def main() -> int:
         bound_ms=sv_bound, bound_by="bytes",
         library_ms=svs["scatter_reduce_amin_ms"],
         library="scatter_reduce_ amin")
+    # the rest of the paper's table: min_by_first at the msf plan (row
+    # 2b) and the float32 sum of pagerank:basic's CombinedMessage (row 2c),
+    # on the first superstep's captured inputs, both sides
+    mbf_t = dispatch_times(msf_calls, two_pass_yardstick)
+    csum_t = dispatch_times(pr_calls, index_add_yardstick)
+    seg_source = "src/repro_torch/kernels/csrc/segment_combine.cu"
+    seg_replaces = "src/repro/kernels/segment_combine.py:101"
+    mbf_launches = sum(new_main[k]["launches"]["segment_combine"]
+                       for k in ("msf:channels", "msf:monolithic"))
+    row_2b = dict(
+        name="segment_combine: min_by_first (2b)", route="cuda",
+        source=seg_source, replaces=seg_replaces, launches=mbf_launches,
+        launches_by_path={k: new_main[k]["launches"]["segment_combine"]
+                          for k in ("msf:channels", "msf:monolithic")},
+        max_abs_err=errs["min_by_first"], ms=mbf_t["ms"],
+        plain_ms=mbf_t["plain_ms"], bound_ms=mbf_t["bound_ms"],
+        bound_by="bytes", library_ms=mbf_t["library_ms"],
+        library="scatter_reduce_ amin + scatter_reduce_ amax + gather",
+        cold_ms=mbf_t["cold_ms"], dispatch_ms=mbf_t["dispatch_ms"],
+        what=f"the first superstep's candidate combine of msf at scale "
+             f"{FULL_SCALE}, send + recv")
+    row_2c = dict(
+        name="segment_combine: float32 sum, CombinedMessage (2c)",
+        route="cuda", source=seg_source, replaces=seg_replaces,
+        launches=new_main["pagerank:basic"]["launches"]["segment_combine"],
+        max_abs_err=errs["combined_sum"], ms=csum_t["ms"],
+        plain_ms=csum_t["plain_ms"], bound_ms=csum_t["bound_ms"],
+        bound_by="bytes", library_ms=csum_t["library_ms"],
+        library="index_add_", cold_ms=csum_t["cold_ms"],
+        dispatch_ms=csum_t["dispatch_ms"],
+        what=f"pagerank:basic's CombinedMessage at scale {FULL_SCALE}, "
+             f"send + recv")
+
     kernels = [
         dict(name="bucket_ranks", route="cuda",
              source="src/repro_torch/kernels/csrc/bucket_route.cu",
@@ -1085,6 +1632,7 @@ def main() -> int:
              random_ms=l_t["random"]["ms"],
              random_cold_ms=l_t["random"]["cold_ms"],
              all_entry_bound_ms=l_bound_all),
+        row_2b, row_2c,
     ]
     detail["timings"] = dict(
         bucket_ranks=dict(shape=list(rkeys.shape), **b_t, plain_ms=b_plain,
@@ -1097,7 +1645,9 @@ def main() -> int:
                                 all_entry_bound_ms=l_bound_all),
         segment_combine=dict(seg_t, **st, library=s_lib_name,
                              bound_ms=s_bound, all_entry_bound_ms=s_bound_all),
-        segment_combine_int32_min_sv=dict(sv_t, **svs, bound_ms=sv_bound))
+        segment_combine_int32_min_sv=dict(sv_t, **svs, bound_ms=sv_bound),
+        segment_combine_min_by_first=mbf_t,
+        segment_combine_combined_sum=csum_t)
 
     def warm_cold(t):
         s, r = t["sorted"], t["random"]
@@ -1134,8 +1684,21 @@ def main() -> int:
           f"{svs['scatter_reduce_amin_ms']:.4f}) "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
+    def dispatch_row(name, x):
+        return (f"{name} (send {x['send']['shape']} into {x['send']['n']}, "
+                f"recv {x['recv']['shape']} into {x['recv']['n']}) kernel "
+                f"{x['ms']:.4f} ms warm [send {x['send']['ms']:.4f}, recv "
+                f"{x['recv']['ms']:.4f}], {x['cold_ms']:.4f} L2 flushed; "
+                f"with the stable sort and gather {x['dispatch_ms']:.4f}; "
+                f"plain {x['plain_ms']:.3f}, bound {x['bound_ms']:.4f}, "
+                f"yardstick {x['library_ms']:.4f}")
+
+    print(f"[5/5] times of the new combines at scale {FULL_SCALE}: "
+          f"{dispatch_row('min_by_first at the msf plan', mbf_t)} "
+          f"(scatter_reduce_ amin + amax + gather); "
+          f"{dispatch_row('float32 sum at the pagerank:basic CombinedMessage', csum_t)}"
+          f" (index_add_)", flush=True)
+
     s_queries, s_prog, _, s_ms = runs["sssp:basic"]
     detail["profile"] = profile_runs(
         (("wcc:basic", lambda: eng.run(get_program("wcc:basic"), wcc_pg),
@@ -1144,7 +1707,12 @@ def main() -> int:
          ("sssp:basic batched", lambda: eng.run_batch(s_prog, sssp_pg,
                                                       s_queries), s_ms),
          ("sv:composed", lambda: eng.run(get_program("sv:composed"), wcc_pg),
-          sv_main["sv:composed"]["run_wall_ms"])),
+          sv_main["sv:composed"]["run_wall_ms"]),
+         ("pagerank:basic", lambda: eng.run(prb_prog, pr_pg),
+          new_main["pagerank:basic"]["run_wall_ms"]),
+         ("msf:channels", lambda: eng.run(get_program("msf:channels"),
+                                          msf_pg),
+          new_main["msf:channels"]["run_wall_ms"])),
         out_dir)
     print("[5/5] profiled runs: " + "; ".join(
         f"{k}: traced wall {v['wall_ms']:.1f} ms, device "

@@ -1,0 +1,181 @@
+"""``python -m repro_torch`` — the port's registry-driven CLI.
+
+Subcommands:
+
+  list    every ported program (``algorithm:variant``), its channel class
+          and the graph plans it needs.
+  run     run one program on a generated problem instance in host mode,
+          verify it against the host oracle (``--no-check`` skips that),
+          and print the RunResult summary and the bytes of each channel.
+  bench   run a set of programs (one per algorithm by default) and print
+          paper-style rows (supersteps / messages / bytes / wall time),
+          optionally writing JSON.
+
+Everything runs on the card unless ``--device cpu`` is given. The JAX
+CLI's execution modes, planner, checkpoints and the batched, serving
+and planning subcommands are not ported yet (ROADMAP).
+
+Examples:
+
+  python -m repro_torch list
+  python -m repro_torch run msf --scale 12
+  python -m repro_torch run pagerank:basic --scale 10 --device cpu
+  python -m repro_torch bench --scale 12 --keys sv:basic,sv:composed \\
+      --json chiprun_out/bench.json
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+from repro_torch.algorithms import (ALGORITHMS, DEFAULT_VARIANT, REGISTRY,
+                                    resolve)
+from repro_torch.graph import partition as partition_lib
+from repro_torch.graph import pgraph
+from repro_torch.pregel.engine import Engine
+
+
+def _fmt_bytes(b: int) -> str:
+    return f"{b / 1e6:.3f} MB" if b >= 1e6 else f"{b} B"
+
+
+def _summary(res) -> str:
+    return (f"steps {res.steps:5d}  msgs {res.total_msgs:10d}  "
+            f"traffic {_fmt_bytes(res.total_bytes):>12s}  "
+            f"wall {res.wall_time_s:7.3f}s  mode {res.mode}")
+
+
+def _prepare(spec, args):
+    """(graph, pg, inputs, program) of the spec's default problem."""
+    graph = spec.make_graph(args.scale, args.seed)
+    pg = pgraph.partition_graph(graph, args.workers, args.partitioner,
+                                build=spec.build, device=args.device)
+    inputs = spec.inputs(graph, args.seed)
+    return graph, pg, inputs, spec.factory(**inputs)
+
+
+def cmd_list(args) -> int:
+    if args.json:
+        out = {}
+        for key, spec in sorted(REGISTRY.items()):
+            graph = spec.make_graph(6, 0)
+            out[key] = {
+                "algorithm": spec.algorithm,
+                "variant": spec.variant,
+                "default": DEFAULT_VARIANT.get(spec.algorithm) == spec.variant,
+                "build": list(spec.build),
+                "channel_class": spec.channel_class,
+                "channels": list(spec.factory(
+                    **spec.inputs(graph, 0)).channel_names()),
+            }
+        print(json.dumps(out, indent=2))
+        return 0
+    print(f"{len(REGISTRY)} ported programs ({len(ALGORITHMS)} "
+          f"algorithms):\n")
+    for algo in ALGORITHMS:
+        for key, spec in sorted(REGISTRY.items()):
+            if spec.algorithm != algo:
+                continue
+            star = "*" if DEFAULT_VARIANT[algo] == spec.variant else " "
+            plans = ",".join(spec.build) or "-"
+            print(f"  {star} {key:22s} [{spec.channel_class:6s}] "
+                  f"plans: {plans}")
+    print("\n(* = default variant for `python -m repro_torch run "
+          "<algorithm>`)")
+    return 0
+
+
+def cmd_run(args) -> int:
+    spec = resolve(args.program)
+    print(f"== {spec.key} (scale {args.scale}, W={args.workers}, "
+          f"{args.partitioner} partition, host mode, {args.device}) ==")
+    graph, pg, inputs, prog = _prepare(spec, args)
+    print(f"graph: n={graph.n} edges={graph.num_edges}  program: {prog}")
+    eng = Engine(device=args.device)
+    res = None
+    for i in range(max(1, args.repeat)):
+        res = eng.run(prog, pg, max_steps=args.max_steps)
+        print(f"run {i}: {_summary(res)}")
+    for name in sorted(res.bytes_by_channel):
+        print(f"  {name:32s} {res.bytes_by_channel[name]:12d} B "
+              f"{res.msgs_by_channel[name]:10d} msgs")
+    if args.check and spec.check is not None:
+        t = time.perf_counter()
+        spec.check(graph, pg, res, inputs)
+        print(f"oracle: ok ({time.perf_counter() - t:.1f} s)")
+    return 0
+
+
+def cmd_bench(args) -> int:
+    keys = (args.keys.split(",") if args.keys
+            else [f"{a}:{DEFAULT_VARIANT[a]}" for a in ALGORITHMS])
+    eng = Engine(device=args.device)
+    rows = []
+    print(f"== bench (scale {args.scale}, W={args.workers}, host mode, "
+          f"{args.device}) ==")
+    for name in keys:
+        spec = resolve(name)
+        graph, pg, inputs, prog = _prepare(spec, args)
+        res = eng.run(prog, pg, max_steps=args.max_steps)
+        rows.append({
+            "program": spec.key, "mode": res.mode, "supersteps": res.steps,
+            "messages": res.total_msgs, "bytes": res.total_bytes,
+            "wall_time_s": res.wall_time_s,
+            "step_times_s": res.step_times_s,
+        })
+        print(f"  {spec.key:22s} {_summary(res)}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"scale": args.scale, "workers": args.workers,
+                       "device": args.device, "rows": rows}, f, indent=2)
+        print(f"wrote {args.json}")
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="repro_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p_list = sub.add_parser("list", help="list the ported programs")
+    p_list.add_argument("--json", action="store_true")
+    p_list.set_defaults(fn=cmd_list)
+
+    def common(p):
+        p.add_argument("--scale", type=int, default=10,
+                       help="graph scale (n = 2^scale)")
+        p.add_argument("--workers", type=int, default=8)
+        p.add_argument("--partitioner", default="random",
+                       choices=sorted(partition_lib.PARTITIONERS))
+        p.add_argument("--max-steps", type=int, default=None)
+        p.add_argument("--seed", type=int, default=0)
+        p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                       help="where the graph and the run live (default: "
+                            "the card)")
+
+    p_run = sub.add_parser("run", help="run one program, verify the oracle")
+    p_run.add_argument("program",
+                       help="algorithm (default variant) or algorithm:variant")
+    common(p_run)
+    p_run.add_argument("--repeat", type=int, default=1,
+                       help="run the program this many times")
+    p_run.add_argument("--no-check", dest="check", action="store_false",
+                       help="skip the host-oracle verification")
+    p_run.set_defaults(fn=cmd_run)
+
+    p_bench = sub.add_parser("bench", help="bench programs in host mode")
+    p_bench.add_argument("--keys", default=None,
+                         help="comma list of programs (default: one per "
+                              "algorithm)")
+    common(p_bench)
+    p_bench.add_argument("--json", default=None, help="write rows to JSON")
+    p_bench.set_defaults(fn=cmd_bench)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

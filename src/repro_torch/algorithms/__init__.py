@@ -1,8 +1,8 @@
 """The port's algorithm registry: ``"algorithm:variant"`` → program
 factory plus its problem recipe, as in ``repro.algorithms``, for the
-programs ported so far (``wcc:basic``/``switch``, ``pagerank:scatter``,
-``reach:basic``, ``sssp:basic``, the six ``sv`` variants and
-``pj:basic``/``reqresp``).
+programs ported so far (``wcc:basic``/``switch``, ``pagerank:basic``/
+``scatter``, ``reach:basic``, ``sssp:basic``, the six ``sv`` variants,
+``pj:basic``/``reqresp`` and ``msf:channels``/``monolithic``).
 
     from repro_torch.algorithms import REGISTRY, get_program
     spec = REGISTRY["pagerank:scatter"]
@@ -21,8 +21,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.algorithms import (pagerank, pointer_jumping, reachability,
-                                    sssp, sv, wcc)
+from repro_torch.algorithms import (msf, pagerank, pointer_jumping,
+                                    reachability, sssp, sv, wcc)
 from repro_torch.graph import generators as gen, oracles
 from repro_torch.pregel.program import VertexProgram
 
@@ -89,6 +89,11 @@ def _weighted_rmat(scale, seed):
     return gen.rmat(scale, edge_factor=4, seed=5 + seed, weighted=True)
 
 
+def _weighted_sym_rmat(scale, seed):
+    return gen.rmat(scale, edge_factor=4, seed=9 + seed,
+                    weighted=True).symmetrized()
+
+
 def _forest_graph(scale, seed):
     n = 1 << scale
     return gen.EdgeList(n, np.zeros((0, 2), np.int64), None, True, "pj")
@@ -132,6 +137,13 @@ def _check_sssp(graph, pg, res, inputs):
     assert np.isinf(res.output[~finite]).all()
 
 
+def _check_msf(graph, pg, res, inputs=None):
+    want_w = oracles.msf_weight_oracle(graph)
+    assert abs(res.output["weight"] - want_w) < 1e-2
+    truth = gen.components_ground_truth(graph)
+    assert res.output["edges"] == graph.n - len(set(truth.tolist()))
+
+
 def _check_pj(graph, pg, res, inputs):
     p = inputs["parents"].copy()
     for _ in range(graph.n):
@@ -166,11 +178,17 @@ REGISTRY: Dict[str, ProgramSpec] = {
         build=(), make_graph=_forest_graph, make_inputs=_forest_inputs,
         check=_check_pj, channel_class="routed", test_scale=9)
        for v in pointer_jumping.VARIANTS},
-    "pagerank:scatter": ProgramSpec(
-        key="pagerank:scatter", algorithm="pagerank", variant="scatter",
-        factory=_bind(pagerank.program, "scatter"),
+    **{f"pagerank:{v}": ProgramSpec(
+        key=f"pagerank:{v}", algorithm="pagerank", variant=v,
+        factory=_bind(pagerank.program, v),
         build=("scatter_out", "raw_out"),
-        make_graph=_directed_rmat, check=_check_pagerank),
+        make_graph=_directed_rmat, check=_check_pagerank)
+       for v in pagerank.VARIANTS},
+    **{f"msf:{v}": ProgramSpec(
+        key=f"msf:{v}", algorithm="msf", variant=v,
+        factory=_bind(msf.program, v), build=("raw_out",),
+        make_graph=_weighted_sym_rmat, check=_check_msf, test_scale=7)
+       for v in msf.VARIANTS},
     "reach:basic": ProgramSpec(
         key="reach:basic", algorithm="reach", variant="basic",
         factory=_bind(reachability.program, "basic"),
@@ -187,14 +205,32 @@ REGISTRY: Dict[str, ProgramSpec] = {
         channel_class="routed"),
 }
 
+#: the variant ``python -m repro_torch run <algorithm>`` picks when no
+#: variant is given — the JAX registry's choice (each algorithm's
+#: optimized-channel showcase), except ``wcc``, whose ``prop`` waits for
+#: the propagation plans (ROADMAP); ``scc`` is not ported yet
+DEFAULT_VARIANT: Dict[str, str] = {
+    "wcc": "switch",
+    "sv": "both",
+    "msf": "channels",
+    "sssp": "basic",
+    "pagerank": "scatter",
+    "pj": "reqresp",
+    "reach": "basic",
+}
+
+ALGORITHMS: Tuple[str, ...] = tuple(sorted(DEFAULT_VARIANT))
+
 #: specs with a query axis — what ``Engine.run_batch`` runs
 BATCHED: Tuple[str, ...] = tuple(
     sorted(k for k, s in REGISTRY.items() if s.make_queries is not None))
 
 
 def resolve(name: str) -> ProgramSpec:
+    """``"wcc"`` (default variant) or ``"wcc:switch"`` -> ProgramSpec."""
+    key = name if ":" in name else f"{name}:{DEFAULT_VARIANT.get(name, '')}"
     try:
-        return REGISTRY[name]
+        return REGISTRY[key]
     except KeyError:
         raise KeyError(
             f"unknown or not yet ported program {name!r}; ported: "

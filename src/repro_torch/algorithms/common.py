@@ -1,19 +1,21 @@
 """Shared building blocks for the vertex-centric algorithms.
 
-The port of ``repro.algorithms.common``, as far as the S-V and
-pointer-jumping programs need it:
+The port of ``repro.algorithms.common``, as far as the S-V, pointer-
+jumping and Boruvka programs need it:
 
   - ``direct_request_respond``: the *baseline* request/respond — two
     DirectMessage rounds, ids on both wires, no dedup — what Pregel does
-    without the request-respond channel;
-  - ``pj_converge``: pointer jumping to a fixpoint, and
-    ``jump_component``, the same as a composition-stack component.
+    without the request-respond channel; tagged requests (one per edge)
+    and a padded ``wire_width`` serve the monolithic Boruvka;
+  - ``pj_converge``: pointer jumping to a fixpoint over RequestRespond or
+    the DirectMessage baseline, and ``jump_component``, the same as a
+    composition-stack component.
 
-The tagged requests, ``wire_width`` padding, the DirectMessage flavour
-of ``pj_converge`` and ``cm_propagate`` come with the ``msf``/``prop``
-slices (ROADMAP).
+``cm_propagate`` comes with the ``prop`` slice (ROADMAP).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -30,40 +32,60 @@ def direct_request_respond(
     respond_vals: torch.Tensor,
     *,
     name: str = "basic_reqresp",
+    wire_width: Optional[int] = None,
+    tags: Optional[torch.Tensor] = None,
 ):
-    """Baseline request-respond: each local vertex i requests
-    ``respond_vals[dst[:, i]]`` via DirectMessage (its own global id on
-    the wire), and the responder replies to each request individually via
-    DirectMessage, routed back by the requester's id.
+    """Baseline request-respond: requests via DirectMessage, the
+    responder replies to each request individually via DirectMessage (ids
+    on both wires, no dedup).
 
-    dst: (W, n_loc) requested global ids, one request per local vertex.
+    dst: (W, R) requested global ids. Without ``tags``, R must be n_loc
+    and request i is made by local vertex i: the reply routes back by
+    that vertex's id. With ``tags`` ((R,) or (W, R), unique per worker,
+    below R — e.g. one request per edge) the requester is the worker's
+    first vertex and the tag rides both wires; the reply lands on row
+    ``tag``.
     respond_vals: (W, n_loc[, D]) attribute exposed by every vertex.
-    Returns (resp (W, n_loc[, D]), overflow (W,)).
+    wire_width: payload bytes charged per message (default: the
+      payload's own width).
+    Returns (resp (W, R[, D]), overflow (W,)).
     """
     w, n_loc = ctx.num_workers, ctx.n_loc
     squeeze = respond_vals.dim() == 2
     rv = respond_vals[..., None] if squeeze else respond_vals
     d = rv.shape[-1]
     r = dst.shape[1]
-    if r != n_loc:
-        raise ValueError(
-            f"direct_request_respond takes one request per local vertex "
-            f"({n_loc}), got {r} (tagged requests are not ported yet)")
-    requester = (ctx.me()[:, None] * n_loc
-                 + torch.arange(n_loc, device=dst.device)).to(torch.int32)
+    me = ctx.me()[:, None]
+    payload = {}
+    if tags is None:
+        if r != n_loc:
+            raise ValueError(
+                f"direct_request_respond without tags takes one request "
+                f"per local vertex ({n_loc}), got {r}")
+        payload["requester"] = (me * n_loc + torch.arange(
+            n_loc, device=dst.device)).to(torch.int32)
+    else:
+        # the reply routes to any of our vertices; the tag does the matching
+        payload["requester"] = (me * n_loc).expand(w, r).to(torch.int32)
+        payload["tag"] = torch.as_tensor(tags, device=dst.device).to(
+            torch.int32).expand(w, r)
 
-    # phase 1: requests carry the requester id — no dedup
-    deliv = msg.direct_send(ctx, dst, valid, {"requester": requester},
-                            capacity=r, name=name + "/request")
+    # phase 1: requests carry the requester id (and tag) — no dedup
+    deliv = msg.direct_send(ctx, dst, valid, payload, capacity=r,
+                            name=name + "/request", wire_width=wire_width)
     # phase 2: respond to each request individually
     rv_pad = torch.cat([rv, rv.new_zeros((w, 1, d))], dim=1)
     at = deliv.dst_local.long().clamp(0, n_loc)
-    tgt_vals = rv_pad.gather(1, at[..., None].expand(-1, -1, d))
+    back_payload = {"v": rv_pad.gather(1, at[..., None].expand(-1, -1, d))}
+    if tags is not None:
+        back_payload["tag"] = deliv.payload["tag"]
     back = msg.direct_send(ctx, deliv.payload["requester"], deliv.mask,
-                           {"v": tgt_vals}, capacity=r,
-                           name=name + "/respond")
-    # each reply lands on its requester's row (a dump row for the rest)
-    slot = torch.where(back.mask, back.dst_local, r).long()
+                           back_payload, capacity=r, name=name + "/respond",
+                           wire_width=wire_width)
+    # each reply lands on its requester's row or its tag's (a dump row
+    # for the rest)
+    where = back.dst_local if tags is None else back.payload["tag"]
+    slot = torch.where(back.mask, where, r).long()
     vals = torch.where(back.mask[..., None], back.payload["v"], 0)
     out = rv.new_zeros((w, r + 1, d))
     out.scatter_(1, slot[..., None].expand(-1, -1, d), vals)
@@ -73,10 +95,13 @@ def direct_request_respond(
 
 
 def pj_converge(ctx: ChannelContext, parents: torch.Tensor,
-                mask: torch.Tensor, *, max_iters: int = 64,
-                name: str = "pj_loop"):
+                mask: torch.Tensor, *, use_reqresp: bool = True,
+                max_iters: int = 64, name: str = "pj_loop",
+                wire_width: Optional[int] = None):
     """Pointer-jump ``parents`` (W, n_loc) to a fixpoint (all point to
-    their root) over the RequestRespond channel.
+    their root) over the RequestRespond channel, or with
+    ``use_reqresp=False`` over the DirectMessage baseline
+    (:func:`direct_request_respond`, ``wire_width`` bytes a message).
 
     A host loop: each round requests the grandparents in a fresh
     registry-free context and reads back one ``changed`` flag; it stops
@@ -91,7 +116,11 @@ def pj_converge(ctx: ChannelContext, parents: torch.Tensor,
     p, rounds, changed = parents, 0, True
     while changed and rounds < max_iters:
         tmp = ChannelContext(w, n_loc, ctx.device)
-        grand, _ = rr.request(tmp, p, mask, p, capacity=n_loc, name="x")
+        if use_reqresp:
+            grand, _ = rr.request(tmp, p, mask, p, capacity=n_loc, name="x")
+        else:
+            grand, _ = direct_request_respond(tmp, p, mask, p, name="x",
+                                              wire_width=wire_width)
         newp = torch.where(mask, grand, p)
         for key in tmp.stats_bytes:
             nb = nb + tmp.stats_bytes[key]

@@ -1,10 +1,19 @@
 """PageRank (paper Fig. 1 / Table V top).
 
-The port of ``repro.algorithms.pagerank``, variant ``"scatter"``: the
-ScatterCombine channel (static plan, no ids on the wire) carries the
-rank contributions — both of its combines run the ``segment_combine``
-kernel on the card — and an Aggregator sums the sink mass. ``"basic"``
-and ``"personal"`` are not ported yet (ROADMAP).
+The port of ``repro.algorithms.pagerank``. Variants:
+
+  - ``"basic"``: the CombinedMessage channel (per-superstep routing, ids
+    on the wire) — the standard-channel Fig. 1 program. Its float32
+    ``sum`` combines are order-sensitive, so on the card both sides
+    stable-sort their ids and run the ``segment_combine`` kernel
+    (``kernels.ops.segment_reduce``): no float atomics, two runs
+    bit-identical;
+  - ``"scatter"``: the ScatterCombine channel (static plan, no ids on
+    the wire) — both of its combines run the ``segment_combine`` kernel
+    on the card.
+
+An Aggregator sums the sink mass in both. ``"personal"`` is not ported
+yet (ROADMAP).
 
 ``use_kernel=None`` (the default) means the kernel on the card and the
 plain version on the CPU; ``use_kernel=False`` with a graph on the card
@@ -18,17 +27,18 @@ from typing import Optional
 import torch
 
 from repro_torch.core import aggregator as agg
+from repro_torch.core import message as msg
 from repro_torch.core import scatter_combine as sc
 from repro_torch.pregel.program import VertexProgram
 
-VARIANTS = ("scatter",)
+VARIANTS = ("basic", "scatter")
 
 
 def program(variant: str = "scatter", *, iters: int = 30,
             damping: float = 0.85,
             use_kernel: Optional[bool] = None) -> VertexProgram:
     """PageRank as a VertexProgram. Output: (n,) ranks in old-id space."""
-    if variant in ("basic", "personal"):
+    if variant == "personal":
         raise NotImplementedError(
             f"pagerank:{variant} is not ported yet (see ROADMAP)")
     if variant not in VARIANTS:
@@ -43,15 +53,24 @@ def program(variant: str = "scatter", *, iters: int = 30,
         pr = state["pr"]
         deg = torch.clamp(gs.deg_out, min=1).to(torch.float32)
         contrib = torch.where(gs.deg_out > 0, pr / deg, 0.0)
-        incoming = sc.broadcast_combine(
-            ctx, gs.scatter_out, contrib, "sum", use_kernel=use_kernel)
+        overflow = torch.zeros(ctx.num_workers, dtype=torch.bool,
+                               device=gs.device)
+        if variant == "scatter":
+            incoming = sc.broadcast_combine(
+                ctx, gs.scatter_out, contrib, "sum", use_kernel=use_kernel)
+        else:
+            raw = gs.raw_out
+            incoming, _, overflow = msg.combined_send(
+                ctx, raw.dst_global, raw.mask,
+                contrib.gather(1, raw.src_local.long()), "sum",
+                capacity=ctx.edge_capacity(ctx.n_loc), use_kernel=use_kernel)
         sink = agg.aggregate(
             ctx, torch.where((gs.deg_out == 0) & gs.v_mask, pr, 0.0), "sum")
         new_pr = torch.where(
             gs.v_mask,
             (1 - damping) / n + damping * (incoming + sink[:, None] / n),
             0.0)
-        return {"pr": new_pr}, step_idx >= iters - 1
+        return {"pr": new_pr}, step_idx >= iters - 1, overflow
 
     def extract(pg, state):
         return pg.to_global(state["pr"])

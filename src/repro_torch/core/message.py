@@ -9,10 +9,12 @@ dense per-vertex combined value. Both ride the routed exchange
 The sender-side combine is sort-free: the unique-destination list is
 compacted with a counting prefix-sum (``routing.dedup_dense``) and the
 values are reduced directly in that compact space. ``id_bytes`` are
-charged once per *wire* message. Both combines are plain PyTorch
-scatter reductions, as in the JAX package (which runs its reference
-there, not the kernel); with the lattice combiners (min/max/or) they are
-exact and order-independent on the card.
+charged once per *wire* message. Both combines go through
+``kernels.ops.segment_reduce``: the lattice combiners (min/max/or) and
+integer sums are plain PyTorch scatter reductions, exact in any order;
+float sums, ``prod`` and ``min_by_first`` are order-sensitive, and on
+the card they stable-sort their ids and run the ``segment_combine``
+kernel — no float atomics, so two runs are bit-identical.
 
 Under the batched query plane (a context with ``num_queries=Q``) a
 CombinedMessage with a union-exact combiner dedups and routes ONCE over
@@ -31,6 +33,7 @@ from repro_torch.core import combiners as cb
 from repro_torch.core import routing
 from repro_torch.core.channel import (TRAFFIC_DTYPE, ChannelContext,
                                       payload_width)
+from repro_torch.kernels import ops as kops
 
 
 @dataclasses.dataclass
@@ -110,7 +113,8 @@ def _combined_send_serial(ctx, dst, valid, v, combiner, capacity, use_kernel):
     u_valid = u_dst != routing.BIG
     safe = torch.clamp(dst.to(torch.int64), 0, n_total - 1)
     seg = torch.where(valid, pos.gather(1, safe), m)
-    u_vals = combiner.segment_reduce(v, seg, m)  # (W, m, D), u_dst-aligned
+    # (W, m, D), u_dst-aligned
+    u_vals = kops.segment_reduce(v, seg, m, combiner, use_kernel=use_kernel)
 
     routed = routing.route(ctx, u_dst, u_valid, {"v": u_vals}, capacity,
                            use_kernel=use_kernel)
@@ -118,7 +122,8 @@ def _combined_send_serial(ctx, dst, valid, v, combiner, capacity, use_kernel):
 
     deliv = _delivery(ctx, routed, capacity)
     flat_v = torch.where(deliv.mask[..., None], deliv.payload["v"], ident)
-    out = combiner.segment_reduce(flat_v, deliv.dst_local, ctx.n_loc)
+    out = kops.segment_reduce(flat_v, deliv.dst_local, ctx.n_loc, combiner,
+                              use_kernel=use_kernel)
     got = cb.SUM.segment_reduce(deliv.mask.to(torch.int32), deliv.dst_local,
                                 ctx.n_loc) > 0
     return out, got, routed.overflow, remote

@@ -6,13 +6,18 @@
 // (rows, E, D) values with sorted segment ids seg[r, :] it computes
 //   out[r, s, :] = combine(vals[r, e, :] for seg[r, e] == s),  s in [0, N)
 // with the combiner's identity for empty segments; ids outside [0, N)
-// are dropped.
+// are dropped. The combiners: sum, min, max, prod, and min_by_first,
+// Boruvka's argmin over column 0 that carries the whole D-wide row of
+// the winner (ties: the later entry; an empty segment holds key +inf or
+// INT32_MAX and a zero payload, the plain version's identity_like).
 //
 // Bound: memory, counted on the entries the input needs. Each real id
 // and value is read once and each output written once: R * (4 + 4 D)
 // + N * 4 D bytes per row for R ids in [0, N). The dropped tail (the
 // plan pads each row with id N after its real entries) costs one id per
 // tile. One combine per value is far below the card's arithmetic rate.
+// min_by_first reads the ids and the key column, and each winner's row
+// once more: R * 8 + (winners) * 4 D + N * 4 D bytes.
 //
 // Design: a flat segmented reduction over entries, not over segments.
 //   1. tile_kernel: each block takes one tile of kTile = 256 x 8 entries
@@ -27,12 +32,20 @@
 //      into the next), in a (rows, tiles) scratch table.
 //   2. join_kernel: one block per row scans the tiles' last-run partials
 //      in tile order (a segmented scan, reset where a run starts inside a
-//      tile) and writes each crossing segment where it ends.
+//      tile) and writes each crossing segment where it ends; beside it up
+//      to kFillBlocks blocks per row store the marked chunks.
 //   Both passes share one block-wide segmented scan (block_seg_scan).
 //   Empty segments need no offsets table: the thread holding position p
 //   fills the segments strictly between seg[p] and seg[p + 1] (and tile
 //   0 those below seg[0]) with the identity. Short gaps are stored by the
-//   thread, longer ones by its warp together with 16-byte stores. A tile
+//   thread, longer ones by its warp together with 16-byte stores. A gap
+//   longer than two chunks of kChunk output elements (a sparse row: a
+//   compact id space whose ids end far below N, every id dropped) would
+//   keep one warp busy for milliseconds, so the warp stores only its
+//   partial head and tail chunks and marks the whole chunks in a (rows,
+//   chunks) table with the launch's epoch; pass 2's fill blocks store
+//   every chunk that carries the epoch, across the card. The table is
+//   never cleared: a mark of an earlier launch has another epoch. A tile
 //   whose first id is dropped past N exits after reading it: the tile
 //   before it filled up to N. So every output element is written exactly
 //   once, with no initialisation pass.
@@ -46,9 +59,22 @@
 // results. min, max and int32 sum are exact (int32 sum wraps in two's
 // complement, as the plain version); float32 sum differs from a
 // sequential order only by reassociation; min and max keep +-inf and
-// propagate NaN like torch.minimum/maximum. Ids are clamped to [-1, N]
-// before use, so unsorted input gives a wrong answer but no
-// out-of-bounds access.
+// propagate NaN like torch.minimum/maximum; prod of int32 wraps in two's
+// complement and of float32 differs from a sequential order only by
+// reassociation. Ids are clamped to [-1, N] before use, so unsorted input
+// gives a wrong answer but no out-of-bounds access.
+//
+// min_by_first as a segmented argmin: the scan value of entry p is one
+// 64-bit word, (monotone rank of the key) << 32 | (0xfffffffe - p), and
+// the combine is a plain unsigned min. The rank orders float keys as
+// their values (-0.0 ties 0.0; a NaN ranks below every key when it opens
+// its segment and above every key elsewhere, which is what folding the
+// pairwise rule "the later entry if its key <= the earlier's" over the
+// segment in position order gives) and int32 keys as themselves; the low
+// word makes the later of two equal ranks the smaller word. So the
+// combine is commutative and associative and the tiles may meet in any
+// order: the writer of a segment decodes the winner's position and
+// copies its D values.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -58,13 +84,15 @@
 
 namespace {
 
-enum Op { kSum = 0, kMin = 1, kMax = 2 };
+enum Op { kSum = 0, kMin = 1, kMax = 2, kProd = 3, kArgMin = 4 };
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 8;
 constexpr long long kTile = (long long)kThreads * kItems;
 constexpr long long kSmallGap = 8;  // elements a thread fills alone
+constexpr long long kChunk = 8192;  // output elements of a chunk fill
+constexpr int kFillBlocks = 64;     // chunk-fill blocks per row
 static_assert(kItems % 4 == 0, "16-byte loads of a thread's entries");
 
 template <typename T, int OP>
@@ -73,10 +101,12 @@ struct Combine;
 template <int OP>
 struct Combine<float, OP> {
   static __device__ __forceinline__ float ident() {
+    if (OP == kProd) return 1.0f;
     return OP == kSum ? 0.0f : (OP == kMin ? INFINITY : -INFINITY);
   }
   static __device__ __forceinline__ float apply(float a, float b) {
     if (OP == kSum) return a + b;
+    if (OP == kProd) return a * b;
     if (OP == kMin) return (a < b || a != a) ? a : b;  // a != a: NaN
     return (a > b || a != a) ? a : b;
   }
@@ -85,14 +115,81 @@ struct Combine<float, OP> {
 template <int OP>
 struct Combine<int, OP> {
   static __device__ __forceinline__ int ident() {
+    if (OP == kProd) return 1;
     return OP == kSum ? 0 : (OP == kMin ? INT_MAX : INT_MIN);
   }
   static __device__ __forceinline__ int apply(int a, int b) {
     if (OP == kSum) return (int)((unsigned)a + (unsigned)b);
+    if (OP == kProd) return (int)((unsigned)a * (unsigned)b);
     if (OP == kMin) return a < b ? a : b;
     return a > b ? a : b;
   }
 };
+
+// The argmin words of min_by_first (see the header).
+template <>
+struct Combine<unsigned long long, kMin> {
+  static __device__ __forceinline__ unsigned long long ident() {
+    return ~0ull;
+  }
+  static __device__ __forceinline__ unsigned long long apply(
+      unsigned long long a, unsigned long long b) {
+    return a < b ? a : b;
+  }
+};
+
+// What a row's entries are scanned as: the value itself, or for
+// min_by_first (T the value type) the argmin word under kMin.
+template <typename T, int OP>
+struct Scan {
+  using S = T;
+  static constexpr int kOp = OP;
+};
+template <typename T>
+struct Scan<T, kArgMin> {
+  using S = unsigned long long;
+  static constexpr int kOp = kMin;
+};
+
+// Monotone 32-bit rank of a min_by_first key; `opens`: the entry opens
+// its segment.
+__device__ __forceinline__ int key_rank(float k, bool opens) {
+  if (k != k) return opens ? -0x7f800001 : 0x7f800001;  // NaN, past +-inf
+  const int b = __float_as_int(k);
+  return b >= 0 ? b : -(b & 0x7fffffff);
+}
+__device__ __forceinline__ int key_rank(int k, bool) { return k; }
+
+template <typename T>
+__device__ __forceinline__ unsigned long long argmin_word(T key, long long p,
+                                                          bool opens) {
+  const unsigned hi = (unsigned)key_rank(key, opens) ^ 0x80000000u;
+  return (unsigned long long)hi << 32 | (0xfffffffeu - (unsigned)p);
+}
+
+__device__ __forceinline__ long long argmin_pos(unsigned long long w) {
+  return 0xfffffffeu - (unsigned)(w & 0xffffffffu);
+}
+
+// The identity at output element t of a segment fill: the combiner's,
+// or for min_by_first the key's identity in column 0 and a zero payload.
+template <typename T, int OP>
+__device__ __forceinline__ T fill_at(long long t, int d, T fill) {
+  return (OP != kArgMin || t % d == 0) ? fill : T(0);
+}
+
+// Write the result `run` of segment sk (column j): the value, or for
+// min_by_first the D values of the winning row of v.
+template <typename T, int OP>
+__device__ __forceinline__ void emit(T* o, const T* v, int sk, int d, int j,
+                                     typename Scan<T, OP>::S run) {
+  if constexpr (OP == kArgMin) {
+    const long long p = argmin_pos(run);
+    for (int c = 0; c < d; ++c) o[(long long)sk * d + c] = v[p * d + c];
+  } else {
+    o[(long long)sk * d + j] = run;
+  }
+}
 
 template <typename T>
 __device__ __forceinline__ T from_bits(int b) {
@@ -158,6 +255,27 @@ __device__ void range_fill(T* o, long long lo, long long hi, T ident,
   for (long long t = lo + nv * 4 + rank; t < hi; t += count) o[t] = ident;
 }
 
+// The identity into o[lo, hi) by `count` threads of which this is
+// `rank`: the combiner's (16-byte stores), or min_by_first's per-segment
+// pattern (key identity in column 0, zero payload; one 16-byte store a
+// segment for D = 4).
+template <typename T, int OP>
+__device__ void gap_fill(T* o, long long lo, long long hi, int d, T fill,
+                         int rank, int count) {
+  if (OP != kArgMin || d == 1) {
+    range_fill(o, lo, hi, fill, rank, count);
+  } else if (d == 4 && lo % 4 == 0 && ((uintptr_t)o & 15) == 0) {
+    int bits;
+    memcpy(&bits, &fill, 4);
+    const int4 row = make_int4(bits, 0, 0, 0);
+    int4* o4 = reinterpret_cast<int4*>(o + lo);
+    for (long long t = rank; t < (hi - lo) / 4; t += count) o4[t] = row;
+  } else {
+    for (long long t = lo + rank; t < hi; t += count)
+      o[t] = fill_at<T, OP>(t, d, fill);
+  }
+}
+
 // Block-wide inclusive segmented scan of one (flag, value) a thread, in
 // thread order, with carry in front of thread 0:
 //   (f1, v1) . (f2, v2) = (f1 | f2, f2 ? v2 : v1 + v2).
@@ -209,19 +327,24 @@ template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
     tile_kernel(const T* __restrict__ vals, const int* __restrict__ seg,
                 T* __restrict__ out, int2* __restrict__ meta,
-                T* __restrict__ part, long long e, int n, int d,
-                long long ntiles, int vec) {
-  using C = Combine<T, OP>;
+                typename Scan<T, OP>::S* __restrict__ part,
+                unsigned* __restrict__ chunks, long long e, int n, int d,
+                long long ntiles, long long nchunks, unsigned epoch,
+                int vec) {
+  using S = typename Scan<T, OP>::S;
+  using C = Combine<S, Scan<T, OP>::kOp>;
   const long long row = blockIdx.y, tile = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31;
   const int* s = seg + row * e;
   const T* v = vals + row * e * d;
   T* o = out + row * (long long)n * d;
+  const int cols = OP == kArgMin ? 1 : d;  // columns scanned
   const long long cell = row * ntiles + tile;
-  T* hpart = part + cell * 2 * d;
-  T* tpart = hpart + d;
+  S* hpart = part + cell * 2 * cols;
+  S* tpart = hpart + cols;
   const long long t0 = tile * kTile;
-  const T ident = C::ident();
+  const S ident = C::ident();
+  const T fill = Combine<T, OP == kArgMin ? kMin : OP>::ident();
 
   const int first = key_at(s, t0, e, n);
   if (first == n && t0 > 0) {  // dropped tail: the tile before filled to n
@@ -245,15 +368,18 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < kItems; ++k) key[k] = key_at(s, base + k, e, n);
   }
-  T x[kItems];  // column 0's values, in flight while the gaps are filled
-  load_column(v, base, e, d, 0, full, ident, x);
+  T xt[kItems];  // column 0's values, in flight while the gaps are filled
+  load_column(v, base, e, d, 0, full, fill, xt);
   const int prev = tid == 0 ? before : key_at(s, base - 1, e, n);
   const int next = key_at(s, base + kItems, e, n);
-  unsigned head = 0, end = 0;  // bit k: a run starts / ends at entry k
+  // bit k: a run starts (in this block's scan) / a segment opens / a run
+  // ends at entry k
+  unsigned head = 0, opens = 0, end = 0;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int pk = k == 0 ? prev : key[k - 1];
     const int nk = k == kItems - 1 ? next : key[k + 1];
+    if (key[k] != pk) opens |= 1u << k;
     if ((k == 0 && tid == 0) || key[k] != pk) head |= 1u << k;
     if (key[k] != nk) end |= 1u << k;
   }
@@ -272,29 +398,49 @@ __global__ void __launch_bounds__(kThreads)
     const long long hi = b > a + 1 ? (long long)b * d : lo;
     const bool by_warp = hi - lo > kSmallGap;
     if (!by_warp)
-      for (long long t = lo; t < hi; ++t) o[t] = ident;
+      for (long long t = lo; t < hi; ++t) o[t] = fill_at<T, OP>(t, d, fill);
     unsigned todo = __ballot_sync(kFull, by_warp);
     while (todo) {
       const int src = __ffs(todo) - 1;
       todo &= todo - 1;
-      range_fill(o, __shfl_sync(kFull, lo, src), __shfl_sync(kFull, hi, src),
-                 ident, lane, 32);
+      const long long wlo = __shfl_sync(kFull, lo, src);
+      const long long whi = __shfl_sync(kFull, hi, src);
+      if (whi - wlo > 2 * kChunk) {  // whole chunks go to pass 2
+        const long long c0 = (wlo + kChunk - 1) / kChunk, c1 = whi / kChunk;
+        unsigned* ch = chunks + row * nchunks;
+        for (long long c = c0 + lane; c < c1; c += 32) ch[c] = epoch;
+        gap_fill<T, OP>(o, wlo, c0 * kChunk, d, fill, lane, 32);
+        gap_fill<T, OP>(o, c1 * kChunk, whi, d, fill, lane, 32);
+      } else {
+        gap_fill<T, OP>(o, wlo, whi, d, fill, lane, 32);
+      }
     }
   }
 
   // -- values, one column at a time ------------------------------------------
-  for (int j = 0; j < d; ++j) {
-    if (j > 0) load_column(v, base, e, d, j, full, ident, x);
+  for (int j = 0; j < cols; ++j) {
+    S x[kItems];
+    if constexpr (OP == kArgMin) {
+#pragma unroll
+      for (int k = 0; k < kItems; ++k)
+        x[k] = base + k < e ? argmin_word(xt[k], base + k, opens >> k & 1)
+                            : ident;
+    } else {
+      if (j > 0) load_column(v, base, e, d, j, full, ident, xt);
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) x[k] = xt[k];
+    }
     // the thread's own part: the value of its last run, and whether a run
     // starts inside it
-    T agg = x[0];
+    S agg = x[0];
 #pragma unroll
     for (int k = 1; k < kItems; ++k)
       agg = (head >> k & 1) ? x[k] : C::apply(agg, x[k]);
-    T block_total;
-    const T carry = block_seg_scan<T, OP>(agg, head != 0, ident, &block_total);
+    S block_total;
+    const S carry = block_seg_scan<S, Scan<T, OP>::kOp>(agg, head != 0, ident,
+                                                        &block_total);
 
-    T run = carry;
+    S run = carry;
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       run = (head >> k & 1) ? x[k] : C::apply(run, x[k]);
@@ -302,7 +448,7 @@ __global__ void __launch_bounds__(kThreads)
         const int sk = key[k];
         if (sk >= 0 && sk < n) {
           if (sk == first && cont) hpart[j] = run;  // joined by pass 2
-          else o[(long long)sk * d + j] = run;
+          else emit<T, OP>(o, v, sk, d, j, run);
         }
       }
     }
@@ -316,31 +462,47 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Pass 2: one block per row joins the segments that cross tile
+// Pass 2, block 0 of each row: joins the segments that cross tile
 // boundaries. S[t] = (reset[t] ? 0 : S[t - 1]) + last-run partial of
 // tile t, by a segmented scan in tile order; a tile whose first run ends
 // inside it and began earlier writes S[t - 1] + its first-run partial.
+// The row's other blocks store the chunks pass 1 marked with `epoch`.
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
-    join_kernel(const int2* __restrict__ meta, const T* __restrict__ part,
-                T* __restrict__ out, long long ntiles, int n, int d) {
-  using C = Combine<T, OP>;
-  const long long row = blockIdx.x;
+    join_kernel(const T* __restrict__ vals, const int2* __restrict__ meta,
+                const typename Scan<T, OP>::S* __restrict__ part,
+                const unsigned* __restrict__ chunks, T* __restrict__ out,
+                long long e, long long ntiles, int n, int d,
+                long long nchunks, unsigned epoch) {
+  using S = typename Scan<T, OP>::S;
+  using C = Combine<S, Scan<T, OP>::kOp>;
+  const long long row = blockIdx.y;
   const int tid = threadIdx.x;
-  const int2* m = meta + row * ntiles;
-  const T* p = part + row * ntiles * 2 * d;
   T* o = out + row * (long long)n * d;
-  const T ident = C::ident();
-  for (int j = 0; j < d; ++j) {
-    T carry = ident;  // S of the previous chunk's last tile
+  if (blockIdx.x > 0) {
+    const unsigned* ch = chunks + row * nchunks;
+    const T fill = Combine<T, OP == kArgMin ? kMin : OP>::ident();
+    for (long long c = blockIdx.x - 1; c < nchunks; c += gridDim.x - 1)
+      if (ch[c] == epoch)
+        gap_fill<T, OP>(o, c * kChunk, (c + 1) * kChunk, d, fill, tid,
+                        kThreads);
+    return;
+  }
+  const int cols = OP == kArgMin ? 1 : d;
+  const int2* m = meta + row * ntiles;
+  const S* p = part + row * ntiles * 2 * cols;
+  const T* v = vals + row * e * d;
+  const S ident = C::ident();
+  for (int j = 0; j < cols; ++j) {
+    S carry = ident;  // S of the previous chunk's last tile
     for (long long c0 = 0; c0 < ntiles; c0 += kThreads) {
       const long long t = c0 + tid;
       const bool in = t < ntiles;
       const int2 mt = in ? m[t] : make_int2(-1, 1);
-      const T pre = block_seg_scan<T, OP>(
-          in ? p[(2 * t + 1) * d + j] : ident, mt.y, carry, &carry);
+      const S pre = block_seg_scan<S, Scan<T, OP>::kOp>(
+          in ? p[(2 * t + 1) * cols + j] : ident, mt.y, carry, &carry);
       if (in && mt.x >= 0 && mt.x < n)  // S[t - 1] + the first-run partial
-        o[(long long)mt.x * d + j] = C::apply(pre, p[2 * t * d + j]);
+        emit<T, OP>(o, v, mt.x, d, j, C::apply(pre, p[2 * t * cols + j]));
     }
   }
 }
@@ -349,55 +511,97 @@ long long tiles_per_row(long long e) {
   return e > 0 ? (e + kTile - 1) / kTile : 1;
 }
 
+long long chunks_per_row(int n, int d) {
+  return ((long long)n * d + kChunk - 1) / kChunk;
+}
+
+struct Args {
+  const void* vals;
+  const int* seg;
+  void* out;
+  void* scratch;
+  unsigned* chunks;
+  int rows;
+  long long e;
+  int n, d, vec;
+  unsigned epoch;
+  cudaStream_t stream;
+};
+
 template <typename T, int OP>
-void launch(const void* vals, const int* seg, void* out, void* scratch,
-            int rows, long long e, int n, int d, int vec, cudaStream_t s) {
-  const long long ntiles = tiles_per_row(e);
-  int2* meta = static_cast<int2*>(scratch);
-  T* part = reinterpret_cast<T*>(meta + (long long)rows * ntiles);
-  tile_kernel<T, OP><<<dim3((unsigned)ntiles, (unsigned)rows), kThreads, 0,
-                       s>>>(static_cast<const T*>(vals), seg,
-                            static_cast<T*>(out), meta, part, e, n, d,
-                            ntiles, vec);
-  join_kernel<T, OP><<<rows, kThreads, 0, s>>>(meta, part,
-                                               static_cast<T*>(out), ntiles,
-                                               n, d);
+void launch(const Args& a) {
+  using S = typename Scan<T, OP>::S;
+  const long long ntiles = tiles_per_row(a.e);
+  const long long nchunks = chunks_per_row(a.n, a.d);
+  // a marked chunk lies inside a gap of more than two chunks
+  const long long fill_blocks =
+      nchunks <= 2 ? 0 : (nchunks < kFillBlocks ? nchunks : kFillBlocks);
+  int2* meta = static_cast<int2*>(a.scratch);
+  S* part = reinterpret_cast<S*>(meta + (long long)a.rows * ntiles);
+  const T* vals = static_cast<const T*>(a.vals);
+  T* out = static_cast<T*>(a.out);
+  tile_kernel<T, OP><<<dim3((unsigned)ntiles, (unsigned)a.rows), kThreads, 0,
+                       a.stream>>>(vals, a.seg, out, meta, part, a.chunks,
+                                   a.e, a.n, a.d, ntiles, nchunks, a.epoch,
+                                   a.vec);
+  join_kernel<T, OP><<<dim3((unsigned)(1 + fill_blocks), (unsigned)a.rows),
+                       kThreads, 0, a.stream>>>(vals, meta, part, a.chunks,
+                                                out, a.e, ntiles, a.n, a.d,
+                                                nchunks, a.epoch);
+}
+
+template <typename T>
+void launch_op(int op, const Args& a) {
+  if (op == kSum) launch<T, kSum>(a);
+  if (op == kMin) launch<T, kMin>(a);
+  if (op == kMax) launch<T, kMax>(a);
+  if (op == kProd) launch<T, kProd>(a);
+  if (op == kArgMin) launch<T, kArgMin>(a);
 }
 
 }  // namespace
 
 // 4-byte words of scratch that segment_combine_launch needs for (rows, e,
-// d): per tile an int2 of flags and two d-wide partials.
+// d) and op: per tile an int2 of flags and two partials, d-wide 4-byte
+// values, or one 8-byte argmin word each for min_by_first.
 extern "C" long long segment_combine_scratch_words(int rows, long long e,
-                                                   int d) {
-  return (long long)rows * tiles_per_row(e) * (2 + 2 * (long long)d);
+                                                   int d, int op) {
+  const long long words = op == kArgMin ? 2 : d;
+  return (long long)rows * tiles_per_row(e) * (2 + 2 * words);
+}
+
+// 4-byte words of the chunk table for (rows, n, d): one epoch mark per
+// chunk of kChunk output elements. The caller keeps the table from launch
+// to launch (zeroed once) and gives each launch a new epoch.
+extern "C" long long segment_combine_chunk_words(int rows, int n, int d) {
+  return (long long)rows * chunks_per_row(n, d);
 }
 
 // vals: (rows, e, d); seg: (rows, e) int32 sorted per row; out: (rows, n,
-// d); scratch: segment_combine_scratch_words(rows, e, d) 4-byte words,
-// 8-byte aligned. dtype 0 = float32, 1 = int32; op 0 = sum, 1 = min,
-// 2 = max. Rows ride on gridDim.y (at most 65535), a row's tiles of 2048
-// entries on gridDim.x. Returns cudaGetLastError().
+// d); scratch: segment_combine_scratch_words(rows, e, d, op) 4-byte
+// words, 8-byte aligned; chunks: segment_combine_chunk_words(rows, n, d)
+// words that hold no mark equal to epoch. dtype 0 = float32, 1 = int32;
+// op 0 = sum, 1 = min, 2 = max, 3 = prod, 4 = min_by_first (key in column
+// 0; rows of at most 2^32 - 2 entries). Rows ride on gridDim.y (at most
+// 65535), a row's tiles of 2048 entries on gridDim.x. Returns
+// cudaGetLastError().
 extern "C" int segment_combine_launch(const void* vals, const int* seg,
-                                      void* out, void* scratch, int rows,
-                                      long long e, int n, int d, int dtype,
-                                      int op, void* stream) {
+                                      void* out, void* scratch, void* chunks,
+                                      int rows, long long e, int n, int d,
+                                      int dtype, int op, unsigned epoch,
+                                      void* stream) {
   if (rows < 1 || rows > 65535 || n < 1 || d < 1 || e < 0 || dtype < 0 ||
-      dtype > 1 || op < 0 || op > 2 || tiles_per_row(e) > INT_MAX ||
-      ((uintptr_t)scratch & 7))
+      dtype > 1 || op < 0 || op > 4 || tiles_per_row(e) > INT_MAX ||
+      (op == kArgMin && e > 0xfffffffeLL) || ((uintptr_t)scratch & 7))
     return (int)cudaErrorInvalidValue;
   // 16-byte loads of a thread's 8 entries: every row starts 16-byte aligned
   const int vec = e % 4 == 0 && ((uintptr_t)seg & 15) == 0 &&
                   ((uintptr_t)vals & 15) == 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (op == kSum) launch<float, kSum>(vals, seg, out, scratch, rows, e, n, d, vec, s);
-    if (op == kMin) launch<float, kMin>(vals, seg, out, scratch, rows, e, n, d, vec, s);
-    if (op == kMax) launch<float, kMax>(vals, seg, out, scratch, rows, e, n, d, vec, s);
-  } else {
-    if (op == kSum) launch<int, kSum>(vals, seg, out, scratch, rows, e, n, d, vec, s);
-    if (op == kMin) launch<int, kMin>(vals, seg, out, scratch, rows, e, n, d, vec, s);
-    if (op == kMax) launch<int, kMax>(vals, seg, out, scratch, rows, e, n, d, vec, s);
-  }
+  const Args a{vals, seg, out, scratch, static_cast<unsigned*>(chunks), rows,
+               e, n, d, vec, epoch, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0)
+    launch_op<float>(op, a);
+  else
+    launch_op<int>(op, a);
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,13 @@ Every wrapper decides by where its input lies, never by a fallback:
 
 Each kernel keeps an integer launch count (:func:`launch_counts`), so a
 run can show that its main path went through the kernels.
+
+:func:`segment_reduce` is the channels' reduction over *unsorted* ids:
+the combiners whose result depends on the order of the combines (float
+``sum``, ``prod``, ``min_by_first``) go through a stable sort and the
+``segment_combine`` kernel on the card, so they use no float atomics and
+two runs are bit-identical; the rest are exact in any order and stay on
+the plain scatter reduction.
 """
 from __future__ import annotations
 
@@ -60,6 +67,33 @@ def segment_combine(vals, seg_ids, num_segments: int, combiner, *,
         return kseg.segment_combine_cuda(vals, seg_ids, num_segments,
                                          combiner)
     return kref.segment_combine_ref(vals, seg_ids, num_segments, combiner)
+
+
+def order_sensitive(combiner, dtype: torch.dtype) -> bool:
+    """Whether a segment reduction with ``combiner`` over ``dtype`` values
+    can round or choose differently with the order of its combines."""
+    name = cb.get(combiner).name
+    return (name in ("prod", "min_by_first")
+            or (name == "sum" and dtype.is_floating_point))
+
+
+def segment_reduce(vals, seg_ids, num_segments: int, combiner, *,
+                   use_kernel: Optional[bool] = None):
+    """``Combiner.segment_reduce`` over unsorted ids, as the channels call
+    it. On the card an order-sensitive combiner (:func:`order_sensitive`)
+    stable-sorts the ids along their last axis, gathers the values into
+    that order and launches the ``segment_combine`` kernel — the JAX
+    reference's argsort and sorted scan; ``use_kernel=False`` raises
+    there. Every other case is the plain reduction."""
+    combiner = cb.get(combiner)
+    if not (order_sensitive(combiner, vals.dtype)
+            and _launches_kernel(vals, use_kernel, "segment_reduce")):
+        return combiner.segment_reduce(vals, seg_ids, num_segments)
+    seg, order = torch.sort(seg_ids, dim=-1, stable=True)
+    idx = order.reshape(order.shape + (1,) * (vals.dim() - seg_ids.dim()))
+    sorted_vals = vals.gather(seg_ids.dim() - 1, idx.expand_as(vals))
+    return kseg.segment_combine_cuda(sorted_vals, seg, num_segments,
+                                     combiner)
 
 
 def bucket_ranks(keys, num_buckets: int, *,

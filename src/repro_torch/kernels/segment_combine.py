@@ -5,34 +5,66 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-_OPS = {"sum": 0, "min": 1, "max": 2}
+_OPS = {"sum": 0, "min": 1, "max": 2, "prod": 3, "min_by_first": 4}
 _DTYPES = {torch.float32: 0, torch.int32: 1}
 #: rows ride on the launch grid's y dimension
 MAX_ROWS = 65535
+#: the chunk table's epochs run 1 .. EPOCH_LIMIT, then it is zeroed
+EPOCH_LIMIT = 1 << 30
 
 _fns = None
 #: launches of the kernel since the last reset (kernels.ops owns resets)
 launches = 0
 
 
+class _Chunks:
+    """The chunk table of one (device, stream): a mark per chunk of a long
+    gap of empty segments that the kernel's second pass fills, tagged with
+    the launch's epoch so that no launch reads another's marks. Zeroed
+    when made; replaced, zeroed, only when a call needs more words."""
+
+    def __init__(self, device):
+        self.device = device
+        self.table = torch.zeros(0, dtype=torch.int32, device=device)
+        self.epoch = EPOCH_LIMIT
+
+    def take(self, words: int):
+        """``(table, epoch)`` for a launch: at least ``words`` words and an
+        epoch they do not hold."""
+        if self.table.numel() < words or self.epoch >= EPOCH_LIMIT:
+            self.table = torch.zeros(max(words, 1), dtype=torch.int32,
+                                     device=self.device)
+            self.epoch = 0
+        self.epoch += 1
+        return self.table, self.epoch
+
+
+_chunks: Dict[Tuple[int, int], _Chunks] = {}
+
+
 def _library():
     global _fns
     if _fns is None:
         lib = build.library("segment_combine")
-        launch, words = (lib.segment_combine_launch,
-                         lib.segment_combine_scratch_words)
-        launch.argtypes = [ctypes.c_void_p] * 4 + [
+        launch, words, chunk_words = (lib.segment_combine_launch,
+                                      lib.segment_combine_scratch_words,
+                                      lib.segment_combine_chunk_words)
+        launch.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
         launch.restype = ctypes.c_int
-        words.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+        words.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_int]
         words.restype = ctypes.c_longlong
-        _fns = launch, words
+        chunk_words.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        chunk_words.restype = ctypes.c_longlong
+        _fns = launch, words, chunk_words
     return _fns
 
 
@@ -41,9 +73,11 @@ def segment_combine_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
     """``(*B, N, *F)`` segment combine of CUDA ``vals`` (``(*B, E, *F)``)
     by ``seg_ids`` (``(*B, E)``); ids outside ``[0, N)`` are dropped.
     Each row's ids must be sorted ascending (unsorted ids give a wrong
-    result but no out-of-bounds access). float32/int32 for sum/min/max;
-    bool ``or`` runs as max over 0/1 int32. At most :data:`MAX_ROWS`
-    rows (the product of ``*B``)."""
+    result but no out-of-bounds access). float32/int32 for sum/min/max/
+    prod and ``min_by_first`` (values ``(*B, E, D)``, the key in column
+    0; empty segments hold ``identity_like``); bool ``or`` runs as max
+    over 0/1 int32. At most :data:`MAX_ROWS` rows (the product of
+    ``*B``)."""
     global launches
     if not (vals.is_cuda and seg_ids.is_cuda):
         raise ValueError("segment_combine_cuda needs CUDA tensors")
@@ -54,7 +88,11 @@ def segment_combine_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
     if op is None or work.dtype not in _DTYPES:
         raise TypeError(
             f"segment_combine kernel has no {name!r} for {vals.dtype} "
-            f"(float32/int32 sum/min/max, bool or)")
+            f"(float32/int32 sum/min/max/prod/min_by_first, bool or)")
+    if name == "min_by_first" and vals.dim() != seg_ids.dim() + 1:
+        raise ValueError(
+            "min_by_first reduces (*B, E, D) rows by (*B, E) ids; got "
+            f"values {tuple(vals.shape)} and ids {tuple(seg_ids.shape)}")
     batch, e = tuple(seg_ids.shape[:-1]), seg_ids.shape[-1]
     feat = tuple(vals.shape[seg_ids.dim():])
     rows, n, d = math.prod(batch), num_segments, math.prod(feat)
@@ -65,13 +103,17 @@ def segment_combine_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
     seg = seg_ids.reshape(rows, e).to(torch.int32).contiguous()
     out = torch.empty((rows, n, d), dtype=work.dtype, device=vals.device)
     if rows and n and d:
-        launch, words = _library()
-        scratch = torch.empty(words(rows, e, d), dtype=torch.int32,
+        launch, words, chunk_words = _library()
+        scratch = torch.empty(words(rows, e, d, op), dtype=torch.int32,
                               device=vals.device)
         stream = torch.cuda.current_stream(vals.device).cuda_stream
+        key = (vals.device.index, stream)
+        if key not in _chunks:
+            _chunks[key] = _Chunks(vals.device)
+        table, epoch = _chunks[key].take(chunk_words(rows, n, d))
         err = launch(v.data_ptr(), seg.data_ptr(), out.data_ptr(),
-                     scratch.data_ptr(), rows, e, n, d, _DTYPES[work.dtype],
-                     op, stream)
+                     scratch.data_ptr(), table.data_ptr(), rows, e, n, d,
+                     _DTYPES[work.dtype], op, epoch, stream)
         if err:
             raise RuntimeError(f"segment_combine kernel launch failed: CUDA "
                                f"error {err}")

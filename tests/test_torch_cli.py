@@ -1,0 +1,143 @@
+"""The port's command line (``python -m repro_torch``) and its paper
+tables (``python -m repro_torch.paper_tables``) on the CPU.
+
+The paper table at scale 8 is held row for row to the same five cases
+run through the JAX package's ``Engine(mode="host")`` on the same
+datasets (supersteps, messages, bytes); the JAX table's own ``run`` is
+not called, since it also compiles the fused mode.
+"""
+import json
+
+import numpy as np
+import pytest
+
+from benchmarks import common as jbench
+from repro.algorithms import REGISTRY as JREGISTRY
+from repro.graph import pgraph as jpgraph
+from repro.pregel.engine import Engine as JEngine
+from repro_torch import __main__ as cli
+from repro_torch import paper_tables
+from repro_torch.algorithms import (ALGORITHMS, DEFAULT_VARIANT, REGISTRY,
+                                    resolve)
+
+
+def test_list_names_every_ported_program(capsys):
+    assert cli.main(["list"]) == 0
+    out = capsys.readouterr().out
+    for key in REGISTRY:
+        assert key in out
+    assert f"{len(REGISTRY)} ported programs" in out
+
+
+def test_list_json_declares_channels(capsys):
+    assert cli.main(["list", "--json"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert set(out) == set(REGISTRY)
+    assert out["msf:channels"]["default"]
+    assert "msf/candidate" in out["msf:channels"]["channels"]
+    assert out["msf:monolithic"]["build"] == ["raw_out"]
+
+
+@pytest.mark.parametrize("program", ["pagerank:basic", "msf",
+                                     "msf:monolithic"])
+def test_run_checks_the_oracle(capsys, program):
+    assert cli.main(["run", program, "--scale", "7", "--device", "cpu",
+                     "--repeat", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "oracle: ok" in out and "run 1:" in out
+    if program.startswith("msf"):
+        assert "candidate" in out
+
+
+def test_run_without_check_and_unknown_program(capsys):
+    assert cli.main(["run", "wcc", "--scale", "6", "--device", "cpu",
+                     "--no-check"]) == 0
+    assert "oracle" not in capsys.readouterr().out
+    with pytest.raises(KeyError, match="not yet ported"):
+        cli.main(["run", "scc", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", ["--mode", "--plan", "--checkpoint-every",
+                                  "--chunk-size"])
+def test_unported_options_are_absent(flag):
+    with pytest.raises(SystemExit):
+        cli.main(["run", "wcc", "--device", "cpu", flag, "1"])
+
+
+def test_bench_writes_rows(tmp_path, capsys):
+    out = tmp_path / "bench.json"
+    assert cli.main(["bench", "--scale", "6", "--device", "cpu", "--keys",
+                     "pagerank:basic,msf:channels", "--json",
+                     str(out)]) == 0
+    rows = json.loads(out.read_text())["rows"]
+    assert [r["program"] for r in rows] == ["pagerank:basic",
+                                            "msf:channels"]
+    assert all(r["supersteps"] > 0 and r["bytes"] > 0 for r in rows)
+
+
+def test_resolve_takes_bare_algorithm_names():
+    assert set(ALGORITHMS) == set(DEFAULT_VARIANT)
+    for algo, variant in DEFAULT_VARIANT.items():
+        assert resolve(algo).key == f"{algo}:{variant}"
+        assert f"{algo}:{variant}" in JREGISTRY
+    assert resolve("msf").key == "msf:channels"
+
+
+def _jax_rows(scale):
+    """The five cases through the JAX host-mode Engine, on the JAX
+    benchmarks' datasets and instance recipe."""
+    eng = JEngine(mode="host")
+    rows = []
+    for _, name, programs in paper_tables.CASES:
+        spec = JREGISTRY[programs[0][1]]
+        if name == "tree":
+            graph = spec.make_graph(scale, 0)
+            pg = jpgraph.partition_graph(graph, 8, "random", build=spec.build)
+        else:
+            s = max(scale - 2, 6) if spec.algorithm == "msf" else scale
+            graph = jbench.dataset(name, s)
+            pg = jbench.partitioned(name, s, "random", spec.build)
+        inputs = spec.inputs(graph, 0)
+        for _, key, knobs in programs:
+            res = eng.run(JREGISTRY[key].factory(**inputs, **knobs), pg)
+            rows.append((key, res.steps, res.total_msgs, res.total_bytes))
+    return rows
+
+
+def test_paper_tables_match_jax_counts(tmp_path):
+    out = paper_tables.run_and_write(8, str(tmp_path / "t.json"),
+                                     device="cpu")
+    got = [(r["variant"], r["supersteps"], r["messages"], r["bytes"])
+           for r in out["rows"]]
+    assert got == _jax_rows(8)
+    head = out["headline"]
+    assert head["composed_beats_unoptimized_rounds"]
+    assert head["composed_beats_unoptimized_bytes"]
+    comp = next(r for r in out["rows"] if r["variant"] == "sv:composed")
+    assert sum(comp["bytes_by_component"].values()) == comp["bytes"]
+    assert all(r["ms_per_superstep"] > 0 for r in out["rows"])
+    written = json.loads((tmp_path / "t.json").read_text())
+    assert written["provenance"]["device"] == "cpu"
+    assert written["scale"] == 8 and len(written["rows"]) == 10
+
+
+def test_paper_tables_exit_nonzero_on_a_lost_headline(tmp_path, monkeypatch):
+    def lost(scale, device):
+        return [], {"composed_beats_unoptimized_rounds": False,
+                    "composed_beats_unoptimized_bytes": True}
+
+    monkeypatch.setattr(paper_tables, "run", lost)
+    with pytest.raises(SystemExit, match="headline regression"):
+        paper_tables.main(["--scale", "6", "--device", "cpu", "--out",
+                           str(tmp_path / "t.json")])
+    assert (tmp_path / "t.json").exists()
+
+
+def test_paper_table_datasets_are_the_jax_benchmarks():
+    for name, scale in (("web", 7), ("social", 7), ("weighted", 6)):
+        got, want = paper_tables.dataset(name, scale), jbench.dataset(name,
+                                                                      scale)
+        assert got.n == want.n and got.directed == want.directed
+        np.testing.assert_array_equal(got.edges, want.edges)
+        if want.weights is not None:
+            np.testing.assert_array_equal(got.weights, want.weights)

@@ -1,5 +1,5 @@
 """The port's slice end to end: ``wcc:basic`` and ``pagerank:scatter``
-through ``Engine.run`` against the JAX package's ``Engine(mode="host")``
+(and ``pagerank:basic``, whose float32 sums are CombinedMessages) through ``Engine.run`` against the JAX package's ``Engine(mode="host")``
 on the identical plan, plus the runtime's failure contract.
 
 Outputs, supersteps, halt flags and per-channel bytes/msgs must be
@@ -24,7 +24,8 @@ from repro_torch.pregel import errors, runtime
 from repro_torch.pregel.engine import Engine
 from test_torch_graph import jax_tables
 
-CASES = [("wcc:basic", {}), ("pagerank:scatter", {"iters": 12})]
+CASES = [("wcc:basic", {}), ("pagerank:scatter", {"iters": 12}),
+         ("pagerank:basic", {"iters": 12})]
 
 
 @pytest.mark.parametrize("w,scale", [(4, 9), (8, 8)])
@@ -66,8 +67,7 @@ def test_unported_engine_options_raise_naming_roadmap(kw):
 
 
 @pytest.mark.parametrize("module,variant", [
-    (wcc, "prop"), (sssp, "prop"), (pagerank, "basic"),
-    (pagerank, "personal")])
+    (wcc, "prop"), (sssp, "prop"), (pagerank, "personal")])
 def test_unported_variants_raise_naming_roadmap(module, variant):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         module.program(variant)

@@ -19,6 +19,13 @@ from repro_torch.kernels import ops, ref
 from repro_torch.pregel.engine import Engine
 
 
+def bits_equal(a, b):
+    """Bit-identical tensors (NaN payloads and -0.0 included)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -391,3 +398,201 @@ def test_slice_on_the_card_matches_the_cpu_run(cuda, key):
     assert launches["bucket_ranks"] > 0
     if key == "sv:composed":
         assert launches["segment_combine"] > 0
+
+
+def _by_first_case(case, dtype, d, dev):
+    """(vals, seg, n) of a ``min_by_first`` case, made on the CPU from a
+    seed: keys in column 0, payload in the rest. ``ties``: small integer
+    keys, so most segments hold several equal minima (the last one must
+    win); ``hub``: row 0 one segment over 110 tiles whose keys all tie;
+    ``special``: +-inf and NaN keys (a NaN that opens its segment wins
+    it, any other loses); ``dropped``: every id out of range."""
+    g = torch.Generator().manual_seed(len(case) + d)
+    rows, e, n = 4, 3 * TILE + 77, 500
+    if case == "hub":
+        rows, e, n = 2, 120 * TILE + 77, 50
+    seg = torch.sort(torch.randint(0, n + 3, (rows, e), generator=g))[0]
+    if case == "hub":
+        seg[0] = 7
+    elif case == "dropped":
+        seg = torch.where(torch.rand(rows, e, generator=g) < 0.3, -4, n + 2)
+        seg = torch.sort(seg)[0]
+    vals = torch.randint(-999, 999, (rows, e, d), generator=g).to(dtype)
+    vals[..., 0] = torch.randint(0, 4, (rows, e), generator=g).to(dtype)
+    if case == "hub":
+        vals[0, :, 0] = 2
+    if case == "special" and dtype == torch.float32:
+        pick = torch.rand(rows, e, generator=g)
+        key = vals[..., 0]
+        key[pick < 0.05] = float("nan")
+        key[(pick >= 0.05) & (pick < 0.1)] = float("inf")
+        key[(pick >= 0.1) & (pick < 0.15)] = -float("inf")
+        key[(pick >= 0.15) & (pick < 0.2)] = -0.0
+    return vals.to(dev), seg.to(torch.int32).to(dev), n
+
+
+_BY_FIRST_CASES = [(c, dt, d) for c in ("ties", "hub", "dropped")
+                   for dt in (torch.float32, torch.int32) for d in (1, 4)]
+_BY_FIRST_CASES += [("special", torch.float32, d) for d in (1, 3, 4, 5)]
+_BY_FIRST_CASES += [("ties", torch.float32, 3), ("ties", torch.int32, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,dtype,d", _BY_FIRST_CASES)
+def test_segment_combine_min_by_first_matches_plain(cuda, case, dtype, d):
+    """Bit-exact against the plain sorted scan (``core.segmented``):
+    the winner's whole row, later entries winning ties, empty segments
+    ``identity_like`` (key +inf or INT32_MAX, payload 0)."""
+    vals, seg, n = _by_first_case(case, dtype, d, cuda)
+    got = ops.segment_combine(vals, seg, n, "min_by_first")
+    want = ref.segment_combine_ref(vals, seg, n, cb.MIN_BY_FIRST)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (vals.shape[0], n, d)
+    assert bits_equal(got, want)
+    if case == "hub":  # all keys tie: the row's last entry wins
+        last = (seg[0] == 7).nonzero().max()
+        assert torch.equal(got[0, 7], vals[0, last])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "hub", "dropped", "d5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_segment_combine_prod_matches_plain(cuda, case, dtype):
+    """int32 exact (wrapping); float32 within rtol 1e-4 — reassociation
+    of products of values in [0.99, 1.01], up to 2^17 of them a segment
+    in the hub case (each rounding at most 2^-24 relative)."""
+    vals, seg, n = _segment_case(case, torch.float32, cuda)
+    g = torch.Generator().manual_seed(3)
+    if dtype == torch.int32:
+        vals = torch.randint(-3, 4, vals.shape, generator=g,
+                             dtype=torch.int32).to(cuda)
+    else:
+        vals = (0.99 + 0.02 * torch.rand(vals.shape, generator=g)).to(cuda)
+    got = ops.segment_combine(vals, seg, n, "prod")
+    want = ref.segment_combine_ref(vals, seg, n, cb.PROD)
+    torch.cuda.synchronize()
+    if dtype == torch.int32:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sum", "min_by_first"])
+def test_order_sensitive_combined_send_is_bit_identical(cuda, name):
+    """A float CombinedMessage with many values a destination (every
+    worker sends 4000 values to 37 vertices) twice on the card: the two
+    results are bit-identical, and each send ran the kernel on both
+    sides (no float atomics)."""
+    w, n_loc, m = 4, 64, 4000
+    ctx = ChannelContext(w, n_loc, cuda)
+    g = torch.Generator().manual_seed(9)
+    dst = torch.randint(0, 37, (w, m), generator=g, dtype=torch.int32)
+    d = 1 if name == "sum" else 4
+    vals = torch.rand(w, m, d, generator=g)
+    vals[..., 0] = torch.randint(0, 50, (w, m), generator=g).float()
+    dst, vals = dst.to(cuda), vals.to(cuda)
+    valid = torch.ones_like(dst, dtype=torch.bool)
+    runs = []
+    for _ in range(2):
+        before = ops.launch_counts()["segment_combine"]
+        runs.append(msg.combined_send(ctx, dst, valid, vals, name,
+                                      capacity=n_loc))
+        assert ops.launch_counts()["segment_combine"] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    want = msg.combined_send(ChannelContext(w, n_loc, "cpu"), dst.cpu(),
+                             valid.cpu(), vals.cpu(), name, capacity=n_loc)
+    if name == "sum":
+        torch.testing.assert_close(runs[0][0].cpu(), want[0], rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        assert torch.equal(runs[0][0].cpu(), want[0])
+    assert torch.equal(runs[0][1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_order_sensitive_dispatch_refuses_use_kernel_false(cuda):
+    vals = torch.rand(2, 10, 1, device=cuda)
+    seg = torch.zeros(2, 10, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="use_kernel=False with a CUDA"):
+        ops.segment_reduce(vals, seg, 3, "sum", use_kernel=False)
+    # lattice combiners keep the plain scatter reduction on the card
+    out = ops.segment_reduce(vals, seg, 3, "min", use_kernel=False)
+    assert torch.equal(out, ref.segment_combine_ref(vals, seg, 3, "min"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", ["pagerank:basic", "msf:channels",
+                                 "msf:monolithic"])
+def test_new_programs_on_the_card(cuda, key):
+    """Scale 10, W = 8, the same plan on both devices: supersteps and
+    per-channel counts identical, the registry oracle holds on the card,
+    two card runs bit-identical, and the run launched both kernels."""
+    spec = REGISTRY[key]
+    graph = spec.make_graph(10, 0)
+    tables = pgraph.partition_tables(graph, 8, "random", build=spec.build)
+    knobs = {"iters": 10} if key.startswith("pagerank") else {}
+    cpu_pg = pgraph.from_arrays(*tables, device="cpu")
+    cpu = Engine(device="cpu").run(spec.factory(**knobs), cpu_pg)
+    pg = pgraph.from_arrays(*tables, device="cuda")
+    ops.reset_launch_counts()
+    card = Engine(device="cuda").run(spec.factory(**knobs), pg)
+    launches = ops.launch_counts()
+    again = Engine(device="cuda").run(spec.factory(**knobs), pg)
+    assert (card.steps, card.halted) == (cpu.steps, cpu.halted)
+    assert card.bytes_by_channel == cpu.bytes_by_channel
+    assert card.msgs_by_channel == cpu.msgs_by_channel
+    spec.check(graph, pg, card, {})
+    for name, x in card.state.items():
+        assert torch.equal(x, again.state[name]), name
+    assert launches["bucket_ranks"] > 0 and launches["segment_combine"] > 0
+    if key.startswith("msf"):
+        np.testing.assert_array_equal(card.output["labels"],
+                                      cpu.output["labels"])
+        assert card.output["edges"] == cpu.output["edges"]
+
+
+def _long_gap_case(seed, rows, n, d, dtype):
+    """Ids from two narrow bands of a wide id space — long gaps of empty
+    segments in the middle and at the end of each row, longer than the
+    kernel's two-chunk limit, so their whole chunks are stored by its
+    second pass — plus a dropped tail."""
+    g = torch.Generator().manual_seed(seed)
+    e = 6000
+    seg = torch.cat([torch.randint(0, 3000, (rows, e // 2), generator=g),
+                     torch.randint(n // 2, n // 2 + 3000, (rows, e // 4),
+                                   generator=g),
+                     torch.full((rows, e // 4), n)], dim=1)
+    seg = torch.sort(seg, dim=1)[0].to(torch.int32)
+    vals = torch.randint(-50, 50, (rows, e, d), generator=g).to(dtype)
+    return vals, seg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype,d", [
+    ("min_by_first", torch.float32, 4), ("min_by_first", torch.int32, 3),
+    ("min_by_first", torch.float32, 1), ("sum", torch.float32, 1),
+    ("min", torch.int32, 3), ("prod", torch.float32, 4),
+    ("max", torch.float32, 5)])
+def test_segment_combine_long_gaps(cuda, name, dtype, d):
+    """Rows whose empty segments form gaps of up to 10^6 output elements:
+    exact against plain (small-integer values: every order gives the
+    same float sums and products), in three launches of two shapes in
+    turn, so a launch meets the chunk marks of an earlier one."""
+    first = _long_gap_case(1, 3, 1 << 20, d, dtype)
+    other = _long_gap_case(2, 5, 300_000, d, dtype)
+    for vals, seg in (first, other, first):
+        vals, seg = vals.to(cuda), seg.to(cuda)
+        n = int(seg.max())
+        if name == "prod":
+            vals = torch.where(vals > 0, 1.0, -1.0).to(dtype)
+        got = ops.segment_combine(vals, seg, n, name)
+        want = ref.segment_combine_ref(vals, seg, n, cb.get(name))
+        torch.cuda.synchronize()
+        assert bits_equal(got, want)
+    dropped = torch.full_like(seg, n)
+    got = ops.segment_combine(vals, dropped, n, name)
+    assert bits_equal(got, ref.segment_combine_ref(vals, dropped, n,
+                                                   cb.get(name)))
+

@@ -10,10 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from repro.core import combiners as jcb
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.core import combiners as cb
 from repro_torch.kernels import bucket_route as kbucket
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops, ref
@@ -279,12 +282,189 @@ def test_segment_combine_fault3_or_empty_segments():
     np.testing.assert_array_equal(got[~empty], want[~empty])
 
 
-def test_segment_combine_min_by_first_not_ported():
-    """ROADMAP fault 4's other half (min_by_first empty-segment payload)
-    waits with the combiner: it is refused, not approximated."""
-    with pytest.raises(ValueError, match="not ported yet"):
-        ref.segment_combine_ref(torch.zeros(3, 2), torch.zeros(3), 2,
-                                "min_by_first")
+def _by_first_inputs(seed, e=80, n=40, d=4, dtype=np.float32):
+    """Sorted or not, ids partly out of range (dropped), keys from a few
+    small integers so most segments hold tied minima."""
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(-2, n + 5, e).astype(np.int32)
+    vals = rng.integers(-99, 99, (e, d)).astype(dtype)
+    vals[:, 0] = rng.integers(0, 3, e)
+    return vals, seg, n
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("d", [1, 3, 4])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segment_combine_min_by_first_matches_jax(seed, d, dtype):
+    """Bit for bit against the JAX ``Combiner.segment_reduce`` and
+    ``segment_combine_ref``: the later of tied keys wins, dropped ids,
+    empty segments ``identity_like`` (key +inf / INT32_MAX, payload 0 —
+    the port's side of ROADMAP fault 4)."""
+    vals, seg, n = _by_first_inputs(seed, d=d, dtype=dtype)
+    got = ref.segment_combine_ref(torch.from_numpy(vals),
+                                  torch.from_numpy(seg), n, "min_by_first")
+    want = _np(jref.segment_combine_ref(jnp.asarray(vals), jnp.asarray(seg),
+                                        n, "min_by_first"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    same = _np(jcb.MIN_BY_FIRST.segment_reduce(jnp.asarray(vals),
+                                               jnp.asarray(seg), n))
+    np.testing.assert_array_equal(got.numpy(), same)
+    empty = np.bincount(seg[(seg >= 0) & (seg < n)], minlength=n) == 0
+    assert empty.any()
+    key_ident = np.inf if dtype == np.float32 else np.iinfo(np.int32).max
+    assert (got.numpy()[empty, 0] == key_ident).all()
+    assert (got.numpy()[empty, 1:] == 0).all()
+
+
+def test_segment_combine_min_by_first_rows_and_tie_rule():
+    """(W, E, D) rows reduce independently; in a segment of equal keys
+    the last entry's whole row wins (``take_later = later <= earlier``)."""
+    vals = np.array([[[1, 10], [1, 11], [0, 12], [0, 13], [5, 14]],
+                     [[2, 20], [2, 21], [2, 22], [7, 23], [7, 24]]],
+                    np.float32)
+    seg = np.array([[0, 0, 1, 1, 1], [1, 1, 1, 0, 0]], np.int32)
+    got = ref.segment_combine_ref(torch.from_numpy(vals),
+                                  torch.from_numpy(seg), 3, "min_by_first")
+    np.testing.assert_array_equal(got.numpy(), [
+        [[1, 11], [0, 13], [INF, 0]], [[7, 24], [2, 22], [INF, 0]]])
+    for r in range(2):
+        np.testing.assert_array_equal(
+            got[r].numpy(),
+            _np(jref.segment_combine_ref(jnp.asarray(vals[r]),
+                                         jnp.asarray(seg[r]), 3,
+                                         "min_by_first")))
+
+
+def test_segment_combine_min_by_first_nan_and_inf_keys():
+    """NaN and +-inf keys. Where every evaluation order agrees (a NaN
+    that opens its segment wins it, a NaN that closes it loses, -inf
+    wins, +inf ties later-wins) the port equals the JAX reference. A NaN
+    inside a segment is ROADMAP fault 7: ``_min_by_first`` is not
+    associative there, so the JAX scan's answer depends on its tree —
+    [2, NaN, 0] gives the 2 — while the port gives what folding the
+    pairwise rule in position order gives, the 0, in every order."""
+    nan = float("nan")
+    vals = np.array([[nan, 1], [3, 2], [1, 3],       # NaN opens: wins
+                     [5, 4], [nan, 5],               # NaN closes: loses
+                     [INF, 6], [INF, 7], [-INF, 8], [0, 9],  # -inf wins
+                     [INF, 10], [INF, 11],           # +inf tie: later
+                     [2, 12], [nan, 13], [0, 14]],   # fault 7
+                    np.float32)
+    seg = np.array([0, 0, 0, 1, 1, 2, 2, 2, 2, 3, 3, 4, 4, 4], np.int32)
+    got = ref.segment_combine_ref(torch.from_numpy(vals),
+                                  torch.from_numpy(seg), 6,
+                                  "min_by_first").numpy()
+    want = _np(jref.segment_combine_ref(jnp.asarray(vals), jnp.asarray(seg),
+                                        6, "min_by_first"))
+    np.testing.assert_array_equal(got[:4], want[:4])
+    np.testing.assert_array_equal(got[:4, 1], [1, 4, 8, 11])
+    np.testing.assert_array_equal(got[5], want[5])
+    assert got[4, 1] == 14 and want[4, 1] == 12  # fault 7, pinned
+    # the port's answer does not depend on how the segment is split
+    for cut in range(11, 14):
+        head = cb.MIN_BY_FIRST.segment_reduce(
+            torch.from_numpy(vals[11:cut + 1]),
+            torch.zeros(cut - 10, dtype=torch.int32), 1)
+        tail = torch.from_numpy(vals[cut + 1:14])
+        fold = head[0]
+        for row in tail:
+            keep = not bool(row[0] <= fold[0])
+            fold = fold if keep else row
+        assert float(fold[1]) == 14
+
+
+def test_segment_combine_min_by_first_fault4_pallas_empty_payload():
+    """ROADMAP fault 4, the min_by_first half: the JAX Pallas kernel fills
+    an empty segment's payload with +inf, its reference with 0
+    (``identity_like``); the port holds 0, like the reference."""
+    vals, seg, n = _by_first_inputs(4, e=40, n=30, d=3)
+    got = ref.segment_combine_ref(torch.from_numpy(vals),
+                                  torch.from_numpy(seg), n,
+                                  "min_by_first").numpy()
+    kernel = _np(jops.segment_combine(jnp.asarray(vals), jnp.asarray(seg), n,
+                                      "min_by_first", use_kernel=True,
+                                      interpret=True))
+    empty = np.bincount(seg[(seg >= 0) & (seg < n)], minlength=n) == 0
+    assert empty.any()
+    np.testing.assert_array_equal(got[~empty], kernel[~empty])
+    assert (got[empty, 1:] == 0).all() and (kernel[empty, 1:] == INF).all()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_segment_combine_prod_matches_jax(dtype):
+    """int32 exact (wrapping products); float32 within rtol 1e-6 —
+    products in another order; empty segments hold 1."""
+    rng = np.random.default_rng(12)
+    seg = rng.integers(0, 45, 300).astype(np.int32)
+    if dtype == np.int32:
+        vals = rng.integers(-3, 4, (300, 2)).astype(np.int32)
+    else:
+        vals = rng.uniform(0.5, 1.5, (300, 2)).astype(np.float32)
+    got = ref.segment_combine_ref(torch.from_numpy(vals),
+                                  torch.from_numpy(seg), 40, "prod").numpy()
+    want = _np(jref.segment_combine_ref(jnp.asarray(vals), jnp.asarray(seg),
+                                        40, "prod"))
+    if dtype == np.int32:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert (got[np.bincount(seg[seg < 40], minlength=40) == 0] == 1).all()
+
+
+@pytest.mark.parametrize("name", ["prod", "min_by_first", "sum", "max"])
+def test_reduce_workers_and_identity_match_jax(name):
+    """``reduce_workers`` folds the W workers as the JAX ``psum_like``
+    does (``prod`` and ``min_by_first`` in worker order over an
+    ``all_gather``); ``identity_like`` as the JAX one."""
+    rng = np.random.default_rng(13)
+    x = rng.integers(1, 4, (4, 3, 2)).astype(np.float32)
+    want = jax.vmap(lambda v: jcb.get(name).psum_like(v, "w"),
+                    axis_name="w")(jnp.asarray(x))
+    got = cb.get(name).reduce_workers(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+    for dtype in (np.float32, np.int32):
+        z = np.zeros((2, 3), dtype)
+        np.testing.assert_array_equal(
+            cb.get(name).identity_like(torch.from_numpy(z)).numpy(),
+            _np(jcb.get(name).identity_like(jnp.asarray(z))))
+
+
+@pytest.mark.parametrize("name,dtype,sensitive", [
+    ("sum", torch.float32, True), ("prod", torch.float32, True),
+    ("prod", torch.int32, True), ("min_by_first", torch.float32, True),
+    ("min_by_first", torch.int32, True), ("sum", torch.int32, False),
+    ("min", torch.float32, False), ("max", torch.int32, False),
+    ("or", torch.bool, False)])
+def test_segment_reduce_dispatch_sorts_into_the_kernel(monkeypatch, name,
+                                                       dtype, sensitive):
+    """The channels' reduction over unsorted ids: on the card an
+    order-sensitive combiner stable-sorts the ids, gathers the values in
+    that order and runs the ``segment_combine`` kernel (no float
+    atomics); the others keep the plain scatter reduction. The card is
+    stood in for by forcing the kernel branch and recording what the
+    kernel would be given (its plain version computes the result)."""
+    calls = []
+
+    def fake_kernel(vals, seg, n, combiner):
+        calls.append((vals, seg))
+        return ref.segment_combine_ref(vals, seg, n, combiner)
+
+    monkeypatch.setattr(ops, "_launches_kernel", lambda x, u, what: True)
+    monkeypatch.setattr(ops.kseg, "segment_combine_cuda", fake_kernel)
+    rng = np.random.default_rng(14)
+    seg = torch.from_numpy(rng.integers(-1, 23, (3, 200)).astype(np.int64))
+    vals = torch.from_numpy(rng.integers(0, 5, (3, 200, 3))).to(dtype)
+    assert ops.order_sensitive(name, dtype) is sensitive
+    got = ops.segment_reduce(vals, seg, 20, name)
+    want = cb.get(name).segment_reduce(vals, seg, 20)
+    assert len(calls) == int(sensitive)
+    if sensitive:
+        kv, ks = calls[0]
+        assert torch.equal(ks, torch.sort(seg, dim=-1, stable=True)[0])
+        order = torch.sort(seg, dim=-1, stable=True)[1]
+        assert torch.equal(kv, vals.gather(1, order[..., None].expand_as(
+            vals)))
+    assert torch.equal(got, want)
 
 
 def test_segment_combine_batched_rows():
