@@ -12,11 +12,13 @@ CombinedMessage and full pointer jumping under one ``compose.Stacked``),
 the rest of the paper's table (``pagerank:basic``, whose float32 sums go
 through the stable sort and the kernel, and Boruvka ``msf:channels``/
 ``monolithic``, whose candidate combine is the kernel's ``min_by_first``)
-with the port's paper table (``repro_torch.paper_tables``), and the
+with the port's paper table (``repro_torch.paper_tables``), the
 batched query plane — ``Engine.run_batch`` of Q=32 sources of
 ``reach:basic`` and ``sssp:basic`` through the union CombinedMessage —
-checked against solo runs and the host oracles. Phases, one or more
-lines each:
+checked against solo runs and the host oracles, and the Propagation
+channel (``wcc:prop``, ``sssp:prop``, ``scc:basic``/``prop``: a local
+fixpoint between cut exchanges, every combine a ``segment_combine``
+launch on ids sorted at plan build). Phases, one or more lines each:
 
   1. environment and kernel build;
   2. each kernel against its plain PyTorch version on the card, the two
@@ -28,7 +30,10 @@ lines each:
      ``min_by_first`` bit-exact on the first superstep's msf candidate
      combine (D = 1, 3, 4, 5, int32, a hub of tied keys, NaN/+-inf/-0.0
      keys, all dropped), ``prod``, and the order-sensitive dispatch twice
-     bit-identical on pagerank:basic's float32 sums;
+     bit-identical on pagerank:basic's float32 sums; the Propagation
+     channel's ``min`` at the scale-20 ``wcc:prop`` plan (``int_dst``, the
+     cut plan's sender and receiver: the int32 cases above, and float32
+     with +inf);
   3. reference traffic counts at scale 12, W=8 (exact), solo and batched
      (every batched lane bit-identical to its solo run), and the nine
      composition-layer programs (six S-V variants, ``wcc:switch``,
@@ -36,7 +41,10 @@ lines each:
      variants' labels identical and ``sv:composed`` ahead of ``sv:basic``
      on supersteps and bytes; ``pagerank:basic`` and both MSF variants
      with their bytes per channel, and the port's paper table row for
-     row against the reference's counts, headline held;
+     row against the reference's counts, headline held; the four
+     Propagation programs with their bytes per channel and per-worker
+     rounds and local iterations (``PROP_REFS``), and scipy's strong
+     components against ``oracles.scc_oracle``;
   4. the main paths at R-MAT scale 20, W=8, checked against the host
      oracles, each with its kernels' launch counts (counts reset just
      before the path and read just after): pagerank run twice
@@ -49,16 +57,22 @@ lines each:
      bytes; the port's paper table at scale 20 (host mode, headline held,
      ``chiprun_out/paper_tables_torch.json``); every lane of the batched
      runs bit-identical to its solo run, queries/s batched and solo, peak
-     device memory;
+     device memory; ``wcc:prop`` on the ``wcc:basic`` partition (ground
+     truth; fewer global rounds and bytes than ``wcc:basic``),
+     ``sssp:prop`` (oracle; ``sssp:basic``'s distances bit for bit),
+     ``scc:basic``/``prop`` (scipy's strong components; ``scc:prop`` below
+     ``scc:basic`` in bytes), each with its launches (``segment_combine``
+     in all four, ``bucket_ranks`` in ``scc:basic``);
   5. each kernel's time against its plain version, its bound and a
      PyTorch yardstick at the scale-20 shapes (the bucket kernels also on
      random keys, warm and L2-flushed, and checked to run one device
      kernel a call, fills and memsets counted; ``segment_combine`` also
      as int32 ``min`` at the S-V plan, as ``min_by_first`` at the msf plan
      and as the float32 sum of pagerank:basic's CombinedMessage, each also
-     with its stable sort), and one run of each program (the batched
-     sssp, ``sv:composed``, ``pagerank:basic`` and ``msf:channels`` among
-     them) under torch.profiler
+     with its stable sort, and as the int32 ``min`` at ``wcc:prop``'s
+     ``int_dst``), and one run of each program (the batched sssp,
+     ``sv:composed``, ``pagerank:basic``, ``msf:channels`` and the four
+     Propagation programs among them) under torch.profiler
      (device busy share, top kernels and aten ops;
      ``chiprun_out/profile_*.txt``).
 
@@ -153,6 +167,31 @@ PAPER_REFS = [
     ("msf:monolithic", 4, 96711, 1934220),
     ("msf:channels", 4, 29197, 120644),
 ]
+
+
+# the Propagation programs at scale 12, W=8, random partitioner, on the
+# registry recipes (wcc on rmat(12, 4, seed=2) symmetrised, sssp on
+# rmat(12, 4, seed=5, weighted) from source 0, scc on rmat(12, 3, seed=7)):
+# (supersteps, messages, bytes, bytes by channel, the per-worker counter:
+# wcc/sssp state["info"] = [global rounds, local iterations], scc
+# state["iters"]) — the JAX package's host-mode Engine gives these counts
+PROP_REFS = {
+    "wcc:prop": (1, 21523, 86092, {"propagation": 86092}, [
+        [6, 14], [6, 17], [6, 15], [6, 21], [6, 15], [6, 21], [6, 18],
+        [6, 18]]),
+    "sssp:prop": (1, 14423, 57692, {"propagation": 57692}, [
+        [10, 16], [10, 20], [10, 22], [10, 17], [10, 25], [10, 22],
+        [10, 21], [10, 21]]),
+    "scc:prop": (2, 42037, 168148, {
+        "degree/in": 37120, "degree/out": 37624, "propagation/bwd": 41820,
+        "propagation/fwd": 51584}, [33, 38, 33, 53, 35, 41, 38, 43]),
+    "scc:basic": (2, 57407, 384512, {
+        "basic_propagation/bwd": 162760, "basic_propagation/fwd": 147008,
+        "degree/in": 37120, "degree/out": 37624}, [16] * 8),
+}
+# the state key of each program's per-worker counter
+PROP_COUNTER = {"wcc:prop": "info", "sssp:prop": "info", "scc:prop": "iters",
+                "scc:basic": "iters"}
 
 
 class SmokeFailure(RuntimeError):
@@ -397,14 +436,35 @@ def canon(labels):
     return rank[inv.reshape(-1)]
 
 
-def sv_min_cases(plan, n_loc, g, seg_case) -> list:
-    """``segment_combine`` as the S-V neighbour minimum's int32 ``min`` on
-    the scatter plan, exact against its plain version: the sender side
-    (per-edge vertex ids into ``u_cap`` segments, as the channel gathers
-    them) and the receiver side (the wire into ``n_loc`` segments in
-    ``recv_sorted`` order), each with vertex ids, INT32_MAX (the identity,
-    what pads carry) and INT32_MIN among them, one hub segment over row
-    0, and every id dropped. Returns the case names."""
+def min_cases(sides, g, seg_case, label) -> list:
+    """``segment_combine`` as an int32 ``min`` on sorted plan ids, exact
+    against its plain version: each side ``(vals, seg, n)`` with its
+    values, with INT32_MAX (the identity, what pads carry) and INT32_MIN
+    among them, one hub segment over row 0, and every id dropped.
+    Returns the case names."""
+    import torch
+
+    names = []
+    for side, (vals, seg, n) in sides.items():
+        extreme = vals.clone()
+        pick = torch.rand(vals.shape, device=vals.device, generator=g)
+        extreme[pick < 0.3] = INT32_MAX
+        extreme[(pick >= 0.3) & (pick < 0.4)] = INT32_MIN
+        hub = seg.clone()
+        hub[0] = 0
+        for what, v, sg in (("ids", vals, seg), ("extremes", extreme, seg),
+                            ("hub", vals, hub),
+                            ("all dropped", vals, torch.full_like(seg, n))):
+            seg_case(v, sg, n, "min", what=f"{label} {side} {what}")
+            names.append(f"{side} {what}")
+    return names
+
+
+def sv_min_cases(plan, n_loc, g, seg_case, label="sv") -> list:
+    """:func:`min_cases` on a scatter plan, as the S-V neighbour minimum
+    runs it: the sender side (per-edge vertex ids into ``u_cap``
+    segments, as the channel gathers them) and the receiver side (the
+    wire into ``n_loc`` segments in ``recv_sorted`` order)."""
     import torch
 
     dev = plan.edge_seg.device
@@ -417,20 +477,47 @@ def sv_min_cases(plan, n_loc, g, seg_case) -> list:
                                plan.recv_sorted.shape + (1,), device=dev,
                                generator=g, dtype=torch.int32),
                  plan.recv_sorted, n_loc)}
-    names = []
-    for side, (vals, seg, n) in sides.items():
-        extreme = vals.clone()
-        pick = torch.rand(vals.shape, device=dev, generator=g)
-        extreme[pick < 0.3] = INT32_MAX
-        extreme[(pick >= 0.3) & (pick < 0.4)] = INT32_MIN
-        hub = seg.clone()
-        hub[0] = 0
-        for what, v, sg in (("ids", vals, seg), ("extremes", extreme, seg),
-                            ("hub", vals, hub),
-                            ("all dropped", vals, torch.full_like(seg, n))):
-            seg_case(v, sg, n, "min", what=f"sv {side} {what}")
-            names.append(f"{side} {what}")
-    return names
+    return min_cases(sides, g, seg_case, label)
+
+
+def prop_min_cases(pplan, n_loc, g, seg_case) -> list:
+    """``segment_combine`` at the three places the Propagation channel
+    launches it, exact against its plain version: the local fixpoint's
+    int32 ``min`` (per-edge vertex ids gathered by ``int_src`` into
+    ``n_loc`` segments by ``int_dst``, as :func:`min_cases` varies
+    them), the cut plan's sender and receiver (:func:`sv_min_cases`), and
+    sssp's float32 ``min`` of ``dist + w`` at ``int_dst`` (a third of
+    the distances +inf). Returns the case names."""
+    import torch
+
+    w = pplan.int_dst.shape[0]
+    ids = torch.arange(w * n_loc, dtype=torch.int32,
+                       device=pplan.int_dst.device).reshape(w, n_loc)
+    names = ["cut " + x for x in sv_min_cases(pplan.cut, n_loc, g, seg_case,
+                                              label="prop cut")]
+    names += min_cases({"int_dst": (
+        ids.gather(1, pplan.int_src.long())[..., None], pplan.int_dst,
+        n_loc)}, g, seg_case, "prop")
+    dist = torch.rand(pplan.int_dst.shape + (1,), device=ids.device,
+                      generator=g) * 100
+    dist[torch.rand(dist.shape, device=ids.device, generator=g) < 0.33] = \
+        float("inf")
+    seg_case(dist, pplan.int_dst, n_loc, "min", what="prop int_dst f32")
+    return names + ["int_dst f32 with inf"]
+
+
+def strong_components(graph):
+    """Strongly connected component labels of a directed EdgeList, by
+    scipy (the scale-20 ground truth; held to ``oracles.scc_oracle`` at
+    scale 12 first)."""
+    import numpy as np
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    e = np.asarray(graph.edges)
+    adj = coo_matrix((np.ones(len(e), np.float32), (e[:, 0], e[:, 1])),
+                     shape=(graph.n, graph.n)).tocsr()
+    return connected_components(adj, directed=True, connection="strong")[1]
 
 
 def bits_equal(a, b) -> bool:
@@ -709,6 +796,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref as kref
     from repro_torch.pregel.engine import Engine
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     detail = {}
     out_dir = ROOT / "chiprun_out"
@@ -815,6 +903,8 @@ def main() -> int:
              empty_s, 6, "or", what="empty/dropped bool")
     edge = segment_edge_cases(plan, g, seg_case)
     sv_cases = sv_min_cases(sv_plan, wcc_pg.n_loc, g, seg_case)
+    prop_plan = wcc_pg.prop_out
+    prop_cases = prop_min_cases(prop_plan, wcc_pg.n_loc, g, seg_case)
     # two runs of pagerank's send side: bit-identical (no float atomics)
     send_a = ops.segment_combine(f32, plan.edge_seg, u_cap, "sum")
     send_b = ops.segment_combine(f32, plan.edge_seg, u_cap, "sum")
@@ -825,7 +915,8 @@ def main() -> int:
     detail["kernel_checks"] = dict(errs, pagerank_host_setup_s=pr_host_s,
                                    wcc_host_setup_s=wcc_host_s,
                                    bucket_cases=bucket_cases,
-                                   sv_int32_min_cases=sv_cases)
+                                   sv_int32_min_cases=sv_cases,
+                                   prop_min_cases=prop_cases)
     print(f"[2/5] kernels vs plain on the card: bucket_ranks ({W}, 2^21) "
           f"and bucket_ranks_lanes ({W}, {union_cap}, {NQ}) exact on "
           f"{len(bucket_cases)} cases (random, sorted, one hub bucket, all "
@@ -842,7 +933,13 @@ def main() -> int:
           f"S-V plan (send ({W}, {sv_plan.e_cap}) into {sv_plan.u_cap}, "
           f"recv {tuple(sv_plan.recv_sorted.shape)} into {wcc_pg.n_loc}) "
           f"exact on {len(sv_cases)} cases (ids, INT32_MAX/MIN, one hub, "
-          f"all dropped) ({time.perf_counter() - t:.1f} s)", flush=True)
+          f"all dropped); the Propagation channel's min at the wcc:prop "
+          f"plan (int_dst ({W}, {prop_plan.ei_cap}) into {wcc_pg.n_loc}, "
+          f"cut send ({W}, {prop_plan.cut.e_cap}) into "
+          f"{prop_plan.cut.u_cap}, cut recv "
+          f"{tuple(prop_plan.cut.recv_sorted.shape)}) exact on "
+          f"{len(prop_cases)} cases (int32 as above, float32 with +inf) "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
 
     # the rest of the paper's table: msf's min_by_first candidate combine
     # and pagerank:basic's float32 sums as their first superstep hands them
@@ -1021,9 +1118,32 @@ def main() -> int:
     check(rows12 == [tuple(r) for r in PAPER_REFS],
           f"paper table at scale 12: rows {rows12} != {PAPER_REFS}")
     new3_s = time.perf_counter() - t_n
+    # the Propagation programs: every count, every channel's bytes and the
+    # per-worker rounds and iterations exact, each oracle; scipy's strong
+    # components (the scale-20 ground truth below) held to scc_oracle
+    t_p = time.perf_counter()
+    for key, want in PROP_REFS.items():
+        spec = REGISTRY[key]
+        graph = spec.make_graph(12, 0)
+        pg = pgraph.partition_graph(graph, W, "random", build=spec.build)
+        inputs = spec.inputs(graph, 0)
+        res = eng.run(spec.factory(**inputs), pg)
+        got = (res.steps, res.total_msgs, res.total_bytes,
+               res.bytes_by_channel, res.state[PROP_COUNTER[key]].tolist())
+        check(got == want, f"{key} scale-12 counts {got} != {want}")
+        check(res.halted, f"{key} scale-12 did not halt")
+        spec.check(graph, pg, res, inputs)
+        counts[key] = dict(steps=got[0], msgs=got[1], bytes=got[2],
+                           bytes_by_channel=got[3], counter=got[4])
+    scc12 = REGISTRY["scc:prop"].make_graph(12, 0)
+    check(np.array_equal(canon(strong_components(scc12)),
+                         canon(oracles.scc_oracle(scc12))),
+          "scipy's strong components differ from scc_oracle at scale 12")
+    prop3_s = time.perf_counter() - t_p
     detail["reference_counts"] = dict(counts, batched_part_s=batch3_s,
                                       composition_part_s=sv3_s,
                                       paper_table_part_s=new3_s,
+                                      propagation_part_s=prop3_s,
                                       paper_table_12=table12)
     print(f"[3/5] scale-12 reference counts exact: " + "; ".join(
         f"{k} {v['steps']}/{v['msgs']}/{v['bytes']}"
@@ -1036,9 +1156,12 @@ def main() -> int:
         f"{composed['bytes']} vs {basic['bytes']} bytes) "
         f"; the port's paper table at scale 12: all {len(rows12)} rows' "
         f"supersteps, messages and bytes equal the reference's, headline "
-        f"held; msf edges {MSF_REF_EDGES} "
-        f"({time.perf_counter() - t:.1f} s, batched part {batch3_s:.1f} s, "
-        f"composition part {sv3_s:.1f} s, paper-table part {new3_s:.1f} s)",
+        f"held; msf edges {MSF_REF_EDGES}; the {len(PROP_REFS)} "
+        f"Propagation programs' bytes per channel and per-worker rounds/"
+        f"iterations exact, their oracles ok, scipy's strong components = "
+        f"scc_oracle ({time.perf_counter() - t:.1f} s, batched part "
+        f"{batch3_s:.1f} s, composition part {sv3_s:.1f} s, paper-table "
+        f"part {new3_s:.1f} s, propagation part {prop3_s:.1f} s)",
         flush=True)
 
     # -- 4. the main path at full size --------------------------------------
@@ -1404,6 +1527,97 @@ def main() -> int:
           f"({batch4_s:.1f} s, {batch_host_s:.1f} s of it sssp graph set-up)",
           flush=True)
 
+    # the Propagation programs at full size, each path with its own launch
+    # counts: wcc:prop on the wcc:basic partition (held to the ground
+    # truth, fewer global rounds and bytes than wcc:basic), sssp:prop on
+    # the sssp:basic partition (the oracle, sssp:basic's distances from
+    # the same source), both scc variants on the registry's scc graph
+    # (scipy's strong components, scc:prop below scc:basic in bytes)
+    t = time.perf_counter()
+    check(REGISTRY["wcc:prop"].build == wcc_spec.build
+          and REGISTRY["sssp:prop"].build == sssp_spec.build,
+          "wcc:prop/sssp:prop no longer share their basic variants' plans")
+    scc_spec = REGISTRY["scc:prop"]
+    scc_graph = scc_spec.make_graph(FULL_SCALE, 0)
+    scc_pg = pgraph.partition_graph(scc_graph, W, "random",
+                                    build=scc_spec.build)
+    scc_host_s = time.perf_counter() - t
+    prop_jobs = {"wcc:prop": (wcc_graph, wcc_pg),
+                 "sssp:prop": (sssp_graph, sssp_pg),
+                 "scc:basic": (scc_graph, scc_pg),
+                 "scc:prop": (scc_graph, scc_pg)}
+    prop_runs = {key: run_path(get_program(key), pg)
+                 for key, (_, pg) in prop_jobs.items()}
+    for key, run in prop_runs.items():
+        check(run["launches"]["segment_combine"] > 0,
+              f"{key} never launched segment_combine: {run['launches']}")
+        check(run["res"].halted, f"{key} at scale {FULL_SCALE} did not halt")
+    check(prop_runs["scc:basic"]["launches"]["bucket_ranks"] > 0,
+          "scc:basic never launched bucket_ranks")
+    t_or = time.perf_counter()
+    wp = prop_runs["wcc:prop"]["res"]
+    check(np.array_equal(canon(wp.output), truth),
+          "wcc:prop labels differ from the ground truth")
+    wp_rounds = int(wp.state["info"][:, 0].max())
+    check(wp_rounds < wcc_res.steps and wp.total_bytes < wcc_res.total_bytes,
+          f"wcc:prop ({wp_rounds} global rounds, {wp.total_bytes} bytes) "
+          f"does not beat wcc:basic ({wcc_res.steps}, "
+          f"{wcc_res.total_bytes}) at scale {FULL_SCALE}")
+    sp = prop_runs["sssp:prop"]["res"]
+    REGISTRY["sssp:prop"].check(sssp_graph, sssp_pg, sp, {"source": 0})
+    sb = eng.run(get_program("sssp:basic", source=0), sssp_pg)
+    check(bits_equal(sp.state["dist"], sb.state["dist"]),
+          "sssp:prop distances differ from sssp:basic's")
+    scc_truth = canon(strong_components(scc_graph))
+    scc_p, scc_b = (prop_runs[k]["res"] for k in ("scc:prop", "scc:basic"))
+    for key, res in (("scc:prop", scc_p), ("scc:basic", scc_b)):
+        check(np.array_equal(canon(res.output), scc_truth),
+              f"{key} differs from scipy's strong components")
+    check(scc_p.total_bytes < scc_b.total_bytes,
+          f"scc:prop ({scc_p.total_bytes} bytes) does not beat scc:basic "
+          f"({scc_b.total_bytes}) at scale {FULL_SCALE}")
+    prop_oracle_s = time.perf_counter() - t_or
+    prop_main = {}
+    for key, run in prop_runs.items():
+        res = run.pop("res")
+        graph = prop_jobs[key][0]
+        counter = res.state[PROP_COUNTER[key]]
+        prop_main[key] = dict(
+            run, n=graph.n, edges=int(graph.num_edges), steps=res.steps,
+            msgs=res.total_msgs, bytes=res.total_bytes,
+            bytes_by_channel=res.bytes_by_channel,
+            counter=counter.tolist(),
+            step_ms=[1e3 * x for x in res.step_times_s],
+            ms_per_superstep=run["run_wall_ms"] / max(res.steps, 1),
+            loop_wall_s=res.wall_time_s)
+    detail["prop_path"] = dict(
+        prop_main, wcc_basic=dict(steps=wcc_res.steps,
+                                  bytes=wcc_res.total_bytes),
+        wcc_prop_rounds=wp_rounds, scc_components=int(scc_truth.max()) + 1,
+        scc_host_setup_s=scc_host_s, oracle_s=prop_oracle_s,
+        phase_s=time.perf_counter() - t)
+
+    def prop_row(key):
+        v = prop_main[key]
+        return (f"{key} {v['steps']} steps, {v['bytes']} bytes, "
+                f"{PROP_COUNTER[key]} {v['counter']}, "
+                f"{v['ms_per_superstep']:.2f} ms a superstep, run "
+                f"{v['run_wall_ms']:.1f} ms, peak {v['peak_gib']:.2f} GiB "
+                f"({v['base_gib']:.2f} before), launches {v['launches']}")
+
+    print(f"[4/5] the Propagation programs at scale {FULL_SCALE}, W={W}: "
+          f"{prop_row('wcc:prop')}, labels = the ground truth, "
+          f"{wp_rounds} global rounds vs wcc:basic's {wcc_res.steps} "
+          f"supersteps, {wp.total_bytes} vs {wcc_res.total_bytes} bytes; "
+          f"{prop_row('sssp:prop')}, oracle ok, distances = sssp:basic's "
+          f"({sb.steps} supersteps); on {scc_graph.n} vertices, "
+          f"{scc_graph.num_edges} edges, {int(scc_truth.max()) + 1} strong "
+          f"components: {prop_row('scc:prop')}; {prop_row('scc:basic')}; "
+          f"both = scipy's strong components, scc:prop below scc:basic in "
+          f"bytes (scc graph set-up {scc_host_s:.1f} s, oracles "
+          f"{prop_oracle_s:.1f} s; {time.perf_counter() - t:.1f} s)",
+          flush=True)
+
     # -- 5. times at the scale-20 shapes ------------------------------------
     t = time.perf_counter()
     raw = wcc_pg.raw_out
@@ -1598,14 +1812,53 @@ def main() -> int:
         what=f"pagerank:basic's CombinedMessage at scale {FULL_SCALE}, "
              f"send + recv")
 
+    # row 2d: the propagation fixpoint's int32 min at wcc:prop's int_dst
+    # (vertex ids gathered by int_src, as its first iteration hands them
+    # over), beside one scatter_reduce_ amin on the real entries into a
+    # preset buffer (the identity fill not counted)
+    pv = wcc_pg.global_ids().gather(1, prop_plan.int_src.long())[..., None]
+    ps, pn = prop_plan.int_dst, wcc_pg.n_loc
+    p_keep = ps.long() < pn
+    p_idx = (ps.long() + torch.arange(W, device=dev)[:, None] * (pn + 1))[
+        p_keep][:, None]
+    p_real_vals = pv.reshape(-1, 1)[p_keep.reshape(-1)]
+    p_buf = torch.full((W * (pn + 1), 1), INT32_MAX, dtype=torch.int32,
+                       device=dev)
+    p_real = real(ps, pn)
+    p_bytes = p_real * 8 + W * pn * 4
+    row_2d = dict(
+        name="segment_combine: int32 min, propagation int_dst (2d)",
+        route="cuda", source=seg_source, replaces=seg_replaces,
+        launches=prop_main["wcc:prop"]["launches"]["segment_combine"],
+        launches_by_path={k: v["launches"]["segment_combine"]
+                          for k, v in prop_main.items()},
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: ops.segment_combine(pv, ps, pn, cb.MIN)),
+        cold_ms=cuda_ms_cold(lambda: ops.segment_combine(pv, ps, pn,
+                                                         cb.MIN)),
+        plain_ms=cuda_ms(lambda: kref.segment_combine_ref(pv, ps, pn, cb.MIN),
+                         reps=5),
+        bound_ms=1e3 * p_bytes / HBM_BYTES_PER_S, bound_by="bytes",
+        library_ms=cuda_ms(lambda: p_buf.scatter_reduce_(
+            0, p_idx, p_real_vals, "amin", include_self=True)),
+        library="scatter_reduce_ amin", shape=list(pv.shape), segments=pn,
+        real_entries=p_real, bytes=p_bytes,
+        what=f"one local-fixpoint iteration of wcc:prop at scale "
+             f"{FULL_SCALE}: (W, ei_cap, 1) by int_dst into n_loc")
+    prop_seg = sum(v["launches"]["segment_combine"]
+                   for v in prop_main.values())
+
     kernels = [
         dict(name="bucket_ranks", route="cuda",
              source="src/repro_torch/kernels/csrc/bucket_route.cu",
              replaces="src/repro/kernels/bucket_route.py:87",
-             launches=launches["bucket_ranks"] + sv_launches["bucket_ranks"],
+             launches=(launches["bucket_ranks"] + sv_launches["bucket_ranks"]
+                       + prop_main["scc:basic"]["launches"]["bucket_ranks"]),
              launches_by_path=dict(
                  wcc_basic=launches["bucket_ranks"],
-                 sv_composed=sv_launches["bucket_ranks"]),
+                 sv_composed=sv_launches["bucket_ranks"],
+                 scc_basic=prop_main["scc:basic"]["launches"][
+                     "bucket_ranks"]),
              max_abs_err=errs["bucket_ranks"], ms=b_ms, plain_ms=b_plain,
              bound_ms=b_bound, bound_by="bytes", library_ms=None,
              cold_ms=b_t["sorted"]["cold_ms"], random_ms=b_t["random"]["ms"],
@@ -1614,10 +1867,12 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/segment_combine.cu",
              replaces="src/repro/kernels/segment_combine.py:101",
              launches=(launches["segment_combine"]
-                       + sv_launches["segment_combine"]),
+                       + sv_launches["segment_combine"] + prop_seg),
              launches_by_path=dict(
                  pagerank_scatter=launches["segment_combine"],
-                 sv_composed=sv_launches["segment_combine"]),
+                 sv_composed=sv_launches["segment_combine"],
+                 **{k: v["launches"]["segment_combine"]
+                    for k, v in prop_main.items()}),
              max_abs_err=errs["segment_combine"], ms=s_ms, plain_ms=s_plain,
              bound_ms=s_bound, bound_by="bytes", library_ms=s_lib,
              library=s_lib_name, cold_ms=st["cold_ms"],
@@ -1632,7 +1887,7 @@ def main() -> int:
              random_ms=l_t["random"]["ms"],
              random_cold_ms=l_t["random"]["cold_ms"],
              all_entry_bound_ms=l_bound_all),
-        row_2b, row_2c,
+        row_2b, row_2c, row_2d,
     ]
     detail["timings"] = dict(
         bucket_ranks=dict(shape=list(rkeys.shape), **b_t, plain_ms=b_plain,
@@ -1697,7 +1952,12 @@ def main() -> int:
           f"{dispatch_row('min_by_first at the msf plan', mbf_t)} "
           f"(scatter_reduce_ amin + amax + gather); "
           f"{dispatch_row('float32 sum at the pagerank:basic CombinedMessage', csum_t)}"
-          f" (index_add_)", flush=True)
+          f" (index_add_); int32 min at the wcc:prop plan's int_dst "
+          f"({row_2d['shape']} into {pn}, {p_real} real entries) "
+          f"{row_2d['ms']:.4f} ms warm, {row_2d['cold_ms']:.4f} L2 flushed "
+          f"(plain {row_2d['plain_ms']:.3f}, bound {row_2d['bound_ms']:.4f}, "
+          f"scatter_reduce_ amin {row_2d['library_ms']:.4f}), launches "
+          f"{row_2d['launches_by_path']}", flush=True)
 
     s_queries, s_prog, _, s_ms = runs["sssp:basic"]
     detail["profile"] = profile_runs(
@@ -1712,7 +1972,10 @@ def main() -> int:
           new_main["pagerank:basic"]["run_wall_ms"]),
          ("msf:channels", lambda: eng.run(get_program("msf:channels"),
                                           msf_pg),
-          new_main["msf:channels"]["run_wall_ms"])),
+          new_main["msf:channels"]["run_wall_ms"]),
+         *((key, lambda key=key: eng.run(get_program(key),
+                                         prop_jobs[key][1]),
+            prop_main[key]["run_wall_ms"]) for key in prop_main)),
         out_dir)
     print("[5/5] profiled runs: " + "; ".join(
         f"{k}: traced wall {v['wall_ms']:.1f} ms, device "
@@ -1721,6 +1984,9 @@ def main() -> int:
         f"untraced {v['busy_vs_untraced']:.2f}; top kernel "
         f"{v['kernels'][0][0][:40]} {v['kernels'][0][1]:.1f} ms"
         for k, v in detail["profile"].items()), flush=True)
+    detail["total_s"] = time.perf_counter() - t_start
+    print(f"chip_smoke: all phases ok in {detail['total_s']:.1f} s",
+          flush=True)
     (out_dir / "chip_smoke.json").write_text(
         json.dumps(dict(detail, kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,18 +1,17 @@
 """The port's algorithm registry: ``"algorithm:variant"`` → program
 factory plus its problem recipe, as in ``repro.algorithms``, for the
-programs ported so far (``wcc:basic``/``switch``, ``pagerank:basic``/
-``scatter``, ``reach:basic``, ``sssp:basic``, the six ``sv`` variants,
-``pj:basic``/``reqresp`` and ``msf:channels``/``monolithic``).
+programs ported so far (``wcc:basic``/``prop``/``switch``,
+``pagerank:basic``/``scatter``, ``reach:basic``, ``sssp:basic``/``prop``,
+the six ``sv`` variants, ``pj:basic``/``reqresp``,
+``msf:channels``/``monolithic`` and ``scc:basic``/``prop``: every JAX
+registry program but ``pagerank:personal``).
 
     from repro_torch.algorithms import REGISTRY, get_program
     spec = REGISTRY["pagerank:scatter"]
     prog = get_program("pagerank:scatter", iters=10)
 
-The recipes (default graphs, problem inputs, query batches, oracle
-checks) are the JAX registry's. The ``wcc``, ``sv`` and ``sssp:basic``
-recipes build without ``prop_out``: the JAX ones also build it, but the
-port has no prop plans yet, and neither those programs nor ``route_cap``
-depend on it.
+The recipes (default graphs, built plans, problem inputs, query batches,
+oracle checks) are the JAX registry's.
 """
 from __future__ import annotations
 
@@ -22,8 +21,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 
 from repro_torch.algorithms import (msf, pagerank, pointer_jumping,
-                                    reachability, sssp, sv, wcc)
+                                    reachability, scc, sssp, sv, wcc)
 from repro_torch.graph import generators as gen, oracles
+from repro_torch.graph.pgraph import PLANS as ALL_PLANS
 from repro_torch.pregel.program import VertexProgram
 
 
@@ -94,6 +94,10 @@ def _weighted_sym_rmat(scale, seed):
                     weighted=True).symmetrized()
 
 
+def _scc_rmat(scale, seed):
+    return gen.rmat(scale, edge_factor=3, seed=7 + seed)
+
+
 def _forest_graph(scale, seed):
     n = 1 << scale
     return gen.EdgeList(n, np.zeros((0, 2), np.int64), None, True, "pj")
@@ -137,6 +141,11 @@ def _check_sssp(graph, pg, res, inputs):
     assert np.isinf(res.output[~finite]).all()
 
 
+def _check_scc(graph, pg, res, inputs=None):
+    want = oracles.scc_oracle(graph)
+    np.testing.assert_array_equal(_canon(res.output), _canon(want))
+
+
 def _check_msf(graph, pg, res, inputs=None):
     want_w = oracles.msf_weight_oracle(graph)
     assert abs(res.output["weight"] - want_w) < 1e-2
@@ -163,13 +172,13 @@ REGISTRY: Dict[str, ProgramSpec] = {
     **{f"wcc:{v}": ProgramSpec(
         key=f"wcc:{v}", algorithm="wcc", variant=v,
         factory=_bind(wcc.program, v),
-        build=("scatter_out", "raw_out"),
+        build=("scatter_out", "prop_out", "raw_out"),
         make_graph=_sym_rmat, check=_check_components)
        for v in wcc.VARIANTS},
     **{f"sv:{v}": ProgramSpec(
         key=f"sv:{v}", algorithm="sv", variant=v,
         factory=_bind(sv.program, v),
-        build=("scatter_out", "raw_out"),
+        build=("scatter_out", "prop_out", "raw_out"),
         make_graph=_sym_rmat, check=_check_components)
        for v in sv.VARIANTS},
     **{f"pj:{v}": ProgramSpec(
@@ -196,23 +205,29 @@ REGISTRY: Dict[str, ProgramSpec] = {
         make_graph=_directed_rmat, make_inputs=_source0, check=_check_reach,
         make_queries=_random_sources, query_knob="source",
         channel_class="routed"),
-    "sssp:basic": ProgramSpec(
-        key="sssp:basic", algorithm="sssp", variant="basic",
-        factory=_bind(sssp.program, "basic"),
-        build=("raw_out",),
+    **{f"sssp:{v}": ProgramSpec(
+        key=f"sssp:{v}", algorithm="sssp", variant=v,
+        factory=_bind(sssp.program, v),
+        build=("prop_out", "raw_out"),
         make_graph=_weighted_rmat, make_inputs=_source0, check=_check_sssp,
         make_queries=_random_sources, query_knob="source",
-        channel_class="routed"),
+        channel_class="routed" if v == "basic" else "static")
+       for v in sssp.VARIANTS},
+    **{f"scc:{v}": ProgramSpec(
+        key=f"scc:{v}", algorithm="scc", variant=v,
+        factory=_bind(scc.program, v), build=ALL_PLANS,
+        make_graph=_scc_rmat, check=_check_scc, test_scale=7)
+       for v in scc.VARIANTS},
 }
 
 #: the variant ``python -m repro_torch run <algorithm>`` picks when no
 #: variant is given — the JAX registry's choice (each algorithm's
-#: optimized-channel showcase), except ``wcc``, whose ``prop`` waits for
-#: the propagation plans (ROADMAP); ``scc`` is not ported yet
+#: optimized-channel showcase)
 DEFAULT_VARIANT: Dict[str, str] = {
-    "wcc": "switch",
+    "wcc": "prop",
     "sv": "both",
     "msf": "channels",
+    "scc": "prop",
     "sssp": "basic",
     "pagerank": "scatter",
     "pj": "reqresp",
@@ -221,9 +236,12 @@ DEFAULT_VARIANT: Dict[str, str] = {
 
 ALGORITHMS: Tuple[str, ...] = tuple(sorted(DEFAULT_VARIANT))
 
-#: specs with a query axis — what ``Engine.run_batch`` runs
+#: specs with a query axis that ``Engine.run_batch`` runs: ``sssp:prop``
+#: declares the JAX recipe's query axis, but the batched Propagation
+#: channel is not ported yet and raises (ROADMAP)
 BATCHED: Tuple[str, ...] = tuple(
-    sorted(k for k, s in REGISTRY.items() if s.make_queries is not None))
+    sorted(k for k, s in REGISTRY.items()
+           if s.make_queries is not None and k != "sssp:prop"))
 
 
 def resolve(name: str) -> ProgramSpec:

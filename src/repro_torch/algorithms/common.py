@@ -9,9 +9,9 @@ jumping and Boruvka programs need it:
     and a padded ``wire_width`` serve the monolithic Boruvka;
   - ``pj_converge``: pointer jumping to a fixpoint over RequestRespond or
     the DirectMessage baseline, and ``jump_component``, the same as a
-    composition-stack component.
-
-``cm_propagate`` comes with the ``prop`` slice (ROADMAP).
+    composition-stack component;
+  - ``cm_propagate``: the baseline label propagation that the Propagation
+    channel replaces, one CombinedMessage superstep an iteration.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import combiners as cb
 from repro_torch.core import compose
 from repro_torch.core import message as msg
 from repro_torch.core import request_respond as rr
@@ -129,6 +130,48 @@ def pj_converge(ctx: ChannelContext, parents: torch.Tensor,
         p, rounds = newp, rounds + 1
     ctx.add_traffic(name, nb, nm)
     return p, rounds
+
+
+def cm_propagate(ctx: ChannelContext, raw_edges, init: torch.Tensor,
+                 combiner_name: str, *, active0: torch.Tensor,
+                 update=None, max_iters: int = 100_000,
+                 name: str = "basic_propagation"):
+    """Baseline label propagation: one CombinedMessage superstep per
+    iteration until global convergence (what the Propagation channel
+    replaces; O(diameter) global iterations).
+
+    ``init`` is (W, n_loc) labels, ``active0`` the (W, n_loc) vertices
+    that send in the first iteration; later, a vertex sends iff its label
+    changed. ``update(lab, inc, got)`` gives the new labels (default: the
+    combiner of ``lab`` and ``inc``). A host loop in the style of
+    :func:`pj_converge`: each iteration sends in a fresh registry-free
+    context (the partition's ``route_cap`` copied) and reads back one
+    ``changed`` flag; the traffic of every iteration is summed per worker
+    in int32 and charged once under ``name``. Returns (labels,
+    iterations).
+    """
+    comb = cb.get(combiner_name)
+    w, n_loc = ctx.num_workers, ctx.n_loc
+    upd = update or (lambda lab, inc, got: comb.fn(lab, inc))
+    src = raw_edges.src_local.long()
+    nb = torch.zeros(w, dtype=TRAFFIC_DTYPE, device=ctx.device)
+    nm = torch.zeros_like(nb)
+    lab, active, iters, changed = init, active0, 0, True
+    while changed and iters < max_iters:
+        tmp = ChannelContext(w, n_loc, ctx.device, route_cap=ctx.route_cap)
+        valid = raw_edges.mask & active.gather(1, src)
+        inc, got, _ = msg.combined_send(
+            tmp, raw_edges.dst_global, valid, lab.gather(1, src), comb,
+            capacity=tmp.edge_capacity(n_loc), name="x")
+        new = upd(lab, inc, got)
+        active = new != lab
+        for key in tmp.stats_bytes:
+            nb = nb + tmp.stats_bytes[key]
+            nm = nm + tmp.stats_msgs[key]
+        changed = bool(active.any())
+        lab, iters = new, iters + 1
+    ctx.add_traffic(name, nb, nm)
+    return lab, iters
 
 
 def jump_component() -> compose.Component:

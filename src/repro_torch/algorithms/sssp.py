@@ -1,10 +1,15 @@
-"""Single-source shortest paths (weighted Bellman-Ford flavor) over the
-CombinedMessage channel.
+"""Single-source shortest paths (weighted Bellman-Ford flavor).
 
-The port of ``repro.algorithms.sssp``, variant ``"basic"``: per
-superstep, vertices whose distance improved send ``dist + w`` to their
-out-neighbors and receivers keep the min. ``"prop"`` needs the
-propagation plans, which are not ported yet (ROADMAP).
+The port of ``repro.algorithms.sssp``. Variants:
+
+  - ``"basic"``: per superstep, vertices whose distance improved send
+    ``dist + w`` to their out-neighbors over a CombinedMessage channel
+    and receivers keep the min;
+  - ``"prop"``: the Propagation channel with ``edge_transform = dist +
+    w`` in one superstep — the channel generalizes beyond min-label
+    propagation; ``state["info"]`` holds each worker's (global rounds,
+    local iterations). Solo only: under ``Engine.run_batch`` it raises
+    (ROADMAP: the batched Propagation channel).
 
 The source is the program's query axis (``query_init``):
 ``Engine.run_batch(prog, pg, sources)`` computes landmark distances —
@@ -19,40 +24,74 @@ import math
 import torch
 
 from repro_torch.core import message as msg
+from repro_torch.core import propagation as prop
 from repro_torch.pregel.program import VertexProgram, gather_local, lane_view
 
-VARIANTS = ("basic",)
+VARIANTS = ("basic", "prop")
 
 
 def _check_nonnegative_weights(pg) -> None:
     """Bellman-Ford with monotone-min halting is only correct on
     non-negative weights — a negative edge would need re-activation past
     the halt vote and silently yields wrong distances. Reject it at init
-    (pad entries of ``raw_out.w`` are zeros, so any negative entry is a
-    real edge weight; the prop plans that the JAX check also reads are
-    not ported)."""
-    w = pg.raw_out.w if pg.raw_out is not None else None
-    if w is not None and bool((w < 0).any()):
-        raise ValueError(
-            f"sssp requires non-negative edge weights; graph {pg.name!r} "
-            f"has min weight {float(w.min())}")
+    (pad entries in the plans are zeros, so any negative entry is a real
+    edge weight)."""
+    ws = []
+    if pg.raw_out is not None and pg.raw_out.w is not None:
+        ws.append(pg.raw_out.w)
+    if pg.prop_out is not None:
+        ws += [x for x in (pg.prop_out.int_w, pg.prop_out.cut.edge_w)
+               if x is not None]
+    for w in ws:
+        if bool((w < 0).any()):
+            raise ValueError(
+                f"sssp requires non-negative edge weights; graph "
+                f"{pg.name!r} has min weight {float(w.min())}")
 
 
 def program(variant: str = "basic", *, source: int = 0,
             max_steps: int = 10_000) -> VertexProgram:
     """SSSP as a VertexProgram. Output: (n,) float32 distances in old-id
     space (inf = unreachable)."""
-    if variant == "prop":
-        raise NotImplementedError(
-            "sssp:prop is not ported yet (see ROADMAP)")
     if variant not in VARIANTS:
         raise ValueError(variant)
 
+    def dist0_of(pg, src_old):
+        at_src = pg.global_ids() == int(pg.new_of_old[src_old])
+        return torch.where(at_src, 0.0, math.inf).to(torch.float32), at_src
+
+    def extract(pg, state):
+        return pg.to_global(state["dist"])
+
+    if variant == "prop":
+
+        def query_init(pg, src_old):
+            _check_nonnegative_weights(pg)
+            return {"dist": dist0_of(pg, src_old)[0],
+                    "info": torch.zeros((pg.num_workers, 2),
+                                        dtype=torch.int32, device=pg.device)}
+
+        def init(pg):
+            return query_init(pg, source)
+
+        def step(ctx, gs, state, step_idx):
+            dist, rounds, iters = prop.propagate(
+                ctx, gs.prop_out, state["dist"], "min",
+                edge_transform=lambda v, w: v + w[..., None])
+            info = torch.stack([torch.full_like(iters, rounds), iters],
+                               dim=1)
+            return {"dist": dist, "info": info}, True
+
+        return VertexProgram(
+            name="sssp:prop", init=init, step=step, extract=extract,
+            query_init=query_init, max_steps=1,
+            meta={"algorithm": "sssp", "variant": variant, "source": source},
+        )
+
     def query_init(pg, src_old):
         _check_nonnegative_weights(pg)
-        at_src = pg.global_ids() == int(pg.new_of_old[src_old])
-        return {"dist": torch.where(at_src, 0.0, math.inf).to(torch.float32),
-                "active": at_src}
+        dist0, at_src = dist0_of(pg, src_old)
+        return {"dist": dist0, "active": at_src}
 
     def init(pg):
         return query_init(pg, source)
@@ -72,9 +111,6 @@ def program(variant: str = "basic", *, source: int = 0,
         new_active = new < dist
         return ({"dist": new, "active": new_active},
                 ~new_active.any(dim=-1), overflow)
-
-    def extract(pg, state):
-        return pg.to_global(state["dist"])
 
     return VertexProgram(
         name="sssp:basic", init=init, step=step, extract=extract,

@@ -6,6 +6,10 @@ The port of ``repro.algorithms.wcc``. Variants:
     neighbours over a CombinedMessage channel (Pregel/HCC style,
     O(diameter) supersteps); the routed exchange ranks its messages with
     the ``bucket_ranks`` kernel on the card.
+  - ``"prop"``: the Propagation channel (``repro_torch.core.propagation``)
+    in one superstep: a local fixpoint over partition-internal edges
+    between exchanges over the cut edges; ``state["info"]`` holds each
+    worker's (global rounds, local iterations).
   - ``"switch"``: the density-adaptive data plane
     (``repro_torch.core.compose.density_adaptive_combine``): each
     superstep the live frontier fraction picks the planned
@@ -15,9 +19,8 @@ The port of ``repro.algorithms.wcc``. Variants:
     identical to ``"basic"``; only the traffic moves, attributed under
     ``wcc/dense/...`` and ``wcc/sparse/...``.
 
-``"prop"`` needs the propagation plans, which are not ported yet
-(ROADMAP). The graph must be symmetrized and needs the ``raw_out`` plan
-(``"switch"`` also ``scatter_out``).
+The graph must be symmetrized and needs the ``raw_out`` plan
+(``"prop"`` ``prop_out``, ``"switch"`` also ``scatter_out``).
 """
 from __future__ import annotations
 
@@ -27,22 +30,45 @@ import torch
 
 from repro_torch.core import compose
 from repro_torch.core import message as msg
+from repro_torch.core import propagation as prop
 from repro_torch.pregel.program import VertexProgram
 
 INF32 = torch.iinfo(torch.int32).max
 
-VARIANTS = ("basic", "switch")
+VARIANTS = ("basic", "prop", "switch")
 
 
-def program(variant: str = "basic", *, max_steps: int = 10_000,
+def program(variant: str = "prop", *, max_steps: int = 10_000,
             dense_threshold: Optional[float] = None) -> VertexProgram:
     """Min-label WCC as a VertexProgram. Output: (n,) component labels in
     old-id space (min member id per component in the new id space)."""
-    if variant == "prop":
-        raise NotImplementedError(
-            "wcc:prop is not ported yet (see ROADMAP)")
     if variant not in VARIANTS:
         raise ValueError(variant)
+
+    def extract(pg, state):
+        return pg.to_global(state["lab"])
+
+    if variant == "prop":
+
+        def init(pg):
+            return {
+                "lab": torch.where(pg.v_mask, pg.global_ids(), INF32),
+                "info": torch.zeros((pg.num_workers, 2), dtype=torch.int32,
+                                    device=pg.device),
+            }
+
+        def step(ctx, gs, state, step_idx):
+            lab, rounds, iters = prop.propagate(ctx, gs.prop_out,
+                                                state["lab"], "min")
+            lab = torch.where(gs.v_mask, lab, INF32)
+            info = torch.stack([torch.full_like(iters, rounds), iters],
+                               dim=1)
+            return {"lab": lab, "info": info}, True
+
+        return VertexProgram(
+            name="wcc:prop", init=init, step=step, extract=extract,
+            max_steps=1, meta={"algorithm": "wcc", "variant": variant},
+        )
 
     # "basic" and "switch" share the min-label step; they differ only in
     # the exchange that delivers the neighbours' labels
@@ -79,9 +105,6 @@ def program(variant: str = "basic", *, max_steps: int = 10_000,
         new_active = new != lab
         halt = ~new_active.any(dim=1)
         return {"lab": new, "active": new_active}, halt, overflow
-
-    def extract(pg, state):
-        return pg.to_global(state["lab"])
 
     return VertexProgram(
         name=f"wcc:{variant}", init=init, step=step, extract=extract,

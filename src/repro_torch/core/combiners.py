@@ -38,6 +38,11 @@ def _min_by_first(a, b):
     return torch.where(a[..., :1] <= b[..., :1], a, b)
 
 
+_PAIRWISE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum,
+             "or": torch.logical_or, "prod": torch.mul,
+             "min_by_first": _min_by_first}
+
+
 def _first_key_rank(key: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     """int64 rank of each ``min_by_first`` key, ordered as the keys are,
     with -0.0 and 0.0 tied and no NaN: a float's sign-magnitude bits made
@@ -76,6 +81,10 @@ class Combiner:
         if self.name == "max":
             return torch.iinfo(dtype).min if integer else -math.inf
         return self.identity
+
+    def fn(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The pairwise op (the JAX ``Combiner.fn``), elementwise."""
+        return _PAIRWISE[self.name](a, b)
 
     def identity_like(self, x: torch.Tensor) -> torch.Tensor:
         """The identity shaped like ``x``; for ``min_by_first`` a zero

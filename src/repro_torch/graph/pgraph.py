@@ -14,9 +14,8 @@ Differences from the JAX plans:
   - a ScatterPlan also carries ``recv_order``/``recv_sorted``, a stable
     host-side sort of each worker's ``recv_local`` table, so the
     receive-side combine is a sorted segment combine (the CUDA kernel,
-    deterministic) instead of a scatter with float atomics;
-  - the propagation plans (``prop_out``/``prop_in``) are not ported yet
-    (ROADMAP).
+    deterministic) instead of a scatter with float atomics; so does
+    the cut plan of a :class:`PropPlan`.
 """
 from __future__ import annotations
 
@@ -32,8 +31,8 @@ from repro_torch.graph.generators import EdgeList
 from repro_torch.pregel.errors import PlanRangeError
 
 INT32_MAX = 2**31 - 1
-PLANS = ("scatter_out", "scatter_in", "raw_out", "raw_in")
-_PROP_PLANS = ("prop_out", "prop_in")
+PLANS = ("scatter_out", "scatter_in", "prop_out", "prop_in", "raw_out",
+         "raw_in")
 # tables/statics of the JAX ScatterPlan that only tile the TPU kernel
 _TPU_ONLY = ("chunk_start", "chunk_count", "block_rows", "block_edges",
              "max_chunks")
@@ -111,11 +110,26 @@ class RawEdges:
 
 
 @dataclasses.dataclass
+class PropPlan:
+    """Plan for the propagation channel: a partition-internal CSR (for
+    the local fixpoint) plus a ScatterPlan over the cut edges (for the
+    global exchange)."""
+
+    int_src: torch.Tensor      # (W, Ei_cap) i32 local src idx (pad 0)
+    int_dst: torch.Tensor      # (W, Ei_cap) i32 local dst idx, sorted (pad n_loc)
+    int_w: Optional[torch.Tensor]  # (W, Ei_cap) f32 edge weights or None
+    cut: ScatterPlan
+    ei_cap: int
+
+
+@dataclasses.dataclass
 class PartitionedGraph:
     v_mask: torch.Tensor      # (W, n_loc) bool
     deg_out: torch.Tensor     # (W, n_loc) i32
     scatter_out: Optional[ScatterPlan]
     scatter_in: Optional[ScatterPlan]
+    prop_out: Optional[PropPlan]
+    prop_in: Optional[PropPlan]
     raw_out: Optional[RawEdges]
     raw_in: Optional[RawEdges]
     n: int
@@ -267,6 +281,42 @@ def _build_scatter_plan(
     return tables, statics
 
 
+def _build_prop_plan(src_new, dst_new, weights, n_workers, n_loc, align=8,
+                     mirror_threshold=None):
+    W = n_workers
+    owner_s = src_new // n_loc
+    internal = owner_s == dst_new // n_loc
+
+    # internal CSR (per worker, sorted by (local dst, local src))
+    per_worker = []
+    for w in range(W):
+        sel = internal & (owner_s == w)
+        s = (src_new[sel] - w * n_loc).astype(np.int32)
+        d = (dst_new[sel] - w * n_loc).astype(np.int32)
+        wt = weights[sel] if weights is not None else None
+        order = np.lexsort((s, d))
+        per_worker.append((s[order], d[order],
+                           wt[order] if wt is not None else None))
+    ei_cap = _bucket_cap(max(len(s) for s, _, _ in per_worker), align)
+    int_src = np.zeros((W, ei_cap), np.int32)
+    int_dst = np.full((W, ei_cap), n_loc, np.int32)
+    int_w = np.zeros((W, ei_cap), np.float32) if weights is not None else None
+    for w, (s, d, wt) in enumerate(per_worker):
+        int_src[w, : len(s)] = s
+        int_dst[w, : len(d)] = d
+        if int_w is not None and len(s):
+            int_w[w, : len(s)] = wt
+
+    cut = ~internal
+    cut_tables, cut_statics = _build_scatter_plan(
+        src_new[cut], dst_new[cut],
+        weights[cut] if weights is not None else None,
+        n_workers, n_loc, align, mirror_threshold=mirror_threshold)
+    tables = dict(int_src=int_src, int_dst=int_dst, int_w=int_w,
+                  cut=cut_tables)
+    return tables, dict(ei_cap=ei_cap, cut=cut_statics)
+
+
 def _build_raw_edges(src_new, dst_new, weights, n_workers, n_loc, align=8):
     W = n_workers
     owner = src_new // n_loc
@@ -369,10 +419,26 @@ def _scatter_from_arrays(tables, statics, device) -> ScatterPlan:
     )
 
 
+def _prop_from_arrays(tables, statics, device) -> PropPlan:
+    extra = (set(tables) | set(statics)) - {
+        f.name for f in dataclasses.fields(PropPlan)}
+    if extra:
+        raise ValueError(f"unknown PropPlan fields {sorted(extra)}")
+    return PropPlan(
+        **{k: _tensor(tables.get(k), device)
+           for k in ("int_src", "int_dst", "int_w")},
+        cut=_scatter_from_arrays(tables["cut"], statics["cut"], device),
+        ei_cap=int(statics["ei_cap"]))
+
+
 def _raw_from_arrays(tables, statics, device) -> RawEdges:
     return RawEdges(**{k: _tensor(tables.get(k), device)
                        for k in ("src_local", "dst_global", "w", "mask")},
                     e_cap=int(statics["e_cap"]))
+
+
+_FROM_ARRAYS = {"scatter": _scatter_from_arrays, "prop": _prop_from_arrays,
+                "raw": _raw_from_arrays}
 
 
 def from_arrays(tables: Dict[str, Any], statics: Dict[str, Any],
@@ -383,27 +449,23 @@ def from_arrays(tables: Dict[str, Any], statics: Dict[str, Any],
 
     Args:
       tables: ``{"v_mask", "deg_out"}`` arrays plus, per built plan in
-        ``PLANS``, a dict of its tables (absent or None = not built). The
+        ``PLANS``, a dict of its tables (absent or None = not built); a
+        PropPlan's cut ScatterPlan is a dict nested under ``"cut"``. The
         JAX ScatterPlan's TPU tiling tables are accepted and ignored.
       statics: ``n``, ``num_workers``, ``n_loc``, ``directed``, ``name``,
         ``new_of_old`` (host array), ``route_cap``, and per built plan a
-        dict of its static ints.
+        dict of its static ints (a PropPlan's cut ones nested under
+        ``"cut"``).
       device: target device (None = CUDA; raises without it).
     """
     device = resolve_device(device)
-    for p in _PROP_PLANS:
-        if tables.get(p) is not None:
-            raise NotImplementedError(
-                f"{p} plans are not ported yet (see ROADMAP: propagation "
-                "plans come with the sssp/wcc:prop slices)")
     plans = {}
     for p in PLANS:
         if tables.get(p) is None:
             plans[p] = None
-        elif p.startswith("scatter"):
-            plans[p] = _scatter_from_arrays(tables[p], statics[p], device)
         else:
-            plans[p] = _raw_from_arrays(tables[p], statics[p], device)
+            plans[p] = _FROM_ARRAYS[p.split("_")[0]](tables[p], statics[p],
+                                                     device)
     return PartitionedGraph(
         v_mask=_tensor(np.asarray(tables["v_mask"], bool), device),
         deg_out=_tensor(np.asarray(tables["deg_out"], np.int32), device),
@@ -436,10 +498,6 @@ def partition_tables(
             f"unknown partitioner {partitioner!r}; known partitioners: "
             f"{sorted(partition_lib.PARTITIONERS)}")
     for p in build:
-        if p in _PROP_PLANS:
-            raise NotImplementedError(
-                f"{p} plans are not ported yet (see ROADMAP: propagation "
-                "plans come with the sssp/wcc:prop slices)")
         if p not in PLANS:
             raise ValueError(f"unknown plan {p!r}; known: {PLANS}")
     new_of_old = partition_lib.PARTITIONERS[partitioner](g, n_workers, seed)
@@ -469,6 +527,10 @@ def partition_tables(
             src, dst, w, W, n_loc, align, mirror_threshold=thr),
         "scatter_in": lambda: _build_scatter_plan(
             dst, src, w, W, n_loc, align, mirror_threshold=thr),
+        "prop_out": lambda: _build_prop_plan(
+            src, dst, w, W, n_loc, align, mirror_threshold=thr),
+        "prop_in": lambda: _build_prop_plan(
+            dst, src, w, W, n_loc, align, mirror_threshold=thr),
         "raw_out": lambda: _build_raw_edges(src, dst, w, W, n_loc, align),
         "raw_in": lambda: _build_raw_edges(dst, src, w, W, n_loc, align),
     }
@@ -492,9 +554,10 @@ def partition_graph(
     host and move them to ``device`` once (None = CUDA; raises without
     it).
 
-    build: subset of {"scatter_out", "scatter_in", "raw_out", "raw_in"};
-    the propagation plans raise NotImplementedError (ROADMAP).
-    mirror_threshold: hub mirroring in the scatter plans — ``None`` (off),
+    build: subset of ``PLANS`` (scatter, propagation and raw-edge plans,
+    each in the ``_out`` and ``_in`` orientation).
+    mirror_threshold: hub mirroring in the scatter and propagation-cut
+    plans — ``None`` (off),
     an int degree threshold, or ``"auto"`` (see the JAX package's
     ``partition_graph``).
     """

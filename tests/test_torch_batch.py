@@ -265,11 +265,15 @@ def test_bucket_queries_pow2():
 
 
 def test_sssp_rejects_negative_weights_and_prop():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sssp.program("prop")
+    """Negative weights are refused; ``sssp:prop`` runs solo, but its
+    batched Propagation channel is not ported (ROADMAP)."""
     spec = REGISTRY["sssp:basic"]
-    pg = pgraph.partition_graph(spec.make_graph(6, SEED), W, "random",
-                                build=spec.build, device="cpu")
+    graph = spec.make_graph(6, SEED)
+    pg = pgraph.partition_graph(graph, W, "random", build=spec.build,
+                                device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(device="cpu").run_batch(sssp.program("prop"), pg,
+                                       spec.queries(graph, SEED, 2))
     pg.raw_out.w[0, 0] = -1.0
     with pytest.raises(ValueError, match="non-negative"):
         sssp.program().init(pg)

@@ -54,7 +54,7 @@ def test_run_without_check_and_unknown_program(capsys):
                      "--no-check"]) == 0
     assert "oracle" not in capsys.readouterr().out
     with pytest.raises(KeyError, match="not yet ported"):
-        cli.main(["run", "scc", "--device", "cpu"])
+        cli.main(["run", "pagerank:personal", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flag", ["--mode", "--plan", "--checkpoint-every",

@@ -16,8 +16,7 @@ from repro.graph import pgraph as jpgraph
 from repro.pregel import errors as jerrors
 from repro.pregel import runtime as jruntime
 from repro.pregel.engine import Engine as JEngine
-from repro_torch.algorithms import (REGISTRY, get_program, pagerank, sssp,
-                                    wcc)
+from repro_torch.algorithms import REGISTRY, get_program, pagerank
 from repro_torch.core import message as msg
 from repro_torch.graph import pgraph
 from repro_torch.pregel import errors, runtime
@@ -66,8 +65,7 @@ def test_unported_engine_options_raise_naming_roadmap(kw):
         Engine(device="cpu", **kw)
 
 
-@pytest.mark.parametrize("module,variant", [
-    (wcc, "prop"), (sssp, "prop"), (pagerank, "personal")])
+@pytest.mark.parametrize("module,variant", [(pagerank, "personal")])
 def test_unported_variants_raise_naming_roadmap(module, variant):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         module.program(variant)

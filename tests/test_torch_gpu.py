@@ -596,3 +596,75 @@ def test_segment_combine_long_gaps(cuda, name, dtype, d):
     assert bits_equal(got, ref.segment_combine_ref(vals, dropped, n,
                                                    cb.get(name)))
 
+
+
+def _prop_min_case(pg, side):
+    """(vals, seg, n) of the Propagation channel's int32 ``min`` on the
+    ``wcc:prop`` plan (CPU tensors), as its first round hands them to the
+    kernel: ``int_dst`` the local fixpoint (vertex ids gathered by
+    ``int_src`` into n_loc segments), ``cut_send`` the cut plan's sender
+    (by ``edge_src`` into ``u_cap``), ``cut_recv`` its receiver (random
+    ids on the wire, in ``recv_order``, into n_loc)."""
+    plan = pg.prop_out
+    ids = pg.global_ids()
+    if side == "int_dst":
+        return (ids.gather(1, plan.int_src.long())[..., None], plan.int_dst,
+                pg.n_loc)
+    if side == "cut_send":
+        return (ids.gather(1, plan.cut.edge_src.long())[..., None],
+                plan.cut.edge_seg, plan.cut.u_cap)
+    g = torch.Generator().manual_seed(3)
+    vals = torch.randint(0, pg.n_pad, plan.cut.recv_sorted.shape + (1,),
+                         generator=g, dtype=torch.int32)
+    return vals, plan.cut.recv_sorted, pg.n_loc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side", ["int_dst", "cut_send", "cut_recv"])
+def test_segment_combine_int32_min_on_the_prop_plan(cuda, side):
+    """The propagation fixpoint's and cut exchange's combines: ids sorted
+    at plan build, no sort at run time, exact against plain."""
+    spec = REGISTRY["wcc:prop"]
+    pg = pgraph.partition_graph(spec.make_graph(12, 0), 8, "random",
+                                build=spec.build, device="cpu")
+    vals, seg, n = _prop_min_case(pg, side)
+    assert bool((seg[:, 1:] >= seg[:, :-1]).all())
+    want = ref.segment_combine_ref(vals, seg, n, cb.MIN)
+    ops.reset_launch_counts()
+    got = ops.segment_combine(vals.to(cuda), seg.to(cuda), n, "min")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["segment_combine"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key,mirror", [
+    ("wcc:prop", None), ("wcc:prop", 16), ("sssp:prop", None),
+    ("scc:basic", None), ("scc:prop", None)])
+def test_prop_programs_on_the_card(cuda, key, mirror):
+    """Scale 10, W = 8, the same plan on both devices: outputs,
+    supersteps, per-channel counts and per-worker iterations identical,
+    the registry oracle holds on the card, and the run launched the
+    segment kernel (and the bucket kernel for ``scc:basic``)."""
+    spec = REGISTRY[key]
+    graph = spec.make_graph(10, 0)
+    inputs = spec.inputs(graph, 0)
+    tables = pgraph.partition_tables(graph, 8, "random", build=spec.build,
+                                     mirror_threshold=mirror)
+    cpu = Engine(device="cpu").run(spec.factory(**inputs),
+                                   pgraph.from_arrays(*tables, device="cpu"))
+    pg = pgraph.from_arrays(*tables, device="cuda")
+    ops.reset_launch_counts()
+    card = Engine(device="cuda").run(spec.factory(**inputs), pg)
+    launches = ops.launch_counts()
+    np.testing.assert_array_equal(card.output, cpu.output)
+    assert (card.steps, card.halted) == (cpu.steps, cpu.halted)
+    assert card.bytes_by_channel == cpu.bytes_by_channel
+    assert card.msgs_by_channel == cpu.msgs_by_channel
+    counter = "iters" if key.startswith("scc") else "info"
+    assert torch.equal(card.state[counter].cpu(), cpu.state[counter])
+    spec.check(graph, pg, card, inputs)
+    assert launches["segment_combine"] > 0
+    assert (launches["bucket_ranks"] > 0) == (key == "scc:basic")
+    if mirror is not None:
+        assert pg.prop_out.cut.hub_cap > 0

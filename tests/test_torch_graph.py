@@ -23,6 +23,21 @@ from repro_torch.pregel.errors import PlanRangeError
 ALL_PLANS = pgraph.PLANS
 
 
+def _plan_arrays(plan):
+    """(tables, statics) of one JAX plan; a nested plan (a PropPlan's
+    ``cut``) becomes a nested pair of dicts under its field name."""
+    t, s = {}, {}
+    for f in dataclasses.fields(plan):
+        v = getattr(plan, f.name)
+        if dataclasses.is_dataclass(v):
+            t[f.name], s[f.name] = _plan_arrays(v)
+        elif f.metadata.get("static"):
+            s[f.name] = v
+        else:
+            t[f.name] = None if v is None else np.asarray(v)
+    return t, s
+
+
 def jax_tables(pg):
     """(tables, statics) of a JAX PartitionedGraph, as host numpy."""
     tables = {"v_mask": np.asarray(pg.v_mask),
@@ -32,17 +47,28 @@ def jax_tables(pg):
                    new_of_old=pg.new_of_old.arr, route_cap=pg.route_cap)
     for p in ALL_PLANS:
         plan = getattr(pg, p)
-        if plan is None:
-            continue
-        t, s = {}, {}
-        for f in dataclasses.fields(plan):
-            v = getattr(plan, f.name)
-            if f.metadata.get("static"):
-                s[f.name] = v
-            else:
-                t[f.name] = None if v is None else np.asarray(v)
-        tables[p], statics[p] = t, s
+        if plan is not None:
+            tables[p], statics[p] = _plan_arrays(plan)
     return tables, statics
+
+
+def _same_plan_tables(got_t, got_s, want_t, want_s, path):
+    """Every table and static of a plan, bit for bit, nested plans
+    included, except the TPU tiling tables the port does not build."""
+    for k in set(want_t) - set(pgraph._TPU_ONLY):
+        w = want_t[k]
+        if isinstance(w, dict):
+            _same_plan_tables(got_t[k], got_s[k], w, want_s[k],
+                              f"{path}.{k}")
+        elif w is None:
+            assert got_t[k] is None, (path, k)
+        else:
+            assert got_t[k].dtype == w.dtype, (path, k)
+            np.testing.assert_array_equal(got_t[k], w, err_msg=f"{path}.{k}")
+    want_statics = {k: v for k, v in want_s.items()
+                    if k not in pgraph._TPU_ONLY and k not in want_t}
+    assert {k: v for k, v in got_s.items() if k not in got_t} \
+        == want_statics, path
 
 
 def _graph(directed):
@@ -94,19 +120,12 @@ def test_plan_tables_match_jax(name, directed, mirror):
     np.testing.assert_array_equal(got_s.pop("new_of_old"),
                                   want_s.pop("new_of_old"))
     for p in ALL_PLANS:
-        for k in set(want_t[p]) - set(pgraph._TPU_ONLY):
-            w = want_t[p][k]
-            if w is None:
-                assert got_t[p][k] is None, (p, k)
-            else:
-                assert got_t[p][k].dtype == w.dtype, (p, k)
-                np.testing.assert_array_equal(got_t[p][k], w, err_msg=k)
-        want_statics = {k: v for k, v in want_s.pop(p).items()
-                        if k not in pgraph._TPU_ONLY}
-        assert got_s.pop(p) == want_statics, p
+        _same_plan_tables(got_t[p], got_s.pop(p), want_t[p], want_s.pop(p),
+                          p)
     assert got_s == want_s
     if mirror is not None:  # the mirrored case exercises hub mirroring
         assert want_t["scatter_out"]["hub_local"] is not None
+        assert want_t["prop_out"]["cut"]["hub_local"] is not None
 
 
 def test_from_arrays_of_jax_plan_equals_port_build():
@@ -135,7 +154,8 @@ def test_from_arrays_of_jax_plan_equals_port_build():
 def test_recv_tables_are_a_stable_sort_of_recv_local():
     pg = pgraph.partition_graph(_graph(directed=True), 4, build=ALL_PLANS,
                                 device="cpu")
-    for plan in (pg.scatter_out, pg.scatter_in):
+    for plan in (pg.scatter_out, pg.scatter_in, pg.prop_out.cut,
+                 pg.prop_in.cut):
         flat = plan.recv_local.reshape(4, -1)
         assert torch.equal(flat.gather(1, plan.recv_order.long()),
                            plan.recv_sorted)
@@ -143,16 +163,6 @@ def test_recv_tables_are_a_stable_sort_of_recv_local():
         for row, order in zip(flat, plan.recv_order):
             want = np.argsort(row.numpy(), kind="stable")
             np.testing.assert_array_equal(order.numpy(), want)
-
-
-def test_prop_plans_raise_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pgraph.partition_graph(_graph(False), 4, build=("prop_out",),
-                               device="cpu")
-    tables, statics = pgraph.partition_tables(_graph(False), 4)
-    tables["prop_out"] = {}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pgraph.from_arrays(tables, statics, device="cpu")
 
 
 def test_default_device_is_the_card():
