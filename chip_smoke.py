@@ -18,7 +18,10 @@ batched query plane — ``Engine.run_batch`` of Q=32 sources of
 checked against solo runs and the host oracles, and the Propagation
 channel (``wcc:prop``, ``sssp:prop``, ``scc:basic``/``prop``: a local
 fixpoint between cut exchanges, every combine a ``segment_combine``
-launch on ids sorted at plan build). Phases, one or more lines each:
+launch on ids sorted at plan build), and the device modes (``fused``,
+``chunked``: K supersteps captured into one CUDA graph, each under an IF
+node, replayed once a dispatch) for the 13 programs without an inner
+host loop. Phases, one or more lines each:
 
   1. environment and kernel build;
   2. each kernel against its plain PyTorch version on the card, the two
@@ -33,7 +36,11 @@ launch on ids sorted at plan build). Phases, one or more lines each:
      bit-identical on pagerank:basic's float32 sums; the Propagation
      channel's ``min`` at the scale-20 ``wcc:prop`` plan (``int_dst``, the
      cut plan's sender and receiver: the int32 cases above, and float32
-     with +inf);
+     with +inf); each main-path kernel captured into a CUDA graph and
+     replayed on fresh inputs (``bucket_ranks`` four times, the lanes
+     kernel, ``segment_combine``'s int32 ``min`` and ``min_by_first``
+     three times, with a run of empty segments that moves), every replay
+     exact; ``bucket_ranks`` across the end of its epoch lap;
   3. reference traffic counts at scale 12, W=8 (exact), solo and batched
      (every batched lane bit-identical to its solo run), and the nine
      composition-layer programs (six S-V variants, ``wcc:switch``,
@@ -62,17 +69,25 @@ launch on ids sorted at plan build). Phases, one or more lines each:
      ``sssp:prop`` (oracle; ``sssp:basic``'s distances bit for bit),
      ``scc:basic``/``prop`` (scipy's strong components; ``scc:prop`` below
      ``scc:basic`` in bytes), each with its launches (``segment_combine``
-     in all four, ``bucket_ranks`` in ``scc:basic``);
+     in all four, ``bucket_ranks`` in ``scc:basic``); the 13 programs
+     without an inner host loop on those partitions in host mode and in
+     ``fused``, ``chunked`` K=64 and ``chunked`` K=4 (the second, cached
+     run each), each bit-identical to host mode and launching each kernel
+     as often, as the kernels count their launches on the device: wall
+     time, capture time, dispatches, host overhead a superstep and peak
+     memory of each;
   5. each kernel's time against its plain version, its bound and a
      PyTorch yardstick at the scale-20 shapes (the bucket kernels also on
      random keys, warm and L2-flushed, and checked to run one device
-     kernel a call, fills and memsets counted; ``segment_combine`` also
+     kernel a call, fills and memsets counted; ``segment_combine``
+     checked to run two, and also
      as int32 ``min`` at the S-V plan, as ``min_by_first`` at the msf plan
      and as the float32 sum of pagerank:basic's CombinedMessage, each also
      with its stable sort, and as the int32 ``min`` at ``wcc:prop``'s
      ``int_dst``), and one run of each program (the batched sssp,
-     ``sv:composed``, ``pagerank:basic``, ``msf:channels`` and the four
-     Propagation programs among them) under torch.profiler
+     ``sv:composed``, ``pagerank:basic``, ``msf:channels``, the four
+     Propagation programs and the fused ``pagerank:scatter`` and
+     ``wcc:basic`` among them) under torch.profiler
      (device busy share, top kernels and aten ops;
      ``chiprun_out/profile_*.txt``).
 
@@ -97,6 +112,18 @@ FULL_SCALE = 20
 NQ = 32  # queries per batched run
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT32_MAX, INT32_MIN = 2**31 - 1, -2**31
+# the device kernel that marks one launch of each wrapper in a
+# torch.profiler trace (a segment_combine call runs tile_kernel, then
+# join_kernel): the profiled runs hold the trace's counts beside the
+# kernels' own
+LAUNCH_EVENTS = {"bucket_ranks": "::ranks_kernel<false>",
+                 "bucket_ranks_lanes": "::ranks_kernel<true>",
+                 "segment_combine": "::tile_kernel<"}
+# (label, mode, K) of the device-mode runs in phase 4
+MODE_RUNS = {"fused": ("fused", 64), "chunked64": ("chunked", 64),
+             "chunked4": ("chunked", 4)}
+# the programs whose fused run phase 5 profiles
+PROFILED_FUSED = ("pagerank:scatter", "wcc:basic")
 
 # (supersteps, messages, bytes, bytes by channel) of the composition
 # layer's programs at scale 12, W=8, random partitioner: the S-V variants
@@ -506,6 +533,267 @@ def prop_min_cases(pplan, n_loc, g, seg_case) -> list:
     return names + ["int_dst f32 with inf"]
 
 
+def on_device_launches(fn):
+    """``fn()`` and the kernels' launches during it, as the kernels count
+    them on the device (``ops.device_launch_counts``), so launches
+    replayed from a captured CUDA graph count too; every
+    ``segment_combine`` launch must show its second kernel."""
+    from repro_torch.kernels import ops
+
+    before = ops.device_launch_counts()
+    out = fn()
+    after = ops.device_launch_counts()
+    n = {k: after[k] - before[k] for k in after}
+    join = n.pop("segment_combine_join")
+    check(join == n["segment_combine"],
+          f"{join} join_kernel launches for {n['segment_combine']} "
+          "tile_kernel launches")
+    return out, n
+
+
+def mode_runs(prog, pg):
+    """``prog`` on ``pg`` in host mode and in each of ``MODE_RUNS``, two
+    runs each, the second reported: wall ms of ``Engine.run`` (init and
+    extract included) and of the loop alone (``RunResult.wall_time_s``:
+    from loading the state to the copy of the result), host overhead a
+    superstep, dispatches, capture time and peak device memory (over both
+    runs, the capture included). Each device-mode run must equal the host
+    run bit for bit (state, supersteps, halts, bytes and msgs per
+    channel), and launch each kernel as often as the host run's wrappers
+    count, as the kernels count their launches on the device
+    (:func:`on_device_launches`; a replayed graph launches its kernels
+    without the wrappers), as must the counts the runtime adds for its
+    replays. Returns the rows and the fused engine, which keeps its
+    captured graph for the profiled run."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.pregel.engine import Engine
+
+    def two_runs(eng):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        first = eng.run(prog, pg)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        (res, ms), on_device = on_device_launches(
+            lambda: timed(lambda: eng.run(prog, pg)))
+        row = dict(
+            steps=res.steps, dispatches=res.dispatches, run_wall_ms=ms,
+            loop_wall_ms=1e3 * res.wall_time_s,
+            overhead_ms_per_step=1e3 * res.host_overhead_s
+            / max(res.steps, 1),
+            capture_s=first.compile_time_s, launches=ops.launch_counts(),
+            launches_on_device=on_device,
+            peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+            step_ms=[1e3 * x for x in res.step_times_s])
+        return res, row
+
+    host, rows = two_runs(Engine())
+    check(rows["launches_on_device"] == rows["launches"],
+          f"{prog.name} host: launches on the device "
+          f"{rows['launches_on_device']} != the wrappers' {rows['launches']}")
+    out = {"host": rows}
+    fused = None
+    for label, (mode, k) in MODE_RUNS.items():
+        eng = Engine(mode=mode, chunk_size=k)
+        res, row = two_runs(eng)
+        what = f"{prog.name} {label}"
+        check(res.cache_hit and res.mode == mode, f"{what}: not a replay")
+        check((res.steps, res.halted) == (host.steps, host.halted)
+              and res.bytes_by_channel == host.bytes_by_channel
+              and res.msgs_by_channel == host.msgs_by_channel,
+              f"{what}: counts differ from host mode")
+        check(all(bits_equal(res.state[x], host.state[x])
+                  for x in host.state), f"{what}: state differs from host")
+        check(row["launches_on_device"] == rows["launches"],
+              f"{what}: launches on the device {row['launches_on_device']} "
+              f"!= host's {rows['launches']}")
+        check(row["launches"] == rows["launches"],
+              f"{what}: counted launches {row['launches']} != host's "
+              f"{rows['launches']}")
+        kk = max(1, min(k, prog.max_steps))
+        check(res.dispatches == -(-res.steps // kk),
+              f"{what}: {res.dispatches} dispatches for {res.steps} steps")
+        out[label] = row
+        if label == "fused":
+            fused = eng
+        else:
+            eng.clear_cache()
+    return out, fused
+
+
+def captured_replays(fn, statics, fresh, plain, what: str,
+                     replays: int = 3) -> int:
+    """``fn()`` (over the ``statics`` tensors) captured into a CUDA graph
+    under a scratch scope, after one warm-up call on a side stream that
+    sizes the scratch, then replayed ``replays`` times, each time with
+    ``fresh(r)`` copied into the statics: each replay must equal
+    ``plain`` of its inputs bit for bit — what an epoch frozen into the
+    capture, or a chunk mark left by an earlier replay, would break.
+    Returns the number of replays."""
+    import torch
+    from repro_torch.kernels import scratch
+
+    token = ("chip_smoke", what)
+    try:
+        with scratch.scope(token):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fn()
+        out = out if isinstance(out, tuple) else (out,)
+        for r in range(replays):
+            inputs = fresh(r)
+            for st, x in zip(statics, inputs):
+                st.copy_(x)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = plain(*inputs)
+            want = want if isinstance(want, tuple) else (want,)
+            check(all(bits_equal(a, b) for a, b in zip(out, want)),
+                  f"{what}: replay {r} of the captured call differs from "
+                  "plain")
+        del graph
+    finally:
+        scratch.release(token)
+    return replays
+
+
+def gap_ids(shape, n: int, start: int, width: int, g):
+    """Sorted int32 ids in [0, n) per row, none in [start, start + width):
+    a long run of empty segments whose place the caller moves."""
+    import torch
+
+    ids = torch.randint(0, n - width, shape, device=g.device, generator=g,
+                        dtype=torch.int32)
+    ids = ids + width * (ids >= start).int()
+    return torch.sort(ids, dim=-1)[0]
+
+
+def replay_checks(dev, g, lkeys, sv_plan, n_loc, msf_recv) -> list:
+    """The main path's kernels inside a captured CUDA graph, each replayed
+    three times (four for ``bucket_ranks``) on fresh inputs, exact
+    against plain: ``bucket_ranks`` at wcc's route-key shape (W, 2^21)
+    on random, sorted, one-bucket and random keys; ``bucket_ranks_lanes``
+    at the batched plane's union shape; ``segment_combine`` as the S-V
+    receiver's int32 ``min`` (the wire into ``n_loc`` segments) and as
+    msf's receive-side ``min_by_first`` (the captured first superstep's
+    shape), both on ids with a run of 40,000 empty segments that moves
+    from replay to replay, so each replay's fill pass meets chunk marks.
+    Returns the case names."""
+    import torch
+    from repro_torch.kernels import ops, ref as kref
+
+    names = []
+    keys = torch.zeros((W, 1 << 21), dtype=torch.int32, device=dev)
+
+    def fresh_keys(r):
+        rnd = torch.randint(0, W + 1, keys.shape, device=dev,
+                            dtype=torch.int32, generator=g)
+        return ([rnd, torch.sort(rnd, dim=1)[0], torch.full_like(rnd, 3),
+                 rnd.flip(1)][r],)
+
+    n = captured_replays(lambda: ops.bucket_ranks(keys, W), (keys,),
+                         fresh_keys, lambda k: kref.bucket_ranks_ref(k, W),
+                         "bucket_ranks", 4)
+    names.append(f"bucket_ranks x{n}")
+    ukeys = torch.zeros_like(lkeys)
+    ulanes = torch.zeros(lkeys.shape + (NQ,), dtype=torch.bool, device=dev)
+
+    def fresh_union(r):
+        k = lkeys if r == 0 else torch.randint(
+            0, W + 1, lkeys.shape, device=dev, dtype=torch.int32, generator=g)
+        lanes = ((torch.rand(k.shape + (NQ,), device=dev, generator=g) < 0.5)
+                 & (k != W)[..., None])
+        return k, lanes
+
+    n = captured_replays(
+        lambda: ops.bucket_ranks_lanes(ukeys, ulanes, W), (ukeys, ulanes),
+        fresh_union, lambda k, ln: kref.bucket_ranks_lanes_ref(k, ln, W),
+        "bucket_ranks_lanes")
+    names.append(f"bucket_ranks_lanes x{n}")
+    gap = 40_000
+    shape = tuple(sv_plan.recv_sorted.shape)
+    vals = torch.zeros(shape + (1,), dtype=torch.int32, device=dev)
+    seg = torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    def fresh_min(r):
+        v = torch.randint(INT32_MIN, INT32_MAX, vals.shape, device=dev,
+                          dtype=torch.int32, generator=g)
+        return v, gap_ids(shape, n_loc, 1000 + r * 30_000, gap, g)
+
+    n = captured_replays(
+        lambda: ops.segment_combine(vals, seg, n_loc, "min"), (vals, seg),
+        fresh_min,
+        lambda v, sg: kref.segment_combine_ref(v, sg, n_loc, "min"),
+        "segment_combine int32 min")
+    names.append(f"int32 min x{n}")
+    mv, _, mn, _ = msf_recv
+    bvals = torch.zeros_like(mv)
+    bseg = torch.zeros(mv.shape[:-1], dtype=torch.int32, device=dev)
+
+    def fresh_by_first(r):
+        v = torch.rand(mv.shape, device=dev, generator=g)
+        v[..., 0] = torch.randint(0, 64, mv.shape[:-1], device=dev,
+                                  generator=g).float()  # tied keys
+        return v.to(mv.dtype), gap_ids(tuple(bseg.shape), mn,
+                                       500 + r * (mn // 4), min(gap, mn // 4),
+                                       g)
+
+    n = captured_replays(
+        lambda: ops.segment_combine(bvals, bseg, mn, "min_by_first"),
+        (bvals, bseg), fresh_by_first,
+        lambda v, sg: kref.segment_combine_ref(v, sg, mn, "min_by_first"),
+        "segment_combine min_by_first")
+    names.append(f"min_by_first x{n}")
+    return names
+
+
+def epoch_wrap_check(dev, g) -> dict:
+    """``bucket_ranks`` across the end of its epoch lap, at wcc's
+    route-key shape: four calls from epoch limit - 1 on, each exact; the
+    call at the limit leaves every status word zero; the epoch then runs
+    1, 2 — all on the device, no host-side reset."""
+    import torch
+    from repro_torch.kernels import bucket_route as kbucket
+    from repro_torch.kernels import ops, ref as kref
+    from repro_torch.kernels import scratch
+
+    keys = torch.randint(0, W + 1, (W, 1 << 21), device=dev,
+                         dtype=torch.int32, generator=g)
+    want = kref.bucket_ranks_ref(keys, W)
+    limit = kbucket.epoch_limit()
+    token = ("chip_smoke", "epoch wrap")
+    try:
+        with scratch.scope(token):
+            ops.bucket_ranks(keys, W)
+            sc = kbucket.scratch_of(dev)
+            torch.cuda.synchronize()
+            sc.ctrl[0] = (limit - 2) << 32
+            epochs = []
+            for call in range(4):
+                got = ops.bucket_ranks(keys, W)
+                torch.cuda.synchronize()
+                epochs.append((int(sc.ctrl[0]) >> 32))
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"bucket_ranks at epoch wrap call {call} differs from "
+                      "plain")
+                if call == 1:
+                    check(not bool(sc.status.any()),
+                          "the call at the epoch limit left status words")
+            check(epochs == [limit - 1, 0, 1, 2] and int(sc.ctrl[1]) == 0,
+                  f"epoch words after the wrap: {epochs}")
+    finally:
+        scratch.release(token)
+    return dict(limit=limit, stored_epochs=epochs,
+                status_words=int(sc.status.numel()))
+
+
 def strong_components(graph):
     """Strongly connected component labels of a directed EdgeList, by
     scipy (the scale-20 ground truth; held to ``oracles.scc_oracle`` at
@@ -739,7 +1027,11 @@ def profile_runs(jobs, out_dir: Path) -> dict:
     time. Two busy shares, both for one stream: ``busy_share`` is the
     traced run's device time over its own wall time (one run, slowed by
     the profiler); ``busy_vs_untraced`` is the same device time over the
-    wall time of the untraced phase-4 run of that program (two runs)."""
+    wall time of the untraced phase-4 run of that program (two runs).
+    Each run's kernel launches are recorded twice, from the trace's
+    events (``LAUNCH_EVENTS``) and as the kernels count them on the
+    device, and not checked against each other: the trace is no count of
+    a replayed graph's launches inside its IF nodes."""
     from torch.autograd import DeviceType
 
     def dev_us(e, total=False):
@@ -748,8 +1040,11 @@ def profile_runs(jobs, out_dir: Path) -> dict:
 
     out = {}
     for key, fn, untraced_ms in jobs:
-        (res, wall_ms), events = traced(lambda: timed(fn))
+        ((res, wall_ms), events), on_device = on_device_launches(
+            lambda: traced(lambda: timed(fn)))
         kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        in_trace = {name: sum(e.count for e in kernels if mark in e.key)
+                    for name, mark in LAUNCH_EVENTS.items()}
         ops_ = [e for e in events if e.device_type == DeviceType.CPU
                 and e.key.startswith("aten::")]
         device_ms = sum(dev_us(e) for e in kernels) / 1e3
@@ -759,6 +1054,7 @@ def profile_runs(jobs, out_dir: Path) -> dict:
             steps=res.steps, wall_ms=wall_ms, device_ms=device_ms,
             busy_share=device_ms / wall_ms, untraced_wall_ms=untraced_ms,
             busy_vs_untraced=device_ms / untraced_ms,
+            launches_in_trace=in_trace, launches_on_device=on_device,
             kernels=[(e.key[:90], dev_us(e) / 1e3, e.count) for e in top_k],
             aten_ops=[(e.key, dev_us(e, True) / 1e3, e.count) for e in top_o])
         rows = "\n".join(f"{ms:10.3f} ms {n:6d}x  {k}"
@@ -1006,6 +1302,27 @@ def main() -> int:
           f"{sum_rel:.3g} against plain (rtol 1e-4, atol 1e-12) (msf graph "
           f"set-up {msf_host_s:.1f} s; "
           f"{time.perf_counter() - t:.1f} s)", flush=True)
+
+    # the kernels inside a captured CUDA graph (what the fused and chunked
+    # modes replay): each capture replayed on fresh inputs, exact; and
+    # bucket_ranks across the end of its epoch lap
+    t = time.perf_counter()
+    replays = replay_checks(dev, g, lkeys, sv_plan, wcc_pg.n_loc,
+                            msf_calls[1])
+    wrap = epoch_wrap_check(dev, g)
+    detail["kernel_checks"].update(captured_replays=replays, epoch_wrap=wrap)
+    print(f"[2/5] the kernels in a captured CUDA graph, each replay on fresh "
+          f"inputs exact against plain: {', '.join(replays)} (bucket_ranks "
+          f"({W}, 2^21) random/sorted/one bucket/reversed, the lanes kernel "
+          f"at {tuple(lkeys.shape)} x {NQ} lanes, int32 min at the S-V "
+          f"receiver {tuple(sv_plan.recv_sorted.shape)} into "
+          f"{wcc_pg.n_loc}, min_by_first at msf's receiver "
+          f"{tuple(msf_calls[1][0].shape)} into {msf_calls[1][2]}, both with "
+          f"a run of empty segments that moves each replay); bucket_ranks "
+          f"across the epoch limit {wrap['limit']}: stored epochs "
+          f"{wrap['stored_epochs']}, every call exact, the "
+          f"{wrap['status_words']} status words zeroed at the limit "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
 
     # -- 3. reference counts at scale 12 ------------------------------------
     t = time.perf_counter()
@@ -1443,13 +1760,24 @@ def main() -> int:
         raise SmokeFailure(f"paper table at scale {FULL_SCALE}: {err}") \
             from None
     detail["paper_table"] = table20
-    print(f"[4/5] paper table at scale {FULL_SCALE} (host mode): " + "; ".join(
+    def fused_col(r):
+        f = r["fused"]
+        if f is None:
+            return f"fused: none ({r['fused_note']})"
+        return (f"fused {1e3 * f['wall_time_s']:.1f} ms/"
+                f"{f['ms_per_superstep']:.2f} ms a superstep/"
+                f"{f['dispatches']} dispatch/capture "
+                f"{f['compile_time_s']:.2f} s")
+
+    print(f"[4/5] paper table at scale {FULL_SCALE} (host mode, and the "
+          f"fused column): " + "; ".join(
         f"{r['algorithm']} {r['program']} {r['variant']} "
         f"{r['supersteps']}/{r['bytes']} B/{r['ms_per_superstep']:.2f} ms a "
         f"superstep/run {1e3 * r['wall_time_s']:.1f} ms/peak "
         f"{r['peak_gib']:.2f} GiB/launches bucket_ranks "
         f"{r['launches']['bucket_ranks']}, segment_combine "
-        f"{r['launches']['segment_combine']}" for r in table20["rows"]) +
+        f"{r['launches']['segment_combine']}; {fused_col(r)}"
+        for r in table20["rows"]) +
         f"; headline held ({table20['headline']['round_reduction']:.2f}x "
         f"rounds, {table20['headline']['traffic_reduction']:.2f}x bytes) "
         f"({time.perf_counter() - t:.1f} s)", flush=True)
@@ -1618,6 +1946,69 @@ def main() -> int:
           f"{prop_oracle_s:.1f} s; {time.perf_counter() - t:.1f} s)",
           flush=True)
 
+    # the device modes at full size: the 13 programs without an inner host
+    # loop on the partitions built above, each in host mode and then fused,
+    # chunked at K=64 and chunked at K=4 (two runs each: the first pays the
+    # warm-up and the capture, the second replays the cached graph and is
+    # the one reported), every device-mode run bit-identical to the host
+    # run (state, supersteps, halts, bytes and msgs per channel) and
+    # launching each kernel as often, as the kernels count their launches
+    # on the device
+    t = time.perf_counter()
+    # the programs whose superstep has no inner host loop (the others
+    # refuse the device modes)
+    device_keys = tuple(k for k, s in REGISTRY.items() if s.device_modes)
+    mode_jobs = {key: wcc_pg for key in device_keys
+                 if key.split(":")[0] in ("wcc", "sv")}
+    mode_jobs.update({"pagerank:basic": pr_pg, "pagerank:scatter": pr_pg,
+                      "reach:basic": pr_pg, "sssp:basic": sssp_pg,
+                      "pj:basic": pj_pg, "pj:reqresp": pj_pg})
+    check(sorted(mode_jobs) == sorted(device_keys),
+          "the device-mode programs and their partitions disagree")
+    device_modes, fused_kept = {}, {}
+    for key in device_keys:
+        pg = mode_jobs[key]
+        spec = REGISTRY[key]
+        check(all(getattr(pg, plan) is not None for plan in spec.build),
+              f"{key}: its partition lacks a plan of {spec.build}")
+        knobs = dict(pj_in) if key.startswith("pj") else (
+            {"iters": 30} if key.startswith("pagerank") else {})
+        prog = spec.factory(**knobs)
+        device_modes[key], fused_eng = mode_runs(prog, pg)
+        if key in PROFILED_FUSED:  # its graph stays for the profiled run
+            fused_kept[key] = (fused_eng, prog, pg)
+        else:
+            fused_eng.clear_cache()
+    mode_s = time.perf_counter() - t
+    detail["device_modes"] = dict(device_modes, phase_s=mode_s)
+
+    def mode_row(key):
+        v = device_modes[key]
+        h = v["host"]
+        return (f"{key} {h['steps']} steps: host {h['run_wall_ms']:.1f} ms "
+                f"(loop {h['loop_wall_ms']:.1f}, "
+                f"{h['overhead_ms_per_step']:.3f} ms host overhead a step); "
+                + ", ".join(
+                    f"{m} {v[m]['run_wall_ms']:.1f} ms (loop "
+                    f"{v[m]['loop_wall_ms']:.1f}, capture "
+                    f"{v[m]['capture_s']:.2f} s, {v[m]['dispatches']} "
+                    f"dispatches, {v[m]['overhead_ms_per_step']:.3f} ms a "
+                    f"step, peak {v[m]['peak_gib']:.2f} GiB)"
+                    for m in MODE_RUNS)
+                + f"; host peak {h['peak_gib']:.2f} GiB; launches on the "
+                f"device in each mode " + (", ".join(
+                    f"{n} {c}" for n, c in h["launches_on_device"].items()
+                    if c) or "none"))
+
+    print(f"[4/5] the device modes at scale {FULL_SCALE}, W={W} (ms: "
+          f"Engine.run, init and extract included; loop: the superstep "
+          f"loop alone), each run "
+          f"bit-identical to host mode (state, supersteps, halts, bytes and "
+          f"msgs per channel; kernel launches as the kernels count them "
+          f"on the device): "
+          + "; ".join(mode_row(k) for k in device_keys)
+          + f" ({mode_s:.1f} s)", flush=True)
+
     # -- 5. times at the scale-20 shapes ------------------------------------
     t = time.perf_counter()
     raw = wcc_pg.raw_out
@@ -1724,6 +2115,18 @@ def main() -> int:
                 flat, "sum", lengths=lengths, unsafe=True)),
             bytes=real(s, n) * (4 + 4 * d) + out_bytes,
             all_entry_bytes=rows * e * (4 + 4 * d) + out_bytes)
+    for side, (v, s, n) in zip(("send", "recv"), sides):
+        # two device kernels a call (the tile and join passes), no fill
+        # and no memset: the chunk table clears its own marks
+        per_call = kernels_per_call(
+            lambda: ops.segment_combine(v, s, n, cb.SUM))
+        fills = sum(c for k, (c, _) in per_call.items()
+                    if "Memset" in k or "Fill" in k)
+        count = sum(c for c, _ in per_call.values())
+        check(count == 2 and fills == 0,
+              f"segment_combine {side}: {count} device kernels a call "
+              f"({fills} fills): {per_call}")
+        seg_t[side]["kernels_per_call"] = per_call
     st = {k: sum(x[k] for x in seg_t.values()) for k in (
         "ms", "cold_ms", "min_ms", "plain_ms", "index_add_ms",
         "scatter_reduce_amin_ms", "dump_row_index_add_ms",
@@ -1919,7 +2322,8 @@ def main() -> int:
           f"{seg_t['send']['ms']:.4f}, recv {seg_t['recv']['ms']:.4f}], "
           f"{st['cold_ms']:.4f} ms L2 flushed [send "
           f"{seg_t['send']['cold_ms']:.4f}, recv "
-          f"{seg_t['recv']['cold_ms']:.4f}], min {st['min_ms']:.4f} (plain "
+          f"{seg_t['recv']['cold_ms']:.4f}], 2 device kernels a call, min "
+          f"{st['min_ms']:.4f} (plain "
           f"{s_plain:.3f}, bound {s_bound:.4f} on real entries, "
           f"{s_bound_all:.4f} on all e_cap entries; on the real entries "
           f"index_add_ {st['index_add_ms']:.4f}, scatter_reduce_ amin "
@@ -1975,14 +2379,22 @@ def main() -> int:
           new_main["msf:channels"]["run_wall_ms"]),
          *((key, lambda key=key: eng.run(get_program(key),
                                          prop_jobs[key][1]),
-            prop_main[key]["run_wall_ms"]) for key in prop_main)),
+            prop_main[key]["run_wall_ms"]) for key in prop_main),
+         *((f"{key} fused", lambda key=key: fused_kept[key][0].run(
+             *fused_kept[key][1:]),
+            device_modes[key]["fused"]["run_wall_ms"])
+           for key in PROFILED_FUSED)),
         out_dir)
+    for fused_eng, _, _ in fused_kept.values():
+        fused_eng.clear_cache()
     print("[5/5] profiled runs: " + "; ".join(
         f"{k}: traced wall {v['wall_ms']:.1f} ms, device "
         f"{v['device_ms']:.1f} ms, busy {v['busy_share']:.2f} (traced run); "
         f"untraced phase-4 wall {v['untraced_wall_ms']:.1f} ms, device/"
         f"untraced {v['busy_vs_untraced']:.2f}; top kernel "
-        f"{v['kernels'][0][0][:40]} {v['kernels'][0][1]:.1f} ms"
+        f"{v['kernels'][0][0][:40]} {v['kernels'][0][1]:.1f} ms; launches "
+        f"in the trace {v['launches_in_trace']}, on the device "
+        f"{v['launches_on_device']}"
         for k, v in detail["profile"].items()), flush=True)
     detail["total_s"] = time.perf_counter() - t_start
     print(f"chip_smoke: all phases ok in {detail['total_s']:.1f} s",

@@ -4,22 +4,28 @@ Subcommands:
 
   list    every ported program (``algorithm:variant``), its channel class
           and the graph plans it needs.
-  run     run one program on a generated problem instance in host mode,
-          verify it against the host oracle (``--no-check`` skips that),
-          and print the RunResult summary and the bytes of each channel.
+  run     run one program on a generated problem instance, verify it
+          against the host oracle (``--no-check`` skips that), and print
+          the RunResult summary and the bytes of each channel.
   bench   run a set of programs (one per algorithm by default) and print
           paper-style rows (supersteps / messages / bytes / wall time),
           optionally writing JSON.
 
-Everything runs on the card unless ``--device cpu`` is given. The JAX
-CLI's execution modes, planner, checkpoints and the batched, serving
-and planning subcommands are not ported yet (ROADMAP).
+Both take ``--mode host|fused|chunked`` (default ``host``) and
+``--chunk-size K`` (default 64), as the JAX CLI does: the device modes
+run K supersteps a replay of a captured CUDA graph; the programs with an
+inner host loop refuse them (ROADMAP). Everything runs on the card
+unless ``--device cpu`` is given. The JAX CLI's planner, checkpoints and
+the batched, serving and planning subcommands are not ported yet
+(ROADMAP).
 
 Examples:
 
   python -m repro_torch list
   python -m repro_torch run msf --scale 12
   python -m repro_torch run pagerank:basic --scale 10 --device cpu
+  python -m repro_torch run pagerank:scatter --scale 20 --mode fused \
+      --repeat 2
   python -m repro_torch bench --scale 12 --keys sv:basic,sv:composed \\
       --json chiprun_out/bench.json
 """
@@ -41,9 +47,14 @@ def _fmt_bytes(b: int) -> str:
 
 
 def _summary(res) -> str:
-    return (f"steps {res.steps:5d}  msgs {res.total_msgs:10d}  "
-            f"traffic {_fmt_bytes(res.total_bytes):>12s}  "
-            f"wall {res.wall_time_s:7.3f}s  mode {res.mode}")
+    out = (f"steps {res.steps:5d}  msgs {res.total_msgs:10d}  "
+           f"traffic {_fmt_bytes(res.total_bytes):>12s}  "
+           f"wall {res.wall_time_s:7.3f}s  mode {res.mode}")
+    if res.mode != "host":
+        out += (f"  dispatches {res.dispatches}  " + (
+            "[hit]" if res.cache_hit
+            else f"[capture {res.compile_time_s:.3f}s]"))
+    return out
 
 
 def _prepare(spec, args):
@@ -89,10 +100,12 @@ def cmd_list(args) -> int:
 def cmd_run(args) -> int:
     spec = resolve(args.program)
     print(f"== {spec.key} (scale {args.scale}, W={args.workers}, "
-          f"{args.partitioner} partition, host mode, {args.device}) ==")
+          f"{args.partitioner} partition, {args.mode} mode, "
+          f"{args.device}) ==")
     graph, pg, inputs, prog = _prepare(spec, args)
     print(f"graph: n={graph.n} edges={graph.num_edges}  program: {prog}")
-    eng = Engine(device=args.device)
+    eng = Engine(mode=args.mode, chunk_size=args.chunk_size,
+                 device=args.device)
     res = None
     for i in range(max(1, args.repeat)):
         res = eng.run(prog, pg, max_steps=args.max_steps)
@@ -110,10 +123,11 @@ def cmd_run(args) -> int:
 def cmd_bench(args) -> int:
     keys = (args.keys.split(",") if args.keys
             else [f"{a}:{DEFAULT_VARIANT[a]}" for a in ALGORITHMS])
-    eng = Engine(device=args.device)
+    eng = Engine(mode=args.mode, chunk_size=args.chunk_size,
+                 device=args.device)
     rows = []
-    print(f"== bench (scale {args.scale}, W={args.workers}, host mode, "
-          f"{args.device}) ==")
+    print(f"== bench (scale {args.scale}, W={args.workers}, {args.mode} "
+          f"mode, {args.device}) ==")
     for name in keys:
         spec = resolve(name)
         graph, pg, inputs, prog = _prepare(spec, args)
@@ -123,6 +137,9 @@ def cmd_bench(args) -> int:
             "messages": res.total_msgs, "bytes": res.total_bytes,
             "wall_time_s": res.wall_time_s,
             "step_times_s": res.step_times_s,
+            "dispatches": res.dispatches,
+            "host_overhead_s": res.host_overhead_s,
+            "compile_time_s": res.compile_time_s,
         })
         print(f"  {spec.key:22s} {_summary(res)}")
     if args.json:
@@ -154,6 +171,12 @@ def main(argv=None) -> int:
         p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                        help="where the graph and the run live (default: "
                             "the card)")
+        p.add_argument("--mode", default="host",
+                       choices=("host", "fused", "chunked"),
+                       help="execution mode (default: host)")
+        p.add_argument("--chunk-size", type=int, default=64,
+                       help="supersteps a dispatch of the fused/chunked "
+                            "modes covers (default 64)")
 
     p_run = sub.add_parser("run", help="run one program, verify the oracle")
     p_run.add_argument("program",
@@ -165,7 +188,7 @@ def main(argv=None) -> int:
                        help="skip the host-oracle verification")
     p_run.set_defaults(fn=cmd_run)
 
-    p_bench = sub.add_parser("bench", help="bench programs in host mode")
+    p_bench = sub.add_parser("bench", help="bench programs")
     p_bench.add_argument("--keys", default=None,
                          help="comma list of programs (default: one per "
                               "algorithm)")

@@ -23,7 +23,8 @@ from repro_torch.core import combiners as cb
 from repro_torch.core import compose
 from repro_torch.core import message as msg
 from repro_torch.core import request_respond as rr
-from repro_torch.core.channel import TRAFFIC_DTYPE, ChannelContext
+from repro_torch.core.channel import (TRAFFIC_DTYPE, ChannelContext,
+                                      on_device, refuse_in_device_loop)
 
 
 def direct_request_respond(
@@ -68,8 +69,8 @@ def direct_request_respond(
     else:
         # the reply routes to any of our vertices; the tag does the matching
         payload["requester"] = (me * n_loc).expand(w, r).to(torch.int32)
-        payload["tag"] = torch.as_tensor(tags, device=dst.device).to(
-            torch.int32).expand(w, r)
+        payload["tag"] = on_device(tags, dst.device, torch.int32).expand(
+            w, r)
 
     # phase 1: requests carry the requester id (and tag) — no dedup
     deliv = msg.direct_send(ctx, dst, valid, payload, capacity=r,
@@ -111,6 +112,7 @@ def pj_converge(ctx: ChannelContext, parents: torch.Tensor,
     in int32 and charged once under ``name``, as the JAX package's
     ``while_loop`` carries it. Returns (roots, rounds).
     """
+    refuse_in_device_loop(ctx, "pj_converge")
     w, n_loc = ctx.num_workers, ctx.n_loc
     nb = torch.zeros(w, dtype=TRAFFIC_DTYPE, device=ctx.device)
     nm = torch.zeros_like(nb)
@@ -150,6 +152,7 @@ def cm_propagate(ctx: ChannelContext, raw_edges, init: torch.Tensor,
     in int32 and charged once under ``name``. Returns (labels,
     iterations).
     """
+    refuse_in_device_loop(ctx, "cm_propagate")
     comb = cb.get(combiner_name)
     w, n_loc = ctx.num_workers, ctx.n_loc
     upd = update or (lambda lab, inc, got: comb.fn(lab, inc))

@@ -49,7 +49,8 @@ def program(variant: str = "scatter", *, iters: int = 30,
         return {"pr": torch.where(pg.v_mask, 1.0 / n.to(pg.device), 0.0)}
 
     def step(ctx, gs, state, step_idx):
-        n = torch.tensor(float(gs.n), dtype=torch.float32, device=gs.device)
+        n = torch.full((), float(gs.n), dtype=torch.float32,
+                       device=gs.device)
         pr = state["pr"]
         deg = torch.clamp(gs.deg_out, min=1).to(torch.float32)
         contrib = torch.where(gs.deg_out > 0, pr / deg, 0.0)

@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import combiners as cb
-from repro_torch.core.channel import ChannelContext
+from repro_torch.core.channel import ChannelContext, on_device
 
 
 def aggregate(
@@ -65,5 +65,5 @@ def all_halted(ctx: ChannelContext, local_halt) -> torch.Tensor:
     (``local_halt`` is a (W,) vote or one scalar vote for all). Under the
     batched query plane the votes are (W, Q) and the result is (Q,), one
     verdict per query lane."""
-    votes = torch.as_tensor(local_halt, device=ctx.device).to(torch.bool)
+    votes = on_device(local_halt, ctx.device, torch.bool)
     return votes.expand(ctx.stat_shape).all(dim=0)

@@ -30,6 +30,34 @@ import torch
 TRAFFIC_DTYPE = torch.int32
 
 
+def on_device(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as a ``dtype`` tensor on ``device``. A Python number becomes a
+    fill on the device, never a copy from host memory, which a stream
+    that captures a CUDA graph refuses; an integer wraps into ``dtype``'s
+    range as a host tensor cast would. Tensors and arrays are cast and
+    moved."""
+    if isinstance(x, (bool, int, float)):
+        if dtype == torch.bool:
+            x = bool(x)
+        elif not dtype.is_floating_point:
+            bits = torch.iinfo(dtype).bits
+            x = (int(x) + (1 << (bits - 1))) % (1 << bits) - (1 << (bits - 1))
+        return torch.full((), x, dtype=dtype, device=device)
+    return torch.as_tensor(x, device=device).to(dtype)
+
+
+def refuse_in_device_loop(ctx: "ChannelContext", what: str) -> None:
+    """Raise when ``ctx`` belongs to a superstep the runtime runs on the
+    device (``fused``/``chunked``): ``what`` has an inner host loop that
+    reads back a flag every iteration, which a CUDA graph cannot hold."""
+    if ctx.device_loop:
+        raise NotImplementedError(
+            f"{what} runs an inner host loop (one readback an iteration), "
+            "which the fused and chunked modes cannot capture yet: run this "
+            "program with mode='host' (see ROADMAP, queue 1, item 4: the "
+            "inner loops on the device)")
+
+
 def key_under(key: str, prefix: str) -> bool:
     """Whether a "/"-namespaced stat key belongs to ``prefix`` (exact
     match or nested below it) — the namespace convention of the
@@ -78,6 +106,9 @@ class ChannelContext:
     # lane's pre-step liveness, a (Q,) bool tensor (None = all live)
     num_queries: Optional[int] = None
     query_live: Optional[torch.Tensor] = None
+    # set by the fused and chunked modes: the step runs inside a loop on
+    # the device (a CUDA graph on the card), so no inner host loop may run
+    device_loop: bool = False
 
     def __post_init__(self):
         if self.registry is not None:
@@ -102,8 +133,7 @@ class ChannelContext:
         return torch.zeros(self.stat_shape, dtype=dtype, device=self.device)
 
     def _per_worker(self, x, dtype) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device).to(dtype).expand(
-            self.stat_shape)
+        return on_device(x, self.device, dtype).expand(self.stat_shape)
 
     def me(self) -> torch.Tensor:
         """(W,) worker index — the port of ``axis_index``."""

@@ -43,6 +43,11 @@ _PAIRWISE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum,
              "min_by_first": _min_by_first}
 
 
+# the bits of +inf per float dtype, as the same-width signed int
+_INF_BITS = {torch.float16: 0x7C00, torch.bfloat16: 0x7F80,
+             torch.float32: 0x7F800000, torch.float64: 0x7FF0000000000000}
+
+
 def _first_key_rank(key: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     """int64 rank of each ``min_by_first`` key, ordered as the keys are,
     with -0.0 and 0.0 tied and no NaN: a float's sign-magnitude bits made
@@ -55,7 +60,7 @@ def _first_key_rank(key: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     bits = key.contiguous().view(ints).long()
     mag = torch.iinfo(ints).max
     rank = torch.where(bits >= 0, bits, -(bits & mag))
-    inf = int(torch.tensor(math.inf, dtype=key.dtype).view(ints))
+    inf = _INF_BITS[key.dtype]
     nan = key != key
     rank = torch.where(nan & starts, -inf - 1, rank)
     return torch.where(nan & ~starts, inf + 1, rank)

@@ -35,7 +35,7 @@ from repro_torch.configs import knobs
 from repro_torch.core import message as msg
 from repro_torch.core import request_respond as rr
 from repro_torch.core.channel import (TRAFFIC_DTYPE, ChannelContext,
-                                      key_under)
+                                      key_under, on_device)
 from repro_torch.core.routing import exchange
 
 #: the density-switch threshold knob (explicit > dense_threshold_scope >
@@ -65,14 +65,15 @@ def dense_threshold_scope(threshold: Optional[float]):
 
 def child_context(ctx: ChannelContext, prefix: str = "") -> ChannelContext:
     """An open child context (no registry) sharing ctx's topology, device,
-    capacity scales, ``route_cap`` and query-plane fields. ``prefix`` (the
+    capacity scales, ``route_cap``, query-plane fields and device-loop
+    mark. ``prefix`` (the
     name its stats will be merged under) composes the namespace, so
     capacity-scale lookups inside the child see full channel names."""
     return ChannelContext(
         ctx.num_workers, ctx.n_loc, ctx.device, cap_scales=ctx.cap_scales,
         name_prefix=ctx.full_name(prefix) if prefix else ctx.name_prefix,
         route_cap=ctx.route_cap, num_queries=ctx.num_queries,
-        query_live=ctx.query_live)
+        query_live=ctx.query_live, device_loop=ctx.device_loop)
 
 
 def merge_child(ctx: ChannelContext, child: ChannelContext, prefix: str = "",
@@ -258,10 +259,8 @@ def global_fraction(ctx: ChannelContext, local_count,
     """Worker-uniform fraction ``sum(count) / sum(total)``: a float32
     ``(W,)`` tensor, the same value on every worker (the port of the
     ``psum`` pair). Counts are per worker, ``(W,)``."""
-    num = torch.as_tensor(local_count, device=ctx.device).to(
-        torch.float32).sum()
-    den = torch.as_tensor(local_total, device=ctx.device).to(
-        torch.float32).sum()
+    num = on_device(local_count, ctx.device, torch.float32).sum()
+    den = on_device(local_total, ctx.device, torch.float32).sum()
     frac = num / torch.clamp(den, min=1.0)
     return frac.expand(ctx.num_workers)
 
@@ -296,7 +295,8 @@ def switch_by_density(
     ``<name>/dense/...`` and ``<name>/sparse/...``. ``threshold=None``
     resolves through the :data:`DENSE_THRESHOLD` knob.
     """
-    use_dense = torch.as_tensor(density) >= resolve_dense_threshold(threshold)
+    use_dense = (on_device(density, ctx.device, torch.float32)
+                 >= resolve_dense_threshold(threshold))
     d_ctx = child_context(ctx, f"{name}/dense")
     s_ctx = child_context(ctx, f"{name}/sparse")
     d_out = dense_fn(d_ctx)

@@ -32,7 +32,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import combiners as cb
-from repro_torch.core.channel import TRAFFIC_DTYPE, ChannelContext
+from repro_torch.core.channel import (TRAFFIC_DTYPE, ChannelContext,
+                                      refuse_in_device_loop)
 from repro_torch.core.routing import exchange, pack
 from repro_torch.graph.pgraph import PropPlan
 from repro_torch.kernels import ops as kops
@@ -73,6 +74,7 @@ def propagate(
         raise NotImplementedError(
             "the Propagation channel under the batched query plane is not "
             "ported yet (see ROADMAP: batched sssp:prop)")
+    refuse_in_device_loop(ctx, "propagate")
     combiner = cb.get(combiner)
     squeeze = init_vals.dim() == 2
     lab = init_vals[..., None] if squeeze else init_vals

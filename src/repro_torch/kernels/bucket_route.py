@@ -4,7 +4,8 @@ the Pallas ``bucket_ranks_pallas``), and the same ranks with per-lane
 bucket histograms for the batched query plane (the port of
 ``bucket_ranks_lanes_pallas``). Each call is one kernel launch and no
 memset: the kernels' scratch lives on here between calls (see
-:func:`_scratch`)."""
+:func:`scratch_of`), and the kernel keeps its own epoch on the device,
+so a launch captured into a CUDA graph is right on every replay."""
 from __future__ import annotations
 
 import ctypes
@@ -13,7 +14,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, scratch
 
 #: the kernel's bucket limit: B + 1 (buckets plus the sentinel) <= 64
 MAX_BUCKETS = 64
@@ -21,8 +22,6 @@ MAX_BUCKETS = 64
 MAX_ROWS = 65535
 #: the lanes kernel's shared tile, (B + 1) x (Q + 1) int32, must fit this
 MAX_LANE_TILE_BYTES = 32768
-#: the status words' epochs run 1 .. EPOCH_LIMIT, then the words are zeroed
-EPOCH_LIMIT = 1 << 30
 
 _fns = None
 #: launches of each kernel since the last reset (kernels.ops owns resets)
@@ -31,61 +30,81 @@ lane_launches = 0
 
 
 class _Scratch:
-    """The kernels' scratch for one (device, stream): ``status``, the
+    """The kernels' scratch for one :func:`scratch.key`: ``status``, the
     look-back's status words, tagged with the call's epoch so that no call
-    reads another's; ``zero``, the ticket, the rows' finished-tile counts
-    and the lane accumulator, which every launch leaves zero. Both start
-    zeroed and are replaced, zeroed, only when a call needs more."""
+    reads another's; ``ctrl``, two words the kernel keeps (the epoch and
+    the ticket, and a finished-block count; see ``bucket_route.cu``);
+    ``zero``, the rows' finished-tile counts and the lane accumulator,
+    which every lanes launch leaves zero. All start zeroed. ``status`` and
+    ``zero`` are replaced, zeroed, only when a call needs more; the epoch
+    goes on in ``ctrl``, so new zeroed status words never meet it."""
 
     def __init__(self, device):
         self.device = device
+        self.ctrl = torch.zeros(2, dtype=torch.int64, device=device)
         self.status = torch.zeros(0, dtype=torch.int64, device=device)
-        self.zero = torch.zeros(0, dtype=torch.int64, device=device)
-        self.epoch = EPOCH_LIMIT
+        self.zero = torch.zeros(0, dtype=torch.int32, device=device)
 
-    def take(self, status_words: int, zero_words: int):
-        """``(status, zero, epoch)`` for a call: at least that many 8-byte
-        status words and 4-byte zero words, and an epoch the status words
-        have not seen."""
-        if self.status.numel() < status_words or self.epoch >= EPOCH_LIMIT:
-            self.status = torch.zeros(max(status_words, 1), dtype=torch.int64,
+    def take(self, status_words: int, zero_words: int = 0):
+        """``(status, ctrl, zero)`` for a call: at least that many 8-byte
+        status words and 4-byte zero words."""
+        if self.status.numel() < status_words:
+            scratch.check_growth(self.device, "bucket_ranks")
+            self.status = torch.zeros(status_words, dtype=torch.int64,
                                       device=self.device)
-            self.epoch = 0
-        if 2 * self.zero.numel() < zero_words:
-            self.zero = torch.zeros(-(-zero_words // 2), dtype=torch.int64,
+        if self.zero.numel() < zero_words:
+            scratch.check_growth(self.device, "bucket_ranks_lanes")
+            self.zero = torch.zeros(zero_words, dtype=torch.int32,
                                     device=self.device)
-        self.epoch += 1
-        return self.status, self.zero, self.epoch
+        return self.status, self.ctrl, self.zero
 
 
-_scratches: Dict[Tuple[int, int], _Scratch] = {}
+_scratches: Dict[tuple, _Scratch] = scratch.table()
 
 
-def _scratch(device, stream: int) -> _Scratch:
-    """One scratch per (device, stream): launches on one stream run in
-    order, so they never share their scratch with a running launch."""
-    key = (device.index, stream)
-    if key not in _scratches:
-        _scratches[key] = _Scratch(device)
-    return _scratches[key]
+def scratch_of(device) -> _Scratch:
+    """The scratch a launch on ``device`` uses now (see
+    :mod:`repro_torch.kernels.scratch`)."""
+    k = scratch.key(device)
+    if k not in _scratches:
+        _scratches[k] = _Scratch(device)
+    return _scratches[k]
+
+
+def device_launches() -> Tuple[int, int]:
+    """(``bucket_ranks``, ``bucket_ranks_lanes``) launches since the
+    library loaded, as the kernel counts them on the device: launches
+    replayed from a captured CUDA graph included. Synchronizes the
+    device."""
+    return build.device_counters("bucket_route",
+                                 "bucket_ranks_device_launches")
+
+
+def epoch_limit() -> int:
+    """The kernels' last epoch before the status words are zeroed."""
+    return int(_library()[3]())
 
 
 def _library():
     global _fns
     if _fns is None:
         lib = build.library("bucket_route")
-        plain, lanes, words = (lib.bucket_ranks_launch,
-                               lib.bucket_ranks_lanes_launch,
-                               lib.bucket_ranks_status_words)
+        plain, lanes, words, limit = (lib.bucket_ranks_launch,
+                                      lib.bucket_ranks_lanes_launch,
+                                      lib.bucket_ranks_status_words,
+                                      lib.bucket_ranks_epoch_limit)
         tail = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-        plain.argtypes = [ctypes.c_void_p] * 5 + tail + [
-            ctypes.c_uint, ctypes.c_void_p]
-        lanes.argtypes = [ctypes.c_void_p] * 7 + tail + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_uint, ctypes.c_void_p]
+        plain.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_longlong, ctypes.c_void_p] + tail + [ctypes.c_void_p]
+        lanes.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p] + tail + [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
         plain.restype = lanes.restype = ctypes.c_int
         words.argtypes = tail
         words.restype = ctypes.c_longlong
-        _fns = plain, lanes, words
+        limit.argtypes = []
+        limit.restype = ctypes.c_uint
+        _fns = plain, lanes, words, limit
     return _fns
 
 
@@ -117,14 +136,13 @@ def bucket_ranks_cuda(keys: torch.Tensor, num_buckets: int):
     if not (rows and m):
         counts = torch.zeros((rows, nb), dtype=torch.int32, device=k.device)
     else:
-        plain, _, words = _library()
+        plain, _, words, _ = _library()
         counts = torch.empty((rows, nb), dtype=torch.int32, device=k.device)
         stream = torch.cuda.current_stream(k.device).cuda_stream
-        status, zero, epoch = _scratch(k.device, stream).take(
-            words(rows, m, nb), 2)
+        status, ctrl, _ = scratch_of(k.device).take(words(rows, m, nb))
         err = plain(k.data_ptr(), rank.data_ptr(), counts.data_ptr(),
-                    status.data_ptr(), zero.data_ptr(), rows, m, nb, epoch,
-                    stream)
+                    status.data_ptr(), status.numel(), ctrl.data_ptr(), rows,
+                    m, nb, stream)
         if err:
             raise RuntimeError(f"bucket_ranks kernel launch failed: CUDA "
                                f"error {err}")
@@ -171,17 +189,17 @@ def bucket_ranks_lanes_cuda(keys: torch.Tensor, lanes: torch.Tensor,
         lane_counts = torch.zeros((rows, nb, q), dtype=torch.int32,
                                   device=k.device)
     else:
-        _, launch, words = _library()
+        _, launch, words, _ = _library()
         counts = torch.empty((rows, nb), dtype=torch.int32, device=k.device)
         lane_counts = torch.empty((rows, nb, q), dtype=torch.int32,
                                   device=k.device)
         stream = torch.cuda.current_stream(k.device).cuda_stream
-        status, zero, epoch = _scratch(k.device, stream).take(
-            words(rows, m, nb), 2 + rows + rows * nb * q)
+        status, ctrl, zero = scratch_of(k.device).take(
+            words(rows, m, nb), rows + rows * nb * q)
         err = launch(k.data_ptr(), lm.data_ptr(), rank.data_ptr(),
                      counts.data_ptr(), lane_counts.data_ptr(),
-                     status.data_ptr(), zero.data_ptr(), rows, m, nb, q,
-                     lm.stride(0), epoch, stream)
+                     status.data_ptr(), status.numel(), ctrl.data_ptr(),
+                     zero.data_ptr(), rows, m, nb, q, lm.stride(0), stream)
         if err:
             raise RuntimeError(f"bucket_ranks_lanes kernel launch failed: "
                                f"CUDA error {err}")

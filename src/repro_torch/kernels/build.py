@@ -16,11 +16,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("bucket_route", "segment_combine")
+SOURCES = ("bucket_route", "segment_combine", "graph_if")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -83,3 +83,16 @@ def library(name: str) -> ctypes.CDLL:
         build_all()
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def device_counters(name: str, fn: str) -> Tuple[int, int]:
+    """The two counters that ``fn`` of the library of ``csrc/<name>.cu``
+    copies out of device memory (after it synchronizes the device)."""
+    read = getattr(library(name), fn)
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    out = (ctypes.c_ulonglong * 2)()
+    err = read(ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"{fn} failed: CUDA error {err}")
+    return int(out[0]), int(out[1])

@@ -64,11 +64,18 @@
 //      finish (a per-row count of finished tiles) moves the sums out.
 // The keys are read once and the ranks written once: 8 bytes per key,
 // plus tiles x (B + 1) 8-byte status words. One kernel launch per call,
-// no memset. The status words carry a per-call epoch (the wrapper's
-// counter) in their tag, so the words of earlier calls never count; the
-// ticket, the per-row finished-tile counts and the accumulator are
-// restored to zero by the kernel itself (by the last block to draw a
-// ticket, and by the last tile of each row).
+// no memset. The status words carry the call's epoch in their tag, so
+// the words of earlier calls never count. The epoch lives on the device,
+// in the high half of the ticket word: every block reads it with its
+// ticket, and the last block to draw a ticket advances it and resets the
+// ticket in one exchange. So a call captured into a CUDA graph reads a
+// new epoch on every replay; nothing of the host's is frozen into it.
+// The epoch runs 1 .. kEpochLimit; the call at kEpochLimit also zeroes
+// every status word the scratch holds (its last block to finish, after
+// every look-back of the call is done), so the epochs that follow never
+// meet a tag of the previous lap. The per-row finished-tile counts and
+// the accumulator are restored to zero by the kernel itself (by the last
+// tile of each row).
 //
 // Exact and bit-identical: ranks and counts are integers that depend only
 // on key positions; the look-back adds the same integers whichever tiles
@@ -94,6 +101,9 @@ constexpr unsigned kFull = 0xffffffffu;
 // under the 48 KB a block gets without an opt-in
 constexpr int kMaxLaneTileBytes = 32768;
 
+// the epochs of the status tags run 1 .. kEpochLimit
+constexpr unsigned kEpochLimit = 1u << 30;
+
 struct Args {
   const int* keys;                 // (rows, m)
   const unsigned char* lanes;      // (rows, m, q), rows lanes_stride apart
@@ -101,7 +111,10 @@ struct Args {
   int* counts;                     // (rows, nb)
   int* lane_counts;                // (rows, nb, q), lanes kernel only
   unsigned long long* status;      // rows * tiles_per_row * nb words
-  unsigned long long* ticket;      // zero between calls
+  long long status_words;          // words the status buffer holds
+  // ctrl[0]: (epoch - 1) << 32 | ticket, ticket 0 between calls;
+  // ctrl[1]: finished blocks of a call at kEpochLimit, 0 between calls
+  unsigned long long* ctrl;
   unsigned* row_done;              // (rows,), zero between calls
   int* lane_acc;                   // (rows, nb, q), zero between calls
   long long m;
@@ -109,7 +122,6 @@ struct Args {
   long long tiles_per_row;
   int nb;
   int q;
-  unsigned epoch;                  // 1 .. 2^30, new on every call
   bool vec16;                      // q % 16 == 0 and lanes 16-byte aligned
 };
 
@@ -208,6 +220,35 @@ __device__ __forceinline__ unsigned column_bits(const uint4* v, int lane) {
   return x;
 }
 
+// The end of a call at kEpochLimit, the last of an epoch lap: its last
+// block to finish zeroes every status word the scratch holds. By then no
+// block of the call reads a status word any more (each counts itself
+// finished after its look-back), and the next call, in stream order,
+// starts the lap again at epoch 1 on zeroed words. Every thread calls it.
+__device__ __forceinline__ void end_of_call(const Args& a,
+                                            unsigned long long total,
+                                            unsigned epoch) {
+  __shared__ bool s_clear;
+  if (epoch != kEpochLimit) return;  // the same for every block of a call
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    s_clear = atomicAdd(a.ctrl + 1, 1ull) == total - 1;
+  }
+  __syncthreads();
+  if (s_clear) {
+    __threadfence();
+    for (long long j = threadIdx.x; j < a.status_words; j += kThreads)
+      a.status[j] = 0ull;
+    if (threadIdx.x == 0) a.ctrl[1] = 0ull;
+  }
+}
+
+// Launches of ranks_kernel<false> and <true> since the library loaded,
+// each counted by the block that draws ticket 0: a launch replayed from a
+// captured CUDA graph counts too, which no host-side count can see.
+__device__ unsigned long long g_launches[2];
+
 template <bool kLanes>
 __global__ void __launch_bounds__(kThreads, 2)
     ranks_kernel(const Args a) {
@@ -215,17 +256,26 @@ __global__ void __launch_bounds__(kThreads, 2)
   __shared__ int tile_agg[kMaxBuckets];
   __shared__ int tile_excl[kMaxBuckets];  // earlier tiles of the row
   __shared__ unsigned long long s_tile;
+  __shared__ unsigned s_epoch;
   __shared__ bool s_last;
   extern __shared__ int lane_tile[];  // kLanes: nb rows of q + 1
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nb = a.nb, nbits = 32 - __clz(nb);
+  const unsigned long long total = (unsigned long long)gridDim.x * gridDim.y;
   if (threadIdx.x == 0) {
-    const unsigned long long total =
-        (unsigned long long)gridDim.x * gridDim.y;
-    const unsigned long long t = atomicAdd(a.ticket, 1ull);
-    if (t == total - 1) atomicExch(a.ticket, 0ull);  // every ticket drawn
+    // the ticket and the call's epoch in one draw; the last draw moves the
+    // word on to the next call's epoch and ticket 0
+    const unsigned long long word = atomicAdd(a.ctrl, 1ull);
+    const unsigned long long t = word & 0xffffffffull;
+    const unsigned epoch = (unsigned)(word >> 32) + 1u;
+    if (t == total - 1)
+      atomicExch(a.ctrl, (unsigned long long)(epoch == kEpochLimit ? 0u
+                                                                   : epoch)
+                             << 32);
+    if (t == 0) atomicAdd(&g_launches[kLanes], 1ull);
     s_tile = t;
+    s_epoch = epoch;
   }
   for (int j = threadIdx.x; j < kWarps * kMaxBuckets; j += kThreads)
     (&wcount[0][0])[j] = 0;
@@ -272,7 +322,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // warp offsets and the tile's counts, published at once
   unsigned long long* status = a.status + row * a.tiles_per_row * nb;
-  const unsigned tag_agg = 2u * a.epoch, tag_incl = tag_agg + 1u;
+  const unsigned tag_agg = 2u * s_epoch, tag_incl = tag_agg + 1u;
   if ((int)threadIdx.x < nb) {
     int run = 0;
     for (int w = 0; w < kWarps; ++w) {
@@ -329,7 +379,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (in_row == a.tiles_per_row - 1 && (int)threadIdx.x < nb)
     a.counts[row * nb + threadIdx.x] =
         tile_excl[threadIdx.x] + tile_agg[threadIdx.x];
-  if (!kLanes) return;
+  if (!kLanes) {
+    end_of_call(a, total, s_epoch);
+    return;
+  }
 
   // lane counts, after the ranks so that no later tile waits on them. Each
   // slot with a real (not sentinel) key reads the members' bytes; a
@@ -410,14 +463,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       out[j] = atomicExch(&acc[j], 0);
     if (threadIdx.x == 0) a.row_done[row] = 0u;
   }
+  end_of_call(a, total, s_epoch);
 }
 
 long long tiles_per_row(long long m) { return (m + kTile - 1) / kTile; }
 
 int launch(const Args& a, int rows, bool lanes, void* stream) {
   if (a.nb < 1 || a.nb > kMaxBuckets || rows < 1 || rows > 65535 ||
-      a.m < 1 || a.q < 0 || a.epoch < 1 || a.epoch > (1u << 30) ||
-      a.tiles_per_row != tiles_per_row(a.m) || a.tiles_per_row > 0x7fffffffLL)
+      a.m < 1 || a.q < 0 || a.tiles_per_row != tiles_per_row(a.m) ||
+      a.tiles_per_row * rows > 0xffffffffLL ||  // tickets: 32 bits
+      a.status_words < a.tiles_per_row * rows * a.nb)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)a.tiles_per_row, (unsigned)rows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -439,42 +494,58 @@ extern "C" long long bucket_ranks_status_words(int rows, long long m,
   return (long long)rows * tiles_per_row(m) * nb;
 }
 
+// out[0], out[1]: launches of bucket_ranks and bucket_ranks_lanes since
+// the library loaded, read after the device has finished all its work.
+extern "C" int bucket_ranks_device_launches(unsigned long long* out) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
+  return (int)err;
+}
+
+// The last epoch of a lap (see the header): the scratch's ctrl[0] holds
+// (epoch - 1) << 32 between calls.
+extern "C" unsigned bucket_ranks_epoch_limit() { return kEpochLimit; }
+
 // keys, rank: (rows, m) int32; counts: (rows, nb) int32, all written.
-// status: bucket_ranks_status_words(rows, m, nb) 8-byte words, zero when
-// first used, then left to the kernel; zero: >= 2 4-byte words, 8-byte
-// aligned, zero between calls (the kernel restores it). epoch: 1 .. 2^30,
-// a value these status words have not seen since they were zeroed.
+// status: status_words >= bucket_ranks_status_words(rows, m, nb) 8-byte
+// words, zero when first used, then left to the kernel (a call at the
+// epoch limit zeroes all status_words of them). ctrl: 2 8-byte words,
+// zero when first used, then left to the kernel: the epoch and the
+// ticket, and the count of finished blocks of a call at the epoch limit.
 // nb = B + 1. Returns cudaGetLastError().
 extern "C" int bucket_ranks_launch(const int* keys, int* rank, int* counts,
-                                   void* status, void* zero, int rows,
-                                   long long m, int nb, unsigned epoch,
+                                   void* status, long long status_words,
+                                   void* ctrl, int rows, long long m, int nb,
                                    void* stream) {
   Args a{};
   a.keys = keys;
   a.rank = rank;
   a.counts = counts;
   a.status = static_cast<unsigned long long*>(status);
-  a.ticket = static_cast<unsigned long long*>(zero);
+  a.status_words = status_words;
+  a.ctrl = static_cast<unsigned long long*>(ctrl);
   a.m = m;
   a.tiles_per_row = tiles_per_row(m);
   a.nb = nb;
-  a.epoch = epoch;
   return launch(a, rows, false, stream);
 }
 
 // As bucket_ranks_launch, plus lanes: (rows, m, q) bytes, 1 = a member,
 // 0 = not, each row's (m, q) block contiguous and lanes_stride bytes
 // after the last; lane_counts: (rows, nb, q) int32, all written; zero:
-// >= 2 + rows + rows * nb * q 4-byte words (the ticket, the rows'
-// finished-tile counts, the lane accumulator). Returns cudaGetLastError().
+// >= rows + rows * nb * q 4-byte words (the rows' finished-tile counts,
+// the lane accumulator), zero between calls (the kernel restores it).
+// Returns cudaGetLastError().
 extern "C" int bucket_ranks_lanes_launch(const int* keys,
                                          const unsigned char* lanes,
                                          int* rank, int* counts,
                                          int* lane_counts, void* status,
+                                         long long status_words, void* ctrl,
                                          void* zero, int rows, long long m,
                                          int nb, int q,
                                          long long lanes_stride,
-                                         unsigned epoch, void* stream) {
+                                         void* stream) {
   Args a{};
   a.keys = keys;
   a.lanes = lanes;
@@ -482,14 +553,14 @@ extern "C" int bucket_ranks_lanes_launch(const int* keys,
   a.counts = counts;
   a.lane_counts = lane_counts;
   a.status = static_cast<unsigned long long*>(status);
-  a.ticket = static_cast<unsigned long long*>(zero);
-  a.row_done = static_cast<unsigned*>(zero) + 2;
-  a.lane_acc = static_cast<int*>(zero) + 2 + rows;
+  a.status_words = status_words;
+  a.ctrl = static_cast<unsigned long long*>(ctrl);
+  a.row_done = static_cast<unsigned*>(zero);
+  a.lane_acc = static_cast<int*>(zero) + rows;
   a.m = m;
   a.tiles_per_row = tiles_per_row(m);
   a.nb = nb;
   a.q = q;
-  a.epoch = epoch;
   a.lanes_stride = lanes_stride;
   a.vec16 = q % 16 == 0 && lanes_stride % 16 == 0 &&
             (reinterpret_cast<std::uintptr_t>(lanes) & 15u) == 0;

@@ -43,9 +43,11 @@
 //   compact id space whose ids end far below N, every id dropped) would
 //   keep one warp busy for milliseconds, so the warp stores only its
 //   partial head and tail chunks and marks the whole chunks in a (rows,
-//   chunks) table with the launch's epoch; pass 2's fill blocks store
-//   every chunk that carries the epoch, across the card. The table is
-//   never cleared: a mark of an earlier launch has another epoch. A tile
+//   chunks) table; pass 2's fill blocks store every marked chunk, across
+//   the card, and clear its mark. The table is zero between launches, and
+//   no launch passes anything of its own to the next through it: a launch
+//   captured into a CUDA graph and replayed finds the table as a fresh
+//   launch does, with no memset and no host-side epoch. A tile
 //   whose first id is dropped past N exits after reading it: the tile
 //   before it filled up to N. So every output element is written exactly
 //   once, with no initialisation pass.
@@ -83,6 +85,11 @@
 #include <cstring>
 
 namespace {
+
+// Launches of tile_kernel and join_kernel since the library loaded, each
+// counted by the kernel itself (block (0, 0)): a launch replayed from a
+// captured CUDA graph counts too, which no host-side count can see.
+__device__ unsigned long long g_launches[2];
 
 enum Op { kSum = 0, kMin = 1, kMax = 2, kProd = 3, kArgMin = 4 };
 constexpr unsigned kFull = 0xffffffffu;
@@ -329,12 +336,12 @@ __global__ void __launch_bounds__(kThreads)
                 T* __restrict__ out, int2* __restrict__ meta,
                 typename Scan<T, OP>::S* __restrict__ part,
                 unsigned* __restrict__ chunks, long long e, int n, int d,
-                long long ntiles, long long nchunks, unsigned epoch,
-                int vec) {
+                long long ntiles, long long nchunks, int vec) {
   using S = typename Scan<T, OP>::S;
   using C = Combine<S, Scan<T, OP>::kOp>;
   const long long row = blockIdx.y, tile = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31;
+  if (row == 0 && tile == 0 && tid == 0) atomicAdd(&g_launches[0], 1ull);
   const int* s = seg + row * e;
   const T* v = vals + row * e * d;
   T* o = out + row * (long long)n * d;
@@ -408,7 +415,7 @@ __global__ void __launch_bounds__(kThreads)
       if (whi - wlo > 2 * kChunk) {  // whole chunks go to pass 2
         const long long c0 = (wlo + kChunk - 1) / kChunk, c1 = whi / kChunk;
         unsigned* ch = chunks + row * nchunks;
-        for (long long c = c0 + lane; c < c1; c += 32) ch[c] = epoch;
+        for (long long c = c0 + lane; c < c1; c += 32) ch[c] = 1u;
         gap_fill<T, OP>(o, wlo, c0 * kChunk, d, fill, lane, 32);
         gap_fill<T, OP>(o, c1 * kChunk, whi, d, fill, lane, 32);
       } else {
@@ -466,26 +473,34 @@ __global__ void __launch_bounds__(kThreads)
 // boundaries. S[t] = (reset[t] ? 0 : S[t - 1]) + last-run partial of
 // tile t, by a segmented scan in tile order; a tile whose first run ends
 // inside it and began earlier writes S[t - 1] + its first-run partial.
-// The row's other blocks store the chunks pass 1 marked with `epoch`.
+// The row's other blocks store the chunks pass 1 marked, and clear the
+// marks.
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
     join_kernel(const T* __restrict__ vals, const int2* __restrict__ meta,
                 const typename Scan<T, OP>::S* __restrict__ part,
-                const unsigned* __restrict__ chunks, T* __restrict__ out,
+                unsigned* __restrict__ chunks, T* __restrict__ out,
                 long long e, long long ntiles, int n, int d,
-                long long nchunks, unsigned epoch) {
+                long long nchunks) {
   using S = typename Scan<T, OP>::S;
   using C = Combine<S, Scan<T, OP>::kOp>;
   const long long row = blockIdx.y;
   const int tid = threadIdx.x;
+  if (row == 0 && blockIdx.x == 0 && tid == 0)
+    atomicAdd(&g_launches[1], 1ull);
   T* o = out + row * (long long)n * d;
   if (blockIdx.x > 0) {
-    const unsigned* ch = chunks + row * nchunks;
+    unsigned* ch = chunks + row * nchunks;
     const T fill = Combine<T, OP == kArgMin ? kMin : OP>::ident();
-    for (long long c = blockIdx.x - 1; c < nchunks; c += gridDim.x - 1)
-      if (ch[c] == epoch)
+    for (long long c = blockIdx.x - 1; c < nchunks; c += gridDim.x - 1) {
+      const bool marked = ch[c] != 0u;
+      __syncthreads();  // every thread has read the mark before it goes
+      if (marked) {
         gap_fill<T, OP>(o, c * kChunk, (c + 1) * kChunk, d, fill, tid,
                         kThreads);
+        if (tid == 0) ch[c] = 0u;
+      }
+    }
     return;
   }
   const int cols = OP == kArgMin ? 1 : d;
@@ -524,7 +539,6 @@ struct Args {
   int rows;
   long long e;
   int n, d, vec;
-  unsigned epoch;
   cudaStream_t stream;
 };
 
@@ -542,12 +556,11 @@ void launch(const Args& a) {
   T* out = static_cast<T*>(a.out);
   tile_kernel<T, OP><<<dim3((unsigned)ntiles, (unsigned)a.rows), kThreads, 0,
                        a.stream>>>(vals, a.seg, out, meta, part, a.chunks,
-                                   a.e, a.n, a.d, ntiles, nchunks, a.epoch,
-                                   a.vec);
+                                   a.e, a.n, a.d, ntiles, nchunks, a.vec);
   join_kernel<T, OP><<<dim3((unsigned)(1 + fill_blocks), (unsigned)a.rows),
                        kThreads, 0, a.stream>>>(vals, meta, part, a.chunks,
                                                 out, a.e, ntiles, a.n, a.d,
-                                                nchunks, a.epoch);
+                                                nchunks);
 }
 
 template <typename T>
@@ -564,15 +577,24 @@ void launch_op(int op, const Args& a) {
 // 4-byte words of scratch that segment_combine_launch needs for (rows, e,
 // d) and op: per tile an int2 of flags and two partials, d-wide 4-byte
 // values, or one 8-byte argmin word each for min_by_first.
+// out[0], out[1]: launches of tile_kernel and join_kernel since the
+// library loaded, read after the device has finished all its work.
+extern "C" int segment_combine_device_launches(unsigned long long* out) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
+  return (int)err;
+}
+
 extern "C" long long segment_combine_scratch_words(int rows, long long e,
                                                    int d, int op) {
   const long long words = op == kArgMin ? 2 : d;
   return (long long)rows * tiles_per_row(e) * (2 + 2 * words);
 }
 
-// 4-byte words of the chunk table for (rows, n, d): one epoch mark per
-// chunk of kChunk output elements. The caller keeps the table from launch
-// to launch (zeroed once) and gives each launch a new epoch.
+// 4-byte words of the chunk table for (rows, n, d): one mark per chunk of
+// kChunk output elements. The caller keeps the table from launch to
+// launch, zeroed once; every launch leaves it zero.
 extern "C" long long segment_combine_chunk_words(int rows, int n, int d) {
   return (long long)rows * chunks_per_row(n, d);
 }
@@ -580,7 +602,7 @@ extern "C" long long segment_combine_chunk_words(int rows, int n, int d) {
 // vals: (rows, e, d); seg: (rows, e) int32 sorted per row; out: (rows, n,
 // d); scratch: segment_combine_scratch_words(rows, e, d, op) 4-byte
 // words, 8-byte aligned; chunks: segment_combine_chunk_words(rows, n, d)
-// words that hold no mark equal to epoch. dtype 0 = float32, 1 = int32;
+// words, all zero (each launch leaves them so). dtype 0 = float32, 1 = int32;
 // op 0 = sum, 1 = min, 2 = max, 3 = prod, 4 = min_by_first (key in column
 // 0; rows of at most 2^32 - 2 entries). Rows ride on gridDim.y (at most
 // 65535), a row's tiles of 2048 entries on gridDim.x. Returns
@@ -588,8 +610,7 @@ extern "C" long long segment_combine_chunk_words(int rows, int n, int d) {
 extern "C" int segment_combine_launch(const void* vals, const int* seg,
                                       void* out, void* scratch, void* chunks,
                                       int rows, long long e, int n, int d,
-                                      int dtype, int op, unsigned epoch,
-                                      void* stream) {
+                                      int dtype, int op, void* stream) {
   if (rows < 1 || rows > 65535 || n < 1 || d < 1 || e < 0 || dtype < 0 ||
       dtype > 1 || op < 0 || op > 4 || tiles_per_row(e) > INT_MAX ||
       (op == kArgMin && e > 0xfffffffeLL) || ((uintptr_t)scratch & 7))
@@ -598,7 +619,7 @@ extern "C" int segment_combine_launch(const void* vals, const int* seg,
   const int vec = e % 4 == 0 && ((uintptr_t)seg & 15) == 0 &&
                   ((uintptr_t)vals & 15) == 0;
   const Args a{vals, seg, out, scratch, static_cast<unsigned*>(chunks), rows,
-               e, n, d, vec, epoch, static_cast<cudaStream_t>(stream)};
+               e, n, d, vec, static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
     launch_op<float>(op, a);
   else

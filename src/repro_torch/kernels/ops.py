@@ -10,7 +10,16 @@ Every wrapper decides by where its input lies, never by a fallback:
     in for a kernel on the card unnoticed.
 
 Each kernel keeps an integer launch count (:func:`launch_counts`), so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels. The wrapper
+adds one where it launches. A superstep loop captured into a CUDA graph
+(the ``fused`` and ``chunked`` modes) launches its kernels by replaying
+the graph, without the wrappers: the runtime records the launches a
+captured superstep makes and adds them, times the supersteps each replay
+ran, with :func:`add_replayed`, so the counts read the same in every
+mode. Those replayed counts are computed, not counted at a launch. The
+kernels also count their own launches on the device
+(:func:`device_launch_counts`), replays included: ``chip_smoke.py``
+holds every mode's launches to those.
 
 :func:`segment_reduce` is the channels' reduction over *unsorted* ids:
 the combiners whose result depends on the order of the combines (float
@@ -42,17 +51,56 @@ def _launches_kernel(x: torch.Tensor, use_kernel: Optional[bool],
     return True
 
 
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
+#: launches made by replays of captured superstep loops, per kernel
+_replayed: Dict[str, int] = {"bucket_ranks": 0, "bucket_ranks_lanes": 0,
+                             "segment_combine": 0}
+
+
+def wrapper_launch_counts() -> Dict[str, int]:
+    """Launches the wrappers made (or captured) since the last reset."""
     return {"bucket_ranks": kbucket.launches,
             "bucket_ranks_lanes": kbucket.lane_launches,
             "segment_combine": kseg.launches}
 
 
+def set_wrapper_launch_counts(counts: Dict[str, int]) -> None:
+    """Put the wrappers' counts back to ``counts`` (what
+    :func:`wrapper_launch_counts` gave): the runtime takes back the calls
+    of a warm-up step and of a capture, which are no superstep of a run."""
+    kbucket.launches = counts["bucket_ranks"]
+    kbucket.lane_launches = counts["bucket_ranks_lanes"]
+    kseg.launches = counts["segment_combine"]
+
+
+def add_replayed(per_step: Dict[str, int], steps: int) -> None:
+    """Count the launches of ``steps`` replayed supersteps, each making
+    ``per_step`` launches of each kernel."""
+    for name, n in per_step.items():
+        _replayed[name] += n * steps
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`: the
+    wrappers' and the replayed ones."""
+    return {k: v + _replayed[k] for k, v in wrapper_launch_counts().items()}
+
+
+def device_launch_counts() -> Dict[str, int]:
+    """Launches since the kernels' libraries loaded, as the kernels count
+    them on the device (one atomic add a launch), so launches replayed
+    from a captured CUDA graph count too; ``segment_combine_join`` counts
+    the second kernel of each ``segment_combine`` call. Synchronizes the
+    device; loads (and on first use builds) the libraries."""
+    ranks, lanes = kbucket.device_launches()
+    tile, join = kseg.device_launches()
+    return {"bucket_ranks": ranks, "bucket_ranks_lanes": lanes,
+            "segment_combine": tile, "segment_combine_join": join}
+
+
 def reset_launch_counts() -> None:
-    kbucket.launches = 0
-    kbucket.lane_launches = 0
-    kseg.launches = 0
+    set_wrapper_launch_counts(dict.fromkeys(_replayed, 0))
+    for name in _replayed:
+        _replayed[name] = 0
 
 
 def segment_combine(vals, seg_ids, num_segments: int, combiner, *,

@@ -1,6 +1,9 @@
 """Launch wrapper of ``csrc/segment_combine.cu``: the sorted-segment
 combine on the card (the scatter-combine hot loop; the port of the
-Pallas ``segment_combine_pallas``)."""
+Pallas ``segment_combine_pallas``). Two kernels a call and no memset;
+the one scratch kept between calls, the chunk table, is zero between
+them, so a launch captured into a CUDA graph is right on every
+replay."""
 from __future__ import annotations
 
 import ctypes
@@ -9,14 +12,12 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, scratch
 
 _OPS = {"sum": 0, "min": 1, "max": 2, "prod": 3, "min_by_first": 4}
 _DTYPES = {torch.float32: 0, torch.int32: 1}
 #: rows ride on the launch grid's y dimension
 MAX_ROWS = 65535
-#: the chunk table's epochs run 1 .. EPOCH_LIMIT, then it is zeroed
-EPOCH_LIMIT = 1 << 30
 
 _fns = None
 #: launches of the kernel since the last reset (kernels.ops owns resets)
@@ -24,28 +25,44 @@ launches = 0
 
 
 class _Chunks:
-    """The chunk table of one (device, stream): a mark per chunk of a long
-    gap of empty segments that the kernel's second pass fills, tagged with
-    the launch's epoch so that no launch reads another's marks. Zeroed
-    when made; replaced, zeroed, only when a call needs more words."""
+    """The chunk table of one :func:`scratch.key`: a mark per chunk of a
+    long gap of empty segments, set by the kernel's first pass and stored
+    and cleared by its second, so the table is zero between launches.
+    Zeroed when made; replaced, zeroed, only when a call needs more
+    words."""
 
     def __init__(self, device):
         self.device = device
         self.table = torch.zeros(0, dtype=torch.int32, device=device)
-        self.epoch = EPOCH_LIMIT
 
-    def take(self, words: int):
-        """``(table, epoch)`` for a launch: at least ``words`` words and an
-        epoch they do not hold."""
-        if self.table.numel() < words or self.epoch >= EPOCH_LIMIT:
+    def take(self, words: int) -> torch.Tensor:
+        """The table for a launch: at least ``words`` words, all zero."""
+        if self.table.numel() < words:
+            scratch.check_growth(self.device, "segment_combine")
             self.table = torch.zeros(max(words, 1), dtype=torch.int32,
                                      device=self.device)
-            self.epoch = 0
-        self.epoch += 1
-        return self.table, self.epoch
+        return self.table
 
 
-_chunks: Dict[Tuple[int, int], _Chunks] = {}
+_chunks: Dict[tuple, _Chunks] = scratch.table()
+
+
+def chunks_of(device) -> _Chunks:
+    """The chunk table a launch on ``device`` uses now (see
+    :mod:`repro_torch.kernels.scratch`)."""
+    k = scratch.key(device)
+    if k not in _chunks:
+        _chunks[k] = _Chunks(device)
+    return _chunks[k]
+
+
+def device_launches() -> Tuple[int, int]:
+    """(first, second) kernel launches since the library loaded, as the
+    kernels count them on the device: launches replayed from a captured
+    CUDA graph included. Each call launches one of each. Synchronizes the
+    device."""
+    return build.device_counters("segment_combine",
+                                 "segment_combine_device_launches")
 
 
 def _library():
@@ -57,7 +74,7 @@ def _library():
                                       lib.segment_combine_chunk_words)
         launch.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         launch.restype = ctypes.c_int
         words.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_int]
@@ -104,16 +121,14 @@ def segment_combine_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
     out = torch.empty((rows, n, d), dtype=work.dtype, device=vals.device)
     if rows and n and d:
         launch, words, chunk_words = _library()
-        scratch = torch.empty(words(rows, e, d, op), dtype=torch.int32,
-                              device=vals.device)
+        # the per-tile partials: this call's alone, made anew
+        tiles = torch.empty(words(rows, e, d, op), dtype=torch.int32,
+                            device=vals.device)
         stream = torch.cuda.current_stream(vals.device).cuda_stream
-        key = (vals.device.index, stream)
-        if key not in _chunks:
-            _chunks[key] = _Chunks(vals.device)
-        table, epoch = _chunks[key].take(chunk_words(rows, n, d))
+        table = chunks_of(vals.device).take(chunk_words(rows, n, d))
         err = launch(v.data_ptr(), seg.data_ptr(), out.data_ptr(),
-                     scratch.data_ptr(), table.data_ptr(), rows, e, n, d,
-                     _DTYPES[work.dtype], op, epoch, stream)
+                     tiles.data_ptr(), table.data_ptr(), rows, e, n, d,
+                     _DTYPES[work.dtype], op, stream)
         if err:
             raise RuntimeError(f"segment_combine kernel launch failed: CUDA "
                                f"error {err}")

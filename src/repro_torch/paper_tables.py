@@ -1,5 +1,5 @@
 """The paper's composition tables on the port: unoptimized against
-composed, in host mode.
+composed, host against fused.
 
     python -m repro_torch.paper_tables --scale N [--out F] [--device cpu]
 
@@ -15,10 +15,17 @@ must win on BOTH global rounds and traffic bytes, or the run exits
 non-zero. Rounds and bytes are machine-independent and
 equal the JAX package's; the times are the card's.
 
-Only the host mode is ported: the JAX table's ``fused`` column waits for
-the port's fused/chunked modes (ROADMAP). Each program runs twice and
-the second run is reported: the first pays the one-off costs (kernel
-build, allocator, CUDA context). The output (default
+Each row is the host mode's, with the JAX table's ``fused`` column as
+the row's ``fused`` entry: the same program in the fused mode (the
+superstep loop replayed as a CUDA graph), its wall time, ms a superstep,
+dispatches, host overhead and capture time, and its rounds, messages and
+bytes, which must equal the host run's. The programs with an inner host
+loop (``sv:composed``, both MSF variants: the registry's
+``device_modes=False``) cannot run fused yet: their ``fused`` entry is
+null, with the reason in ``fused_note``.
+Each program runs twice in each mode and the second run is reported: the
+first pays the one-off costs (kernel build, allocator, CUDA context, the
+fused mode's capture). The output (default
 ``chiprun_out/paper_tables_torch.json``) records the card's name and
 power limit and the torch and CUDA versions.
 """
@@ -42,6 +49,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.pregel.engine import Engine
 
 W = 8  # logical workers, as in the paper's 8-node cluster
+# why a row without a fused entry has none
+NO_FUSED_NOTE = "inner host loop, ROADMAP item 4"
 
 # (algorithm row label, paper dataset, [(program label, registry key,
 # factory knobs)]) — the JAX table's cases. The composed S-V also reports
@@ -108,28 +117,59 @@ def _row(algorithm, name, label, res, **extra):
     return row
 
 
+def _measured(eng, prog, pg, key):
+    """The second of two runs of ``prog`` on ``eng``, with the launches
+    and (on the card) the peak device memory of that run."""
+    on_card = eng.device.type == "cuda"
+    first = eng.run(prog, pg)
+    kops.reset_launch_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    res = eng.run(prog, pg)
+    if ((first.steps, first.bytes_by_channel)
+            != (res.steps, res.bytes_by_channel)):
+        raise RuntimeError(f"{key}: two runs differ in supersteps or bytes")
+    extra = {"launches": kops.launch_counts()}
+    if on_card:
+        extra["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return first, res, extra
+
+
+def _fused_entry(host, first, res, extra) -> dict:
+    """A row's fused column; its counts must be the host run's."""
+    if ((res.steps, res.total_msgs, res.bytes_by_channel)
+            != (host.steps, host.total_msgs, host.bytes_by_channel)):
+        raise RuntimeError(f"{res.program}: the fused run's supersteps, "
+                           "messages or bytes differ from host mode's")
+    print(f"  {'':4s} {'':12s} [fused] wall {res.wall_time_s:8.4f}s  "
+          f"({1e3 * res.wall_time_s / max(res.steps, 1):.3f} ms a "
+          f"superstep, {res.dispatches} dispatches, capture "
+          f"{first.compile_time_s:.3f}s)", flush=True)
+    return dict(
+        extra, supersteps=res.steps, messages=res.total_msgs,
+        bytes=res.total_bytes, wall_time_s=res.wall_time_s,
+        ms_per_superstep=1e3 * res.wall_time_s / max(res.steps, 1),
+        dispatches=res.dispatches, host_overhead_s=res.host_overhead_s,
+        compile_time_s=first.compile_time_s, cache_hit=res.cache_hit)
+
+
 def run(scale: int, device="cuda"):
     """Every case at ``scale``: (rows, headline)."""
     eng = Engine(device=device)
-    on_card = eng.device.type == "cuda"
+    fused = Engine(mode="fused", device=device)
     rows, sv = [], {}
     for algorithm, name, programs in CASES:
         graph, pg, inputs = instance(REGISTRY[programs[0][1]], name, scale,
                                      eng.device)
         for label, key, knobs in programs:
             prog = REGISTRY[key].factory(**inputs, **knobs)
-            first = eng.run(prog, pg)
-            kops.reset_launch_counts()
-            if on_card:
-                torch.cuda.reset_peak_memory_stats()
-            res = eng.run(prog, pg)
-            if ((first.steps, first.bytes_by_channel)
-                    != (res.steps, res.bytes_by_channel)):
-                raise RuntimeError(f"{key}: two runs differ in supersteps "
-                                   "or bytes")
-            extra = {"launches": kops.launch_counts()}
-            if on_card:
-                extra["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            _, res, extra = _measured(eng, prog, pg, key)
+            if not REGISTRY[key].device_modes:
+                extra.update(fused=None, fused_note=NO_FUSED_NOTE)
+            else:
+                extra["fused"] = _fused_entry(
+                    res, *_measured(fused, prog, pg, key))
+                fused.clear_cache()
             if key == "sv:composed":
                 extra["bytes_by_component"] = {
                     k: sum(compose.stats_under(res.bytes_by_channel,
@@ -182,7 +222,7 @@ def run_and_write(scale: int,
     unless the composed S-V beats the unoptimized one on rounds and
     bytes."""
     print(f"== Paper composition tables on the port (scale {scale}, W={W}, "
-          f"host mode, {device}) ==", flush=True)
+          f"host and fused modes, {device}) ==", flush=True)
     rows, headline = run(scale, device)
     out = {"scale": scale, "workers": W, "rows": rows, "headline": headline,
            "provenance": provenance(device)}

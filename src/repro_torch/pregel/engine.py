@@ -1,17 +1,34 @@
 """Engine — the execution session for VertexPrograms.
 
 The port of ``repro.pregel.engine`` as far as the ported slices need:
-``Engine.run(prog, pg)`` runs the program's init, the host-driven
-superstep loop and ``prog.extract``; ``Engine.run_batch(prog, pg,
+``Engine.run(prog, pg)`` runs the program's init, the superstep loop in
+the engine's mode and ``prog.extract``; ``Engine.run_batch(prog, pg,
 queries)`` runs Q query instances of a batchable program in one
-host-driven loop (the batched query plane). PyTorch runs eagerly, so
-there is no compile cache to key. The fused/chunked modes, the planner
-(``plan="auto"``), overflow escalation, checkpoints and serving are not
-ported yet (ROADMAP) and raise ``NotImplementedError``.
+host-driven loop (the batched query plane).
+
+Modes (``repro_torch.pregel.runtime``): ``"host"`` runs a step per
+Python iteration; ``"fused"`` and ``"chunked"`` run the loop on the
+device, K = ``chunk_size`` supersteps a CUDA graph replay. The default
+stays ``"host"``, unlike the JAX package's ``"fused"``: the programs
+with an inner host loop (``sv:composed``, both ``msf`` variants,
+``scc:basic``, ``wcc:prop``, ``sssp:prop``, ``scc:prop``) cannot run on
+the device yet and raise ``NotImplementedError`` in the device modes.
+The default flips to ``"fused"`` when their inner loops run on the
+device too (ROADMAP, queue 1, item 4).
+
+A device mode's loop (its warm-up step and its captured graph) is cached
+per (program, graph object, mode, chunk size, ``max_steps``,
+``check_overflow``) — the counterpart of the JAX compile cache, with
+``cache_hit`` and ``engine_compiles`` on every result; a hit replays the
+graph with no warm-up and no capture. :meth:`Engine.clear_cache` drops
+the cached loops and their graph memory. The planner (``plan="auto"``),
+overflow escalation, checkpoints and serving are not ported yet
+(ROADMAP) and raise ``NotImplementedError``; so do batched runs in the
+device modes.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,24 +48,23 @@ def bucket_queries(q: int) -> int:
 
 
 def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (see ROADMAP: the port runs the "
-        "host-driven loop only)")
+    return NotImplementedError(f"{what} is not ported yet (see ROADMAP)")
 
 
 class Engine:
     """Session for running VertexPrograms on one device.
 
-    mode: only ``"host"`` (the default here) is ported.
+    mode: ``"host"`` (the default here), ``"fused"`` or ``"chunked"``.
+    chunk_size: K, the supersteps one dispatch of a device mode covers
+      (default 64, as in the JAX package).
     device: where the graphs it runs must live (None = CUDA; raises when
       CUDA is absent). Pass ``"cpu"`` for the plain PyTorch path.
     """
 
     def __init__(self, mode: Optional[str] = None, device=None,
-                 plan: Any = "manual", on_overflow: str = "raise"):
+                 plan: Any = "manual", on_overflow: str = "raise",
+                 chunk_size: Optional[int] = None):
         mode = "host" if mode is None else mode
-        if mode in ("fused", "chunked"):
-            raise _not_ported(f"mode={mode!r}")
         if mode not in runtime.MODES:
             raise ValueError(f"unknown execution mode {mode!r}")
         if plan != "manual":
@@ -56,7 +72,25 @@ class Engine:
         if on_overflow != "raise":
             raise _not_ported(f"on_overflow={on_overflow!r}")
         self.mode = mode
+        self.chunk_size = 64 if chunk_size is None else int(chunk_size)
+        if self.chunk_size < 1:
+            raise ValueError(f"chunk_size must be at least 1, got "
+                             f"{self.chunk_size}")
         self.device: torch.device = resolve_device(device)
+        self._cache: Dict[Tuple, runtime.DeviceLoop] = {}
+        self.compiles = 0
+        self.cache_hits = 0
+
+    @property
+    def cache_size(self) -> int:
+        return len(self._cache)
+
+    def clear_cache(self) -> None:
+        """Drop every cached device loop: its CUDA graph, the graph's
+        memory pool and its kernels' scratch."""
+        for loop in self._cache.values():
+            loop.release()
+        self._cache.clear()
 
     def _check_device(self, pg: PartitionedGraph) -> None:
         if pg.device.type != self.device.type:
@@ -69,15 +103,39 @@ class Engine:
             checkpoint_every: Optional[int] = None,
             resume: Any = None) -> runtime.RunResult:
         """Run ``prog`` on ``pg``. Returns the runtime's ``RunResult`` with
-        ``output`` set to ``prog.extract(pg, state)``."""
+        ``output`` set to ``prog.extract(pg, state)``; in a device mode
+        also the cache state (``cache_hit``, ``engine_compiles``,
+        ``engine_cache_hits``) and, on a miss, ``compile_time_s``."""
         if checkpoint_every is not None or resume is not None:
             raise _not_ported("checkpoint/resume")
         self._check_device(pg)
         ms = prog.max_steps if max_steps is None else max_steps
         co = prog.check_overflow if check_overflow is None else check_overflow
-        res = runtime.run_supersteps(
-            pg, prog.step, prog.init(pg), max_steps=ms, check_overflow=co,
-            mode=self.mode, channels=prog.channels)
+        state0 = prog.init(pg)
+        if self.mode == "host":
+            res = runtime.run_supersteps(
+                pg, prog.step, state0, max_steps=ms, check_overflow=co,
+                channels=prog.channels)
+        else:
+            # the loop holds pg, so id(pg) names one live graph object
+            key = (prog, id(pg), self.mode, self.chunk_size, ms, co)
+            loop = self._cache.get(key)
+            hit = loop is not None
+            if hit:
+                self.cache_hits += 1
+            else:
+                loop = runtime.DeviceLoop(
+                    pg, prog.step, state0, mode=self.mode, max_steps=ms,
+                    check_overflow=co, chunk_size=self.chunk_size,
+                    channels=prog.channels, name=prog.name)
+                self._cache[key] = loop
+                self.compiles += 1
+            res = loop.execute(state0)
+            if not hit:
+                res.compile_time_s = loop.compile_time_s
+            res.cache_hit = hit
+            res.engine_compiles = self.compiles
+            res.engine_cache_hits = self.cache_hits
         res.program = prog.name
         res.output = prog.extract(pg, res.state)
         return res
@@ -101,6 +159,10 @@ class Engine:
         ``query_halted`` and ``query_bytes``/``query_msgs``; the
         dict-of-int totals cover the Q real queries only.
         """
+        if self.mode != "host":
+            raise _not_ported(
+                f"run_batch in mode={self.mode!r} (the batched plane's "
+                "device loop, ROADMAP queue 1, item 4)")
         if prog.query_init is None:
             raise ValueError(
                 f"program {prog.name!r} declares no query axis "

@@ -55,7 +55,10 @@ class VertexProgram:
     step: ``step(ctx, pg, state, step_idx)`` returning ``(new_state,
       halt)`` or ``(new_state, halt, overflow)``; ``halt``/``overflow``
       are per-worker ``(W,)`` votes or one scalar for all, and
-      ``step_idx`` is the superstep number as a Python int.
+      ``step_idx`` is the superstep number: a Python int in host mode, a
+      device int32 scalar in the fused and chunked modes, where the step
+      is captured into a CUDA graph and so may not read a device value
+      back to the host.
     extract: ``extract(pg, final_state) -> output`` (e.g. global labels in
       old-id space), stored on ``RunResult.output``.
     channels: optional explicit declaration of the stat keys: names, a

@@ -1,46 +1,75 @@
-"""The worker runtime (paper Fig. 4): the host-driven superstep loop.
+"""The worker runtime (paper Fig. 4): the superstep loop.
 
-The port of the ``host`` execution mode of ``repro.pregel.runtime``:
-one step per Python iteration over all W workers at once, then one
-blocking readback of the halt vote, the overflow latch and the
-per-channel traffic. PyTorch runs eagerly, so there is nothing to
-compile; the ``fused`` and ``chunked`` modes (the whole loop on the
-device) are not ported yet (ROADMAP).
+The port of ``repro.pregel.runtime``, with the W workers as the leading
+dim of every tensor. Three execution modes drive the loop, as in the JAX
+package, and give bit-identical results (outputs, supersteps, halt
+flags, bytes and messages per channel, overflow and wrap errors):
+
+  - ``host``: one step per Python iteration, then one blocking readback
+    of the halt vote, the overflow latch and the per-channel traffic
+    (:func:`run_supersteps`). Per-step counters are summed on the host in
+    Python ints; a negative per-step total raises ``TrafficWrapError``.
+  - ``fused``: the loop on the device (:class:`DeviceLoop`). A warm-up
+    step on a clone of the state builds the kernels, sizes their scratch
+    and fixes the stat keys (a ``channels=`` declaration still rules);
+    then K supersteps over static state buffers are captured into one
+    CUDA graph, each under an IF conditional node on the device flag
+    ``go = ~halted & (i < max_steps) & ~overflow`` — the JAX package's
+    ``lax.cond(stop, skip, do)``: a stopped step costs the node and no
+    superstep's work. Each dispatch replays the graph; the host reads
+    back four int32 flags between replays. The traffic accumulates on
+    the device in int32, per worker, with a wrap latch that trips when
+    an accumulator decreases (the JAX fused loop's contract and message);
+    the totals come back once, at the end.
+  - ``chunked``: the same graph, but each step writes its stat row, and
+    one readback at each chunk boundary brings back the K rows; the host
+    sums them in int64 and names the channel of a negative per-step
+    count, as the JAX chunked mode does.
+
+On the CPU (``device="cpu"``, the tests) the two device modes run the
+same loop, chunk boundaries, accumulators, latches and readbacks with
+``if go: step`` in place of the IF node, and each step under a guard
+that raises on the host syncs a capture refuses (``.item()``/``bool()``
+of a tensor, ``nonzero``, boolean-mask indexing and the like). On the
+card a failed capture raises; nothing falls back to the eager loop.
 
 Voting-to-halt: the step returns per-worker halt votes; the runtime ANDs
-them. Per-step traffic counters are int32 per worker; the loop sums them
-host-side in Python ints and raises ``TrafficWrapError`` on a negative
-per-step total, ``ChannelOverflowError`` on a capacity overflow — the
-JAX host mode's contract.
+them (``aggregator.all_halted``).
 
 Batched query plane (:func:`run_batched_supersteps`, under
-``Engine.run_batch``): one loop advances Q query instances per
-superstep, state leaves ``(W, Q, n_loc, ...)``. Halting is per query: a
-``(Q,)`` halted mask lives on the device, a lane that voted halt keeps
-its state bit for bit (a ``torch.where`` over the pre-step live mask),
-sends nothing and is charged nothing from the next step on — the halting
-step itself still charges, as a solo run would. Pad lanes start halted.
-One readback per superstep brings back the ``(Q,)`` halt and overflow
-flags and the per-lane stats; per-lane totals are summed on the host in
-int64. So per-query steps, outputs and per-channel bytes/msgs are
-bit-identical to Q solo runs; overflow raises ``ChannelOverflowError``
-naming the offending lanes (``qids``).
+``Engine.run_batch``, host mode only): one loop advances Q query
+instances per superstep, state leaves ``(W, Q, n_loc, ...)``. Halting is
+per query: a ``(Q,)`` halted mask lives on the device, a lane that voted
+halt keeps its state bit for bit (a ``torch.where`` over the pre-step
+live mask), sends nothing and is charged nothing from the next step on —
+the halting step itself still charges, as a solo run would. Pad lanes
+start halted. One readback per superstep brings back the ``(Q,)`` halt
+and overflow flags and the per-lane stats; per-lane totals are summed on
+the host in int64. So per-query steps, outputs and per-channel
+bytes/msgs are bit-identical to Q solo runs; overflow raises
+``ChannelOverflowError`` naming the offending lanes (``qids``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import aggregator, compose
-from repro_torch.core.channel import ChannelContext, ChannelRegistry
+from repro_torch.core.channel import (ChannelContext, ChannelRegistry,
+                                      on_device)
 from repro_torch.graph.pgraph import PartitionedGraph
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import graph_if, scratch
 from repro_torch.pregel import errors
 
-MODES = ("host",)
+MODES = ("host", "fused", "chunked")
 
 
 @dataclasses.dataclass
@@ -51,13 +80,25 @@ class RunResult:
     bytes_by_channel: Dict[str, int]
     msgs_by_channel: Dict[str, int]
     wall_time_s: float
-    # host clock per superstep, each ending in the step's readback (which
-    # waits for the device)
+    # host clock per dispatch (a superstep in host mode, a replay of the
+    # K-step loop in the device modes), each ending in its readback
     step_times_s: list
     mode: str = "host"
+    # host-mode supersteps, or replays of the captured loop
+    dispatches: int = 0
+    # the warm-up step and the capture of a device loop; 0 for a run that
+    # replayed an executable an earlier run paid for
+    compile_time_s: float = 0.0
+    # host time spent driving the run (enqueues, readbacks, bookkeeping),
+    # without the waits for the device
+    host_overhead_s: float = 0.0
     program: str = ""
     output: Any = None
     converged: bool = False
+    # Engine compile-cache state at run time (device modes)
+    cache_hit: bool = False
+    engine_compiles: int = 0
+    engine_cache_hits: int = 0
     # name -> bool, or name -> (Q,) bool for batched runs
     overflow_by_channel: Optional[Dict[str, Any]] = None
     # Batched-query metadata (num_queries > 0 iff the loop carried a query
@@ -141,6 +182,13 @@ def _call_step(step_fn, ctx, graph, state, step):
     return out[0], out[1], False
 
 
+def _overflow_error(steps, ovf_by, res):
+    bad = sorted(k for k, v in ovf_by.items() if v)
+    return errors.ChannelOverflowError(
+        errors.overflow_message(steps - 1, bad),
+        superstep=steps - 1, channels=bad, result=res)
+
+
 def run_supersteps(
     graph: PartitionedGraph,
     step_fn: Callable,
@@ -149,22 +197,40 @@ def run_supersteps(
     check_overflow: bool = True,
     mode: str = "host",
     channels: Optional[Any] = None,
+    chunk_size: int = 64,
+    name: str = "",
 ) -> RunResult:
-    """Run ``step_fn(ctx, graph, state, step)`` to halt, host-driven.
+    """Run ``step_fn(ctx, graph, state, step)`` to halt.
 
     state0: dict of ``(W, n_loc, ...)`` tensors on ``graph.device``.
     step_fn returns ``(new_state, halt)`` or ``(new_state, halt,
-    overflow)``; halt/overflow are per-worker ``(W,)`` or scalar.
+    overflow)``; halt/overflow are per-worker ``(W,)`` or scalar. ``step``
+    is the superstep number: a Python int in host mode, a device int32
+    scalar in the device modes.
+    mode: ``"host"``, ``"fused"`` or ``"chunked"`` (see the module
+    docstring); ``chunk_size`` is K, the supersteps a dispatch of the
+    device modes covers. ``name`` names the program in capture errors.
     channels: optional declaration of the stat keys (names, a composed
     channel such as ``compose.Stacked``, or a mixed sequence); every key
     then appears in the result, an undeclared key raises, and a declared
     key that no step reached raises.
+
+    A device mode builds its loop for this one call (warm-up and capture
+    are ``compile_time_s``); hold an ``Engine`` to replay it across runs.
     """
     if mode not in MODES:
-        raise NotImplementedError(
-            f"mode={mode!r} is not ported yet: only the host-driven loop "
-            "runs (see ROADMAP: fused/chunked modes come after the batched "
-            "plane)")
+        raise ValueError(f"unknown execution mode {mode!r}")
+    if mode != "host":
+        loop = DeviceLoop(graph, step_fn, state0, mode=mode,
+                          max_steps=max_steps, check_overflow=check_overflow,
+                          chunk_size=chunk_size, channels=channels,
+                          name=name)
+        try:
+            res = loop.execute(state0)
+        finally:
+            loop.release()
+        res.compile_time_s = loop.compile_time_s
+        return res
     registry = _registry(channels)
     W, n_loc = graph.num_workers, graph.n_loc
     bytes_acc: Dict[str, int] = {}
@@ -175,6 +241,7 @@ def run_supersteps(
     halted = overflowed = False
     wrapped: set = set()
     step_times = []
+    overhead = 0.0
     t0 = time.perf_counter()
     step = -1  # so max_steps=0 reports zero executed supersteps
     for step in range(max_steps):
@@ -184,11 +251,12 @@ def run_supersteps(
         state, halt, overflow = _call_step(step_fn, ctx, graph, state, step)
         touched |= ctx.touched
         halt_all = aggregator.all_halted(ctx, halt)
-        overflow_any = torch.as_tensor(overflow, device=graph.device).any()
+        overflow_any = on_device(overflow, graph.device, torch.bool).any()
         nbytes, nmsgs = ctx.stats()
+        t_enq = time.perf_counter()
         halt_now, ovf_now, db, dm, dovf = _readback(
             halt_all, overflow_any, nbytes, nmsgs, ctx.stats_ovf)
-        step_times.append(time.perf_counter() - ts)
+        t_dev = time.perf_counter()
         for acc, delta in ((bytes_acc, db), (msgs_acc, dm)):
             for k, d in delta.items():
                 if d < 0:
@@ -196,6 +264,8 @@ def run_supersteps(
                 acc[k] = acc.get(k, 0) + d
         for k, v in dovf.items():
             ovf_acc[k] = ovf_acc.get(k, False) or v
+        step_times.append(t_dev - ts)
+        overhead += (t_enq - ts) + (time.perf_counter() - t_dev)
         if check_overflow and ovf_now:
             overflowed = True
             break
@@ -215,14 +285,13 @@ def run_supersteps(
         wall_time_s=time.perf_counter() - t0,
         step_times_s=step_times,
         mode="host",
+        dispatches=step + 1,
+        host_overhead_s=overhead,
         converged=halted,
         overflow_by_channel=ovf_acc,
     )
     if overflowed:
-        bad = sorted(k for k, v in ovf_acc.items() if v)
-        raise errors.ChannelOverflowError(
-            errors.overflow_message(step, bad),
-            superstep=step, channels=bad, result=res)
+        raise _overflow_error(step + 1, ovf_acc, res)
     if wrapped:
         bad = sorted(wrapped)
         raise errors.TrafficWrapError(
@@ -230,6 +299,390 @@ def run_supersteps(
             f"at superstep {step} — per-step traffic exceeds int32 range",
             superstep=step, channels=bad, result=res)
     return res
+
+
+# ---------------------------------------------------------------------------
+# the device modes: K supersteps captured into one CUDA graph, each under
+# a device-side condition, replayed once a dispatch
+# ---------------------------------------------------------------------------
+
+
+class _HostSyncGuard(TorchDispatchMode):
+    """Raises on the operators that read a device value back to the host
+    (``.item()``, ``bool()``, ``nonzero``, boolean-mask indexing, ...):
+    a stream that captures a CUDA graph refuses them. The device loop
+    runs its warm-up step and every captured (or, on the CPU, executed)
+    step under it, so such a step fails before a capture starts, with
+    the program named, and the CPU tests hold the step code to the
+    capture's contract."""
+
+    SYNCS = frozenset({
+        "aten::_local_scalar_dense", "aten::nonzero", "aten::masked_select",
+        "aten::unique_dim", "aten::_unique", "aten::_unique2",
+        "aten::unique_consecutive", "aten::unique_dim_consecutive",
+        "aten::bincount"})
+
+    def __init__(self, what: str):
+        super().__init__()
+        self.what = what
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        op = func._schema.name
+        sync = op in self.SYNCS
+        if op in ("aten::index", "aten::index_put_", "aten::index_put"):
+            sync = any(isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                       for i in (args[1] or ()) if i is not None)
+        elif op == "aten::repeat_interleave":
+            sync = kwargs.get("output_size") is None
+        if sync:
+            raise RuntimeError(
+                f"{self.what}: {op} reads a device value back to the host, "
+                "which a stream that captures a CUDA graph refuses "
+                "(operation not permitted when stream is capturing)")
+        return func(*args, **kwargs)
+
+
+def _shares_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
+_tokens = itertools.count()
+
+
+class DeviceLoop:
+    """The ``fused`` or ``chunked`` superstep loop of one step function on
+    one graph: static state buffers, the loop's flags and stats, and on
+    the card the captured K-step CUDA graph. Built once (warm-up step and
+    capture: ``compile_time_s``), then :meth:`execute` runs it from any
+    ``state0`` of the same shapes; ``Engine`` caches it per program,
+    graph object, mode, K, ``max_steps`` and ``check_overflow``.
+
+    Buffers: ``out`` holds int32 flags ``[i, halted, overflow, wrapped]``
+    and then, chunked, K stat rows or, fused, one accumulator row; a row
+    is each stat key's ``(W,)`` bytes, then their ``(W,)`` messages, then
+    one overflow flag per overflow key. ``go`` is the bool the IF nodes
+    read."""
+
+    def __init__(self, graph: PartitionedGraph, step_fn: Callable,
+                 state0: Dict[str, torch.Tensor], *, mode: str,
+                 max_steps: int, check_overflow: bool = True,
+                 chunk_size: int = 64, channels: Optional[Any] = None,
+                 name: str = ""):
+        if mode not in ("fused", "chunked"):
+            raise ValueError(f"a device loop runs mode 'fused' or "
+                             f"'chunked', not {mode!r}")
+        if not isinstance(state0, dict):
+            raise TypeError("the device modes take a dict of tensors as "
+                            f"the state, got {type(state0).__name__}")
+        if chunk_size < 1:
+            raise ValueError(f"chunk_size must be at least 1, got "
+                             f"{chunk_size}")
+        self.graph, self.step_fn, self.mode = graph, step_fn, mode
+        self.name = name or getattr(step_fn, "__qualname__", "step")
+        self.max_steps, self.check_overflow = int(max_steps), check_overflow
+        self.K = max(1, min(int(chunk_size), self.max_steps))
+        self.registry = _registry(channels)
+        self.device = graph.device
+        self.cuda = self.device.type == "cuda"
+        self.token = next(_tokens)
+        self.cuda_graph = self.body_pool = None
+        self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+        t = time.perf_counter()
+        # the warm-up step's and the capture's wrapper calls are no
+        # superstep of a run: the counts go back to what they were
+        before = kops.wrapper_launch_counts()
+        try:
+            self._warm_up(state0)
+            warm = kops.wrapper_launch_counts()
+            self.launches_per_step = {k: warm[k] - before[k] for k in warm}
+            self._allocate(state0)
+            if self.cuda:
+                self._capture()
+                done = kops.wrapper_launch_counts()
+                captured = {k: done[k] - warm[k] for k in done}
+                if captured != {k: self.K * n
+                                for k, n in self.launches_per_step.items()}:
+                    raise RuntimeError(
+                        f"{self.name}: the {self.K} captured supersteps "
+                        f"made {captured} kernel launches, the warm-up step "
+                        f"{self.launches_per_step} — a superstep's launches "
+                        "must not change from one superstep to the next")
+        except BaseException:
+            self.release()
+            raise
+        finally:
+            kops.set_wrapper_launch_counts(before)
+        self.compile_time_s = time.perf_counter() - t
+
+    # -- build --------------------------------------------------------------
+
+    def _context(self) -> ChannelContext:
+        return ChannelContext(self.graph.num_workers, self.graph.n_loc,
+                              self.device, registry=self.registry,
+                              route_cap=self.graph.route_cap,
+                              device_loop=True)
+
+    @contextlib.contextmanager
+    def _on_side_stream(self):
+        """The scratch scope, and on the card the loop's own stream."""
+        if not self.cuda:
+            with scratch.scope(self.token):
+                yield
+            return
+        main = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream), scratch.scope(self.token):
+            yield
+        main.wait_stream(self.stream)
+
+    def _guard(self):
+        return _HostSyncGuard(self.name)
+
+    def _warm_up(self, state0) -> None:
+        """One eager step on a clone of ``state0``, its result dropped: it
+        builds the kernels, sizes their scratch under the loop's scope and
+        fixes the stat keys and the state's layout."""
+        state = {k: v.clone() for k, v in state0.items()}
+        with self._on_side_stream(), self._guard():
+            ctx = self._context()
+            i = torch.zeros((), dtype=torch.int32, device=self.device)
+            new_state, halt, ovf = _call_step(self.step_fn, ctx, self.graph,
+                                              state, i)
+            aggregator.all_halted(ctx, halt)
+            on_device(ovf, self.device, torch.bool).any()
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+        if self.registry is not None:
+            _check_declared(self.registry, ctx.touched)
+        self.bkeys = sorted(ctx.stats_bytes)
+        self.okeys = sorted(ctx.stats_ovf)
+        layout = {k: (v.shape, v.dtype) for k, v in state0.items()}
+        if {k: (v.shape, v.dtype) for k, v in new_state.items()} != layout:
+            raise ValueError(
+                f"{self.name}: a superstep changes the state's keys, shapes "
+                "or dtypes; the device modes need a fixed layout")
+
+    def _allocate(self, state0) -> None:
+        w, dev = self.graph.num_workers, self.device
+        self.nb = 2 * len(self.bkeys) * w  # traffic columns of a row
+        self.row_len = self.nb + len(self.okeys)
+        rows = self.K if self.mode == "chunked" else 1
+        self.state = {k: torch.empty_like(
+            v, memory_format=torch.contiguous_format)
+            for k, v in state0.items()}
+        self.out = torch.zeros(4 + rows * self.row_len, dtype=torch.int32,
+                               device=dev)
+        self.flags = self.out[:4]
+        self.rows = self.out[4:].view(rows, self.row_len)
+        self.go = torch.zeros((), dtype=torch.bool, device=dev)
+        self.host = torch.empty(self.out.shape, dtype=torch.int32,
+                                pin_memory=self.cuda)
+
+    def _capture(self) -> None:
+        """The K supersteps into one CUDA graph on the loop's stream, each
+        the body of an IF node on ``go`` (``kernels.graph_if``), captured
+        on a second stream whose allocations have a pool of their own."""
+        g = torch.cuda.CUDAGraph()
+        self.body = torch.cuda.Stream(self.device)
+        pool = torch.cuda.graph_pool_handle()
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        try:
+            with scratch.scope(self.token), \
+                    torch.cuda.graph(g, stream=self.stream), \
+                    graph_if.body_allocations(self.body, pool):
+                self.body_pool = pool  # made: release() gives it back
+                self._chunk()
+        except Exception as err:
+            err.add_note(f"while capturing the {self.mode} superstep loop "
+                         f"of {self.name}")
+            raise
+        self.cuda_graph = g
+
+    def release(self) -> None:
+        """Drop the captured graph, its memory pools and its scratch."""
+        self.cuda_graph = None
+        if self.body_pool is not None:
+            graph_if.release_pool(self.body.device, self.body_pool)
+            self.body_pool = None
+        scratch.release(self.token)
+
+    # -- one chunk of K supersteps -------------------------------------------
+
+    def _chunk(self) -> None:
+        if self.mode == "chunked":
+            self.rows.zero_()  # a step that does not run leaves zeros
+        for k in range(self.K):
+            self._when_go(lambda: self._step(k))
+
+    def _when_go(self, fn) -> None:
+        if self.cuda:  # capturing: fn into the body of an IF node
+            with graph_if.if_node(self.go, self.stream, self.body), \
+                    self._guard():
+                fn()
+        elif bool(self.go):
+            with self._guard():
+                fn()
+
+    def _step(self, k: int) -> None:
+        """Superstep ``i`` into the static buffers: the state, the flags,
+        ``go`` and the stats (row ``k``, or the accumulator)."""
+        ctx = self._context()
+        i = self.flags[0]
+        new_state, halt, ovf = _call_step(self.step_fn, ctx, self.graph,
+                                          self.state, i)
+        halt_all = aggregator.all_halted(ctx, halt)
+        ovf_any = on_device(ovf, self.device, torch.bool).any()
+        row = self._row(ctx)
+        self._store(new_state)
+        if self.mode == "chunked":
+            self.rows[k].copy_(row)
+        else:
+            acc = self.rows[0]
+            new = acc[:self.nb] + row[:self.nb]
+            # the deltas are not negative: an accumulator that decreases
+            # wrapped
+            self.flags[3].copy_(self.flags[3] | (new < acc[:self.nb]).any())
+            acc[:self.nb].copy_(new)
+            acc[self.nb:].copy_(acc[self.nb:] | row[self.nb:])
+        self.flags[0].add_(1)
+        self.flags[1].copy_(halt_all)
+        self.flags[2].copy_(self.flags[2] | ovf_any)
+        go = (self.flags[1] == 0) & (self.flags[0] < self.max_steps)
+        if self.check_overflow:
+            go = go & (self.flags[2] == 0)
+        self.go.copy_(go)
+
+    def _row(self, ctx: ChannelContext) -> torch.Tensor:
+        extra = (set(ctx.stats_bytes) - set(self.bkeys)) | (
+            set(ctx.stats_ovf) - set(self.okeys))
+        if extra:
+            raise ValueError(
+                f"{self.name}: stat keys {sorted(extra)} appeared after the "
+                "first superstep; the device modes need a fixed key set")
+        zeros = torch.zeros(ctx.stat_shape, dtype=torch.int32,
+                            device=self.device)
+        parts = [ctx.stats_bytes.get(k, zeros) for k in self.bkeys]
+        parts += [ctx.stats_msgs.get(k, zeros) for k in self.bkeys]
+        parts += [ctx.stats_ovf[k].any().reshape(1) if k in ctx.stats_ovf
+                  else zeros[:1].bool() for k in self.okeys]
+        if not parts:  # a step with no channel
+            return zeros[:0]
+        return torch.cat([p.to(torch.int32) for p in parts])
+
+    def _store(self, new_state) -> None:
+        """``new_state`` into the static buffers; a value that shares
+        storage with a buffer is cloned first, so no copy reads a buffer
+        another copy has already written."""
+        bufs = list(self.state.values())
+        pending = {}
+        for k, v in new_state.items():
+            if v is self.state[k]:
+                continue
+            if any(_shares_storage(v, b) for b in bufs):
+                v = v.clone()
+            pending[k] = v
+        for k, v in pending.items():
+            self.state[k].copy_(v)
+
+    # -- a run ---------------------------------------------------------------
+
+    def _read(self, n: int) -> np.ndarray:
+        """The first ``n`` words of ``out`` on the host, in one copy."""
+        dst = self.host[:n]
+        dst.copy_(self.out[:n], non_blocking=self.cuda)
+        if self.cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        return dst.numpy().astype(np.int64)
+
+    def execute(self, state0: Dict[str, torch.Tensor]) -> RunResult:
+        """Run the loop from ``state0`` to a halt, ``max_steps`` or an
+        overflow; the result's state is a copy, so a later run does not
+        overwrite it."""
+        if {k: (v.shape, v.dtype) for k, v in state0.items()} != {
+                k: (v.shape, v.dtype) for k, v in self.state.items()}:
+            raise ValueError(f"{self.name}: state0 does not match the "
+                             "layout this loop was built for")
+        t0 = time.perf_counter()
+        for k, v in state0.items():
+            self.state[k].copy_(v)
+        self.out.zero_()
+        self.go.fill_(self.max_steps > 0)
+        chunked = self.mode == "chunked"
+        w = self.graph.num_workers
+        bytes_acc = dict.fromkeys(self.bkeys, 0)
+        msgs_acc = dict.fromkeys(self.bkeys, 0)
+        ovf_acc = dict.fromkeys(self.okeys, False)
+        wrapped: set = set()
+        times, dispatches, overhead, steps = [], 0, 0.0, 0
+        n_read = self.out.numel() if chunked else 4
+        while True:
+            ts = time.perf_counter()
+            if self.cuda_graph is not None:
+                self.cuda_graph.replay()
+            else:
+                self._chunk()
+            dispatches += 1
+            t_enq = time.perf_counter()
+            host = self._read(n_read)
+            t_dev = time.perf_counter()
+            i, halted, overflow = (int(x) for x in host[:3])
+            kops.add_replayed(self.launches_per_step, i - steps)
+            steps = i
+            if chunked:  # the chunk's per-step rows, summed in int64
+                rows = host[4:].reshape(self.K, self.row_len)
+                for j, key in enumerate(self.bkeys):
+                    for acc, col in ((bytes_acc, j), (msgs_acc,
+                                                      len(self.bkeys) + j)):
+                        block = rows[:, col * w:(col + 1) * w]
+                        if (block < 0).any():
+                            wrapped.add(key)
+                        acc[key] += int(block.sum())
+                for j, key in enumerate(self.okeys):
+                    ovf_acc[key] |= bool(rows[:, self.nb + j].any())
+            times.append(time.perf_counter() - ts)
+            overhead += (t_enq - ts) + (time.perf_counter() - t_dev)
+            overflowed = self.check_overflow and bool(overflow)
+            if overflowed or wrapped or halted or steps >= self.max_steps:
+                break
+        latch = False
+        if not chunked:  # the totals, once
+            t_r = time.perf_counter()
+            acc = self._read(self.out.numel())
+            latch = bool(acc[3])
+            row = acc[4:]
+            for j, key in enumerate(self.bkeys):
+                bytes_acc[key] = int(row[j * w:(j + 1) * w].sum())
+                m = len(self.bkeys) + j
+                msgs_acc[key] = int(row[m * w:(m + 1) * w].sum())
+            for j, key in enumerate(self.okeys):
+                ovf_acc[key] = bool(row[self.nb + j])
+            overhead += time.perf_counter() - t_r
+        state = {k: v.clone() for k, v in self.state.items()}
+        res = RunResult(
+            state=state, steps=steps, halted=bool(halted),
+            bytes_by_channel=bytes_acc, msgs_by_channel=msgs_acc,
+            wall_time_s=time.perf_counter() - t0, step_times_s=times,
+            mode=self.mode, dispatches=dispatches, host_overhead_s=overhead,
+            converged=bool(halted), overflow_by_channel=ovf_acc)
+        if overflowed:
+            raise _overflow_error(steps, ovf_acc, res)
+        if wrapped:
+            bad = sorted(wrapped)
+            raise errors.TrafficWrapError(
+                f"int32 traffic counter wrapped in channel(s) "
+                f"{', '.join(bad)} by superstep {steps - 1} — per-step "
+                "traffic exceeds int32 range",
+                superstep=steps - 1, channels=bad, result=res)
+        if latch:
+            # the fused latch is global (an accumulator decreased): no
+            # per-channel attribution on the device
+            raise errors.TrafficWrapError(
+                "per-channel traffic counters overflowed int32 inside the "
+                "fused loop; bytes/msgs totals are unreliable — use "
+                "mode='chunked' (exact host-side int64 accumulation) for "
+                "runs this heavy", superstep=steps - 1, result=res)
+        return res
 
 
 # ---------------------------------------------------------------------------

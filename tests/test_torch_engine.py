@@ -61,8 +61,15 @@ def test_engine_defaults_to_the_card():
                                 {"plan": "auto"},
                                 {"on_overflow": "escalate"}])
 def test_unported_engine_options_raise_naming_roadmap(kw):
+    """The device modes run solo programs (tests/test_torch_fused.py);
+    under them a batched run still raises, as do the planner and
+    overflow escalation at construction."""
+    spec = REGISTRY["reach:basic"]
+    pg = pgraph.partition_graph(spec.make_graph(7, 0), 4, "random",
+                                build=spec.build, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(device="cpu", **kw)
+        eng = Engine(device="cpu", **kw)
+        eng.run_batch(spec.factory(), pg, [0, 1])
 
 
 @pytest.mark.parametrize("module,variant", [(pagerank, "personal")])

@@ -668,3 +668,241 @@ def test_prop_programs_on_the_card(cuda, key, mirror):
     assert (launches["bucket_ranks"] > 0) == (key == "scc:basic")
     if mirror is not None:
         assert pg.prop_out.cut.hub_cap > 0
+
+
+def _replays(fn, statics, fresh, plain, replays=3):
+    """Capture ``fn()`` (over the ``statics`` tensors) into a CUDA graph
+    under a scratch scope, after one warm-up call that sizes the scratch,
+    then replay it ``replays`` times, each time with ``fresh(r)`` copied
+    into the statics: every replay must equal ``plain`` of its inputs —
+    what a frozen epoch or a stale mark would break."""
+    from repro_torch.kernels import scratch
+
+    token = ("gpu-test", id(fn))
+    try:
+        with scratch.scope(token):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fn()
+        for r in range(replays):
+            inputs = fresh(r)
+            for st, x in zip(statics, inputs):
+                st.copy_(x)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = plain(*inputs)
+            got = out if isinstance(out, tuple) else (out,)
+            want = want if isinstance(want, tuple) else (want,)
+            assert all(bits_equal(a, b) for a, b in zip(got, want)), r
+    finally:
+        scratch.release(token)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [False, True])
+def test_bucket_kernels_replay_in_a_captured_graph(cuda, lanes):
+    """The look-back's epoch is read and advanced on the device, so three
+    replays of one captured call, each on fresh keys, rank them right."""
+    rows, m, b, q = 8, 40 * RANK_TILE + 1, 8, 32
+    keys = torch.zeros((rows, m), dtype=torch.int32, device=cuda)
+    member = torch.zeros((rows, m, q), dtype=torch.bool, device=cuda)
+
+    def fresh(r):
+        k = _rank_keys("random", rows, m, b)
+        k = k.roll(r * 4097, dims=1).to(cuda)
+        return (k, _lane_bits(k.cpu(), q, b, r).to(cuda))
+
+    if lanes:
+        _replays(lambda: ops.bucket_ranks_lanes(keys, member, b),
+                 (keys, member), fresh,
+                 lambda k, ln: ref.bucket_ranks_lanes_ref(k, ln, b))
+    else:
+        _replays(lambda: ops.bucket_ranks(keys, b), (keys,),
+                 lambda r: fresh(r)[:1],
+                 lambda k: ref.bucket_ranks_ref(k, b))
+
+
+def _gap_ids(rows, e, n, seed):
+    """Sorted ids with a long empty gap whose place moves with the seed:
+    the first half in a window near 0, the rest near a seeded point past
+    it, so the kernel marks whole chunks of the gap for its fill pass."""
+    g = torch.Generator().manual_seed(seed)
+    lo = torch.randint(0, 200, (rows, e // 2), generator=g)
+    start = int(torch.randint(n // 4, n - 400, (1,), generator=g))
+    hi = torch.randint(start, start + 300, (rows, e - e // 2), generator=g)
+    return torch.cat([lo, hi], 1).sort(dim=1).values.to(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype,d", [("min", torch.int32, 1),
+                                          ("min_by_first", torch.float32, 4)])
+def test_segment_combine_replays_in_a_captured_graph(cuda, name, dtype, d):
+    """The chunk table's marks are cleared by the launch that set them, so
+    three replays, each with the empty gap elsewhere, fill only their own
+    gap with the identity."""
+    rows, e, n = 4, 3 * TILE + 5, 200_000
+    vals = torch.zeros((rows, e, d), dtype=dtype, device=cuda)
+    seg = torch.zeros((rows, e), dtype=torch.int32, device=cuda)
+
+    def fresh(r):
+        g = torch.Generator().manual_seed(10 + r)
+        v = (torch.randint(-1000, 1000, (rows, e, d), generator=g)
+             .to(dtype))
+        return (v.to(cuda), _gap_ids(rows, e, n, r).to(cuda))
+
+    _replays(lambda: ops.segment_combine(vals, seg, n, name), (vals, seg),
+             fresh, lambda v, s: ref.segment_combine_ref(v, s, n, name))
+
+
+@pytest.mark.gpu
+def test_bucket_epoch_wraps_on_the_device(cuda):
+    """Four calls across the epoch limit: each exact, the call at the limit
+    leaves every status word zero, and the epoch starts its lap again."""
+    from repro_torch.kernels import bucket_route as kbucket
+    from repro_torch.kernels import scratch
+
+    keys = _rank_keys("random", 8, 9 * RANK_TILE + 3, 8).to(cuda)
+    want = ref.bucket_ranks_ref(keys, 8)
+    limit = kbucket.epoch_limit()
+    token = ("gpu-test", "wrap")
+    try:
+        with scratch.scope(token):
+            ops.bucket_ranks(keys, 8)
+            sc = kbucket.scratch_of(cuda)
+            torch.cuda.synchronize()
+            sc.ctrl[0] = (limit - 2) << 32  # the next call runs limit - 1
+            for call in range(4):
+                got = ops.bucket_ranks(keys, 8)
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, w) for a, w in zip(got, want))
+                if call == 1:  # the call at the limit
+                    assert not sc.status.any()
+            assert int(sc.ctrl[0]) == 2 << 32 and int(sc.ctrl[1]) == 0
+    finally:
+        scratch.release(token)
+
+
+@pytest.mark.gpu
+def test_kernels_count_their_launches_on_the_device(cuda):
+    """Each launch adds one to its kernel's count on the device, eager or
+    replayed from a captured graph, as each wrapper call adds one to its
+    host count."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    keys = torch.randint(0, 9, (4, 5000), generator=g).to(cuda, torch.int32)
+    vals = torch.rand(4, 5000, generator=g).to(cuda)
+    seg = torch.sort(torch.randint(0, 700, (4, 5000), generator=g),
+                     dim=-1).values.to(cuda, torch.int32)
+
+    def calls():
+        ops.bucket_ranks(keys, 8)
+        ops.bucket_ranks(keys, 8)
+        ops.segment_combine(vals, seg, 700, "min")
+
+    before = ops.device_launch_counts()
+    ops.reset_launch_counts()
+    calls()
+    after = ops.device_launch_counts()
+    assert ops.launch_counts() == {"bucket_ranks": 2,
+                                   "bucket_ranks_lanes": 0,
+                                   "segment_combine": 1}
+    assert {k: after[k] - before[k] for k in after} == {
+        "bucket_ranks": 2, "bucket_ranks_lanes": 0, "segment_combine": 1,
+        "segment_combine_join": 1}
+    from repro_torch.kernels import scratch
+
+    token = ("gpu-test", "launch counts")
+    side = torch.cuda.Stream(cuda)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with scratch.scope(token):
+            side.wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(side):
+                calls()  # sizes the scope's scratch before the capture
+            torch.cuda.current_stream(cuda).wait_stream(side)
+            with torch.cuda.graph(graph):
+                calls()
+        before = ops.device_launch_counts()
+        for _ in range(3):
+            graph.replay()
+        after = ops.device_launch_counts()
+    finally:
+        del graph
+        scratch.release(token)
+    assert {k: after[k] - before[k] for k in after} == {
+        "bucket_ranks": 6, "bucket_ranks_lanes": 0, "segment_combine": 3,
+        "segment_combine_join": 3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,k", [("fused", 64), ("chunked", 3)])
+@pytest.mark.parametrize("key", ["wcc:basic", "pagerank:scatter", "sv:both",
+                                 "pj:reqresp"])
+def test_device_modes_match_host_on_the_card(cuda, key, mode, k):
+    """Scale 10, W = 8: the captured loop against the host loop on one
+    card — outputs, supersteps, halts, per-channel counts and kernel
+    launches identical (the runtime's counts for its replays, and the
+    kernels' own counts on the device); a second run is a cache hit and
+    leaves the first result as it was."""
+    spec = REGISTRY[key]
+    graph = spec.make_graph(10, 0)
+    inputs = spec.inputs(graph, 0)
+    pg = pgraph.partition_graph(graph, 8, "random", build=spec.build)
+    ops.reset_launch_counts()
+    host = Engine(device=cuda).run(spec.factory(**inputs), pg)
+    host_launches = ops.launch_counts()
+    eng = Engine(mode=mode, chunk_size=k, device=cuda)
+    prog = spec.factory(**inputs)
+    ops.reset_launch_counts()
+    res = eng.run(prog, pg)
+    assert ops.launch_counts() == host_launches
+    first = {name: v.clone() for name, v in res.state.items()}
+    again = eng.run(prog, pg)
+    assert again.cache_hit and not res.cache_hit and eng.compiles == 1
+    for run in (res, again):
+        assert (run.steps, run.halted) == (host.steps, host.halted)
+        assert run.bytes_by_channel == host.bytes_by_channel
+        assert run.msgs_by_channel == host.msgs_by_channel
+        assert all(bits_equal(run.state[n], host.state[n])
+                   for n in host.state)
+    assert all(bits_equal(res.state[n], first[n]) for n in first)
+    before = ops.device_launch_counts()
+    eng.run(prog, pg)
+    after = ops.device_launch_counts()
+    on_device = {k: after[k] - before[k] for k in after}
+    assert on_device.pop("segment_combine_join") == on_device[
+        "segment_combine"]
+    assert on_device == host_launches
+    assert res.dispatches == -(-host.steps // min(k, prog.max_steps))
+    spec.check(graph, pg, res, inputs)
+    eng.clear_cache()
+
+
+@pytest.mark.gpu
+def test_a_capture_that_meets_a_host_sync_raises(cuda):
+    """A step that reads a flag back to the host cannot be captured: the
+    capture raises, naming the program, and nothing runs eagerly."""
+    from repro_torch.pregel import runtime
+
+    pg = pgraph.partition_graph(REGISTRY["wcc:basic"].make_graph(8, 0), 8,
+                                "random", build=("raw_out",))
+
+    def step(ctx, gs, state, i):
+        x = state["x"] + 1
+        return {"x": x}, bool((x > 3).all())
+
+    x0 = {"x": torch.zeros_like(pg.v_mask, dtype=torch.int32)}
+    assert runtime.run_supersteps(pg, step, x0).steps == 4  # host mode
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="sync-probe: .*capturing"):
+        runtime.DeviceLoop(pg, step, x0, mode="fused", max_steps=10,
+                           name="sync-probe")
+    # the loop still runs a capture-safe step on this card
+    res = runtime.run_supersteps(
+        pg, lambda c, g, s, i: ({"x": s["x"] + 1}, (s["x"] >= 3).all(dim=1)),
+        x0, mode="fused")
+    assert res.steps == 4 and res.halted

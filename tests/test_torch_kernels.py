@@ -20,6 +20,7 @@ from repro_torch.core import combiners as cb
 from repro_torch.kernels import bucket_route as kbucket
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import segment_combine as kseg
 
 INF = float("inf")
 
@@ -169,24 +170,44 @@ def test_bucket_kernels_reject_too_many_rows():
 
 
 def test_bucket_scratch_epochs_and_growth():
-    """The kernels' scratch: a new epoch every call; zeroed status words
-    (epoch 1 again) when a call needs more of them or the epochs run out;
-    zero words that only grow."""
+    """The kernels' scratch: the epoch lives on the device in ``ctrl``,
+    which the kernel keeps and no growth replaces; the status and zero
+    words are replaced, zeroed, only when a call needs more of them."""
     s = kbucket._Scratch(torch.device("cpu"))
-    status, zero, epoch = s.take(10, 2)
-    assert epoch == 1 and status.numel() == 10 and zero.numel() == 1
-    assert not status.any() and not zero.any()
-    again, zero2, epoch = s.take(6, 2)
-    assert epoch == 2 and again is status and zero2 is zero
-    status.fill_(7)  # what a launch leaves in its status words
-    grown, zero3, epoch = s.take(11, 9)
-    assert epoch == 1 and grown.numel() == 11 and not grown.any()
-    assert 2 * zero3.numel() >= 9 and not zero3.any()
-    s.epoch = kbucket.EPOCH_LIMIT - 1
-    assert s.take(5, 2)[2] == kbucket.EPOCH_LIMIT
-    grown.fill_(7)
-    fresh, _, epoch = s.take(5, 2)
-    assert epoch == 1 and fresh is not grown and not fresh.any()
+    status, ctrl, zero = s.take(10)
+    assert status.numel() == 10 and ctrl.numel() == 2 and zero.numel() == 0
+    assert not status.any() and not ctrl.any()
+    again, ctrl2, zero2 = s.take(6)
+    assert again is status and ctrl2 is ctrl and zero2 is zero
+    status.fill_(7)  # what launches leave: tagged words, a later epoch
+    ctrl[0] = 5 << 32
+    grown, ctrl3, zero3 = s.take(11, 9)
+    assert grown.numel() == 11 and not grown.any()
+    assert zero3.numel() == 9 and not zero3.any()
+    assert ctrl3 is ctrl and int(ctrl[0]) == 5 << 32  # the epoch goes on
+    assert s.take(4, 3)[2] is zero3
+
+
+def test_segment_chunk_table_growth_and_scratch_scopes():
+    """The chunk table only grows, zeroed; under a scratch scope every
+    launch on a device shares one scratch whatever its stream, and
+    releasing the scope drops it."""
+    from repro_torch.kernels import scratch
+
+    t = kseg._Chunks(torch.device("cpu"))
+    table = t.take(5)
+    assert table.numel() == 5 and not table.any() and t.take(3) is table
+    assert t.take(8).numel() == 8
+    dev = torch.device("cpu")
+    with scratch.scope("probe"):
+        assert scratch.key(dev) == (None, "scope", "probe")
+        kept = kbucket.scratch_of(dev)
+        assert kbucket.scratch_of(dev) is kept
+        assert kseg.chunks_of(dev) is kseg.chunks_of(dev)
+    scratch.release("probe")
+    with scratch.scope("probe"):
+        assert kbucket.scratch_of(dev) is not kept
+    scratch.release("probe")
 
 
 def test_bucket_ranks_lanes_kernel_rejects_what_it_cannot_hold():
