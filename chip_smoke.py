@@ -20,8 +20,10 @@ channel (``wcc:prop``, ``sssp:prop``, ``scc:basic``/``prop``: a local
 fixpoint between cut exchanges, every combine a ``segment_combine``
 launch on ids sorted at plan build), and the device modes (``fused``,
 ``chunked``: K supersteps captured into one CUDA graph, each under an IF
-node, replayed once a dispatch) for the 13 programs without an inner
-host loop. Phases, one or more lines each:
+node, replayed once a dispatch) for all 20 programs, the inner loops of
+seven of them (pointer jumping, label propagation, the Propagation
+channel's rounds and local fixpoints) as WHILE nodes nested inside the
+IF nodes. Phases, one or more lines each:
 
   1. environment and kernel build;
   2. each kernel against its plain PyTorch version on the card, the two
@@ -40,7 +42,11 @@ host loop. Phases, one or more lines each:
      replayed on fresh inputs (``bucket_ranks`` four times, the lanes
      kernel, ``segment_combine``'s int32 ``min`` and ``min_by_first``
      three times, with a run of empty segments that moves), every replay
-     exact; ``bucket_ranks`` across the end of its epoch lap;
+     exact; ``bucket_ranks`` across the end of its epoch lap, eagerly and
+     inside a WHILE node; before that, the WHILE node alone in one
+     captured graph (inside an IF, inside a WHILE inside an IF, zero
+     trips, replayed from fresh trip counts and with the IF false), every
+     loop counting its iterations exactly;
   3. reference traffic counts at scale 12, W=8 (exact), solo and batched
      (every batched lane bit-identical to its solo run), and the nine
      composition-layer programs (six S-V variants, ``wcc:switch``,
@@ -69,9 +75,11 @@ host loop. Phases, one or more lines each:
      ``sssp:prop`` (oracle; ``sssp:basic``'s distances bit for bit),
      ``scc:basic``/``prop`` (scipy's strong components; ``scc:prop`` below
      ``scc:basic`` in bytes), each with its launches (``segment_combine``
-     in all four, ``bucket_ranks`` in ``scc:basic``); the 13 programs
-     without an inner host loop on those partitions in host mode and in
-     ``fused``, ``chunked`` K=64 and ``chunked`` K=4 (the second, cached
+     in all four, ``bucket_ranks`` in ``scc:basic``); all 20 programs
+     (the seven with inner loops among them, whose kernels then launch
+     many times inside one graph launch) on those partitions in host
+     mode and in ``fused``, ``chunked`` K=64 and ``chunked`` K=4 (the
+     second, cached
      run each), each bit-identical to host mode and launching each kernel
      as often, as the kernels count their launches on the device: wall
      time, capture time, dispatches, host overhead a superstep and peak
@@ -86,8 +94,8 @@ host loop. Phases, one or more lines each:
      with its stable sort, and as the int32 ``min`` at ``wcc:prop``'s
      ``int_dst``), and one run of each program (the batched sssp,
      ``sv:composed``, ``pagerank:basic``, ``msf:channels``, the four
-     Propagation programs and the fused ``pagerank:scatter`` and
-     ``wcc:basic`` among them) under torch.profiler
+     Propagation programs and the fused ``pagerank:scatter``,
+     ``wcc:basic`` and ``wcc:prop`` among them) under torch.profiler
      (device busy share, top kernels and aten ops;
      ``chiprun_out/profile_*.txt``).
 
@@ -123,7 +131,7 @@ LAUNCH_EVENTS = {"bucket_ranks": "::ranks_kernel<false>",
 MODE_RUNS = {"fused": ("fused", 64), "chunked64": ("chunked", 64),
              "chunked4": ("chunked", 4)}
 # the programs whose fused run phase 5 profiles
-PROFILED_FUSED = ("pagerank:scatter", "wcc:basic")
+PROFILED_FUSED = ("pagerank:scatter", "wcc:basic", "wcc:prop")
 
 # (supersteps, messages, bytes, bytes by channel) of the composition
 # layer's programs at scale 12, W=8, random partitioner: the S-V variants
@@ -758,7 +766,8 @@ def epoch_wrap_check(dev, g) -> dict:
     """``bucket_ranks`` across the end of its epoch lap, at wcc's
     route-key shape: four calls from epoch limit - 1 on, each exact; the
     call at the limit leaves every status word zero; the epoch then runs
-    1, 2 — all on the device, no host-side reset."""
+    1, 2 — all on the device, no host-side reset. Then the same four
+    launches inside a WHILE node (:func:`epoch_wrap_in_a_while`)."""
     import torch
     from repro_torch.kernels import bucket_route as kbucket
     from repro_torch.kernels import ops, ref as kref
@@ -791,7 +800,143 @@ def epoch_wrap_check(dev, g) -> dict:
     finally:
         scratch.release(token)
     return dict(limit=limit, stored_epochs=epochs,
-                status_words=int(sc.status.numel()))
+                status_words=int(sc.status.numel()),
+                in_a_while=epoch_wrap_in_a_while(dev, keys, want))
+
+
+def counting_loops(nest, go, n, out) -> None:
+    """Under an IF node on ``go``: a WHILE that counts to ``n[0]``; a WHILE
+    of ``n[1]`` rounds that holds a WHILE of ``n[2]`` iterations, counting
+    both; a WHILE whose condition is false on entry. The four counts go
+    to ``out``."""
+    import torch
+
+    with nest.if_node(go):
+        a = torch.zeros((), dtype=torch.int32, device=go.device)
+        more_a = a < n[0]
+        with nest.while_node(more_a):
+            a.add_(1)
+            more_a.copy_(a < n[0])
+        rounds = torch.zeros_like(a)
+        inner = torch.zeros_like(a)
+        more_r = rounds < n[1]
+        with nest.while_node(more_r):
+            j = torch.zeros_like(a)
+            more_j = j < n[2]
+            with nest.while_node(more_j):
+                j.add_(1)
+                inner.add_(1)
+                more_j.copy_(j < n[2])
+            rounds.add_(1)
+            more_r.copy_(rounds < n[1])
+        z = torch.zeros_like(a)
+        never = z > 0
+        with nest.while_node(never):
+            z.add_(1)
+            never.copy_(z < 100)
+        out.copy_(torch.stack([a, rounds, inner, z]))
+
+
+def while_node_check(dev) -> dict:
+    """The WHILE conditional node (``kernels.graph_if``) in one captured
+    graph, before any program runs on it: a WHILE inside an IF, a WHILE
+    inside a WHILE inside an IF, and a zero-trip WHILE
+    (:func:`counting_loops`), replayed from fresh trip counts, once with
+    the IF false: every loop runs exactly as often as its condition says
+    and a false IF runs none of them."""
+    import torch
+    from repro_torch.kernels import graph_if
+
+    go = torch.ones((), dtype=torch.bool, device=dev)
+    n = torch.zeros(3, dtype=torch.int32, device=dev)
+    out = torch.zeros(4, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    nest = graph_if.Nest(dev)
+    graph = torch.cuda.CUDAGraph()
+    side.wait_stream(torch.cuda.current_stream(dev))
+    replays = []
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            try:
+                counting_loops(nest, go, n, out)
+            finally:
+                nest.close()
+        depth = len(nest.streams)
+        check(depth == 3, f"the WHILE check captured {depth} body depths")
+        for trips, run in (((5, 3, 7), True), ((1, 6, 0), True),
+                           ((2, 2, 2), False), ((64, 1, 33), True)):
+            n.copy_(torch.tensor(trips, dtype=torch.int32))
+            go.fill_(run)
+            out.fill_(-1)
+            graph.replay()
+            torch.cuda.synchronize()
+            a, r, j = trips
+            want = [a, r, r * j, 0] if run else [-1] * 4
+            got = out.tolist()
+            check(got == want, f"WHILE nodes with trips {trips}, IF {run}: "
+                  f"counted {got}, want {want}")
+            replays.append(dict(trips=trips, if_taken=run, counts=got))
+    finally:
+        del graph
+        nest.release()
+    return dict(depths=depth, replays=replays)
+
+
+def epoch_wrap_in_a_while(dev, keys, want) -> dict:
+    """``bucket_ranks`` across the end of its epoch lap inside a WHILE
+    node: one replay of a captured graph whose WHILE body launches the
+    kernel four times from epoch limit - 1 on, each launch exact (the
+    body counts the wrong ranks and counts on the device), the kernel
+    counting four launches on the device, the epoch at 2 after."""
+    import torch
+    from repro_torch.kernels import bucket_route as kbucket
+    from repro_torch.kernels import graph_if, ops, scratch
+
+    limit = kbucket.epoch_limit()
+    token = ("chip_smoke", "epoch wrap in a WHILE")
+    trips = torch.zeros((), dtype=torch.int32, device=dev)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    done = torch.zeros((), dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    nest = graph_if.Nest(dev)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with scratch.scope(token):
+            ops.bucket_ranks(keys, W)  # sizes the scope's scratch
+            sc = kbucket.scratch_of(dev)
+            torch.cuda.synchronize()
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.graph(graph, stream=side):
+                try:
+                    i = torch.zeros((), dtype=torch.int32, device=dev)
+                    more = i < trips
+                    with nest.while_node(more):
+                        rank, counts = ops.bucket_ranks(keys, W)
+                        bad.add_((rank != want[0]).sum()
+                                 + (counts != want[1]).sum())
+                        i.add_(1)
+                        more.copy_(i < trips)
+                    done.copy_(i)
+                finally:
+                    nest.close()
+            sc.ctrl[0] = (limit - 2) << 32  # the next launch runs limit - 1
+            trips.fill_(4)
+            _, launched = on_device_launches(
+                lambda: (graph.replay(), torch.cuda.synchronize()))
+            epoch = int(sc.ctrl[0]) >> 32
+            check(int(done) == 4 and int(bad) == 0,
+                  f"bucket_ranks in a WHILE across the epoch limit: "
+                  f"{int(done)} launches, {int(bad)} wrong ranks/counts")
+            check(launched["bucket_ranks"] == 4,
+                  f"the WHILE body launched bucket_ranks "
+                  f"{launched['bucket_ranks']} times on the device, not 4")
+            check(epoch == 2 and int(sc.ctrl[1]) == 0,
+                  f"epoch words after the WHILE: {epoch}, {int(sc.ctrl[1])}")
+    finally:
+        del graph
+        nest.release()
+        scratch.release(token)
+    return dict(launches=4, stored_epoch=epoch)
 
 
 def strong_components(graph):
@@ -1307,11 +1452,18 @@ def main() -> int:
     # modes replay): each capture replayed on fresh inputs, exact; and
     # bucket_ranks across the end of its epoch lap
     t = time.perf_counter()
+    whiles = while_node_check(dev)
     replays = replay_checks(dev, g, lkeys, sv_plan, wcc_pg.n_loc,
                             msf_calls[1])
     wrap = epoch_wrap_check(dev, g)
-    detail["kernel_checks"].update(captured_replays=replays, epoch_wrap=wrap)
-    print(f"[2/5] the kernels in a captured CUDA graph, each replay on fresh "
+    detail["kernel_checks"].update(while_nodes=whiles,
+                                   captured_replays=replays, epoch_wrap=wrap)
+    print(f"[2/5] WHILE nodes in one captured graph (inside an IF, inside "
+          f"a WHILE inside an IF, zero trips; {whiles['depths']} body "
+          f"depths), every replay counting exactly: "
+          + ", ".join(f"trips {r['trips']} IF {r['if_taken']} -> "
+                      f"{r['counts']}" for r in whiles["replays"])
+          + "; the kernels in a captured CUDA graph, each replay on fresh "
           f"inputs exact against plain: {', '.join(replays)} (bucket_ranks "
           f"({W}, 2^21) random/sorted/one bucket/reversed, the lanes kernel "
           f"at {tuple(lkeys.shape)} x {NQ} lanes, int32 min at the S-V "
@@ -1321,7 +1473,9 @@ def main() -> int:
           f"a run of empty segments that moves each replay); bucket_ranks "
           f"across the epoch limit {wrap['limit']}: stored epochs "
           f"{wrap['stored_epochs']}, every call exact, the "
-          f"{wrap['status_words']} status words zeroed at the limit "
+          f"{wrap['status_words']} status words zeroed at the limit, and "
+          f"the same four launches inside a WHILE node exact, epoch "
+          f"{wrap['in_a_while']['stored_epoch']} after "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
     # -- 3. reference counts at scale 12 ------------------------------------
@@ -1760,10 +1914,11 @@ def main() -> int:
         raise SmokeFailure(f"paper table at scale {FULL_SCALE}: {err}") \
             from None
     detail["paper_table"] = table20
+    check(all(r["fused"] is not None for r in table20["rows"]),
+          "a row of the paper table has no fused entry")
+
     def fused_col(r):
         f = r["fused"]
-        if f is None:
-            return f"fused: none ({r['fused_note']})"
         return (f"fused {1e3 * f['wall_time_s']:.1f} ms/"
                 f"{f['ms_per_superstep']:.2f} ms a superstep/"
                 f"{f['dispatches']} dispatch/capture "
@@ -1946,8 +2101,9 @@ def main() -> int:
           f"{prop_oracle_s:.1f} s; {time.perf_counter() - t:.1f} s)",
           flush=True)
 
-    # the device modes at full size: the 13 programs without an inner host
-    # loop on the partitions built above, each in host mode and then fused,
+    # the device modes at full size: all 20 programs on the partitions
+    # built above (the seven with inner loops, which run as WHILE nodes of
+    # the captured graph, among them), each in host mode and then fused,
     # chunked at K=64 and chunked at K=4 (two runs each: the first pays the
     # warm-up and the capture, the second replays the cached graph and is
     # the one reported), every device-mode run bit-identical to the host
@@ -1955,14 +2111,15 @@ def main() -> int:
     # launching each kernel as often, as the kernels count their launches
     # on the device
     t = time.perf_counter()
-    # the programs whose superstep has no inner host loop (the others
-    # refuse the device modes)
-    device_keys = tuple(k for k, s in REGISTRY.items() if s.device_modes)
+    device_keys = tuple(REGISTRY)
     mode_jobs = {key: wcc_pg for key in device_keys
                  if key.split(":")[0] in ("wcc", "sv")}
     mode_jobs.update({"pagerank:basic": pr_pg, "pagerank:scatter": pr_pg,
                       "reach:basic": pr_pg, "sssp:basic": sssp_pg,
-                      "pj:basic": pj_pg, "pj:reqresp": pj_pg})
+                      "sssp:prop": sssp_pg, "pj:basic": pj_pg,
+                      "pj:reqresp": pj_pg, "msf:channels": msf_pg,
+                      "msf:monolithic": msf_pg, "scc:basic": scc_pg,
+                      "scc:prop": scc_pg})
     check(sorted(mode_jobs) == sorted(device_keys),
           "the device-mode programs and their partitions disagree")
     device_modes, fused_kept = {}, {}

@@ -13,8 +13,8 @@ Subcommands:
 
 Both take ``--mode host|fused|chunked`` (default ``host``) and
 ``--chunk-size K`` (default 64), as the JAX CLI does: the device modes
-run K supersteps a replay of a captured CUDA graph; the programs with an
-inner host loop refuse them (ROADMAP). Everything runs on the card
+run K supersteps a replay of a captured CUDA graph, every program's
+inner loops as WHILE nodes inside it. Everything runs on the card
 unless ``--device cpu`` is given. The JAX CLI's planner, checkpoints and
 the batched, serving and planning subcommands are not ported yet
 (ROADMAP).

@@ -52,11 +52,6 @@ class ProgramSpec:
       (bucket-routed channels, the ones the batched plane shares one
       union route pass across).
     test_scale: graph scale the tests default to.
-    device_modes: whether the program runs in the ``fused`` and
-      ``chunked`` modes. False for the programs whose superstep runs an
-      inner host loop (``pj_converge``, ``cm_propagate``, ``propagate``):
-      a CUDA graph cannot capture it, and those functions raise inside a
-      device loop (ROADMAP, queue 1, item 4).
     """
 
     key: str
@@ -71,7 +66,6 @@ class ProgramSpec:
     query_knob: Optional[str] = None
     channel_class: str = "static"
     test_scale: int = 8
-    device_modes: bool = True
 
     def inputs(self, graph: gen.EdgeList, seed: int = 0) -> Dict[str, Any]:
         return dict(self.make_inputs(graph, seed)) if self.make_inputs else {}
@@ -179,15 +173,13 @@ REGISTRY: Dict[str, ProgramSpec] = {
         key=f"wcc:{v}", algorithm="wcc", variant=v,
         factory=_bind(wcc.program, v),
         build=("scatter_out", "prop_out", "raw_out"),
-        make_graph=_sym_rmat, check=_check_components,
-        device_modes=v != "prop")
+        make_graph=_sym_rmat, check=_check_components)
        for v in wcc.VARIANTS},
     **{f"sv:{v}": ProgramSpec(
         key=f"sv:{v}", algorithm="sv", variant=v,
         factory=_bind(sv.program, v),
         build=("scatter_out", "prop_out", "raw_out"),
-        make_graph=_sym_rmat, check=_check_components,
-        device_modes=v != "composed")
+        make_graph=_sym_rmat, check=_check_components)
        for v in sv.VARIANTS},
     **{f"pj:{v}": ProgramSpec(
         key=f"pj:{v}", algorithm="pj", variant=v,
@@ -204,8 +196,7 @@ REGISTRY: Dict[str, ProgramSpec] = {
     **{f"msf:{v}": ProgramSpec(
         key=f"msf:{v}", algorithm="msf", variant=v,
         factory=_bind(msf.program, v), build=("raw_out",),
-        make_graph=_weighted_sym_rmat, check=_check_msf, test_scale=7,
-        device_modes=False)
+        make_graph=_weighted_sym_rmat, check=_check_msf, test_scale=7)
        for v in msf.VARIANTS},
     "reach:basic": ProgramSpec(
         key="reach:basic", algorithm="reach", variant="basic",
@@ -220,14 +211,12 @@ REGISTRY: Dict[str, ProgramSpec] = {
         build=("prop_out", "raw_out"),
         make_graph=_weighted_rmat, make_inputs=_source0, check=_check_sssp,
         make_queries=_random_sources, query_knob="source",
-        channel_class="routed" if v == "basic" else "static",
-        device_modes=v == "basic")
+        channel_class="routed" if v == "basic" else "static")
        for v in sssp.VARIANTS},
     **{f"scc:{v}": ProgramSpec(
         key=f"scc:{v}", algorithm="scc", variant=v,
         factory=_bind(scc.program, v), build=ALL_PLANS,
-        make_graph=_scc_rmat, check=_check_scc, test_scale=7,
-        device_modes=False)
+        make_graph=_scc_rmat, check=_check_scc, test_scale=7)
        for v in scc.VARIANTS},
 }
 

@@ -24,7 +24,7 @@ from repro_torch.core import compose
 from repro_torch.core import message as msg
 from repro_torch.core import request_respond as rr
 from repro_torch.core.channel import (TRAFFIC_DTYPE, ChannelContext,
-                                      on_device, refuse_in_device_loop)
+                                      inner_loop, on_device)
 
 
 def direct_request_respond(
@@ -96,6 +96,14 @@ def direct_request_respond(
     return (out[..., 0] if squeeze else out), overflow
 
 
+def _sum_traffic(tmp: ChannelContext, nb, nm):
+    """``nb``/``nm`` plus every key's traffic in ``tmp``, per worker."""
+    for key in tmp.stats_bytes:
+        nb = nb + tmp.stats_bytes[key]
+        nm = nm + tmp.stats_msgs[key]
+    return nb, nm
+
+
 def pj_converge(ctx: ChannelContext, parents: torch.Tensor,
                 mask: torch.Tensor, *, use_reqresp: bool = True,
                 max_iters: int = 64, name: str = "pj_loop",
@@ -105,31 +113,33 @@ def pj_converge(ctx: ChannelContext, parents: torch.Tensor,
     ``use_reqresp=False`` over the DirectMessage baseline
     (:func:`direct_request_respond`, ``wire_width`` bytes a message).
 
-    A host loop: each round requests the grandparents in a fresh
-    registry-free context and reads back one ``changed`` flag; it stops
-    when nothing changed or after ``max_iters`` rounds. The traffic of
-    every round, the last (unchanged) one included, is summed per worker
-    in int32 and charged once under ``name``, as the JAX package's
-    ``while_loop`` carries it. Returns (roots, rounds).
+    An inner loop (:func:`~repro_torch.core.channel.inner_loop`): each
+    round requests the grandparents in a fresh registry-free context; the
+    loop stops when nothing changed or after ``max_iters`` rounds. The
+    traffic of every round, the last (unchanged) one included, is summed
+    per worker in int32 and charged once under ``name``, as the JAX
+    package's ``while_loop`` carries it. Returns (roots, rounds): rounds
+    a Python int in host mode, a 0-d int32 tensor in the device modes.
     """
-    refuse_in_device_loop(ctx, "pj_converge")
     w, n_loc = ctx.num_workers, ctx.n_loc
-    nb = torch.zeros(w, dtype=TRAFFIC_DTYPE, device=ctx.device)
-    nm = torch.zeros_like(nb)
-    p, rounds, changed = parents, 0, True
-    while changed and rounds < max_iters:
-        tmp = ChannelContext(w, n_loc, ctx.device)
+
+    def body(carry):
+        p, _, rounds, nb, nm = carry
+        tmp = ChannelContext(w, n_loc, ctx.device,
+                             device_loop=ctx.device_loop)
         if use_reqresp:
             grand, _ = rr.request(tmp, p, mask, p, capacity=n_loc, name="x")
         else:
             grand, _ = direct_request_respond(tmp, p, mask, p, name="x",
                                               wire_width=wire_width)
         newp = torch.where(mask, grand, p)
-        for key in tmp.stats_bytes:
-            nb = nb + tmp.stats_bytes[key]
-            nm = nm + tmp.stats_msgs[key]
-        changed = bool((newp != p).any())
-        p, rounds = newp, rounds + 1
+        nb, nm = _sum_traffic(tmp, nb, nm)
+        return newp, (newp != p).any(), rounds + 1, nb, nm
+
+    nb = torch.zeros(w, dtype=TRAFFIC_DTYPE, device=ctx.device)
+    p, _, rounds, nb, nm = inner_loop(
+        ctx, lambda c: c[1] & (c[2] < max_iters), body,
+        (parents, True, 0, nb, torch.zeros_like(nb)))
     ctx.add_traffic(name, nb, nm)
     return p, rounds
 
@@ -145,34 +155,36 @@ def cm_propagate(ctx: ChannelContext, raw_edges, init: torch.Tensor,
     ``init`` is (W, n_loc) labels, ``active0`` the (W, n_loc) vertices
     that send in the first iteration; later, a vertex sends iff its label
     changed. ``update(lab, inc, got)`` gives the new labels (default: the
-    combiner of ``lab`` and ``inc``). A host loop in the style of
+    combiner of ``lab`` and ``inc``). An inner loop in the style of
     :func:`pj_converge`: each iteration sends in a fresh registry-free
-    context (the partition's ``route_cap`` copied) and reads back one
-    ``changed`` flag; the traffic of every iteration is summed per worker
-    in int32 and charged once under ``name``. Returns (labels,
-    iterations).
+    context (the partition's ``route_cap`` copied) and the loop stops
+    when no label changed or after ``max_iters`` iterations; the traffic
+    of every iteration is summed per worker in int32 and charged once
+    under ``name``. Returns (labels, iterations), as :func:`pj_converge`
+    returns its rounds.
     """
-    refuse_in_device_loop(ctx, "cm_propagate")
     comb = cb.get(combiner_name)
     w, n_loc = ctx.num_workers, ctx.n_loc
     upd = update or (lambda lab, inc, got: comb.fn(lab, inc))
     src = raw_edges.src_local.long()
-    nb = torch.zeros(w, dtype=TRAFFIC_DTYPE, device=ctx.device)
-    nm = torch.zeros_like(nb)
-    lab, active, iters, changed = init, active0, 0, True
-    while changed and iters < max_iters:
-        tmp = ChannelContext(w, n_loc, ctx.device, route_cap=ctx.route_cap)
+
+    def body(carry):
+        lab, active, _, iters, nb, nm = carry
+        tmp = ChannelContext(w, n_loc, ctx.device, route_cap=ctx.route_cap,
+                             device_loop=ctx.device_loop)
         valid = raw_edges.mask & active.gather(1, src)
         inc, got, _ = msg.combined_send(
             tmp, raw_edges.dst_global, valid, lab.gather(1, src), comb,
             capacity=tmp.edge_capacity(n_loc), name="x")
         new = upd(lab, inc, got)
         active = new != lab
-        for key in tmp.stats_bytes:
-            nb = nb + tmp.stats_bytes[key]
-            nm = nm + tmp.stats_msgs[key]
-        changed = bool(active.any())
-        lab, iters = new, iters + 1
+        nb, nm = _sum_traffic(tmp, nb, nm)
+        return new, active, active.any(), iters + 1, nb, nm
+
+    nb = torch.zeros(w, dtype=TRAFFIC_DTYPE, device=ctx.device)
+    lab, _, _, iters, nb, nm = inner_loop(
+        ctx, lambda c: c[2] & (c[3] < max_iters), body,
+        (init, active0, True, 0, nb, torch.zeros_like(nb)))
     ctx.add_traffic(name, nb, nm)
     return lab, iters
 

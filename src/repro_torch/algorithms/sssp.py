@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.core import message as msg
 from repro_torch.core import propagation as prop
+from repro_torch.core.channel import on_device
 from repro_torch.pregel.program import VertexProgram, gather_local, lane_view
 
 VARIANTS = ("basic", "prop")
@@ -78,8 +79,9 @@ def program(variant: str = "basic", *, source: int = 0,
             dist, rounds, iters = prop.propagate(
                 ctx, gs.prop_out, state["dist"], "min",
                 edge_transform=lambda v, w: v + w[..., None])
-            info = torch.stack([torch.full_like(iters, rounds), iters],
-                               dim=1)
+            info = torch.stack([on_device(rounds, iters.device,
+                                          iters.dtype).expand_as(iters),
+                                iters], dim=1)
             return {"dist": dist, "info": info}, True
 
         return VertexProgram(

@@ -31,6 +31,7 @@ import torch
 from repro_torch.core import compose
 from repro_torch.core import message as msg
 from repro_torch.core import propagation as prop
+from repro_torch.core.channel import on_device
 from repro_torch.pregel.program import VertexProgram
 
 INF32 = torch.iinfo(torch.int32).max
@@ -61,8 +62,9 @@ def program(variant: str = "prop", *, max_steps: int = 10_000,
             lab, rounds, iters = prop.propagate(ctx, gs.prop_out,
                                                 state["lab"], "min")
             lab = torch.where(gs.v_mask, lab, INF32)
-            info = torch.stack([torch.full_like(iters, rounds), iters],
-                               dim=1)
+            info = torch.stack([on_device(rounds, iters.device,
+                                          iters.dtype).expand_as(iters),
+                                iters], dim=1)
             return {"lab": lab, "info": info}, True
 
         return VertexProgram(

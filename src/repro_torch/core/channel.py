@@ -13,6 +13,11 @@ like the JAX ones; the host-driven loop accumulates them across
 supersteps in Python ints and raises ``TrafficWrapError`` on a negative
 per-step delta.
 
+A loop inside a superstep (pointer jumping, label propagation, the
+Propagation channel's fixpoints) is an :func:`inner_loop`: a Python loop
+in host mode, a WHILE node of the captured graph in the fused and
+chunked modes, as the JAX package's ``lax.while_loop``.
+
 Under the batched query plane (``num_queries=Q``) the context also
 carries the query axis: every state leaf is ``(W, Q, n_loc, ...)``, the
 ``(Q,)`` pre-step liveness ``query_live`` tells the routed channels which
@@ -23,7 +28,7 @@ deltas (or a scalar, broadcast).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,16 +51,111 @@ def on_device(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(dtype)
 
 
-def refuse_in_device_loop(ctx: "ChannelContext", what: str) -> None:
-    """Raise when ``ctx`` belongs to a superstep the runtime runs on the
-    device (``fused``/``chunked``): ``what`` has an inner host loop that
-    reads back a flag every iteration, which a CUDA graph cannot hold."""
-    if ctx.device_loop:
-        raise NotImplementedError(
-            f"{what} runs an inner host loop (one readback an iteration), "
-            "which the fused and chunked modes cannot capture yet: run this "
-            "program with mode='host' (see ROADMAP, queue 1, item 4: the "
-            "inner loops on the device)")
+@dataclasses.dataclass(frozen=True)
+class DeviceLoopHooks:
+    """What the runtime's device loop (``fused``/``chunked``) lends the
+    steps it runs, for their inner loops (:func:`inner_loop`).
+
+    read: reads a 0-d flag back to the host outside the loop's host-sync
+      guard — how an eager inner loop (the CPU, or the warm-up step on
+      the card) decides whether to go on.
+    nest: while the card captures the loop, the body streams of its
+      conditional nodes (``kernels.graph_if.Nest``); None when the step
+      runs eagerly.
+    """
+
+    read: Callable[[torch.Tensor], bool]
+    nest: Any = None
+
+
+def _as_carry(x, device: torch.device) -> torch.Tensor:
+    """A carry element as a device tensor: a Python bool becomes a bool,
+    an int an int32 counter (the JAX ``while_loop``'s), a tensor itself."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if isinstance(x, bool):
+        return on_device(x, device, torch.bool)
+    if isinstance(x, int):
+        return on_device(x, device, torch.int32)
+    raise TypeError(f"a loop's carry holds tensors, bools and ints, not "
+                    f"{type(x).__name__}")
+
+
+def store(bufs: Sequence[torch.Tensor], new: Sequence) -> None:
+    """``new`` into the buffers ``bufs``, element by element, in place:
+    shapes and dtypes must match (a loop on the device keeps a fixed
+    layout). A value that shares storage with a buffer is cloned first, so
+    no copy reads a buffer another copy has already written."""
+    new = tuple(new)
+    if len(new) != len(bufs):
+        raise ValueError(f"a loop's carry has {len(bufs)} elements, its "
+                         f"body returned {len(new)}")
+    pending = []
+    for buf, v in zip(bufs, new):
+        if v is buf:
+            continue
+        if not isinstance(v, torch.Tensor):
+            v = on_device(v, buf.device, buf.dtype)
+        elif v.shape != buf.shape or v.dtype != buf.dtype:
+            raise ValueError(
+                f"a loop's body changes a carry element from {buf.dtype} "
+                f"{tuple(buf.shape)} to {v.dtype} {tuple(v.shape)}; a loop "
+                "on the device needs a fixed layout")
+        elif any(v.untyped_storage().data_ptr()
+                 == b.untyped_storage().data_ptr() for b in bufs):
+            v = v.clone()
+        pending.append((buf, v))
+    for buf, v in pending:
+        buf.copy_(v)
+
+
+def inner_loop(ctx: "ChannelContext", cond: Callable, body: Callable,
+               carry: Sequence) -> tuple:
+    """``while cond(carry): carry = body(carry)`` — the port of the JAX
+    package's ``lax.while_loop`` for a loop inside a superstep. ``carry``
+    is a tuple of tensors (and, in host mode, Python numbers); ``cond``
+    gives a 0-d bool tensor (or a Python bool) from it, ``body`` the next
+    carry. Returns the last carry.
+
+      - host mode (``ctx.device_loop`` unset): a Python loop, one
+        readback of ``cond`` an iteration; Python numbers stay Python
+        numbers.
+      - a device loop that runs eagerly (the CPU, or the warm-up step on
+        the card): the carry becomes device tensors (an int an int32
+        counter), copied into buffers; ``cond`` is read outside the
+        host-sync guard, and ``body`` runs under it and writes its carry
+        back into the buffers.
+      - a device loop that the card captures: the same buffers, made
+        before the node, and a WHILE node of the captured graph
+        (``kernels.graph_if``) whose body is ``body`` captured once; its
+        condition, ``cond`` of the buffers, is read on the device when
+        the graph reaches the node and after each run of the body.
+    """
+    hooks = ctx.device_loop
+    carry = tuple(carry)
+    if hooks is None:
+        while bool(cond(carry)):
+            carry = tuple(body(carry))
+        return carry
+    bufs = tuple(_as_carry(x, ctx.device).clone() for x in carry)
+
+    def go():
+        flag = cond(bufs)
+        if not (isinstance(flag, torch.Tensor) and flag.dtype == torch.bool
+                and flag.numel() == 1):
+            raise TypeError("a loop on the device takes a one-element bool "
+                            f"tensor as its condition, got {flag!r}")
+        return flag.reshape(())
+
+    if hooks.nest is None:
+        while hooks.read(go()):
+            store(bufs, body(bufs))
+        return bufs
+    pred = go().clone()
+    with hooks.nest.while_node(pred):
+        store(bufs, body(bufs))
+        pred.copy_(go())
+    return bufs
 
 
 def key_under(key: str, prefix: str) -> bool:
@@ -107,8 +207,9 @@ class ChannelContext:
     num_queries: Optional[int] = None
     query_live: Optional[torch.Tensor] = None
     # set by the fused and chunked modes: the step runs inside a loop on
-    # the device (a CUDA graph on the card), so no inner host loop may run
-    device_loop: bool = False
+    # the device (a CUDA graph on the card), and its inner loops
+    # (inner_loop) run there too
+    device_loop: Optional[DeviceLoopHooks] = None
 
     def __post_init__(self):
         if self.registry is not None:

@@ -10,8 +10,11 @@ counts the logical messages a sparse implementation would send, as the
 paper counts them).
 
 The JAX package runs two nested ``while_loop``s under ``vmap``. Here W is
-the leading dim and both loops are host loops, each iteration ending in
-one readback of its continue flag. A worker whose local fixpoint has
+the leading dim and both loops are inner loops
+(``repro_torch.core.channel.inner_loop``): in host mode each iteration
+ends in one readback of its continue flag; in the fused and chunked
+modes the rounds are a WHILE node of the captured superstep and the
+local fixpoint a WHILE node inside it. A worker whose local fixpoint has
 converged keeps its labels and its iteration count while the others go
 on, as under ``vmap``, so the per-worker iteration counts match the
 reference's.
@@ -33,7 +36,7 @@ import torch
 
 from repro_torch.core import combiners as cb
 from repro_torch.core.channel import (TRAFFIC_DTYPE, ChannelContext,
-                                      refuse_in_device_loop)
+                                      inner_loop)
 from repro_torch.core.routing import exchange, pack
 from repro_torch.graph.pgraph import PropPlan
 from repro_torch.kernels import ops as kops
@@ -67,14 +70,14 @@ def propagate(
         out-neighbours (default: identity; used e.g. to mask frozen
         vertices).
     Returns:
-      (labels, outer rounds (int), local iterations (W,) int32 summed
-      over the rounds).
+      (labels, outer rounds, local iterations (W,) int32 summed over the
+      rounds). The rounds are a Python int in host mode and a 0-d int32
+      tensor in the device modes, as the JAX ``while_loop`` returns them.
     """
     if ctx.batched:
         raise NotImplementedError(
             "the Propagation channel under the batched query plane is not "
             "ported yet (see ROADMAP: batched sssp:prop)")
-    refuse_in_device_loop(ctx, "propagate")
     combiner = cb.get(combiner)
     squeeze = init_vals.dim() == 2
     lab = init_vals[..., None] if squeeze else init_vals
@@ -99,10 +102,8 @@ def propagate(
     def local_fixpoint(lab):
         # per worker: iterate while its labels change, at most max_inner
         # times; a converged worker keeps its carry (the vmapped loop)
-        active = torch.full((w,), max_inner > 0, dtype=torch.bool,
-                            device=dev)
-        iters = torch.zeros(w, dtype=torch.int32, device=dev)
-        while bool(active.any()):
+        def body(carry):
+            lab, active, iters = carry
             pe = srcv(lab).gather(1, int_src)
             if edge_transform is not None:
                 pe = edge_transform(pe, plan.int_w)
@@ -111,7 +112,13 @@ def propagate(
             changed = changed_rows(new, lab)
             lab = torch.where(active[:, None, None], new, lab)
             iters = iters + active.to(torch.int32)
-            active = active & changed & (iters < max_inner)
+            return lab, active & changed & (iters < max_inner), iters
+
+        active = torch.full((w,), max_inner > 0, dtype=torch.bool,
+                            device=dev)
+        iters = torch.zeros(w, dtype=torch.int32, device=dev)
+        lab, _, iters = inner_loop(ctx, lambda c: c[1].any(), body,
+                                   (lab, active, iters))
         return lab, iters
 
     # owner of each unique cut destination (W = padding)
@@ -142,14 +149,9 @@ def propagate(
         return pe, mine, changed_h
 
     width = d * lab.element_size()
-    prev_u = torch.full((w, cut.u_cap, d), ident, dtype=dtype, device=dev)
-    prev_hub = torch.full((w, cut.hub_cap, d), ident, dtype=dtype,
-                          device=dev)
-    nbytes = torch.zeros(w, dtype=TRAFFIC_DTYPE, device=dev)
-    nmsgs = torch.zeros_like(nbytes)
-    iters = torch.zeros(w, dtype=torch.int32, device=dev)
-    rounds, changed = 0, True
-    while changed and rounds < max_outer:
+
+    def round_(carry):
+        lab, prev_u, prev_hub, nbytes, nmsgs, iters, rounds, _ = carry
         lab, it = local_fixpoint(lab)
 
         # cut exchange: scatter-combine over the cut edges, changed-only
@@ -163,12 +165,19 @@ def propagate(
         inc = kops.segment_combine(recv.gather(1, recv_order),
                                    cut.recv_sorted, n_loc, combiner)
         new = upd(lab, inc)
-        changed = bool(changed_rows(new, lab).any())
         delta = remote_changed + changed_h * (w - 1)
-        nbytes = nbytes + delta * width
-        nmsgs = nmsgs + delta
-        lab, prev_u, prev_hub = new, u_vals, prev_hub_next
-        iters = iters + it
-        rounds += 1
+        return (new, u_vals, prev_hub_next, nbytes + delta * width,
+                nmsgs + delta, iters + it, rounds + 1,
+                changed_rows(new, lab).any())
+
+    prev_u = torch.full((w, cut.u_cap, d), ident, dtype=dtype, device=dev)
+    prev_hub = torch.full((w, cut.hub_cap, d), ident, dtype=dtype,
+                          device=dev)
+    nbytes = torch.zeros(w, dtype=TRAFFIC_DTYPE, device=dev)
+    iters = torch.zeros(w, dtype=torch.int32, device=dev)
+    lab, _, _, nbytes, nmsgs, iters, rounds, _ = inner_loop(
+        ctx, lambda c: c[7] & (c[6] < max_outer), round_,
+        (lab, prev_u, prev_hub, nbytes, torch.zeros_like(nbytes), iters, 0,
+         True))
     ctx.add_traffic(name, nbytes, nmsgs)
     return (lab[..., 0] if squeeze else lab), rounds, iters

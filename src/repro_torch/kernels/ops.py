@@ -13,13 +13,13 @@ Each kernel keeps an integer launch count (:func:`launch_counts`), so a
 run can show that its main path went through the kernels. The wrapper
 adds one where it launches. A superstep loop captured into a CUDA graph
 (the ``fused`` and ``chunked`` modes) launches its kernels by replaying
-the graph, without the wrappers: the runtime records the launches a
-captured superstep makes and adds them, times the supersteps each replay
-ran, with :func:`add_replayed`, so the counts read the same in every
-mode. Those replayed counts are computed, not counted at a launch. The
-kernels also count their own launches on the device
-(:func:`device_launch_counts`), replays included: ``chip_smoke.py``
-holds every mode's launches to those.
+the graph, without the wrappers, and a kernel inside an inner loop's
+WHILE node as often as the loop runs. So the kernels also count their
+own launches on the device (:func:`device_launch_counts`, one atomic add
+a launch, replays included), and the runtime adds what they counted
+during its replays with :func:`add_replayed`: the counts read the same
+in every mode. ``chip_smoke.py`` holds every mode's launches to the
+host run's wrapper counts.
 
 :func:`segment_reduce` is the channels' reduction over *unsorted* ids:
 the combiners whose result depends on the order of the combines (float
@@ -72,11 +72,12 @@ def set_wrapper_launch_counts(counts: Dict[str, int]) -> None:
     kseg.launches = counts["segment_combine"]
 
 
-def add_replayed(per_step: Dict[str, int], steps: int) -> None:
-    """Count the launches of ``steps`` replayed supersteps, each making
-    ``per_step`` launches of each kernel."""
-    for name, n in per_step.items():
-        _replayed[name] += n * steps
+def add_replayed(launched: Dict[str, int]) -> None:
+    """Count the launches ``launched`` of each kernel that replays of a
+    captured graph made (as :func:`device_launch_counts` differ across
+    them); keys that are no wrapper's are ignored."""
+    for name in _replayed:
+        _replayed[name] += launched.get(name, 0)
 
 
 def launch_counts() -> Dict[str, int]:

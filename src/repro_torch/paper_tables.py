@@ -19,10 +19,9 @@ Each row is the host mode's, with the JAX table's ``fused`` column as
 the row's ``fused`` entry: the same program in the fused mode (the
 superstep loop replayed as a CUDA graph), its wall time, ms a superstep,
 dispatches, host overhead and capture time, and its rounds, messages and
-bytes, which must equal the host run's. The programs with an inner host
-loop (``sv:composed``, both MSF variants: the registry's
-``device_modes=False``) cannot run fused yet: their ``fused`` entry is
-null, with the reason in ``fused_note``.
+bytes, which must equal the host run's. Every row has one: the inner
+loops of ``sv:composed`` and both MSF variants (pointer jumping to a
+fixpoint) run as WHILE nodes of the captured graph.
 Each program runs twice in each mode and the second run is reported: the
 first pays the one-off costs (kernel build, allocator, CUDA context, the
 fused mode's capture). The output (default
@@ -49,8 +48,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.pregel.engine import Engine
 
 W = 8  # logical workers, as in the paper's 8-node cluster
-# why a row without a fused entry has none
-NO_FUSED_NOTE = "inner host loop, ROADMAP item 4"
 
 # (algorithm row label, paper dataset, [(program label, registry key,
 # factory knobs)]) — the JAX table's cases. The composed S-V also reports
@@ -164,12 +161,9 @@ def run(scale: int, device="cuda"):
         for label, key, knobs in programs:
             prog = REGISTRY[key].factory(**inputs, **knobs)
             _, res, extra = _measured(eng, prog, pg, key)
-            if not REGISTRY[key].device_modes:
-                extra.update(fused=None, fused_note=NO_FUSED_NOTE)
-            else:
-                extra["fused"] = _fused_entry(
-                    res, *_measured(fused, prog, pg, key))
-                fused.clear_cache()
+            extra["fused"] = _fused_entry(res,
+                                          *_measured(fused, prog, pg, key))
+            fused.clear_cache()
             if key == "sv:composed":
                 extra["bytes_by_component"] = {
                     k: sum(compose.stats_under(res.bytes_by_channel,

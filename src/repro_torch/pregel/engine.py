@@ -8,13 +8,13 @@ host-driven loop (the batched query plane).
 
 Modes (``repro_torch.pregel.runtime``): ``"host"`` runs a step per
 Python iteration; ``"fused"`` and ``"chunked"`` run the loop on the
-device, K = ``chunk_size`` supersteps a CUDA graph replay. The default
-stays ``"host"``, unlike the JAX package's ``"fused"``: the programs
-with an inner host loop (``sv:composed``, both ``msf`` variants,
-``scc:basic``, ``wcc:prop``, ``sssp:prop``, ``scc:prop``) cannot run on
-the device yet and raise ``NotImplementedError`` in the device modes.
-The default flips to ``"fused"`` when their inner loops run on the
-device too (ROADMAP, queue 1, item 4).
+device, K = ``chunk_size`` supersteps a CUDA graph replay, every
+program's inner loops (pointer jumping, label propagation, the
+Propagation channel) as WHILE nodes inside it. The default stays
+``"host"``, unlike the JAX package's ``"fused"``: ``run_batch`` has no
+device modes yet, so a ``"fused"`` default would make it raise. The
+default flips with the batched plane's device loop (ROADMAP, queue 1,
+item 4.2).
 
 A device mode's loop (its warm-up step and its captured graph) is cached
 per (program, graph object, mode, chunk size, ``max_steps``,
@@ -162,7 +162,7 @@ class Engine:
         if self.mode != "host":
             raise _not_ported(
                 f"run_batch in mode={self.mode!r} (the batched plane's "
-                "device loop, ROADMAP queue 1, item 4)")
+                "device loop, ROADMAP queue 1, item 4.2)")
         if prog.query_init is None:
             raise ValueError(
                 f"program {prog.name!r} declares no query axis "

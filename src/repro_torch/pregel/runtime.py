@@ -16,11 +16,15 @@ flags, bytes and messages per channel, overflow and wrap errors):
     CUDA graph, each under an IF conditional node on the device flag
     ``go = ~halted & (i < max_steps) & ~overflow`` — the JAX package's
     ``lax.cond(stop, skip, do)``: a stopped step costs the node and no
-    superstep's work. Each dispatch replays the graph; the host reads
-    back four int32 flags between replays. The traffic accumulates on
-    the device in int32, per worker, with a wrap latch that trips when
-    an accumulator decreases (the JAX fused loop's contract and message);
-    the totals come back once, at the end.
+    superstep's work. A superstep's inner loops (pointer jumping, label
+    propagation, the Propagation channel's rounds and local fixpoints:
+    ``core.channel.inner_loop``) are WHILE nodes inside its IF node, as
+    deep as they nest, each with its condition on the device — the JAX
+    package's ``lax.while_loop``. Each dispatch replays the graph; the
+    host reads back four int32 flags between replays. The traffic
+    accumulates on the device in int32, per worker, with a wrap latch
+    that trips when an accumulator decreases (the JAX fused loop's
+    contract and message); the totals come back once, at the end.
   - ``chunked``: the same graph, but each step writes its stat row, and
     one readback at each chunk boundary brings back the K rows; the host
     sums them in int64 and names the channel of a negative per-step
@@ -28,10 +32,12 @@ flags, bytes and messages per channel, overflow and wrap errors):
 
 On the CPU (``device="cpu"``, the tests) the two device modes run the
 same loop, chunk boundaries, accumulators, latches and readbacks with
-``if go: step`` in place of the IF node, and each step under a guard
-that raises on the host syncs a capture refuses (``.item()``/``bool()``
-of a tensor, ``nonzero``, boolean-mask indexing and the like). On the
-card a failed capture raises; nothing falls back to the eager loop.
+``if go: step`` in place of the IF node and ``while cond: body`` in
+place of each WHILE node (the condition read outside the guard), and
+each step and each inner body under a guard that raises on the host
+syncs a capture refuses (``.item()``/``bool()`` of a tensor,
+``nonzero``, boolean-mask indexing and the like). On the card a failed
+capture raises; nothing falls back to the eager loop.
 
 Voting-to-halt: the step returns per-worker halt votes; the runtime ANDs
 them (``aggregator.all_halted``).
@@ -63,7 +69,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import aggregator, compose
 from repro_torch.core.channel import (ChannelContext, ChannelRegistry,
-                                      on_device)
+                                      DeviceLoopHooks, on_device, store)
 from repro_torch.graph.pgraph import PartitionedGraph
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import graph_if, scratch
@@ -314,7 +320,8 @@ class _HostSyncGuard(TorchDispatchMode):
     runs its warm-up step and every captured (or, on the CPU, executed)
     step under it, so such a step fails before a capture starts, with
     the program named, and the CPU tests hold the step code to the
-    capture's contract."""
+    capture's contract. An eager inner loop reads its condition with
+    :meth:`read`, which the guard lets through."""
 
     SYNCS = frozenset({
         "aten::_local_scalar_dense", "aten::nonzero", "aten::masked_select",
@@ -325,9 +332,20 @@ class _HostSyncGuard(TorchDispatchMode):
     def __init__(self, what: str):
         super().__init__()
         self.what = what
+        self.reading = False
+
+    def read(self, flag: torch.Tensor) -> bool:
+        """``bool(flag)``, let through the guard."""
+        self.reading = True
+        try:
+            return bool(flag)
+        finally:
+            self.reading = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self.reading:
+            return func(*args, **kwargs)
         op = func._schema.name
         sync = op in self.SYNCS
         if op in ("aten::index", "aten::index_put_", "aten::index_put"):
@@ -341,10 +359,6 @@ class _HostSyncGuard(TorchDispatchMode):
                 "which a stream that captures a CUDA graph refuses "
                 "(operation not permitted when stream is capturing)")
         return func(*args, **kwargs)
-
-
-def _shares_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
 
 
 _tokens = itertools.count()
@@ -362,7 +376,9 @@ class DeviceLoop:
     and then, chunked, K stat rows or, fused, one accumulator row; a row
     is each stat key's ``(W,)`` bytes, then their ``(W,)`` messages, then
     one overflow flag per overflow key. ``go`` is the bool the IF nodes
-    read."""
+    read. The steps' contexts carry the loop's :class:`DeviceLoopHooks`:
+    eager ones for the warm-up (and every step on the CPU), ones with the
+    capture's conditional-node streams while the card captures."""
 
     def __init__(self, graph: PartitionedGraph, step_fn: Callable,
                  state0: Dict[str, torch.Tensor], *, mode: str,
@@ -386,28 +402,19 @@ class DeviceLoop:
         self.device = graph.device
         self.cuda = self.device.type == "cuda"
         self.token = next(_tokens)
-        self.cuda_graph = self.body_pool = None
+        self.cuda_graph = self.nest = None
         self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+        self.guard = _HostSyncGuard(self.name)
+        self.hooks = DeviceLoopHooks(read=self.guard.read)
         t = time.perf_counter()
         # the warm-up step's and the capture's wrapper calls are no
         # superstep of a run: the counts go back to what they were
         before = kops.wrapper_launch_counts()
         try:
             self._warm_up(state0)
-            warm = kops.wrapper_launch_counts()
-            self.launches_per_step = {k: warm[k] - before[k] for k in warm}
             self._allocate(state0)
             if self.cuda:
                 self._capture()
-                done = kops.wrapper_launch_counts()
-                captured = {k: done[k] - warm[k] for k in done}
-                if captured != {k: self.K * n
-                                for k, n in self.launches_per_step.items()}:
-                    raise RuntimeError(
-                        f"{self.name}: the {self.K} captured supersteps "
-                        f"made {captured} kernel launches, the warm-up step "
-                        f"{self.launches_per_step} — a superstep's launches "
-                        "must not change from one superstep to the next")
         except BaseException:
             self.release()
             raise
@@ -421,7 +428,7 @@ class DeviceLoop:
         return ChannelContext(self.graph.num_workers, self.graph.n_loc,
                               self.device, registry=self.registry,
                               route_cap=self.graph.route_cap,
-                              device_loop=True)
+                              device_loop=self.hooks)
 
     @contextlib.contextmanager
     def _on_side_stream(self):
@@ -436,15 +443,12 @@ class DeviceLoop:
             yield
         main.wait_stream(self.stream)
 
-    def _guard(self):
-        return _HostSyncGuard(self.name)
-
     def _warm_up(self, state0) -> None:
         """One eager step on a clone of ``state0``, its result dropped: it
         builds the kernels, sizes their scratch under the loop's scope and
         fixes the stat keys and the state's layout."""
         state = {k: v.clone() for k, v in state0.items()}
-        with self._on_side_stream(), self._guard():
+        with self._on_side_stream(), self.guard:
             ctx = self._context()
             i = torch.zeros((), dtype=torch.int32, device=self.device)
             new_state, halt, ovf = _call_step(self.step_fn, ctx, self.graph,
@@ -481,47 +485,64 @@ class DeviceLoop:
 
     def _capture(self) -> None:
         """The K supersteps into one CUDA graph on the loop's stream, each
-        the body of an IF node on ``go`` (``kernels.graph_if``), captured
-        on a second stream whose allocations have a pool of their own."""
+        the body of an IF node on ``go`` and each inner loop a WHILE node
+        inside it (``kernels.graph_if``), every body captured on a stream
+        of its depth whose allocations have a pool of their own. Every
+        captured superstep must make the same kernel launches."""
         g = torch.cuda.CUDAGraph()
-        self.body = torch.cuda.Stream(self.device)
-        pool = torch.cuda.graph_pool_handle()
+        self.nest = graph_if.Nest(self.device)
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         try:
             with scratch.scope(self.token), \
-                    torch.cuda.graph(g, stream=self.stream), \
-                    graph_if.body_allocations(self.body, pool):
-                self.body_pool = pool  # made: release() gives it back
-                self._chunk()
+                    torch.cuda.graph(g, stream=self.stream):
+                eager = self.hooks
+                self.hooks = DeviceLoopHooks(self.guard.read, self.nest)
+                try:
+                    per_step = self._chunk()
+                finally:
+                    self.hooks = eager
+                    self.nest.close()
         except Exception as err:
             err.add_note(f"while capturing the {self.mode} superstep loop "
                          f"of {self.name}")
             raise
         self.cuda_graph = g
+        if any(n != per_step[0] for n in per_step):
+            raise RuntimeError(
+                f"{self.name}: the {self.K} captured supersteps made "
+                f"{per_step} kernel launches — a superstep's launches must "
+                "not change from one superstep to the next")
 
     def release(self) -> None:
         """Drop the captured graph, its memory pools and its scratch."""
         self.cuda_graph = None
-        if self.body_pool is not None:
-            graph_if.release_pool(self.body.device, self.body_pool)
-            self.body_pool = None
+        if self.nest is not None:
+            self.nest.release()
+            self.nest = None
         scratch.release(self.token)
 
     # -- one chunk of K supersteps -------------------------------------------
 
-    def _chunk(self) -> None:
+    def _chunk(self) -> list:
+        """The K supersteps, each when ``go``; returns each one's wrapper
+        calls of each kernel (what a captured superstep launches when it
+        runs)."""
         if self.mode == "chunked":
             self.rows.zero_()  # a step that does not run leaves zeros
+        per_step = []
         for k in range(self.K):
+            before = kops.wrapper_launch_counts()
             self._when_go(lambda: self._step(k))
+            after = kops.wrapper_launch_counts()
+            per_step.append({n: after[n] - before[n] for n in after})
+        return per_step
 
     def _when_go(self, fn) -> None:
         if self.cuda:  # capturing: fn into the body of an IF node
-            with graph_if.if_node(self.go, self.stream, self.body), \
-                    self._guard():
+            with self.nest.if_node(self.go), self.guard:
                 fn()
         elif bool(self.go):
-            with self._guard():
+            with self.guard:
                 fn()
 
     def _step(self, k: int) -> None:
@@ -571,19 +592,8 @@ class DeviceLoop:
         return torch.cat([p.to(torch.int32) for p in parts])
 
     def _store(self, new_state) -> None:
-        """``new_state`` into the static buffers; a value that shares
-        storage with a buffer is cloned first, so no copy reads a buffer
-        another copy has already written."""
-        bufs = list(self.state.values())
-        pending = {}
-        for k, v in new_state.items():
-            if v is self.state[k]:
-                continue
-            if any(_shares_storage(v, b) for b in bufs):
-                v = v.clone()
-            pending[k] = v
-        for k, v in pending.items():
-            self.state[k].copy_(v)
+        """``new_state`` into the static buffers (``core.channel.store``)."""
+        store([self.state[k] for k in new_state], new_state.values())
 
     # -- a run ---------------------------------------------------------------
 
@@ -598,11 +608,15 @@ class DeviceLoop:
     def execute(self, state0: Dict[str, torch.Tensor]) -> RunResult:
         """Run the loop from ``state0`` to a halt, ``max_steps`` or an
         overflow; the result's state is a copy, so a later run does not
-        overwrite it."""
+        overwrite it. On the card the replays' kernel launches, as the
+        kernels count them on the device, go to ``ops.launch_counts``."""
         if {k: (v.shape, v.dtype) for k, v in state0.items()} != {
                 k: (v.shape, v.dtype) for k, v in self.state.items()}:
             raise ValueError(f"{self.name}: state0 does not match the "
                              "layout this loop was built for")
+        # a replay launches its kernels without the wrappers, and an inner
+        # loop as often as its condition says: the kernels count them
+        launched = kops.device_launch_counts() if self.cuda else None
         t0 = time.perf_counter()
         for k, v in state0.items():
             self.state[k].copy_(v)
@@ -614,7 +628,7 @@ class DeviceLoop:
         msgs_acc = dict.fromkeys(self.bkeys, 0)
         ovf_acc = dict.fromkeys(self.okeys, False)
         wrapped: set = set()
-        times, dispatches, overhead, steps = [], 0, 0.0, 0
+        times, dispatches, overhead = [], 0, 0.0
         n_read = self.out.numel() if chunked else 4
         while True:
             ts = time.perf_counter()
@@ -626,9 +640,7 @@ class DeviceLoop:
             t_enq = time.perf_counter()
             host = self._read(n_read)
             t_dev = time.perf_counter()
-            i, halted, overflow = (int(x) for x in host[:3])
-            kops.add_replayed(self.launches_per_step, i - steps)
-            steps = i
+            steps, halted, overflow = (int(x) for x in host[:3])
             if chunked:  # the chunk's per-step rows, summed in int64
                 rows = host[4:].reshape(self.K, self.row_len)
                 for j, key in enumerate(self.bkeys):
@@ -665,6 +677,9 @@ class DeviceLoop:
             wall_time_s=time.perf_counter() - t0, step_times_s=times,
             mode=self.mode, dispatches=dispatches, host_overhead_s=overhead,
             converged=bool(halted), overflow_by_channel=ovf_acc)
+        if launched is not None:
+            now = kops.device_launch_counts()
+            kops.add_replayed({k: now[k] - launched[k] for k in now})
         if overflowed:
             raise _overflow_error(steps, ovf_acc, res)
         if wrapped:

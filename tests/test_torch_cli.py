@@ -68,7 +68,8 @@ def test_unported_options_are_absent(flag):
 def test_run_and_bench_in_the_device_modes(tmp_path, capsys, mode):
     """``--mode``/``--chunk-size``: the oracle holds, the second run of
     ``--repeat 2`` replays the cached loop, the bench rows carry the
-    dispatches; an inner-loop program refuses, naming ROADMAP."""
+    dispatches; an inner-loop program (``run wcc`` is ``wcc:prop``) runs
+    there too and holds its oracle."""
     assert cli.main(["run", "sv:both", "--scale", "7", "--device", "cpu",
                      "--mode", mode, "--chunk-size", "2",
                      "--repeat", "2"]) == 0
@@ -82,9 +83,11 @@ def test_run_and_bench_in_the_device_modes(tmp_path, capsys, mode):
     rows = json.loads(path.read_text())["rows"]
     assert [r["mode"] for r in rows] == [mode, mode]
     assert all(r["dispatches"] == -(-r["supersteps"] // 4) for r in rows)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["run", "wcc", "--scale", "6", "--device", "cpu",
-                  "--mode", mode])
+    capsys.readouterr()
+    assert cli.main(["run", "wcc", "--scale", "6", "--device", "cpu",
+                     "--mode", mode]) == 0
+    out = capsys.readouterr().out
+    assert "wcc:prop" in out and "oracle: ok" in out
 
 
 def test_bench_writes_rows(tmp_path, capsys):
@@ -140,14 +143,10 @@ def test_paper_tables_match_jax_counts(tmp_path):
     assert sum(comp["bytes_by_component"].values()) == comp["bytes"]
     assert all(r["ms_per_superstep"] > 0 for r in out["rows"])
     for r in out["rows"]:  # the fused column: the host run's counts
-        if not REGISTRY[r["variant"]].device_modes:
-            assert r["fused"] is None and "ROADMAP" in r["fused_note"]
-        else:
-            f = r["fused"]
-            assert (f["supersteps"], f["messages"], f["bytes"]) == (
-                r["supersteps"], r["messages"], r["bytes"])
-            assert f["dispatches"] == 1 and f["cache_hit"]
-    assert sum(r["fused"] is not None for r in out["rows"]) == 7
+        f = r["fused"]
+        assert (f["supersteps"], f["messages"], f["bytes"]) == (
+            r["supersteps"], r["messages"], r["bytes"])
+        assert f["dispatches"] == 1 and f["cache_hit"]
     written = json.loads((tmp_path / "t.json").read_text())
     assert written["provenance"]["device"] == "cpu"
     assert written["scale"] == 8 and len(written["rows"]) == 10

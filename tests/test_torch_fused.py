@@ -1,7 +1,7 @@
 """The port's device modes (``fused``, ``chunked``) on the CPU: the
 counterpart of ``tests/test_runtime_fused.py``.
 
-For each of the 13 programs whose superstep has no inner host loop, at
+For each of the 13 programs whose superstep has no inner loop, at
 (W, scale) = (4, 8), in ``fused``, ``chunked`` at K=2 and ``chunked`` at
 K=3: the port's run equals its own host mode bit for bit (state,
 outputs, supersteps, halts, bytes, messages and overflow flags per
@@ -14,9 +14,9 @@ runs also hold the step code to what a CUDA graph capture allows.
 Then the loop's edge cases: ``max_steps`` without a halt, a ``channels=``
 declaration (an undeclared key raises), a capacity overflow and an int32
 wrap raising the JAX package's error in every mode at the same
-superstep, ``dispatches == ceil(steps / K)``, a cached second run that
-leaves the first result as it was, and the seven programs with an inner
-host loop refusing the device modes, naming ROADMAP.
+superstep, ``dispatches == ceil(steps / K)`` and a cached second run
+that leaves the first result as it was. The seven programs with an inner
+loop are in ``tests/test_torch_fused_inner.py``.
 """
 import math
 
@@ -41,18 +41,9 @@ DEVICE_KEYS = ["wcc:basic", "wcc:switch", "sv:basic", "sv:reqresp",
                "sv:scatter", "sv:both", "sv:monolithic", "pagerank:basic",
                "pagerank:scatter", "pj:basic", "pj:reqresp", "sssp:basic",
                "reach:basic"]
-INNER_LOOP_KEYS = ["sv:composed", "msf:channels", "msf:monolithic",
-                   "scc:basic", "wcc:prop", "sssp:prop", "scc:prop"]
 MODES = [("fused", 64), ("chunked", 2), ("chunked", 3)]
 W, SCALE = 4, 8
 
-
-def test_registry_marks_the_device_mode_programs():
-    """``ProgramSpec.device_modes`` names the programs these tests run in
-    the device modes, and only those."""
-    marked = sorted(k for k, s in REGISTRY.items() if s.device_modes)
-    assert marked == sorted(DEVICE_KEYS)
-    assert sorted(set(REGISTRY) - set(marked)) == sorted(INNER_LOOP_KEYS)
 
 _graphs = {}
 _host = {}
@@ -252,18 +243,6 @@ def test_a_second_run_is_a_cache_hit_and_keeps_the_first_result(mode, k):
     assert eng.compiles == 2
     eng.clear_cache()
     assert eng.cache_size == 0
-
-
-@pytest.mark.parametrize("mode", ["fused", "chunked"])
-@pytest.mark.parametrize("key", INNER_LOOP_KEYS)
-def test_inner_host_loops_refuse_the_device_modes(key, mode):
-    spec = REGISTRY[key]
-    g = spec.make_graph(7, 0)
-    pg = pgraph.partition_graph(g, W, "random", build=spec.build,
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(mode=mode, device="cpu").run(spec.factory(**spec.inputs(g, 0)),
-                                            pg)
 
 
 def test_a_host_sync_in_a_device_step_raises_on_the_cpu():

@@ -838,18 +838,82 @@ def test_kernels_count_their_launches_on_the_device(cuda):
         "segment_combine_join": 3}
 
 
+def _counting_loops(nest, go, n, out):
+    """Under an IF node on ``go``: a WHILE that counts to ``n[0]``; a WHILE
+    of ``n[1]`` rounds holding a WHILE of ``n[2]`` iterations, counting
+    both; a WHILE whose condition is false on entry. The four counts go
+    to ``out``."""
+    with nest.if_node(go):
+        a = torch.zeros((), dtype=torch.int32, device=go.device)
+        more_a = a < n[0]
+        with nest.while_node(more_a):
+            a.add_(1)
+            more_a.copy_(a < n[0])
+        rounds = torch.zeros_like(a)
+        inner = torch.zeros_like(a)
+        more_r = rounds < n[1]
+        with nest.while_node(more_r):
+            j = torch.zeros_like(a)
+            more_j = j < n[2]
+            with nest.while_node(more_j):
+                j.add_(1)
+                inner.add_(1)
+                more_j.copy_(j < n[2])
+            rounds.add_(1)
+            more_r.copy_(rounds < n[1])
+        z = torch.zeros_like(a)
+        never = z > 0
+        with nest.while_node(never):
+            z.add_(1)
+            never.copy_(z < 100)
+        out.copy_(torch.stack([a, rounds, inner, z]))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode,k", [("fused", 64), ("chunked", 3)])
-@pytest.mark.parametrize("key", ["wcc:basic", "pagerank:scatter", "sv:both",
-                                 "pj:reqresp"])
-def test_device_modes_match_host_on_the_card(cuda, key, mode, k):
-    """Scale 10, W = 8: the captured loop against the host loop on one
-    card — outputs, supersteps, halts, per-channel counts and kernel
+def test_while_nodes_nest_in_a_captured_graph(cuda):
+    """One captured graph: a WHILE inside an IF, a WHILE inside a WHILE
+    inside an IF, and a zero-trip WHILE, replayed from fresh inputs: each
+    loop runs exactly as often as its condition says, and a false IF runs
+    none of them."""
+    from repro_torch.kernels import graph_if
+
+    go = torch.ones((), dtype=torch.bool, device=cuda)
+    n = torch.zeros(3, dtype=torch.int32, device=cuda)
+    out = torch.zeros(4, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    nest = graph_if.Nest(cuda)
+    graph = torch.cuda.CUDAGraph()
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            try:
+                _counting_loops(nest, go, n, out)
+            finally:
+                nest.close()
+        assert len(nest.streams) == 3  # IF body, rounds, iterations
+        for trips, run in (((5, 3, 7), True), ((1, 6, 0), True),
+                           ((2, 2, 2), False), ((64, 1, 33), True)):
+            n.copy_(torch.tensor(trips, dtype=torch.int32))
+            go.fill_(run)
+            out.fill_(-1)
+            graph.replay()
+            torch.cuda.synchronize()
+            a, r, j = trips
+            want = [a, r, r * j, 0] if run else [-1] * 4
+            assert out.tolist() == want, (trips, run)
+    finally:
+        del graph
+        nest.release()
+
+
+def _device_mode_against_host(cuda, key, mode, k, scale):
+    """The captured loop against the host loop on one card at ``scale``,
+    W = 8 — outputs, supersteps, halts, per-channel counts and kernel
     launches identical (the runtime's counts for its replays, and the
     kernels' own counts on the device); a second run is a cache hit and
     leaves the first result as it was."""
     spec = REGISTRY[key]
-    graph = spec.make_graph(10, 0)
+    graph = spec.make_graph(scale, 0)
     inputs = spec.inputs(graph, 0)
     pg = pgraph.partition_graph(graph, 8, "random", build=spec.build)
     ops.reset_launch_counts()
@@ -880,6 +944,28 @@ def test_device_modes_match_host_on_the_card(cuda, key, mode, k):
     assert res.dispatches == -(-host.steps // min(k, prog.max_steps))
     spec.check(graph, pg, res, inputs)
     eng.clear_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,k", [("fused", 64), ("chunked", 3)])
+@pytest.mark.parametrize("key", ["wcc:basic", "pagerank:scatter", "sv:both",
+                                 "pj:reqresp"])
+def test_device_modes_match_host_on_the_card(cuda, key, mode, k):
+    """Scale 10 (see :func:`_device_mode_against_host`)."""
+    _device_mode_against_host(cuda, key, mode, k, 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,k", [("fused", 64), ("chunked", 3)])
+@pytest.mark.parametrize("key", ["sv:composed", "msf:channels",
+                                 "msf:monolithic", "scc:basic", "scc:prop",
+                                 "wcc:prop", "sssp:prop"])
+def test_inner_loop_programs_match_host_on_the_card(cuda, key, mode, k):
+    """The seven programs whose inner loops are WHILE nodes of the
+    captured graph, at scale 12 (see :func:`_device_mode_against_host`):
+    their kernels launch as often as the host run's inner loops call
+    them."""
+    _device_mode_against_host(cuda, key, mode, k, 12)
 
 
 @pytest.mark.gpu
