@@ -23,7 +23,11 @@ launch on ids sorted at plan build), and the device modes (``fused``,
 node, replayed once a dispatch) for all 20 programs, the inner loops of
 seven of them (pointer jumping, label propagation, the Propagation
 channel's rounds and local fixpoints) as WHILE nodes nested inside the
-IF nodes. Phases, one or more lines each:
+IF nodes; the batched plane in the device modes, and the
+continuous-batching service (``Engine.serve``: a Poisson stream of
+queries through always-on lanes of the chunked serving substrate,
+harvested and refilled between replays). Phases, one or more lines
+each:
 
   1. environment and kernel build;
   2. each kernel against its plain PyTorch version on the card, the two
@@ -70,7 +74,20 @@ IF nodes. Phases, one or more lines each:
      bytes; the port's paper table at scale 20 (host mode, headline held,
      ``chiprun_out/paper_tables_torch.json``); every lane of the batched
      runs bit-identical to its solo run, queries/s batched and solo, peak
-     device memory; ``wcc:prop`` on the ``wcc:basic`` partition (ground
+     device memory; the same Q=32 batches in ``fused``, ``chunked`` K=64
+     and K=4 (the second, cached run each), bit-identical to the host run
+     (outputs, per-query steps, halts, bytes, msgs, pad audit, state),
+     ``bucket_ranks_lanes`` launching as often as the host run's wrappers
+     count, as the kernel counts on the device, and a Q=20 batch (12 pad
+     lanes) replaying the fused loop and equal to the full run's lanes:
+     wall, loop wall, queries/s, dispatches, host overhead a superstep,
+     capture time and peak memory of each; ``Engine.serve`` of the same 32
+     sources as a Poisson stream (one a superstep) through 8 lanes at
+     serve chunks 4 and 64, two sessions each (the second a replay), every
+     served query equal to its solo run, ``bucket_ranks_lanes`` launching
+     once a superstep run (q/s, p50/p99 latency in supersteps and ms,
+     median dispatch), and a quarantined query isolated from the rest;
+     ``wcc:prop`` on the ``wcc:basic`` partition (ground
      truth; fewer global rounds and bytes than ``wcc:basic``),
      ``sssp:prop`` (oracle; ``sssp:basic``'s distances bit for bit),
      ``scc:basic``/``prop`` (scipy's strong components; ``scc:prop`` below
@@ -132,6 +149,10 @@ MODE_RUNS = {"fused": ("fused", 64), "chunked64": ("chunked", 64),
              "chunked4": ("chunked", 4)}
 # the programs whose fused run phase 5 profiles
 PROFILED_FUSED = ("pagerank:scatter", "wcc:basic", "wcc:prop")
+# the serving sessions of phase 4: lanes, and the serve chunks (4 forces
+# refills between a query's supersteps; 64 admits only when a chunk ends)
+SERVE_LANES = 8
+SERVE_CHUNKS = (4, 64)
 
 # (supersteps, messages, bytes, bytes by channel) of the composition
 # layer's programs at scale 12, W=8, random partitioner: the S-V variants
@@ -597,7 +618,7 @@ def mode_runs(prog, pg):
             step_ms=[1e3 * x for x in res.step_times_s])
         return res, row
 
-    host, rows = two_runs(Engine())
+    host, rows = two_runs(Engine(mode="host"))
     check(rows["launches_on_device"] == rows["launches"],
           f"{prog.name} host: launches on the device "
           f"{rows['launches_on_device']} != the wrappers' {rows['launches']}")
@@ -629,6 +650,174 @@ def mode_runs(prog, pg):
         else:
             eng.clear_cache()
     return out, fused
+
+
+def peak_of(fn):
+    """``fn()`` and the peak device memory above what was allocated before
+    it, in GiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def same_batch(a, b) -> bool:
+    """Two batched runs of the same sources: equal supersteps, per-query
+    outputs, steps, halts, bytes and msgs, totals and pad audit."""
+    return ((a.steps, a.halted, a.num_queries, a.bytes_by_channel,
+             a.msgs_by_channel, a.num_pad_lanes, a.pad_steps, a.pad_bytes,
+             a.pad_msgs) == (b.steps, b.halted, b.num_queries,
+                             b.bytes_by_channel, b.msgs_by_channel,
+                             b.num_pad_lanes, b.pad_steps, b.pad_bytes,
+                             b.pad_msgs)
+            and all(same_run(lane_of(a, qi), lane_of(b, qi))
+                    for qi in range(a.num_queries)))
+
+
+def batch_mode_runs(prog, pg, queries):
+    """``Engine.run_batch`` of ``queries`` in host mode (once: it builds
+    nothing) and in each of ``MODE_RUNS`` (twice, the second, a replay of
+    the cached loop, reported): run wall (``query_init`` and extract
+    included), loop wall, host overhead a superstep, dispatches, capture
+    time, queries/s and peak device memory. Each device-mode run must
+    equal the host run bit for bit (outputs, per-query steps, halts,
+    bytes and msgs, pad audit, state) and launch ``bucket_ranks_lanes`` as
+    often as the host run's wrappers count, as the kernel counts its
+    launches on the device. Then a batch of the first ``len(queries) -
+    12`` sources (12 pad lanes, the same bucket) must replay the fused
+    loop with its own pad mask and equal the full run's real lanes.
+    Returns the rows."""
+    from repro_torch.kernels import ops
+    from repro_torch.pregel.engine import Engine
+
+    def one(eng):
+        ops.reset_launch_counts()
+        (res, ms), on_device = on_device_launches(
+            lambda: timed(lambda: eng.run_batch(prog, pg, queries)))
+        return res, dict(
+            steps=res.steps, dispatches=res.dispatches, run_wall_ms=ms,
+            loop_wall_ms=1e3 * res.wall_time_s,
+            overhead_ms_per_step=1e3 * res.host_overhead_s
+            / max(res.steps, 1), qps=len(queries) / (ms / 1e3),
+            launches=ops.launch_counts(), launches_on_device=on_device,
+            step_ms=[1e3 * x for x in res.step_times_s])
+
+    (host, row), gib = peak_of(lambda: one(Engine(mode="host")))
+    out = {"host": dict(row, peak_gib=gib, capture_s=0.0)}
+    want = row["launches"]
+    check(want["bucket_ranks_lanes"] > 0,
+          f"{prog.name} batched: bucket_ranks_lanes never launched")
+    check(row["launches_on_device"] == want,
+          f"{prog.name} batched host: launches on the device "
+          f"{row['launches_on_device']} != the wrappers' {want}")
+    for label, (mode, k) in MODE_RUNS.items():
+        eng = Engine(mode=mode, chunk_size=k)
+        (first, (res, row)), gib = peak_of(
+            lambda: (eng.run_batch(prog, pg, queries), one(eng)))
+        what = f"{prog.name} batched {label}"
+        check(res.cache_hit and res.mode == mode, f"{what}: not a replay")
+        check(same_batch(res, host) and same_batch(first, host),
+              f"{what}: differs from host mode")
+        check(all(bits_equal(res.state[x], host.state[x])
+                  for x in host.state), f"{what}: state differs from host")
+        check(row["launches_on_device"] == want and row["launches"] == want,
+              f"{what}: launches {row['launches_on_device']} on the device, "
+              f"{row['launches']} counted, != host's {want}")
+        kk = max(1, min(k, prog.max_steps))
+        check(res.dispatches == -(-res.steps // kk),
+              f"{what}: {res.dispatches} dispatches for {res.steps} steps")
+        out[label] = dict(row, peak_gib=gib, capture_s=first.compile_time_s)
+        if label == "fused":
+            sub = eng.run_batch(prog, pg, queries[:len(queries) - 12])
+            check(sub.cache_hit and sub.num_pad_lanes == 12
+                  and (sub.pad_steps, sub.pad_bytes, sub.pad_msgs)
+                  == (0, 0, 0)
+                  and all(same_run(lane_of(sub, qi), lane_of(host, qi))
+                          for qi in range(sub.num_queries)),
+                  f"{what}: a batch with 12 pad lanes differs from the "
+                  "full run's lanes")
+            out["pad12"] = dict(queries=sub.num_queries, steps=sub.steps,
+                                cache_hit=sub.cache_hit)
+        eng.clear_cache()
+    return out
+
+
+def serve_runs(spec, prog, pg, graph, solos):
+    """``Engine.serve`` of the program's Poisson stream (``spec.stream``:
+    ``NQ`` sources, one arrival a superstep) through ``SERVE_LANES``
+    lanes of a default (fused) engine, at each of ``SERVE_CHUNKS``, two
+    sessions each (the second must replay the cached loop): every record
+    must equal the solo host-mode run of its source (``solos``: output,
+    steps, halt, bytes and msgs), and ``bucket_ranks_lanes`` must launch
+    once a superstep the session ran, as the kernel counts on the device
+    and as the runtime adds them up. Then, at the smaller chunk, the
+    query with the most supersteps is made to overflow at its step 1
+    (``FaultSpec``): it is quarantined and every other query still equals
+    its solo run. Returns the rows."""
+    from repro_torch.kernels import ops
+    from repro_torch.pregel.engine import Engine
+    from repro_torch.pregel.serve import FaultSpec, QueryQueue
+
+    schedule = spec.stream(graph, 0, NQ, rate=1.0)
+    eng = Engine()
+
+    def session(chunk, faults=None):
+        ops.reset_launch_counts()
+        (res, ms), on_device = on_device_launches(lambda: timed(
+            lambda: eng.serve(prog, pg, QueryQueue.from_schedule(schedule),
+                              num_lanes=SERVE_LANES, chunk_size=chunk,
+                              faults=faults)))
+        return res, ms, on_device, ops.launch_counts()
+
+    def all_solo(res, skip=()):
+        return all(r.status == "ok" and same_run(
+            (r.output, r.steps, r.halted, r.bytes_by_channel,
+             r.msgs_by_channel), solos[r.query])
+            for r in res.records if r.qid not in skip)
+
+    out = {}
+    for chunk in SERVE_CHUNKS:
+        sessions, gib = peak_of(lambda: [session(chunk) for _ in range(2)])
+        (first, *_), (res, ms, on_device, counted) = sessions
+        what = f"{prog.name} serve chunk {chunk}"
+        check(not first.cache_hit and res.cache_hit,
+              f"{what}: the second session did not replay")
+        check(res.num_queries == NQ and all_solo(first) and all_solo(res),
+              f"{what}: a served query differs from its solo run")
+        check(on_device["bucket_ranks_lanes"] == res.supersteps
+              == counted["bucket_ranks_lanes"],
+              f"{what}: bucket_ranks_lanes launched {on_device} on the "
+              f"device, {counted} counted, for {res.supersteps} supersteps")
+        lat = res.latency_summary()
+        out[f"chunk{chunk}"] = dict(
+            queries=res.num_queries, lanes=SERVE_LANES,
+            dispatches=res.dispatches, supersteps=res.supersteps,
+            clock=res.clock, session_wall_ms=1e3 * res.wall_time_s,
+            run_wall_ms=ms, qps=res.queries_per_s,
+            p50_steps=lat["p50_steps"], p99_steps=lat["p99_steps"],
+            p50_ms=1e3 * lat["p50_wall_s"], p99_ms=1e3 * lat["p99_wall_s"],
+            median_dispatch_ms=1e3 * res.dispatch_median_s,
+            stragglers=len(res.straggler_dispatches),
+            capture_s=first.compile_time_s, launches_on_device=on_device,
+            cache_hit=res.cache_hit, peak_gib=gib)
+    victim = max(range(NQ), key=lambda qi: (solos[schedule[qi][1]][1], -qi))
+    res, _, _, _ = session(SERVE_CHUNKS[0],
+                           [FaultSpec(victim, 1, "overflow")])
+    check(res.failed_qids == [victim]
+          and res.records[victim].status == "overflow"
+          and res.records[victim].output is None
+          and all_solo(res, skip=(victim,)),
+          f"{prog.name} serve: the quarantined query {victim} is not "
+          "isolated")
+    out["quarantine"] = dict(qid=victim, chunk=SERVE_CHUNKS[0],
+                             failed_qids=res.failed_qids,
+                             dispatches=res.dispatches)
+    eng.clear_cache()
+    return out
 
 
 def captured_replays(fn, statics, fresh, plain, what: str,
@@ -1387,7 +1576,7 @@ def main() -> int:
     # to the order-sensitive dispatch (captured from a one-superstep run),
     # and prod on the pagerank plan
     t = time.perf_counter()
-    eng = Engine()
+    eng = Engine(mode="host")
     msf_spec = REGISTRY["msf:channels"]
     check(REGISTRY["msf:monolithic"].make_graph is msf_spec.make_graph,
           "the MSF variants no longer share one recipe")
@@ -1965,7 +2154,7 @@ def main() -> int:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(b_launches["bucket_ranks_lanes"] > 0,
           "the batched runs never launched bucket_ranks_lanes")
-    batched = {}
+    batched, solos = {}, {}
     for key, (queries, prog, res, ms) in runs.items():
         spec = REGISTRY[key]
         graph, pg = batch_jobs[key]
@@ -1979,6 +2168,7 @@ def main() -> int:
             solo, s_ms = timed(lambda: eng.run(spec.factory(source=source),
                                                pg))
             solo_ms.append(s_ms)
+            solos.setdefault(key, {})[source] = solo_of(solo)
             check(same_run(lane_of(res, qi), solo_of(solo)),
                   f"{key} scale-{FULL_SCALE} lane {qi} differs from its "
                   "solo run")
@@ -2009,6 +2199,61 @@ def main() -> int:
           f"launches {b_launches}; peak device memory {peak_gib:.2f} GiB "
           f"({batch4_s:.1f} s, {batch_host_s:.1f} s of it sssp graph set-up)",
           flush=True)
+
+    # the batched plane in the device modes and the serving substrate, on
+    # the same partitions and sources: run_batch in host, fused, chunked
+    # K=64 and K=4 (bit-identical, launches equal, a batch with 12 pad
+    # lanes replaying the fused loop), then Engine.serve of the same Q=32
+    # sources as a Poisson stream through 8 lanes at serve chunks 4 and 64
+    # (every query equal to its solo run above, a warm second session, a
+    # quarantined query isolated)
+    t = time.perf_counter()
+    batch_modes, serving = {}, {}
+    for key, (queries, prog, _, _) in runs.items():
+        graph, pg = batch_jobs[key]
+        batch_modes[key] = batch_mode_runs(prog, pg, queries)
+        serving[key] = serve_runs(REGISTRY[key], prog, pg, graph,
+                                  solos[key])
+    plane_s = time.perf_counter() - t
+    detail["batched_device_modes"] = dict(batch_modes, phase_s=plane_s)
+    detail["serving"] = serving
+
+    def batch_row(key):
+        v = batch_modes[key]
+        return (f"{key} {v['host']['steps']} steps: " + ", ".join(
+            f"{m} {v[m]['run_wall_ms']:.1f} ms (loop "
+            f"{v[m]['loop_wall_ms']:.1f}, {v[m]['qps']:.1f} q/s, "
+            f"{v[m]['dispatches']} dispatches, "
+            f"{v[m]['overhead_ms_per_step']:.3f} ms host overhead a step, "
+            f"capture {v[m]['capture_s']:.2f} s, peak "
+            f"{v[m]['peak_gib']:.2f} GiB)" for m in ("host", *MODE_RUNS))
+            + "; bucket_ranks_lanes launches on the device in each mode "
+            f"{v['host']['launches_on_device']['bucket_ranks_lanes']}")
+
+    def serve_row(key):
+        v = serving[key]
+        return f"{key}: " + ", ".join(
+            f"chunk {c}: {x['qps']:.1f} q/s, latency p50 / p99 "
+            f"{x['p50_steps']:.0f} / {x['p99_steps']:.0f} supersteps = "
+            f"{x['p50_ms']:.1f} / {x['p99_ms']:.1f} ms, median dispatch "
+            f"{x['median_dispatch_ms']:.2f} ms, {x['dispatches']} dispatches "
+            f"of {x['supersteps']} supersteps, capture {x['capture_s']:.2f} "
+            f"s, peak {x['peak_gib']:.2f} GiB, bucket_ranks_lanes "
+            f"{x['launches_on_device']['bucket_ranks_lanes']} on the device"
+            for c, x in ((c, v[f"chunk{c}"]) for c in SERVE_CHUNKS)) + (
+            f"; query {v['quarantine']['qid']} quarantined, the rest equal "
+            "to their solo runs")
+
+    print(f"[4/5] the batched plane in the device modes, scale {FULL_SCALE}, "
+          f"W={W}, Q={NQ} (ms: Engine.run_batch; loop: the superstep loop "
+          "alone), every run bit-identical to host mode, launches equal, a "
+          f"Q={NQ - 12} batch replaying the fused loop with 12 pad lanes: "
+          + "; ".join(batch_row(k) for k in runs), flush=True)
+    print(f"[4/5] Engine.serve, {NQ} queries a Poisson stream of one a "
+          f"superstep through {SERVE_LANES} lanes, two sessions a chunk (the "
+          "second a replay, reported), every query equal to its solo host "
+          "run: " + "; ".join(serve_row(k) for k in runs)
+          + f" ({plane_s:.1f} s)", flush=True)
 
     # the Propagation programs at full size, each path with its own launch
     # counts: wcc:prop on the wcc:basic partition (held to the ground
@@ -2441,6 +2686,15 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/bucket_route.cu",
              replaces="src/repro/kernels/bucket_route.py:128",
              launches=b_launches["bucket_ranks_lanes"],
+             launches_by_path={
+                 **{f"{k} {m}": v[m]["launches_on_device"][
+                     "bucket_ranks_lanes"]
+                    for k, v in batch_modes.items()
+                    for m in ("host", *MODE_RUNS)},
+                 **{f"{k} serve {c}": v[c]["launches_on_device"][
+                     "bucket_ranks_lanes"]
+                    for k, v in serving.items() for c in v
+                    if c.startswith("chunk")}},
              max_abs_err=errs["bucket_ranks_lanes"], ms=l_ms,
              plain_ms=l_plain, bound_ms=l_bound, bound_by="bytes",
              library_ms=None, cold_ms=l_t["sorted"]["cold_ms"],

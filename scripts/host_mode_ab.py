@@ -47,7 +47,7 @@ def child(root: Path, keys, scale: int, reps: int) -> dict:
         pg = pgraph.partition_graph(graph, W, "random", build=spec.build)
         knobs = {"iters": 30} if key.startswith("pagerank") else {}
         prog = spec.factory(**spec.inputs(graph, 0), **knobs)
-        eng = Engine()
+        eng = Engine(mode="host")
         eng.run(prog, pg)
         runs, loops = [], []
         for _ in range(reps):

@@ -106,7 +106,7 @@ def make_inputs(dev):
         0, W * wcc_pg.n_loc, sv_plan.recv_sorted.shape + (1,), device=dev,
         dtype=torch.int32, generator=g), sv_plan.recv_sorted, wcc_pg.n_loc,
         cb.MIN))
-    eng = Engine(device=dev)
+    eng = Engine(mode="host", device=dev)
     spec = REGISTRY["msf:channels"]
     msf_pg = pgraph.partition_graph(spec.make_graph(SCALE, 0), W, "random",
                                     build=spec.build, device=dev)

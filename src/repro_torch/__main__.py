@@ -10,14 +10,20 @@ Subcommands:
   bench   run a set of programs (one per algorithm by default) and print
           paper-style rows (supersteps / messages / bytes / wall time),
           optionally writing JSON.
+  serve   serve a Poisson stream of queries of a batchable program
+          (``reach:basic``, ``sssp:basic``) through always-on lanes
+          (``Engine.serve``), print throughput and latency, and check
+          every served answer against a solo host-mode run.
 
-Both take ``--mode host|fused|chunked`` (default ``host``) and
-``--chunk-size K`` (default 64), as the JAX CLI does: the device modes
-run K supersteps a replay of a captured CUDA graph, every program's
-inner loops as WHILE nodes inside it. Everything runs on the card
-unless ``--device cpu`` is given. The JAX CLI's planner, checkpoints and
-the batched, serving and planning subcommands are not ported yet
-(ROADMAP).
+``run`` and ``bench`` take ``--mode host|fused|chunked`` (default
+``fused``, as in the JAX CLI) and ``--chunk-size K`` (default 64): the
+device modes run K supersteps a replay of a captured CUDA graph, every
+program's inner loops as WHILE nodes inside it. ``serve`` always runs
+the chunked serving substrate, ``--serve-chunk`` supersteps a dispatch,
+on the union route (the per-lane route is not ported). Everything runs
+on the card unless ``--device cpu`` is given. The JAX CLI's planner,
+checkpoints and the batched-bench and planning subcommands are not
+ported yet (ROADMAP).
 
 Examples:
 
@@ -28,6 +34,9 @@ Examples:
       --repeat 2
   python -m repro_torch bench --scale 12 --keys sv:basic,sv:composed \\
       --json chiprun_out/bench.json
+  python -m repro_torch serve sssp:basic --scale 20 --lanes 8 \\
+      --serve-chunk 4
+  python -m repro_torch serve reach:basic --device cpu --smoke
 """
 from __future__ import annotations
 
@@ -35,11 +44,14 @@ import argparse
 import json
 import time
 
+import numpy as np
+
 from repro_torch.algorithms import (ALGORITHMS, DEFAULT_VARIANT, REGISTRY,
                                     resolve)
 from repro_torch.graph import partition as partition_lib
 from repro_torch.graph import pgraph
 from repro_torch.pregel.engine import Engine
+from repro_torch.pregel.serve import QueryQueue
 
 
 def _fmt_bytes(b: int) -> str:
@@ -150,6 +162,58 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    if args.route_batch != "union":
+        print("serve: the port routes a batch's channels on the union route "
+              "only; route_batch='lane' is not ported yet (ROADMAP)")
+        return 2
+    if args.smoke:
+        # a small session with forced refills and every answer checked
+        args.program = args.program or "reach:basic"
+        args.scale, args.workers = 8, 4
+        args.queries, args.lanes, args.serve_chunk = 12, 3, 3
+    if args.program is None:
+        print("serve: a program key is required (or use --smoke)")
+        return 2
+    spec = resolve(args.program)
+    if spec.make_queries is None:
+        print(f"serve: {spec.key} has no query axis")
+        return 2
+    chunk = args.serve_chunk or args.chunk_size
+    print(f"== serve {spec.key} (scale {args.scale}, W={args.workers}, "
+          f"Q={args.queries}, lanes={args.lanes}, chunk={chunk}, "
+          f"rate={args.rate}/step, {args.device}) ==")
+    graph, pg, _, prog = _prepare(spec, args)
+    schedule = spec.stream(graph, args.seed, args.queries, args.rate)
+    eng = Engine(mode="chunked", chunk_size=chunk, device=args.device)
+    res = eng.serve(prog, pg, QueryQueue.from_schedule(schedule),
+                    num_lanes=args.lanes, max_steps=args.max_steps)
+    lat = res.latency_summary()
+    print(f"served {res.num_queries} queries through {res.num_lanes} lanes: "
+          f"{res.dispatches} dispatches, {res.supersteps} supersteps "
+          f"(clock {res.clock}), wall {res.wall_time_s:.3f}s "
+          f"[capture {res.compile_time_s:.3f}s]")
+    print(f"  {res.queries_per_s:.1f} q/s   latency p50 "
+          f"{lat['p50_steps']:.0f} / p99 {lat['p99_steps']:.0f} steps "
+          f"({lat['p50_wall_s'] * 1e3:.1f} / {lat['p99_wall_s'] * 1e3:.1f} "
+          f"ms); median dispatch {res.dispatch_median_s * 1e3:.2f} ms")
+    if args.check:
+        host = Engine(mode="host", device=args.device)
+        for rec in res.records:
+            solo = host.run(spec.factory(**{spec.query_knob: rec.query}), pg,
+                            max_steps=args.max_steps)
+            if not (np.array_equal(rec.output, solo.output)
+                    and (rec.steps, rec.halted) == (solo.steps, solo.halted)
+                    and rec.bytes_by_channel == solo.bytes_by_channel
+                    and rec.msgs_by_channel == solo.msgs_by_channel):
+                print(f"  query {rec.qid} (source {rec.query}) differs "
+                      "from its solo run")
+                return 1
+        print(f"  bit-identity: all {res.num_queries} served outputs, step "
+              "counts and traffic match solo host-mode runs")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="repro_torch", description=__doc__,
@@ -171,17 +235,20 @@ def main(argv=None) -> int:
         p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                        help="where the graph and the run live (default: "
                             "the card)")
-        p.add_argument("--mode", default="host",
-                       choices=("host", "fused", "chunked"),
-                       help="execution mode (default: host)")
         p.add_argument("--chunk-size", type=int, default=64,
                        help="supersteps a dispatch of the fused/chunked "
                             "modes covers (default 64)")
+
+    def modes(p):
+        p.add_argument("--mode", default="fused",
+                       choices=("host", "fused", "chunked"),
+                       help="execution mode (default: fused)")
 
     p_run = sub.add_parser("run", help="run one program, verify the oracle")
     p_run.add_argument("program",
                        help="algorithm (default variant) or algorithm:variant")
     common(p_run)
+    modes(p_run)
     p_run.add_argument("--repeat", type=int, default=1,
                        help="run the program this many times")
     p_run.add_argument("--no-check", dest="check", action="store_false",
@@ -193,8 +260,37 @@ def main(argv=None) -> int:
                          help="comma list of programs (default: one per "
                               "algorithm)")
     common(p_bench)
+    modes(p_bench)
     p_bench.add_argument("--json", default=None, help="write rows to JSON")
     p_bench.set_defaults(fn=cmd_bench)
+
+    p_serve = sub.add_parser(
+        "serve", help="continuous-batching query service under a Poisson "
+                      "workload")
+    p_serve.add_argument("program", nargs="?", default=None,
+                         help="a batchable program (algorithm or "
+                              "algorithm:variant)")
+    common(p_serve)
+    p_serve.add_argument("--queries", type=int, default=32,
+                         help="queries in the arrival stream")
+    p_serve.add_argument("--lanes", type=int, default=8,
+                         help="always-on query lanes (the batch width)")
+    p_serve.add_argument("--serve-chunk", type=int, default=None,
+                         help="supersteps a dispatch = admission "
+                              "granularity (default: --chunk-size)")
+    p_serve.add_argument("--rate", type=float, default=1.0,
+                         help="Poisson arrival rate (queries a superstep)")
+    p_serve.add_argument("--route-batch", default="union",
+                         choices=("union", "lane"),
+                         help="how a batch's routed channels share a route "
+                              "pass; the port has the union route only")
+    p_serve.add_argument("--no-check", dest="check", action="store_false",
+                         help="skip checking each answer against a solo "
+                              "run")
+    p_serve.add_argument("--smoke", action="store_true",
+                         help="a small session (scale 8, 12 queries, 3 "
+                              "lanes, chunk 3), every answer checked")
+    p_serve.set_defaults(fn=cmd_serve)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -25,6 +25,7 @@ from repro_torch.algorithms import (msf, pagerank, pointer_jumping,
 from repro_torch.graph import generators as gen, oracles
 from repro_torch.graph.pgraph import PLANS as ALL_PLANS
 from repro_torch.pregel.program import VertexProgram
+from repro_torch.pregel.serve import poisson_arrivals
 
 
 def _canon(x):
@@ -75,6 +76,16 @@ class ProgramSpec:
         if self.make_queries is None:
             raise ValueError(f"{self.key} has no query axis")
         return list(self.make_queries(graph, seed, q))
+
+    def stream(self, graph: gen.EdgeList, seed: int = 0, q: int = 8,
+               rate: float = 1.0) -> list:
+        """A serving workload for the program's query axis:
+        ``(arrival_superstep, query)`` pairs — :meth:`queries` zipped with
+        a seeded Poisson arrival process at ``rate`` expected arrivals a
+        superstep. Feed it to ``QueryQueue.from_schedule`` /
+        ``Engine.serve``."""
+        return list(zip(poisson_arrivals(q, rate, seed),
+                        self.queries(graph, seed, q)))
 
 
 def _sym_rmat(scale, seed):
@@ -236,7 +247,8 @@ DEFAULT_VARIANT: Dict[str, str] = {
 
 ALGORITHMS: Tuple[str, ...] = tuple(sorted(DEFAULT_VARIANT))
 
-#: specs with a query axis that ``Engine.run_batch`` runs: ``sssp:prop``
+#: specs with a query axis that ``Engine.run_batch`` and ``Engine.serve``
+#: run (union route only): ``sssp:prop``
 #: declares the JAX recipe's query axis, but the batched Propagation
 #: channel is not ported yet and raises (ROADMAP)
 BATCHED: Tuple[str, ...] = tuple(

@@ -152,7 +152,7 @@ def _fused_entry(host, first, res, extra) -> dict:
 
 def run(scale: int, device="cuda"):
     """Every case at ``scale``: (rows, headline)."""
-    eng = Engine(device=device)
+    eng = Engine(mode="host", device=device)
     fused = Engine(mode="fused", device=device)
     rows, sv = [], {}
     for algorithm, name, programs in CASES:

@@ -3,38 +3,39 @@
 The port of ``repro.pregel.engine`` as far as the ported slices need:
 ``Engine.run(prog, pg)`` runs the program's init, the superstep loop in
 the engine's mode and ``prog.extract``; ``Engine.run_batch(prog, pg,
-queries)`` runs Q query instances of a batchable program in one
-host-driven loop (the batched query plane).
+queries)`` runs Q query instances of a batchable program in one loop
+(the batched query plane); ``Engine.serve(prog, pg, requests)`` serves a
+stream of queries through a fixed set of lanes, refilled as their
+queries halt (``repro_torch.pregel.serve``).
 
-Modes (``repro_torch.pregel.runtime``): ``"host"`` runs a step per
-Python iteration; ``"fused"`` and ``"chunked"`` run the loop on the
-device, K = ``chunk_size`` supersteps a CUDA graph replay, every
-program's inner loops (pointer jumping, label propagation, the
-Propagation channel) as WHILE nodes inside it. The default stays
-``"host"``, unlike the JAX package's ``"fused"``: ``run_batch`` has no
-device modes yet, so a ``"fused"`` default would make it raise. The
-default flips with the batched plane's device loop (ROADMAP, queue 1,
-item 4.2).
+Modes (``repro_torch.pregel.runtime``): ``"fused"`` (the default, as in
+the JAX package) and ``"chunked"`` run the loop on the device, K =
+``chunk_size`` supersteps a CUDA graph replay, every program's inner
+loops (pointer jumping, label propagation, the Propagation channel) as
+WHILE nodes inside it; ``"host"`` runs a step per Python iteration, one
+readback a step. ``run_batch`` runs in all three; ``serve`` always runs
+the chunked serving substrate, whatever the engine's mode.
 
 A device mode's loop (its warm-up step and its captured graph) is cached
-per (program, graph object, mode, chunk size, ``max_steps``,
-``check_overflow``) — the counterpart of the JAX compile cache, with
-``cache_hit`` and ``engine_compiles`` on every result; a hit replays the
-graph with no warm-up and no capture. :meth:`Engine.clear_cache` drops
-the cached loops and their graph memory. The planner (``plan="auto"``),
-overflow escalation, checkpoints and serving are not ported yet
-(ROADMAP) and raise ``NotImplementedError``; so do batched runs in the
-device modes.
+per (program, graph object, ``max_steps``, ``check_overflow``) and the
+mode and chunk size; a batched loop also per bucket cap, a serving loop
+per lane count and serve chunk — the counterpart of the JAX compile
+cache, with ``cache_hit`` and ``engine_compiles`` on every result; a hit
+replays the graph with no warm-up and no capture. :meth:`Engine.clear_cache`
+drops the cached loops and their graph memory. The planner
+(``plan="auto"``), overflow escalation and checkpoints are not ported
+yet (ROADMAP) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.graph.pgraph import PartitionedGraph
 from repro_torch.pregel import runtime
+from repro_torch.pregel import serve as serving
 from repro_torch.pregel.program import VertexProgram
 
 
@@ -54,7 +55,7 @@ def _not_ported(what: str):
 class Engine:
     """Session for running VertexPrograms on one device.
 
-    mode: ``"host"`` (the default here), ``"fused"`` or ``"chunked"``.
+    mode: ``"fused"`` (the default), ``"chunked"`` or ``"host"``.
     chunk_size: K, the supersteps one dispatch of a device mode covers
       (default 64, as in the JAX package).
     device: where the graphs it runs must live (None = CUDA; raises when
@@ -64,7 +65,7 @@ class Engine:
     def __init__(self, mode: Optional[str] = None, device=None,
                  plan: Any = "manual", on_overflow: str = "raise",
                  chunk_size: Optional[int] = None):
-        mode = "host" if mode is None else mode
+        mode = "fused" if mode is None else mode
         if mode not in runtime.MODES:
             raise ValueError(f"unknown execution mode {mode!r}")
         if plan != "manual":
@@ -97,6 +98,32 @@ class Engine:
             raise ValueError(
                 f"graph lives on {pg.device}, engine runs on {self.device}")
 
+    def _loop(self, key: Tuple, build: Callable[[], runtime.DeviceLoop]
+              ) -> Tuple[runtime.DeviceLoop, bool]:
+        """The cached device loop under ``key``, built on a miss; and
+        whether it was a hit. The loop holds its graph, so ``id(pg)`` in
+        a key names one live graph object."""
+        loop = self._cache.get(key)
+        if loop is not None:
+            self.cache_hits += 1
+            return loop, True
+        loop = self._cache[key] = build()
+        self.compiles += 1
+        return loop, False
+
+    def _stamp(self, res, loop: runtime.DeviceLoop, hit: bool):
+        if not hit:
+            res.compile_time_s = loop.compile_time_s
+        res.cache_hit = hit
+        res.engine_compiles = self.compiles
+        res.engine_cache_hits = self.cache_hits
+        return res
+
+    def _limits(self, prog, max_steps, check_overflow) -> Tuple[int, bool]:
+        return (prog.max_steps if max_steps is None else max_steps,
+                prog.check_overflow if check_overflow is None
+                else check_overflow)
+
     def run(self, prog: VertexProgram, pg: PartitionedGraph, *,
             max_steps: Optional[int] = None,
             check_overflow: Optional[bool] = None,
@@ -109,65 +136,55 @@ class Engine:
         if checkpoint_every is not None or resume is not None:
             raise _not_ported("checkpoint/resume")
         self._check_device(pg)
-        ms = prog.max_steps if max_steps is None else max_steps
-        co = prog.check_overflow if check_overflow is None else check_overflow
+        ms, co = self._limits(prog, max_steps, check_overflow)
         state0 = prog.init(pg)
         if self.mode == "host":
             res = runtime.run_supersteps(
                 pg, prog.step, state0, max_steps=ms, check_overflow=co,
                 channels=prog.channels)
         else:
-            # the loop holds pg, so id(pg) names one live graph object
-            key = (prog, id(pg), self.mode, self.chunk_size, ms, co)
-            loop = self._cache.get(key)
-            hit = loop is not None
-            if hit:
-                self.cache_hits += 1
-            else:
-                loop = runtime.DeviceLoop(
+            loop, hit = self._loop(
+                (prog, id(pg), ms, co, self.mode, self.chunk_size),
+                lambda: runtime.DeviceLoop(
                     pg, prog.step, state0, mode=self.mode, max_steps=ms,
                     check_overflow=co, chunk_size=self.chunk_size,
-                    channels=prog.channels, name=prog.name)
-                self._cache[key] = loop
-                self.compiles += 1
-            res = loop.execute(state0)
-            if not hit:
-                res.compile_time_s = loop.compile_time_s
-            res.cache_hit = hit
-            res.engine_compiles = self.compiles
-            res.engine_cache_hits = self.cache_hits
+                    channels=prog.channels, name=prog.name))
+            res = self._stamp(loop.execute(state0), loop, hit)
         res.program = prog.name
         res.output = prog.extract(pg, res.state)
         return res
+
+    def _query_axis(self, prog: VertexProgram, pg: PartitionedGraph,
+                    what: str) -> None:
+        if prog.query_init is None:
+            raise ValueError(
+                f"program {prog.name!r} declares no query axis "
+                f"(VertexProgram.query_init) — it cannot be {what}")
+        self._check_device(pg)
 
     def run_batch(self, prog: VertexProgram, pg: PartitionedGraph,
                   queries: Sequence[Any], *,
                   max_steps: Optional[int] = None,
                   check_overflow: Optional[bool] = None
                   ) -> runtime.RunResult:
-        """Run Q query instances of ``prog`` on ``pg`` in ONE host-driven
-        loop (per-query halt voting; see
-        ``runtime.run_batched_supersteps``).
+        """Run Q query instances of ``prog`` on ``pg`` in ONE loop, in the
+        engine's mode (per-query halt voting; see
+        ``runtime.run_batched_supersteps`` and
+        ``runtime.BatchedDeviceLoop``).
 
         ``queries`` are the per-query problem inputs fed to
         ``prog.query_init(pg, query)`` (e.g. SSSP source vertices). The
         batch is padded to the pow2 bucket cap with lanes that start
-        halted; they are sliced away before anything is reported.
+        halted; they are sliced away before anything is reported. A
+        device mode caches its loop per bucket cap, so nearby batch
+        sizes replay one graph.
 
         Returns the RunResult with per-query views: ``outputs`` (list of
         Q extracted answers — also on ``output``), ``query_steps``,
         ``query_halted`` and ``query_bytes``/``query_msgs``; the
         dict-of-int totals cover the Q real queries only.
         """
-        if self.mode != "host":
-            raise _not_ported(
-                f"run_batch in mode={self.mode!r} (the batched plane's "
-                "device loop, ROADMAP queue 1, item 4.2)")
-        if prog.query_init is None:
-            raise ValueError(
-                f"program {prog.name!r} declares no query axis "
-                "(VertexProgram.query_init) — it cannot be batched")
-        self._check_device(pg)
+        self._query_axis(prog, pg, "batched")
         queries = list(queries)
         q = len(queries)
         cap = bucket_queries(q)
@@ -177,14 +194,87 @@ class Engine:
         per_query += [per_query[0]] * (cap - q)
         state0 = {k: torch.stack([s[k] for s in per_query], dim=1)
                   for k in per_query[0]}
-        ms = prog.max_steps if max_steps is None else max_steps
-        co = prog.check_overflow if check_overflow is None else check_overflow
-        res = runtime.run_batched_supersteps(
-            pg, prog.step, state0, q, max_steps=ms, check_overflow=co,
-            channels=prog.channels)
+        ms, co = self._limits(prog, max_steps, check_overflow)
+        if self.mode == "host":
+            res = runtime.run_batched_supersteps(
+                pg, prog.step, state0, q, max_steps=ms, check_overflow=co,
+                channels=prog.channels)
+        else:
+            loop, hit = self._loop(
+                (prog, id(pg), ms, co, self.mode, self.chunk_size, "batch",
+                 cap),
+                lambda: runtime.BatchedDeviceLoop(
+                    pg, prog.step, state0, mode=self.mode, max_steps=ms,
+                    check_overflow=co, chunk_size=self.chunk_size,
+                    channels=prog.channels, name=prog.name))
+            res = self._stamp(loop.execute(state0, q), loop, hit)
         res.program = prog.name
         res.outputs = [
             prog.extract(pg, {k: v[:, qi] for k, v in res.state.items()})
             for qi in range(q)]
         res.output = res.outputs
         return res
+
+    def serve(self, prog: VertexProgram, pg: PartitionedGraph, requests, *,
+              num_lanes: int = 8, chunk_size: Optional[int] = None,
+              max_steps: Optional[int] = None,
+              check_overflow: Optional[bool] = None,
+              faults: Optional[Sequence] = None,
+              on_fault: str = "quarantine") -> serving.ServeResult:
+        """Continuous-batching query service: serve a stream of queries
+        through ``num_lanes`` always-on lanes, admitting from the queue at
+        every chunk (dispatch) boundary as halted queries vacate their
+        lanes (see ``repro_torch.pregel.serve``).
+
+        ``requests`` is a :class:`~repro_torch.pregel.serve.QueryQueue`
+        (arrival times in supersteps) or a plain iterable of query values
+        (all arrive at t=0). Admission granularity is ``chunk_size``
+        supersteps (default: the engine's chunk size). The session runs
+        the chunked serving substrate (``runtime.BatchedDeviceLoop(serve=
+        True)``) whatever the engine's mode; refills rewrite lane state
+        in place between replays, and the loop is cached under (program,
+        graph, lanes, chunk), so a second session of the same shape
+        replays it warm (``cache_hit``).
+
+        Every served query equals a solo run of it bit for bit (output,
+        steps, per-channel traffic): each lane's age stands in for the
+        step counter. ``on_fault="quarantine"`` (default) harvests a lane
+        that overflows a channel with ``status="overflow"`` and recycles
+        it; ``"raise"`` raises ``ChannelOverflowError`` with the failed
+        qids. ``faults`` takes :class:`~repro_torch.pregel.serve.FaultSpec`
+        injections. Returns a :class:`~repro_torch.pregel.serve.ServeResult`.
+        """
+        if on_fault not in ("quarantine", "raise"):
+            raise ValueError(
+                f"unknown on_fault {on_fault!r} "
+                "(one of ('quarantine', 'raise'))")
+        self._query_axis(prog, pg, "served")
+        if num_lanes < 1:
+            raise ValueError(f"need at least one lane, got {num_lanes}")
+        queue = serving.as_queue(requests)
+        ms, co = self._limits(prog, max_steps, check_overflow)
+        chunk = self.chunk_size if chunk_size is None else chunk_size
+        if len(queue) == 0:
+            return serving.ServeResult(
+                program=prog.name, records=[], num_lanes=num_lanes,
+                chunk_size=chunk, max_steps=ms, supersteps=0, clock=0,
+                dispatches=0, wall_time_s=0.0, bytes_by_channel={},
+                msgs_by_channel={}, cache_hit=True,
+                engine_compiles=self.compiles,
+                engine_cache_hits=self.cache_hits)
+        # the lanes' layout comes from any query's state: every lane is
+        # written on admission, and an unoccupied lane is dead (halted,
+        # no traffic, out of the union route pass)
+        template = prog.query_init(pg, queue.peek_query())
+        state0 = {k: torch.stack([v] * num_lanes, dim=1)
+                  for k, v in template.items()}
+        loop, hit = self._loop(
+            (prog, id(pg), ms, co, "serve", num_lanes, chunk),
+            lambda: runtime.BatchedDeviceLoop(
+                pg, prog.step, state0, mode="chunked", max_steps=ms,
+                check_overflow=co, chunk_size=chunk, channels=prog.channels,
+                name=prog.name, serve=True))
+        res = serving.serve_loop(loop, prog, pg, state0, queue,
+                                 faults=faults, on_fault=on_fault)
+        res.program = prog.name
+        return self._stamp(res, loop, hit)

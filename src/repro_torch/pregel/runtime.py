@@ -42,18 +42,25 @@ capture raises; nothing falls back to the eager loop.
 Voting-to-halt: the step returns per-worker halt votes; the runtime ANDs
 them (``aggregator.all_halted``).
 
-Batched query plane (:func:`run_batched_supersteps`, under
-``Engine.run_batch``, host mode only): one loop advances Q query
-instances per superstep, state leaves ``(W, Q, n_loc, ...)``. Halting is
-per query: a ``(Q,)`` halted mask lives on the device, a lane that voted
-halt keeps its state bit for bit (a ``torch.where`` over the pre-step
-live mask), sends nothing and is charged nothing from the next step on —
-the halting step itself still charges, as a solo run would. Pad lanes
-start halted. One readback per superstep brings back the ``(Q,)`` halt
-and overflow flags and the per-lane stats; per-lane totals are summed on
-the host in int64. So per-query steps, outputs and per-channel
-bytes/msgs are bit-identical to Q solo runs; overflow raises
-``ChannelOverflowError`` naming the offending lanes (``qids``).
+Batched query plane (under ``Engine.run_batch``): one loop advances Q
+query instances per superstep, state leaves ``(W, Q, n_loc, ...)``.
+Halting is per query: a ``(Q,)`` halted mask lives on the device, a lane
+that voted halt keeps its state bit for bit (a ``torch.where`` over the
+pre-step live mask), sends nothing and is charged nothing from the next
+step on — the halting step itself still charges, as a solo run would.
+Pad lanes start halted. Host mode (:func:`run_batched_supersteps`) reads
+back the ``(Q,)`` halt and overflow flags and the per-lane stats once a
+superstep; the device modes (:class:`BatchedDeviceLoop`) run the same
+step under the IF nodes of the captured graph, with the ``(Q,)`` flags
+and ``(W, Q)`` stats in the loop's buffers. Per-lane totals are summed
+on the host in int64. So per-query steps, outputs and per-channel
+bytes/msgs are bit-identical to Q solo runs in every mode; overflow
+raises ``ChannelOverflowError`` naming the offending lanes (``qids``).
+
+The serving substrate (``Engine.serve``, ``repro_torch.pregel.serve``)
+is the same batched loop built with ``serve=True``: always chunked, each
+lane with its own age, halt and overflow words, so the host can harvest
+and refill lanes between dispatches.
 """
 from __future__ import annotations
 
@@ -372,13 +379,20 @@ class DeviceLoop:
     ``state0`` of the same shapes; ``Engine`` caches it per program,
     graph object, mode, K, ``max_steps`` and ``check_overflow``.
 
-    Buffers: ``out`` holds int32 flags ``[i, halted, overflow, wrapped]``
-    and then, chunked, K stat rows or, fused, one accumulator row; a row
-    is each stat key's ``(W,)`` bytes, then their ``(W,)`` messages, then
-    one overflow flag per overflow key. ``go`` is the bool the IF nodes
-    read. The steps' contexts carry the loop's :class:`DeviceLoopHooks`:
-    eager ones for the warm-up (and every step on the CPU), ones with the
-    capture's conditional-node streams while the card captures."""
+    Buffers: ``out`` holds int32 flags ``[i, halted, overflow, wrapped]``,
+    then (:class:`BatchedDeviceLoop`) four ``(Q,)`` lane rows, and then,
+    chunked, K stat rows or, fused, one accumulator row; a row is each
+    stat key's ``(W,)`` (batched ``(W, Q)``) bytes, then their messages,
+    then each overflow key's flag (batched one a lane). ``go`` is the
+    bool the IF nodes read. The steps' contexts carry the loop's
+    :class:`DeviceLoopHooks`: eager ones for the warm-up (and every step
+    on the CPU), ones with the capture's conditional-node streams while
+    the card captures."""
+
+    #: the query lanes of a batched loop (None: a solo loop)
+    q: Optional[int] = None
+    #: the serving substrate: per-lane ages in place of the step counter
+    serve = False
 
     def __init__(self, graph: PartitionedGraph, step_fn: Callable,
                  state0: Dict[str, torch.Tensor], *, mode: str,
@@ -397,7 +411,9 @@ class DeviceLoop:
         self.graph, self.step_fn, self.mode = graph, step_fn, mode
         self.name = name or getattr(step_fn, "__qualname__", "step")
         self.max_steps, self.check_overflow = int(max_steps), check_overflow
-        self.K = max(1, min(int(chunk_size), self.max_steps))
+        # a serving lane's budget is its own age: a chunk is never cut
+        self.K = max(1, int(chunk_size) if self.serve
+                     else min(int(chunk_size), self.max_steps))
         self.registry = _registry(channels)
         self.device = graph.device
         self.cuda = self.device.type == "cuda"
@@ -424,10 +440,12 @@ class DeviceLoop:
 
     # -- build --------------------------------------------------------------
 
-    def _context(self) -> ChannelContext:
+    def _context(self, live: Optional[torch.Tensor] = None
+                 ) -> ChannelContext:
         return ChannelContext(self.graph.num_workers, self.graph.n_loc,
                               self.device, registry=self.registry,
                               route_cap=self.graph.route_cap,
+                              num_queries=self.q, query_live=live,
                               device_loop=self.hooks)
 
     @contextlib.contextmanager
@@ -448,9 +466,13 @@ class DeviceLoop:
         builds the kernels, sizes their scratch under the loop's scope and
         fixes the stat keys and the state's layout."""
         state = {k: v.clone() for k, v in state0.items()}
+        dev = self.device
         with self._on_side_stream(), self.guard:
-            ctx = self._context()
-            i = torch.zeros((), dtype=torch.int32, device=self.device)
+            live = (None if self.q is None
+                    else torch.ones(self.q, dtype=torch.bool, device=dev))
+            ctx = self._context(live)
+            i = torch.zeros((self.q,) if self.serve else (),
+                            dtype=torch.int32, device=dev)
             new_state, halt, ovf = _call_step(self.step_fn, ctx, self.graph,
                                               state, i)
             aggregator.all_halted(ctx, halt)
@@ -468,17 +490,21 @@ class DeviceLoop:
                 "or dtypes; the device modes need a fixed layout")
 
     def _allocate(self, state0) -> None:
-        w, dev = self.graph.num_workers, self.device
-        self.nb = 2 * len(self.bkeys) * w  # traffic columns of a row
-        self.row_len = self.nb + len(self.okeys)
+        w, dev, lanes = self.graph.num_workers, self.device, self.q or 1
+        self.nb = 2 * len(self.bkeys) * w * lanes  # traffic columns of a row
+        self.row_len = self.nb + len(self.okeys) * lanes
         rows = self.K if self.mode == "chunked" else 1
         self.state = {k: torch.empty_like(
             v, memory_format=torch.contiguous_format)
             for k, v in state0.items()}
-        self.out = torch.zeros(4 + rows * self.row_len, dtype=torch.int32,
-                               device=dev)
+        # the flags, then a batched loop's (Q,) halted, overflow, age and
+        # steps rows
+        self.head = 4 + (0 if self.q is None else 4 * self.q)
+        self.out = torch.zeros(self.head + rows * self.row_len,
+                               dtype=torch.int32, device=dev)
         self.flags = self.out[:4]
-        self.rows = self.out[4:].view(rows, self.row_len)
+        self.lanes = self.out[4:self.head].view(-1, lanes)
+        self.rows = self.out[self.head:].view(rows, self.row_len)
         self.go = torch.zeros((), dtype=torch.bool, device=dev)
         self.host = torch.empty(self.out.shape, dtype=torch.int32,
                                 pin_memory=self.cuda)
@@ -556,16 +582,7 @@ class DeviceLoop:
         ovf_any = on_device(ovf, self.device, torch.bool).any()
         row = self._row(ctx)
         self._store(new_state)
-        if self.mode == "chunked":
-            self.rows[k].copy_(row)
-        else:
-            acc = self.rows[0]
-            new = acc[:self.nb] + row[:self.nb]
-            # the deltas are not negative: an accumulator that decreases
-            # wrapped
-            self.flags[3].copy_(self.flags[3] | (new < acc[:self.nb]).any())
-            acc[:self.nb].copy_(new)
-            acc[self.nb:].copy_(acc[self.nb:] | row[self.nb:])
+        self._record(k, row)
         self.flags[0].add_(1)
         self.flags[1].copy_(halt_all)
         self.flags[2].copy_(self.flags[2] | ovf_any)
@@ -574,7 +591,10 @@ class DeviceLoop:
             go = go & (self.flags[2] == 0)
         self.go.copy_(go)
 
-    def _row(self, ctx: ChannelContext) -> torch.Tensor:
+    def _row(self, ctx: ChannelContext,
+             live: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The step's stat row; batched, only the ``live`` lanes' stats
+        (a lane that does not run adds no traffic and no overflow)."""
         extra = (set(ctx.stats_bytes) - set(self.bkeys)) | (
             set(ctx.stats_ovf) - set(self.okeys))
         if extra:
@@ -585,11 +605,29 @@ class DeviceLoop:
                             device=self.device)
         parts = [ctx.stats_bytes.get(k, zeros) for k in self.bkeys]
         parts += [ctx.stats_msgs.get(k, zeros) for k in self.bkeys]
-        parts += [ctx.stats_ovf[k].any().reshape(1) if k in ctx.stats_ovf
-                  else zeros[:1].bool() for k in self.okeys]
+        ovf = [ctx.stats_ovf.get(k, zeros.bool()) for k in self.okeys]
+        if live is not None:
+            parts = [torch.where(live, p, 0) for p in parts]
+            ovf = [v & live for v in ovf]
+        w = self.graph.num_workers
+        parts += [v.reshape(w, -1).any(dim=0) for v in ovf]
         if not parts:  # a step with no channel
-            return zeros[:0]
-        return torch.cat([p.to(torch.int32) for p in parts])
+            return zeros.reshape(-1)[:0]
+        return torch.cat([p.reshape(-1).to(torch.int32) for p in parts])
+
+    def _record(self, k: int, row: torch.Tensor) -> None:
+        """Step ``k``'s stat row into its chunk row, or into the fused
+        accumulator with the wrap latch."""
+        if self.mode == "chunked":
+            self.rows[k].copy_(row)
+            return
+        acc = self.rows[0]
+        new = acc[:self.nb] + row[:self.nb]
+        # the deltas are not negative: an accumulator that decreases
+        # wrapped
+        self.flags[3].copy_(self.flags[3] | (new < acc[:self.nb]).any())
+        acc[:self.nb].copy_(new)
+        acc[self.nb:].copy_(acc[self.nb:] | row[self.nb:])
 
     def _store(self, new_state) -> None:
         """``new_state`` into the static buffers (``core.channel.store``)."""
@@ -605,21 +643,49 @@ class DeviceLoop:
             torch.cuda.current_stream(self.device).synchronize()
         return dst.numpy().astype(np.int64)
 
-    def execute(self, state0: Dict[str, torch.Tensor]) -> RunResult:
-        """Run the loop from ``state0`` to a halt, ``max_steps`` or an
-        overflow; the result's state is a copy, so a later run does not
-        overwrite it. On the card the replays' kernel launches, as the
-        kernels count them on the device, go to ``ops.launch_counts``."""
+    def _dispatch(self) -> None:
+        """One chunk: a replay of the captured graph, or on the CPU the
+        K steps run under their ``go``."""
+        if self.cuda_graph is not None:
+            self.cuda_graph.replay()
+        else:
+            self._chunk()
+
+    @contextlib.contextmanager
+    def replays_counted(self):
+        """On the card, the kernel launches of the replays inside the
+        ``with``, as the kernels count them on the device, go to
+        ``ops.launch_counts`` (a replay launches its kernels without the
+        wrappers, an inner loop as often as its condition says). Reading
+        the counters synchronizes the device."""
+        launched = kops.device_launch_counts() if self.cuda else None
+        try:
+            yield
+        finally:
+            if launched is not None:
+                now = kops.device_launch_counts()
+                kops.add_replayed({k: now[k] - launched[k] for k in now})
+
+    def load(self, state0: Dict[str, torch.Tensor]) -> None:
+        """``state0`` into the loop's state buffers."""
         if {k: (v.shape, v.dtype) for k, v in state0.items()} != {
                 k: (v.shape, v.dtype) for k, v in self.state.items()}:
             raise ValueError(f"{self.name}: state0 does not match the "
                              "layout this loop was built for")
-        # a replay launches its kernels without the wrappers, and an inner
-        # loop as often as its condition says: the kernels count them
-        launched = kops.device_launch_counts() if self.cuda else None
-        t0 = time.perf_counter()
         for k, v in state0.items():
             self.state[k].copy_(v)
+
+    def execute(self, state0: Dict[str, torch.Tensor]) -> RunResult:
+        """Run the loop from ``state0`` to a halt, ``max_steps`` or an
+        overflow; the result's state is a copy, so a later run does not
+        overwrite it. On the card the replays' kernel launches go to
+        ``ops.launch_counts`` (:meth:`replays_counted`)."""
+        with self.replays_counted():
+            return self._execute(state0)
+
+    def _execute(self, state0) -> RunResult:
+        t0 = time.perf_counter()
+        self.load(state0)
         self.out.zero_()
         self.go.fill_(self.max_steps > 0)
         chunked = self.mode == "chunked"
@@ -632,10 +698,7 @@ class DeviceLoop:
         n_read = self.out.numel() if chunked else 4
         while True:
             ts = time.perf_counter()
-            if self.cuda_graph is not None:
-                self.cuda_graph.replay()
-            else:
-                self._chunk()
+            self._dispatch()
             dispatches += 1
             t_enq = time.perf_counter()
             host = self._read(n_read)
@@ -677,9 +740,6 @@ class DeviceLoop:
             wall_time_s=time.perf_counter() - t0, step_times_s=times,
             mode=self.mode, dispatches=dispatches, host_overhead_s=overhead,
             converged=bool(halted), overflow_by_channel=ovf_acc)
-        if launched is not None:
-            now = kops.device_launch_counts()
-            kops.add_replayed({k: now[k] - launched[k] for k in now})
         if overflowed:
             raise _overflow_error(steps, ovf_acc, res)
         if wrapped:
@@ -735,8 +795,13 @@ def _readback_lanes(halted, overflow, nbytes, nmsgs, novf):
 
 
 def _batched_result(state, steps, halted_q, overflow_q, q_bytes, q_msgs,
-                    steps_q, q_real, wall, step_times, check_overflow,
-                    ovf_by, wrapped) -> RunResult:
+                    steps_q, q_real, *, mode, dispatches, wall, step_times,
+                    overhead, check_overflow, ovf_by, wrapped,
+                    latch=False) -> RunResult:
+    """The batched run's result over its ``q_real`` real lanes; raises
+    its overflow (with the lanes' qids) or wrap error. ``wrapped`` names
+    the channels whose per-step count went negative (host and chunked
+    modes); ``latch`` is the fused loop's global wrap latch."""
     # report only the real leading lanes: the pad lanes (which start
     # halted) surface only in the all-zero pad audit
     pad = slice(q_real, None)
@@ -749,7 +814,9 @@ def _batched_result(state, steps, halted_q, overflow_q, q_bytes, q_msgs,
         msgs_by_channel={k: int(v[:q_real].sum()) for k, v in q_msgs.items()},
         wall_time_s=wall,
         step_times_s=step_times,
-        mode="host",
+        mode=mode,
+        dispatches=dispatches,
+        host_overhead_s=overhead,
         converged=bool(halted_q[:q_real].all()),
         overflow_by_channel={k: v[:q_real] for k, v in ovf_by.items()},
         num_queries=q_real,
@@ -775,6 +842,12 @@ def _batched_result(state, steps, halted_q, overflow_q, q_bytes, q_msgs,
             f"int32 traffic counter wrapped in channel(s) {', '.join(bad)} "
             f"at superstep {steps - 1} — per-step traffic exceeds int32 "
             "range", superstep=steps - 1, channels=bad, result=res)
+    if latch:
+        raise errors.TrafficWrapError(
+            "per-channel traffic counters overflowed int32 inside the "
+            "batched loop; bytes/msgs totals are unreliable — use "
+            "mode='chunked' (exact host-side int64 accumulation) for "
+            "runs this heavy", superstep=steps - 1, result=res)
     return res
 
 
@@ -809,6 +882,7 @@ def run_batched_supersteps(
     wrapped: set = set()
     touched: set = set()
     step_times = []
+    overhead = 0.0
     state = state0
     steps = 0
     t0 = time.perf_counter()
@@ -830,12 +904,14 @@ def run_batched_supersteps(
         ovf_q = torch.as_tensor(overflow, device=dev).to(torch.bool).expand(
             W, q).any(dim=0) & live
         nbytes, nmsgs = ctx.stats()
+        nbytes = {k: torch.where(live, v, 0) for k, v in nbytes.items()}
+        nmsgs = {k: torch.where(live, v, 0) for k, v in nmsgs.items()}
+        novf = {k: v & live for k, v in ctx.stats_ovf.items()}
+        t_enq = time.perf_counter()
         halted_np, ovf_now, db, dm, dovf = _readback_lanes(
-            halted, ovf_q,
-            {k: torch.where(live, v, 0) for k, v in nbytes.items()},
-            {k: torch.where(live, v, 0) for k, v in nmsgs.items()},
-            {k: v & live for k, v in ctx.stats_ovf.items()})
-        step_times.append(time.perf_counter() - ts)
+            halted, ovf_q, nbytes, nmsgs, novf)
+        t_dev = time.perf_counter()
+        step_times.append(t_dev - ts)
         steps = step + 1
         steps_q += live_np
         for acc, delta in ((q_bytes, db), (q_msgs, dm)):
@@ -846,6 +922,7 @@ def run_batched_supersteps(
         for k, row in dovf.items():
             q_ovf[k] = q_ovf.get(k, False) | row
         overflow_np |= ovf_now
+        overhead += (t_enq - ts) + (time.perf_counter() - t_dev)
         if check_overflow and overflow_np[:q_real].any():
             break
         if wrapped:
@@ -854,5 +931,203 @@ def run_batched_supersteps(
         _check_declared(registry, touched)
     return _batched_result(
         state, steps, halted_np, overflow_np, q_bytes, q_msgs, steps_q,
-        q_real, time.perf_counter() - t0, step_times, check_overflow, q_ovf,
-        wrapped)
+        q_real, mode="host", dispatches=steps,
+        wall=time.perf_counter() - t0, step_times=step_times,
+        overhead=overhead, check_overflow=check_overflow, ovf_by=q_ovf,
+        wrapped=wrapped)
+
+
+class BatchedDeviceLoop(DeviceLoop):
+    """The batched query plane's ``fused`` or ``chunked`` loop
+    (``Engine.run_batch``) or, with ``serve=True``, the serving substrate
+    (``Engine.serve``): :class:`DeviceLoop`'s warm-up, capture, IF and
+    WHILE nodes and scratch over state leaves ``(W, Q, n_loc, ...)`` and a
+    batched ``ChannelContext``.
+
+    The lane rows of ``out``, ``(Q,)`` int32 each: ``halted``,
+    ``overflow``, ``age`` and ``steps``. Each step, as the JAX package's
+    batched step: the live mask comes from the ``halted`` row before the
+    step, so the union route (``routing.lane_live``) reads the lanes of
+    this replay and never a mask made at capture; a lane that is not live
+    keeps its state bit for bit and adds no traffic and no overflow; the
+    halting step itself still charges.
+
+      - ``serve=False`` (``Engine.run_batch``): the step index is the
+        loop's counter, a 0-d int32 as in a solo loop; ``halted`` starts
+        as the pad mask, which :meth:`execute` writes before each run (the
+        graph is cached per bucket cap, not per real Q); ``steps`` counts
+        each lane's supersteps; ``go = any(~halted) & (i < max_steps) &
+        ~(check_overflow & any(overflow))``.
+      - ``serve=True`` (always chunked, K = ``chunk_size``): a lane is
+        live when ``~(halted | age >= max_steps)``, and the step index is
+        the ``(Q,)`` ``age`` row, each lane's supersteps since its
+        admission (under the JAX package's query ``vmap`` each lane sees
+        its own scalar; here a step that reads the index gets the
+        ``(Q,)`` tensor — ``reach`` and ``sssp`` do not read it). Only a
+        live lane's own vote halts or overflows it; ``age`` and ``steps``
+        (this chunk's supersteps a lane) grow by ``live``; ``go =
+        any(live) & ~(check_overflow & any(overflow))``, so a chunk does
+        no work past its last live step. The host admits and harvests
+        lanes between dispatches (:meth:`serve_chunk`)."""
+
+    def __init__(self, graph: PartitionedGraph, step_fn: Callable,
+                 state0: Dict[str, torch.Tensor], *, mode: str,
+                 max_steps: int, check_overflow: bool = True,
+                 chunk_size: int = 64, channels: Optional[Any] = None,
+                 name: str = "", serve: bool = False):
+        if serve and mode != "chunked":
+            raise ValueError(f"the serving substrate is chunked, not "
+                             f"{mode!r}")
+        self.q = next(iter(state0.values())).shape[1]
+        self.serve = serve
+        super().__init__(graph, step_fn, state0, mode=mode,
+                         max_steps=max_steps, check_overflow=check_overflow,
+                         chunk_size=chunk_size, channels=channels, name=name)
+
+    def _step(self, k: int) -> None:
+        halted, overflow, age, steps = self.lanes
+        was = halted != 0
+        if self.serve:
+            index, live = age, ~(was | (age >= self.max_steps))
+        else:
+            index, live = self.flags[0], ~was
+        ctx = self._context(live)
+        new_state, halt, ovf = _call_step(self.step_fn, ctx, self.graph,
+                                          self.state, index)
+        halt_q = aggregator.all_halted(ctx, halt)
+        if self.serve:  # a dead lane's computation is thrown away
+            halt_q = halt_q & live
+        ovf_q = on_device(ovf, self.device, torch.bool).expand(
+            self.graph.num_workers, self.q).any(dim=0) & live
+        row = self._row(ctx, live)
+        self._store({key: torch.where(_qmask(live, v), v, self.state[key])
+                     for key, v in new_state.items()})
+        self._record(k, row)
+        now_halted = was | halt_q
+        halted.copy_(now_halted)
+        overflow.copy_((overflow != 0) | ovf_q)
+        steps.add_(live.to(torch.int32))
+        self.flags[0].add_(1)
+        if self.serve:
+            age.add_(live.to(torch.int32))
+            dead = now_halted | (age >= self.max_steps)
+        else:
+            dead = now_halted
+        self.flags[1].copy_(dead.all())
+        self.flags[2].copy_((overflow != 0).any())
+        go = ~self.flags[1].bool()
+        if not self.serve:
+            go = go & (self.flags[0] < self.max_steps)
+        if self.check_overflow:
+            go = go & (self.flags[2] == 0)
+        self.go.copy_(go)
+
+    def _add_rows(self, rows: np.ndarray, q_bytes, q_msgs, q_ovf,
+                  wrapped: Optional[set] = None) -> None:
+        """Add ``rows`` (n, row_len) into the per-lane totals: each key's
+        ``(W, Q)`` block summed over W in int64, row by row; a negative
+        row total names its channel in ``wrapped`` (when given)."""
+        n, w, q = rows.shape[0], self.graph.num_workers, self.q
+        wq, nk = w * q, len(self.bkeys)
+        for j, key in enumerate(self.bkeys):
+            for acc, col in ((q_bytes, j), (q_msgs, nk + j)):
+                per = rows[:, col * wq:(col + 1) * wq].reshape(n, w, q).sum(
+                    axis=1)
+                if wrapped is not None and (per < 0).any():
+                    wrapped.add(key)
+                acc[key] += per.sum(axis=0)
+        for j, key in enumerate(self.okeys):
+            col = self.nb + j * q
+            q_ovf[key] |= rows[:, col:col + q].any(axis=0)
+
+    def _totals(self):
+        q = self.q
+        return ({k: np.zeros(q, np.int64) for k in self.bkeys},
+                {k: np.zeros(q, np.int64) for k in self.bkeys},
+                {k: np.zeros(q, bool) for k in self.okeys})
+
+    def execute(self, state0: Dict[str, torch.Tensor],
+                num_real_queries: int) -> RunResult:
+        """Run the Q lanes from ``state0`` until every lane halts, at
+        ``max_steps`` or at an overflow; lanes ``num_real_queries`` and up
+        are bucket padding and start halted. The result reports the real
+        lanes (``_batched_result``); its state is a copy."""
+        if self.serve:
+            raise ValueError("a serving loop runs a chunk at a time "
+                             "(serve_chunk)")
+        with self.replays_counted():
+            return self._execute_batch(state0, num_real_queries)
+
+    def _execute_batch(self, state0, q_real: int) -> RunResult:
+        t0 = time.perf_counter()
+        self.load(state0)
+        self.out.zero_()
+        # the pad lanes are an input of the run, not part of the graph
+        self.lanes[0].copy_(torch.arange(self.q, device=self.device)
+                            >= q_real)
+        self.go.fill_(self.max_steps > 0)
+        chunked = self.mode == "chunked"
+        q_bytes, q_msgs, q_ovf = self._totals()
+        wrapped: set = set()
+        times, dispatches, overhead = [], 0, 0.0
+        n_read = self.out.numel() if chunked else 4
+        while True:
+            ts = time.perf_counter()
+            self._dispatch()
+            dispatches += 1
+            t_enq = time.perf_counter()
+            host = self._read(n_read)
+            t_dev = time.perf_counter()
+            steps, dead, overflow = (int(x) for x in host[:3])
+            if chunked:  # the chunk's per-step rows
+                self._add_rows(host[self.head:].reshape(self.K, -1),
+                               q_bytes, q_msgs, q_ovf, wrapped)
+            times.append(time.perf_counter() - ts)
+            overhead += (t_enq - ts) + (time.perf_counter() - t_dev)
+            if ((self.check_overflow and overflow) or wrapped or dead
+                    or steps >= self.max_steps):
+                break
+        t_r = time.perf_counter()
+        latch = False
+        if not chunked:  # the lanes and the accumulators, once
+            host = self._read(self.out.numel())
+            latch = bool(host[3])
+            self._add_rows(host[self.head:].reshape(1, -1), q_bytes, q_msgs,
+                           q_ovf)
+        lanes = host[4:self.head].reshape(4, self.q)
+        state = {k: v.clone() for k, v in self.state.items()}
+        overhead += time.perf_counter() - t_r
+        return _batched_result(
+            state, steps, lanes[0] != 0, lanes[1] != 0, q_bytes, q_msgs,
+            lanes[3], q_real, mode=self.mode, dispatches=dispatches,
+            wall=time.perf_counter() - t0, step_times=times,
+            overhead=overhead, check_overflow=self.check_overflow,
+            ovf_by=q_ovf, wrapped=wrapped, latch=latch)
+
+    def serve_chunk(self, age: np.ndarray, halted: np.ndarray,
+                    overflow: np.ndarray):
+        """One serving dispatch: up to K supersteps of every live lane,
+        from the host's ``(Q,)`` ``age``, ``halted`` and ``overflow`` and
+        the lanes' state in :attr:`state` (between dispatches the host
+        writes an admitted query's state into its lane and reads a
+        harvested lane's). Uploads the lane words in one copy and reads
+        everything back in one. Returns ``(age, halted, overflow, d_steps,
+        db, dm, dovf)`` as numpy: each lane's supersteps this chunk, and
+        per channel each lane's bytes and messages (int64) and overflow
+        flag."""
+        q = self.q
+        head = self.host[:self.head]
+        words = head.numpy()
+        words[:] = 0
+        words[4:].reshape(4, q)[:3] = (halted, overflow, age)
+        self.out[:self.head].copy_(head, non_blocking=self.cuda)
+        live = ~(halted | (age >= self.max_steps))
+        self.go.fill_(bool(live.any()) and not (
+            self.check_overflow and bool(overflow.any())))
+        self._dispatch()
+        host = self._read(self.out.numel())
+        db, dm, dovf = self._totals()
+        self._add_rows(host[self.head:].reshape(self.K, -1), db, dm, dovf)
+        lanes = host[4:self.head].reshape(4, q)
+        return (lanes[2].astype(np.int32), lanes[0] != 0, lanes[1] != 0,
+                lanes[3], db, dm, dovf)

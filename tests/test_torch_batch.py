@@ -57,7 +57,7 @@ def batched_runs(key):
     jspec, spec = jalgorithms.REGISTRY[key], REGISTRY[key]
     want = JEngine(mode="host").run_batch(
         jspec.factory(**jspec.inputs(graph, SEED)), jpg, queries)
-    got = Engine(device="cpu").run_batch(
+    got = Engine(mode="host", device="cpu").run_batch(
         spec.factory(**spec.inputs(graph, SEED)), pg, queries)
     return want, got
 
@@ -119,7 +119,7 @@ def test_run_batch_matches_solo_runs(key):
     graph, _, pg, queries = problem(key)
     _, got = batched_runs(key)
     spec = REGISTRY[key]
-    eng = Engine(device="cpu")
+    eng = Engine(mode="host", device="cpu")
     for qi, source in enumerate(queries):
         solo = eng.run(spec.factory(**{spec.query_knob: source}), pg)
         np.testing.assert_array_equal(got.outputs[qi], solo.output)
@@ -138,7 +138,8 @@ def test_solo_run_matches_jax_engine(key, which):
     source = queries[which]
     spec, jspec = REGISTRY[key], jalgorithms.REGISTRY[key]
     want = JEngine(mode="host").run(jspec.factory(source=source), jpg)
-    got = Engine(device="cpu").run(spec.factory(source=source), pg)
+    got = Engine(mode="host", device="cpu").run(spec.factory(source=source),
+                                                pg)
     assert (got.steps, got.halted) == (want.steps, want.halted)
     assert got.bytes_by_channel == want.bytes_by_channel
     assert got.msgs_by_channel == want.msgs_by_channel
@@ -153,7 +154,7 @@ def test_default_program_passes_its_oracle(key):
     pg = pgraph.partition_graph(graph, W, "degree", build=spec.build,
                                 device="cpu")
     inputs = spec.inputs(graph, SEED)
-    res = Engine(device="cpu").run(get_program(key, **inputs), pg)
+    res = Engine(mode="host", device="cpu").run(get_program(key, **inputs), pg)
     spec.check(graph, pg, res, inputs)
 
 
@@ -167,7 +168,8 @@ def test_run_batch_rejects_programs_without_query_axis():
     pg = pgraph.partition_graph(spec.make_graph(6, SEED), W, "random",
                                 build=spec.build, device="cpu")
     with pytest.raises(ValueError, match="no query axis"):
-        Engine(device="cpu").run_batch(get_program("wcc:basic"), pg, [0, 1])
+        Engine(mode="host", device="cpu").run_batch(
+            get_program("wcc:basic"), pg, [0, 1])
 
 
 def _overflow_programs():
@@ -209,7 +211,7 @@ def test_batched_overflow_raises_with_qids_like_jax():
     with pytest.raises(jerrors.ChannelOverflowError) as jerr:
         JEngine(mode="host").run_batch(jprog, jpg, queries)
     with pytest.raises(errors.ChannelOverflowError) as err:
-        Engine(device="cpu").run_batch(prog, pg, queries)
+        Engine(mode="host", device="cpu").run_batch(prog, pg, queries)
     assert 0 < len(err.value.qids) < NQ
     assert err.value.qids == jerr.value.qids
     assert err.value.superstep == jerr.value.superstep == 0
@@ -272,8 +274,8 @@ def test_sssp_rejects_negative_weights_and_prop():
     pg = pgraph.partition_graph(graph, W, "random", build=spec.build,
                                 device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(device="cpu").run_batch(sssp.program("prop"), pg,
-                                       spec.queries(graph, SEED, 2))
+        Engine(mode="host", device="cpu").run_batch(
+            sssp.program("prop"), pg, spec.queries(graph, SEED, 2))
     pg.raw_out.w[0, 0] = -1.0
     with pytest.raises(ValueError, match="non-negative"):
         sssp.program().init(pg)

@@ -90,6 +90,33 @@ def test_run_and_bench_in_the_device_modes(tmp_path, capsys, mode):
     assert "wcc:prop" in out and "oracle: ok" in out
 
 
+def test_run_and_bench_default_to_the_fused_mode(tmp_path, capsys):
+    assert cli.main(["run", "reach", "--scale", "6", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "fused mode" in out and "oracle: ok" in out
+    path = tmp_path / "bench.json"
+    assert cli.main(["bench", "--scale", "6", "--device", "cpu", "--keys",
+                     "sssp:basic", "--json", str(path)]) == 0
+    assert [r["mode"] for r in json.loads(path.read_text())["rows"]] == [
+        "fused"]
+
+
+def test_serve_smoke_checks_every_answer_against_a_solo_run(capsys):
+    """``serve --smoke``: 12 queries through 3 lanes at chunk 3 (forced
+    refills), every served answer held to a solo host-mode run; the lane
+    route is refused, naming the union route."""
+    assert cli.main(["serve", "reach:basic", "--device", "cpu",
+                     "--smoke"]) == 0
+    out = capsys.readouterr().out
+    assert "served 12 queries through 3 lanes" in out
+    assert "bit-identity: all 12 served outputs" in out
+    assert cli.main(["serve", "reach", "--device", "cpu", "--route-batch",
+                     "lane"]) == 2
+    assert "union route only" in capsys.readouterr().out
+    assert cli.main(["serve", "wcc", "--device", "cpu"]) == 2
+    assert "no query axis" in capsys.readouterr().out
+
+
 def test_bench_writes_rows(tmp_path, capsys):
     out = tmp_path / "bench.json"
     assert cli.main(["bench", "--scale", "6", "--device", "cpu", "--keys",

@@ -36,7 +36,7 @@ def test_slice_matches_jax_engine(key, knobs, w, scale):
     want = JEngine(mode="host").run(
         jalgorithms.get_program(key, **knobs), jpg)
     pg = pgraph.from_arrays(*jax_tables(jpg), device="cpu")
-    got = Engine(device="cpu").run(get_program(key, **knobs), pg)
+    got = Engine(mode="host", device="cpu").run(get_program(key, **knobs), pg)
 
     assert (got.steps, got.halted) == (want.steps, want.halted)
     assert got.bytes_by_channel == want.bytes_by_channel
@@ -61,10 +61,11 @@ def test_engine_defaults_to_the_card():
                                 {"plan": "auto"},
                                 {"on_overflow": "escalate"}])
 def test_unported_engine_options_raise_naming_roadmap(kw):
-    """The device modes run solo programs (tests/test_torch_fused.py);
-    under them a batched run still raises, as do the planner and
-    overflow escalation at construction."""
-    spec = REGISTRY["reach:basic"]
+    """The device modes run batches of ``reach:basic`` and ``sssp:basic``
+    (tests/test_torch_batch_fused.py); the batched Propagation channel of
+    ``sssp:prop`` still raises under them, as do the planner and overflow
+    escalation at construction."""
+    spec = REGISTRY["sssp:prop"]
     pg = pgraph.partition_graph(spec.make_graph(7, 0), 4, "random",
                                 build=spec.build, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

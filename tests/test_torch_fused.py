@@ -64,7 +64,8 @@ def _problem(key):
 def _host_run(key):
     if key not in _host:
         spec, _, _, pg, inputs = _problem(key)
-        _host[key] = Engine(device="cpu").run(spec.factory(**inputs), pg)
+        _host[key] = Engine(mode="host", device="cpu").run(
+            spec.factory(**inputs), pg)
     return _host[key]
 
 
@@ -106,7 +107,8 @@ def test_device_mode_matches_host_and_jax(key, mode, k):
 def test_max_steps_without_a_halt(mode, k):
     spec, _, jpg, pg, inputs = _problem("wcc:basic")
     assert _host_run("wcc:basic").steps > 3
-    host = Engine(device="cpu").run(spec.factory(**inputs), pg, max_steps=3)
+    host = Engine(mode="host", device="cpu").run(spec.factory(**inputs), pg,
+                                                 max_steps=3)
     res = Engine(mode=mode, chunk_size=k, device="cpu").run(
         spec.factory(**inputs), pg, max_steps=3)
     want = JEngine(mode=mode, chunk_size=k).run(

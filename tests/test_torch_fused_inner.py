@@ -72,7 +72,8 @@ def _problem(key):
 def _host_run(key):
     if key not in _host:
         spec, _, _, pg, inputs = _problem(key)
-        _host[key] = Engine(device="cpu").run(spec.factory(**inputs), pg)
+        _host[key] = Engine(mode="host", device="cpu").run(
+            spec.factory(**inputs), pg)
     return _host[key]
 
 

@@ -17,6 +17,7 @@ from repro_torch.core.channel import ChannelContext
 from repro_torch.graph import pgraph
 from repro_torch.kernels import ops, ref
 from repro_torch.pregel.engine import Engine
+from repro_torch.pregel.serve import QueryQueue
 
 
 def bits_equal(a, b):
@@ -387,7 +388,8 @@ def test_slice_on_the_card_matches_the_cpu_run(cuda, key):
     for dev in ("cpu", "cuda"):
         pg = pgraph.from_arrays(*tables, device=dev)
         ops.reset_launch_counts()
-        runs[dev] = Engine(device=dev).run(spec.factory(**inputs), pg)
+        runs[dev] = Engine(mode="host", device=dev).run(
+            spec.factory(**inputs), pg)
         launches = ops.launch_counts()
     cpu, card = runs["cpu"], runs["cuda"]
     np.testing.assert_array_equal(card.output, cpu.output)
@@ -534,12 +536,12 @@ def test_new_programs_on_the_card(cuda, key):
     tables = pgraph.partition_tables(graph, 8, "random", build=spec.build)
     knobs = {"iters": 10} if key.startswith("pagerank") else {}
     cpu_pg = pgraph.from_arrays(*tables, device="cpu")
-    cpu = Engine(device="cpu").run(spec.factory(**knobs), cpu_pg)
+    cpu = Engine(mode="host", device="cpu").run(spec.factory(**knobs), cpu_pg)
     pg = pgraph.from_arrays(*tables, device="cuda")
     ops.reset_launch_counts()
-    card = Engine(device="cuda").run(spec.factory(**knobs), pg)
+    card = Engine(mode="host", device="cuda").run(spec.factory(**knobs), pg)
     launches = ops.launch_counts()
-    again = Engine(device="cuda").run(spec.factory(**knobs), pg)
+    again = Engine(mode="host", device="cuda").run(spec.factory(**knobs), pg)
     assert (card.steps, card.halted) == (cpu.steps, cpu.halted)
     assert card.bytes_by_channel == cpu.bytes_by_channel
     assert card.msgs_by_channel == cpu.msgs_by_channel
@@ -651,11 +653,11 @@ def test_prop_programs_on_the_card(cuda, key, mirror):
     inputs = spec.inputs(graph, 0)
     tables = pgraph.partition_tables(graph, 8, "random", build=spec.build,
                                      mirror_threshold=mirror)
-    cpu = Engine(device="cpu").run(spec.factory(**inputs),
-                                   pgraph.from_arrays(*tables, device="cpu"))
+    cpu = Engine(mode="host", device="cpu").run(
+        spec.factory(**inputs), pgraph.from_arrays(*tables, device="cpu"))
     pg = pgraph.from_arrays(*tables, device="cuda")
     ops.reset_launch_counts()
-    card = Engine(device="cuda").run(spec.factory(**inputs), pg)
+    card = Engine(mode="host", device="cuda").run(spec.factory(**inputs), pg)
     launches = ops.launch_counts()
     np.testing.assert_array_equal(card.output, cpu.output)
     assert (card.steps, card.halted) == (cpu.steps, cpu.halted)
@@ -917,7 +919,7 @@ def _device_mode_against_host(cuda, key, mode, k, scale):
     inputs = spec.inputs(graph, 0)
     pg = pgraph.partition_graph(graph, 8, "random", build=spec.build)
     ops.reset_launch_counts()
-    host = Engine(device=cuda).run(spec.factory(**inputs), pg)
+    host = Engine(mode="host", device=cuda).run(spec.factory(**inputs), pg)
     host_launches = ops.launch_counts()
     eng = Engine(mode=mode, chunk_size=k, device=cuda)
     prog = spec.factory(**inputs)
@@ -992,3 +994,75 @@ def test_a_capture_that_meets_a_host_sync_raises(cuda):
         pg, lambda c, g, s, i: ({"x": s["x"] + 1}, (s["x"] >= 3).all(dim=1)),
         x0, mode="fused")
     assert res.steps == 4 and res.halted
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,k", [("fused", 64), ("chunked", 3)])
+@pytest.mark.parametrize("key", ["reach:basic", "sssp:basic"])
+def test_batched_device_modes_match_host_on_the_card(cuda, key, mode, k):
+    """``run_batch`` of 20 sources (12 pad lanes of the cap-32 bucket) at
+    scale 10, W = 8, captured against the host loop on one card: every
+    lane, the pad audit and the state bit-identical, ``bucket_ranks_lanes``
+    launched as often (the runtime's counts and the kernel's own); a
+    second batch of 24 sources replays the same graph with its own pad
+    lanes and equals the host run of those sources."""
+    spec = REGISTRY[key]
+    graph = spec.make_graph(10, 0)
+    pg = pgraph.partition_graph(graph, 8, "random", build=spec.build)
+    queries = spec.queries(graph, 0, 24)
+    host_eng, eng = (Engine(mode="host", device=cuda),
+                     Engine(mode=mode, chunk_size=k, device=cuda))
+    prog = spec.factory()
+    for n in (20, 24):
+        ops.reset_launch_counts()
+        host = host_eng.run_batch(prog, pg, queries[:n])
+        want = ops.launch_counts()
+        ops.reset_launch_counts()
+        before = ops.device_launch_counts()
+        res = eng.run_batch(prog, pg, queries[:n])
+        after = ops.device_launch_counts()
+        assert ops.launch_counts() == want
+        assert want["bucket_ranks_lanes"] == host.steps > 0
+        assert res.cache_hit == (n == 24)
+        assert (res.steps, res.num_pad_lanes, res.pad_steps,
+                res.pad_bytes) == (host.steps, 32 - n, 0, 0)
+        for qi in range(n):
+            np.testing.assert_array_equal(res.outputs[qi], host.outputs[qi])
+            assert res.query_bytes(qi) == host.query_bytes(qi)
+            assert res.query_msgs(qi) == host.query_msgs(qi)
+        np.testing.assert_array_equal(res.query_steps, host.query_steps)
+        assert all(bits_equal(res.state[x], host.state[x])
+                   for x in host.state)
+        if n == 24:  # a replay: launches only from the graph
+            assert after["bucket_ranks_lanes"] - before[
+                "bucket_ranks_lanes"] == want["bucket_ranks_lanes"]
+    eng.clear_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [2, 64])
+def test_serve_on_the_card_equals_solo_runs(cuda, chunk):
+    """``Engine.serve`` of a Poisson stream of 12 ``sssp:basic`` queries
+    through 3 lanes at scale 10: every record equals a solo host-mode run
+    of its source, ``bucket_ranks_lanes`` launches once a superstep the
+    session ran (as the kernel counts), and a second session replays."""
+    spec = REGISTRY["sssp:basic"]
+    graph = spec.make_graph(10, 0)
+    pg = pgraph.partition_graph(graph, 8, "random", build=spec.build)
+    schedule = spec.stream(graph, 0, 12, rate=0.5)
+    eng, host = Engine(device=cuda), Engine(mode="host", device=cuda)
+    prog = spec.factory()
+    for hit in (False, True):
+        before = ops.device_launch_counts()
+        res = eng.serve(prog, pg, QueryQueue.from_schedule(schedule),
+                        num_lanes=3, chunk_size=chunk)
+        after = ops.device_launch_counts()
+        assert res.cache_hit == hit and res.num_queries == 12
+        launched = after["bucket_ranks_lanes"] - before["bucket_ranks_lanes"]
+        assert launched == res.supersteps + (0 if hit else 1)  # warm-up
+        for rec in res.records:
+            solo = host.run(spec.factory(source=rec.query), pg)
+            np.testing.assert_array_equal(rec.output, solo.output)
+            assert (rec.steps, rec.halted) == (solo.steps, solo.halted)
+            assert rec.bytes_by_channel == solo.bytes_by_channel
+    eng.clear_cache()

@@ -49,7 +49,7 @@ def test_program_matches_jax_engine(key, w, scale):
     knobs = {"iters": 12} if key.startswith("pagerank") else {}
     want = JEngine(mode="host").run(
         jalgorithms.get_program(key, **knobs), jpg)
-    got = Engine(device="cpu").run(spec.factory(**knobs), pg)
+    got = Engine(mode="host", device="cpu").run(spec.factory(**knobs), pg)
 
     assert (got.steps, got.halted) == (want.steps, want.halted)
     assert got.bytes_by_channel == want.bytes_by_channel
@@ -71,7 +71,7 @@ def test_msf_variants_agree(w, scale):
     """The typed and the monolithic Boruvka find the same forest, the
     typed one with fewer bytes in as many supersteps."""
     _, _, _, pg = _graphs("msf:channels", w, scale)
-    eng = Engine(device="cpu")
+    eng = Engine(mode="host", device="cpu")
     typed = eng.run(msf.program("channels"), pg)
     mono = eng.run(msf.program("monolithic"), pg)
     np.testing.assert_array_equal(typed.output["labels"],

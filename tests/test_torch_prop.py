@@ -274,7 +274,7 @@ def test_program_matches_jax_engine(key, w, scale):
     inputs = spec.inputs(g, 0)
     want = JEngine(mode="host").run(
         jalgorithms.get_program(key, **inputs), jpg)
-    got = Engine(device="cpu").run(spec.factory(**inputs), pg)
+    got = Engine(mode="host", device="cpu").run(spec.factory(**inputs), pg)
 
     assert (got.steps, got.halted) == (want.steps, want.halted)
     assert got.bytes_by_channel == want.bytes_by_channel
@@ -307,8 +307,8 @@ def test_sssp_prop_batched_raises_naming_roadmap():
     g = spec.make_graph(6, 0)
     pg = pgraph.partition_graph(g, 4, build=spec.build, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(device="cpu").run_batch(spec.factory(), pg,
-                                       spec.queries(g, 0, 2))
+        Engine(mode="host", device="cpu").run_batch(
+            spec.factory(), pg, spec.queries(g, 0, 2))
 
 
 def test_sssp_rejects_negative_weights_in_the_prop_plans():
@@ -322,7 +322,7 @@ def test_sssp_rejects_negative_weights_in_the_prop_plans():
         pg = pgraph.partition_graph(neg, 4, build=("prop_out",),
                                     device="cpu")
         with pytest.raises(ValueError, match="non-negative"):
-            Engine(device="cpu").run(sssp.program("prop"), pg)
+            Engine(mode="host", device="cpu").run(sssp.program("prop"), pg)
 
 
 def test_scc_oracle_matches_jax():
@@ -339,7 +339,7 @@ def test_wcc_prop_fewer_global_rounds():
     g = gen.grid2d(20)
     pg = pgraph.partition_graph(g, 4, "bfs", build=("prop_out", "raw_out"),
                                 device="cpu")
-    eng = Engine(device="cpu")
+    eng = Engine(mode="host", device="cpu")
     res_b = eng.run(get_program("wcc:basic"), pg)
     res_p = eng.run(get_program("wcc:prop"), pg)
     rounds = int(res_p.state["info"][:, 0].max())
@@ -353,7 +353,7 @@ def test_partitioners_all_give_correct_wcc():
     g = gen.rmat(9, edge_factor=4, seed=2).symmetrized()
     truth = gen.components_ground_truth(g)
     prog = get_program("wcc:prop")
-    eng = Engine(device="cpu")
+    eng = Engine(mode="host", device="cpu")
     for part in ("block", "random", "bfs"):
         pg = pgraph.partition_graph(g, 3, part, build=("prop_out",),
                                     device="cpu")
@@ -365,7 +365,7 @@ def test_scc_prop_fewer_bytes_than_basic():
     spec = REGISTRY["scc:prop"]
     g = spec.make_graph(9, 0)
     pg = pgraph.partition_graph(g, 8, build=spec.build, device="cpu")
-    eng = Engine(device="cpu")
+    eng = Engine(mode="host", device="cpu")
     res_p = eng.run(get_program("scc:prop"), pg)
     res_b = eng.run(get_program("scc:basic"), pg)
     np.testing.assert_array_equal(res_p.output, res_b.output)

@@ -44,7 +44,7 @@ def test_slice_matches_jax_engine(key, w, scale):
     inputs = spec.inputs(g, 0)
     want = JEngine(mode="host").run(
         jalgorithms.get_program(key, **inputs), jpg)
-    got = Engine(device="cpu").run(spec.factory(**inputs), pg)
+    got = Engine(mode="host", device="cpu").run(spec.factory(**inputs), pg)
 
     assert (got.steps, got.halted) == (want.steps, want.halted)
     assert got.bytes_by_channel == want.bytes_by_channel
@@ -59,7 +59,7 @@ def test_every_sv_variant_gives_the_same_labels(w, scale):
     more supersteps than the unoptimized one and fewer bytes (at these
     small scales it may tie on supersteps)."""
     _, _, _, pg = _graphs("sv:basic", w, scale)
-    eng = Engine(device="cpu")
+    eng = Engine(mode="host", device="cpu")
     runs = {v: eng.run(REGISTRY[f"sv:{v}"].factory(), pg)
             for v in sv.VARIANTS}
     for v, res in runs.items():
