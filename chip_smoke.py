@@ -20,14 +20,17 @@ channel (``wcc:prop``, ``sssp:prop``, ``scc:basic``/``prop``: a local
 fixpoint between cut exchanges, every combine a ``segment_combine``
 launch on ids sorted at plan build), and the device modes (``fused``,
 ``chunked``: K supersteps captured into one CUDA graph, each under an IF
-node, replayed once a dispatch) for all 20 programs, the inner loops of
+node, replayed once a dispatch) for all 21 programs, the inner loops of
 seven of them (pointer jumping, label propagation, the Propagation
 channel's rounds and local fixpoints) as WHILE nodes nested inside the
 IF nodes; the batched plane in the device modes, and the
 continuous-batching service (``Engine.serve``: a Poisson stream of
 queries through always-on lanes of the chunked serving substrate,
-harvested and refilled between replays). Phases, one or more lines
-each:
+harvested and refilled between replays); ``pagerank:personal`` (the
+static channels under the batched plane: the Q lanes as the columns of
+each ``segment_combine`` launch) and batched ``pj:reqresp`` (the union
+RequestRespond) solo, batched and served, and the ``route_batch="lane"``
+baseline against the union route. Phases, one or more lines each:
 
   1. environment and kernel build;
   2. each kernel against its plain PyTorch version on the card, the two
@@ -61,7 +64,9 @@ each:
      row against the reference's counts, headline held; the four
      Propagation programs with their bytes per channel and per-worker
      rounds and local iterations (``PROP_REFS``), and scipy's strong
-     components against ``oracles.scc_oracle``;
+     components against ``oracles.scc_oracle``; ``pagerank:personal``
+     from source 0 (``PERSONAL_REFS``) and the Q=32 batches of all four
+     batched programs (``BATCH_REFS``), every lane equal to its solo run;
   4. the main paths at R-MAT scale 20, W=8, checked against the host
      oracles, each with its kernels' launch counts (counts reset just
      before the path and read just after): pagerank run twice
@@ -92,7 +97,7 @@ each:
      ``sssp:prop`` (oracle; ``sssp:basic``'s distances bit for bit),
      ``scc:basic``/``prop`` (scipy's strong components; ``scc:prop`` below
      ``scc:basic`` in bytes), each with its launches (``segment_combine``
-     in all four, ``bucket_ranks`` in ``scc:basic``); all 20 programs
+     in all four, ``bucket_ranks`` in ``scc:basic``); all 21 programs
      (the seven with inner loops among them, whose kernels then launch
      many times inside one graph launch) on those partitions in host
      mode and in ``fused``, ``chunked`` K=64 and ``chunked`` K=4 (the
@@ -100,7 +105,16 @@ each:
      run each), each bit-identical to host mode and launching each kernel
      as often, as the kernels count their launches on the device: wall
      time, capture time, dispatches, host overhead a superstep and peak
-     memory of each;
+     memory of each; ``pagerank:personal`` from source 0 in host, fused,
+     chunked K=64 and K=4 (bit-identical, oracle), then for it and for
+     batched ``pj:reqresp`` (Q=32 forests on the scale-20 forest) 32
+     queries solo (fused for pagerank, host for pj), ``run_batch`` in
+     every mode (every lane equal to its solo run, launches equal on the
+     device, a Q=20 batch with 12 pad lanes) and served at chunks 4 and
+     64: queries/s batched against solo, ms a superstep, peak memory; and
+     ``reach:basic``, ``sssp:basic`` and ``pj:reqresp`` at Q=32 fused
+     under ``route_batch="lane"`` against the union route (lanes equal,
+     run walls and their ratio);
   5. each kernel's time against its plain version, its bound and a
      PyTorch yardstick at the scale-20 shapes (the bucket kernels also on
      random keys, warm and L2-flushed, and checked to run one device
@@ -109,7 +123,11 @@ each:
      as int32 ``min`` at the S-V plan, as ``min_by_first`` at the msf plan
      and as the float32 sum of pagerank:basic's CombinedMessage, each also
      with its stable sort, and as the int32 ``min`` at ``wcc:prop``'s
-     ``int_dst``), and one run of each program (the batched sssp,
+     ``int_dst``; rows 2e and 3a: ``segment_combine`` on
+     ``pagerank:personal``'s Q·D columns, send and receive, each column
+     bit-exact against its D=1 call, and ``bucket_ranks_lanes`` at the
+     ``_request_union`` shape, both as the first batched superstep hands
+     them over), and one run of each program (the batched sssp,
      ``sv:composed``, ``pagerank:basic``, ``msf:channels``, the four
      Propagation programs and the fused ``pagerank:scatter``,
      ``wcc:basic`` and ``wcc:prop`` among them) under torch.profiler
@@ -245,6 +263,26 @@ PROP_REFS = {
         "basic_propagation/bwd": 162760, "basic_propagation/fwd": 147008,
         "degree/in": 37120, "degree/out": 37624}, [16] * 8),
 }
+# (supersteps, messages, bytes) of a Q=32 run_batch at scale 12, W=8,
+# random partitioner, on the registry recipes and query batches (reach and
+# pagerank:personal: 32 sources of rmat(12, 4, seed=2) directed; sssp:
+# rmat(12, 4, seed=5, weighted); pj:reqresp: 32 forests of 4096 vertices)
+# — the JAX package's host-mode run_batch gives these counts, under either
+# route_batch
+BATCH_REFS = {
+    "reach:basic": (7, 118509, 948072),
+    "sssp:basic": (16, 333297, 2666376),
+    "pagerank:personal": (30, 5441280, 21765120),
+    "pj:reqresp": (6, 462150, 1848600),
+}
+# pagerank:personal from source 0 at scale 12, W=8, the same graph
+# (supersteps, messages, bytes, bytes by channel; the JAX package's
+# host-mode Engine gives these counts)
+PERSONAL_REFS = {
+    "pagerank:personal": (30, 170040, 680160,
+                          {"aggregator": 13440, "scatter_combine": 666720}),
+}
+
 # the state key of each program's per-worker counter
 PROP_COUNTER = {"wcc:prop": "info", "sssp:prop": "info", "scc:prop": "iters",
                 "scc:basic": "iters"}
@@ -678,19 +716,21 @@ def same_batch(a, b) -> bool:
                     for qi in range(a.num_queries)))
 
 
-def batch_mode_runs(prog, pg, queries):
+def batch_mode_runs(prog, pg, queries, must_launch="bucket_ranks_lanes"):
     """``Engine.run_batch`` of ``queries`` in host mode (once: it builds
     nothing) and in each of ``MODE_RUNS`` (twice, the second, a replay of
     the cached loop, reported): run wall (``query_init`` and extract
     included), loop wall, host overhead a superstep, dispatches, capture
-    time, queries/s and peak device memory. Each device-mode run must
-    equal the host run bit for bit (outputs, per-query steps, halts,
-    bytes and msgs, pad audit, state) and launch ``bucket_ranks_lanes`` as
-    often as the host run's wrappers count, as the kernel counts its
-    launches on the device. Then a batch of the first ``len(queries) -
-    12`` sources (12 pad lanes, the same bucket) must replay the fused
-    loop with its own pad mask and equal the full run's real lanes.
-    Returns the rows."""
+    time, queries/s and peak device memory. The host run must launch
+    ``must_launch`` (the path's kernel: ``bucket_ranks_lanes`` for the
+    routed programs, ``segment_combine`` for the static ones). Each
+    device-mode run must equal the host run bit for bit (outputs,
+    per-query steps, halts, bytes and msgs, pad audit, state) and launch
+    every kernel as often as the host run's wrappers count, as the kernels
+    count their launches on the device. Then a batch of the first
+    ``len(queries) - 12`` queries (12 pad lanes, the same bucket) must
+    replay the fused loop with its own pad mask and equal the full run's
+    real lanes. Returns the rows and the host run's result."""
     from repro_torch.kernels import ops
     from repro_torch.pregel.engine import Engine
 
@@ -709,8 +749,8 @@ def batch_mode_runs(prog, pg, queries):
     (host, row), gib = peak_of(lambda: one(Engine(mode="host")))
     out = {"host": dict(row, peak_gib=gib, capture_s=0.0)}
     want = row["launches"]
-    check(want["bucket_ranks_lanes"] > 0,
-          f"{prog.name} batched: bucket_ranks_lanes never launched")
+    check(want[must_launch] > 0,
+          f"{prog.name} batched: {must_launch} never launched")
     check(row["launches_on_device"] == want,
           f"{prog.name} batched host: launches on the device "
           f"{row['launches_on_device']} != the wrappers' {want}")
@@ -743,21 +783,22 @@ def batch_mode_runs(prog, pg, queries):
             out["pad12"] = dict(queries=sub.num_queries, steps=sub.steps,
                                 cache_hit=sub.cache_hit)
         eng.clear_cache()
-    return out
+    return out, host
 
 
-def serve_runs(spec, prog, pg, graph, solos):
+def serve_runs(spec, prog, pg, graph, solos,
+               per_step=(("bucket_ranks_lanes", 1),)):
     """``Engine.serve`` of the program's Poisson stream (``spec.stream``:
-    ``NQ`` sources, one arrival a superstep) through ``SERVE_LANES``
+    ``NQ`` queries, one arrival a superstep) through ``SERVE_LANES``
     lanes of a default (fused) engine, at each of ``SERVE_CHUNKS``, two
     sessions each (the second must replay the cached loop): every record
-    must equal the solo host-mode run of its source (``solos``: output,
-    steps, halt, bytes and msgs), and ``bucket_ranks_lanes`` must launch
-    once a superstep the session ran, as the kernel counts on the device
-    and as the runtime adds them up. Then, at the smaller chunk, the
-    query with the most supersteps is made to overflow at its step 1
-    (``FaultSpec``): it is quarantined and every other query still equals
-    its solo run. Returns the rows."""
+    must equal the solo run of its query (``solos``, in query order:
+    output, steps, halt, bytes and msgs), and each kernel of ``per_step``
+    must launch its count a superstep the session ran, as the kernel
+    counts on the device and as the runtime adds them up. Then, at the
+    smaller chunk, the query with the most supersteps is made to overflow
+    at its step 1 (``FaultSpec``): it is quarantined and every other query
+    still equals its solo run. Returns the rows."""
     from repro_torch.kernels import ops
     from repro_torch.pregel.engine import Engine
     from repro_torch.pregel.serve import FaultSpec, QueryQueue
@@ -776,7 +817,7 @@ def serve_runs(spec, prog, pg, graph, solos):
     def all_solo(res, skip=()):
         return all(r.status == "ok" and same_run(
             (r.output, r.steps, r.halted, r.bytes_by_channel,
-             r.msgs_by_channel), solos[r.query])
+             r.msgs_by_channel), solos[r.qid])
             for r in res.records if r.qid not in skip)
 
     out = {}
@@ -788,10 +829,10 @@ def serve_runs(spec, prog, pg, graph, solos):
               f"{what}: the second session did not replay")
         check(res.num_queries == NQ and all_solo(first) and all_solo(res),
               f"{what}: a served query differs from its solo run")
-        check(on_device["bucket_ranks_lanes"] == res.supersteps
-              == counted["bucket_ranks_lanes"],
-              f"{what}: bucket_ranks_lanes launched {on_device} on the "
-              f"device, {counted} counted, for {res.supersteps} supersteps")
+        for kernel, n in per_step:
+            check(on_device[kernel] == n * res.supersteps == counted[kernel],
+                  f"{what}: {kernel} launched {on_device} on the device, "
+                  f"{counted} counted, for {res.supersteps} supersteps")
         lat = res.latency_summary()
         out[f"chunk{chunk}"] = dict(
             queries=res.num_queries, lanes=SERVE_LANES,
@@ -804,7 +845,7 @@ def serve_runs(spec, prog, pg, graph, solos):
             stragglers=len(res.straggler_dispatches),
             capture_s=first.compile_time_s, launches_on_device=on_device,
             cache_hit=res.cache_hit, peak_gib=gib)
-    victim = max(range(NQ), key=lambda qi: (solos[schedule[qi][1]][1], -qi))
+    victim = max(range(NQ), key=lambda qi: (solos[qi][1], -qi))
     res, _, _, _ = session(SERVE_CHUNKS[0],
                            [FaultSpec(victim, 1, "overflow")])
     check(res.failed_qids == [victim]
@@ -818,6 +859,202 @@ def serve_runs(spec, prog, pg, graph, solos):
                              dispatches=res.dispatches)
     eng.clear_cache()
     return out
+
+
+def captured_calls(module, attr: str, run) -> list:
+    """``(args, kwargs)`` of every call ``run()`` makes to
+    ``module.attr``, in call order: the shapes and data a path hands a
+    kernel's wrapper."""
+    calls = []
+    real = getattr(module, attr)
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(module, attr, spy)
+    try:
+        run()
+    finally:
+        setattr(module, attr, real)
+    return calls
+
+
+def batched_program_runs(spec, graph, pg, must_launch, per_step,
+                         solo_mode):
+    """One batched program of the registry at full size: ``NQ`` queries
+    of its recipe run solo in ``solo_mode`` (a fused solo run captures
+    its own loop first; the second run is timed: the serial baseline of
+    queries/s), then ``run_batch`` in host mode and every device mode
+    (:func:`batch_mode_runs`, every lane equal to its solo run) and
+    ``Engine.serve`` of the same queries (:func:`serve_runs`). Returns
+    the rows, the program and the queries."""
+    from repro_torch.pregel.engine import Engine
+
+    prog = spec.factory(**spec.inputs(graph, 0))
+    queries = spec.queries(graph, 0, NQ)
+    eng = Engine(mode=solo_mode)
+    solos, solo_ms, solo_loop_ms = [], [], []
+    for query in queries:
+        one = spec.factory(**{spec.query_knob: query})
+        if solo_mode != "host":
+            eng.run(one, pg)
+        res, ms = timed(lambda: eng.run(one, pg))
+        check(solo_mode == "host" or res.cache_hit,
+              f"{spec.key} solo {solo_mode}: not a replay")
+        solos.append(solo_of(res))
+        solo_ms.append(ms)
+        solo_loop_ms.append(1e3 * res.wall_time_s)
+        eng.clear_cache()
+    modes, host = batch_mode_runs(prog, pg, queries, must_launch)
+    check(all(same_run(lane_of(host, qi), solos[qi]) for qi in range(NQ)),
+          f"{spec.key}: a batched lane differs from its solo "
+          f"{solo_mode} run")
+    serving = serve_runs(spec, prog, pg, graph, solos, per_step)
+    solo_qps = NQ / (sum(solo_ms) / 1e3)
+    rows = dict(
+        n=pg.n, steps=host.steps, query_steps=host.query_steps.tolist(),
+        bytes=host.total_bytes, solo_mode=solo_mode, solo_ms=solo_ms,
+        solo_loop_ms=solo_loop_ms, solo_qps=solo_qps, modes=modes,
+        serving=serving,
+        qps_vs_solo={m: modes[m]["qps"] / solo_qps
+                     for m in ("host", *MODE_RUNS)},
+        ms_per_superstep={m: modes[m]["loop_wall_ms"] / host.steps
+                          for m in ("host", *MODE_RUNS)})
+    return rows, prog, queries, host
+
+
+def lane_baseline(prog, pg, queries, union, union_row) -> dict:
+    """``run_batch`` of ``queries`` fused under ``route_batch="lane"``:
+    one route pass a lane (``bucket_ranks`` over the Q lanes' rows) where
+    the union route runs one ``bucket_ranks_lanes`` pass. The second,
+    cached run is timed; both must equal the union route's host-mode run
+    ``union`` bit for bit (outputs, per-query steps, halts, bytes, msgs,
+    pad audit), launch no ``bucket_ranks_lanes`` and launch each kernel as
+    often as the wrappers and the runtime count, as the kernels count on
+    the device. ``union_row`` is the union route's fused row;
+    ``union_speedup`` is the lane route's run wall over the union
+    route's, ``union_loop_speedup`` the same for the loop alone."""
+    from repro_torch.pregel.engine import Engine
+
+    eng = Engine(mode="fused", route_batch="lane")
+    (first, (res, ms), on_device, counted), gib = peak_of(lambda: (
+        eng.run_batch(prog, pg, queries),
+        *_counted(lambda: timed(lambda: eng.run_batch(prog, pg, queries)))))
+    what = f"{prog.name} lane route"
+    check(res.cache_hit and res.route_batch == "lane" and res.mode == "fused",
+          f"{what}: not a replay of the lane route's fused loop")
+    check(same_batch(first, union) and same_batch(res, union),
+          f"{what}: differs from the union route")
+    check(on_device == counted and counted["bucket_ranks"] > 0
+          and counted["bucket_ranks_lanes"] == 0,
+          f"{what}: launches {on_device} on the device, {counted} counted")
+    eng.clear_cache()
+    return dict(steps=res.steps, lane_run_wall_ms=ms,
+                lane_loop_wall_ms=1e3 * res.wall_time_s,
+                union_run_wall_ms=union_row["run_wall_ms"],
+                union_loop_wall_ms=union_row["loop_wall_ms"],
+                union_speedup=ms / union_row["run_wall_ms"],
+                union_loop_speedup=res.wall_time_s * 1e3
+                / union_row["loop_wall_ms"],
+                capture_s=first.compile_time_s, peak_gib=gib,
+                union_peak_gib=union_row["peak_gib"], launches=counted)
+
+
+def _counted(fn):
+    """``fn()``, the kernels' launches during it as they count them on the
+    device, and as the wrappers and the runtime count them."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out, on_device = on_device_launches(fn)
+    return out, on_device, ops.launch_counts()
+
+
+def column_checks(calls, what: str) -> dict:
+    """``segment_combine`` at each captured (values (W, E, Q·D), ids, n)
+    call: against its plain version (float sum: rtol 1e-4, atol 1e-5),
+    and each of the Q·D columns bit for bit against the kernel's D=1 call
+    on that column alone (the combine order depends only on entry
+    positions). Returns the max |error| and the shapes."""
+    import torch
+    from repro_torch.kernels import ops, ref as kref
+
+    err, shapes = 0.0, []
+    for (vals, ids, n, comb), _ in calls:
+        out = ops.segment_combine(vals, ids, n, comb)
+        want = kref.segment_combine_ref(vals, ids, n, comb)
+        torch.testing.assert_close(
+            out, want, rtol=1e-4, atol=1e-5,
+            msg=lambda m: f"segment_combine {what} {list(vals.shape)}: {m}")
+        err = max(err, float((out - want).abs().max()))
+        for j in range(vals.shape[-1]):
+            one = ops.segment_combine(vals[..., j:j + 1].contiguous(), ids, n,
+                                      comb)
+            check(bits_equal(out[..., j:j + 1].contiguous(), one),
+                  f"segment_combine {what} column {j} of "
+                  f"{list(vals.shape)} differs from its D=1 call")
+        shapes.append(dict(shape=list(vals.shape), segments=n))
+    return dict(max_abs_err=err, calls=shapes)
+
+
+def column_times(calls) -> dict:
+    """Per side of a captured Q·D combine: the kernel (warm, L2-flushed),
+    the plain version, ``index_add_`` of the real entries into a preset
+    buffer (the library yardstick), and the bytes the function must move:
+    each real id and its Q·D values read once, each output written once.
+    Then their sums."""
+    from repro_torch.kernels import ops, ref as kref
+
+    sides = {}
+    for side, ((v, ids, n, comb), _) in zip(("send", "recv"), calls):
+        rows, _, d = v.shape
+        _, src, _ = real_entries(v, ids, n)
+        r = src.shape[0]
+        sides[side] = dict(
+            shape=list(v.shape), n=n, real_entries=r,
+            ms=cuda_ms(lambda: ops.segment_combine(v, ids, n, comb)),
+            cold_ms=cuda_ms_cold(lambda: ops.segment_combine(v, ids, n,
+                                                             comb)),
+            plain_ms=cuda_ms(lambda: kref.segment_combine_ref(v, ids, n,
+                                                              comb), reps=3),
+            library_ms=cuda_ms(index_add_yardstick(v, ids, n)),
+            bytes=r * (4 + 4 * d) + rows * n * 4 * d)
+    total = {k: sum(x[k] for x in sides.values()) for k in (
+        "ms", "cold_ms", "plain_ms", "library_ms", "bytes")}
+    total["bound_ms"] = 1e3 * total["bytes"] / HBM_BYTES_PER_S
+    return dict(sides, **total)
+
+
+def union_lanes_times(call) -> dict:
+    """``bucket_ranks_lanes`` at the captured ``_request_union`` call
+    (union keys (W, U), lane membership (W, U, Q)): exact against its
+    plain version, warm and L2-flushed device ms, the plain version, a
+    stable ``torch.sort`` of the keys (the library yardstick), and the
+    bytes it must move (key and rank of every entry, the membership of
+    each real entry, the (B + 1) x (Q + 1) counts a row)."""
+    import torch
+    from repro_torch.kernels import ops, ref as kref
+
+    (keys, lanes, w), _ = call
+    got = ops.bucket_ranks_lanes(keys, lanes, w)
+    want = kref.bucket_ranks_lanes_ref(keys, lanes, w)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"bucket_ranks_lanes at the _request_union shape "
+          f"{list(lanes.shape)} differs from plain")
+    q = lanes.shape[-1]
+    real = int((keys < w).sum())
+    nbytes = keys.numel() * 8 + real * q + keys.shape[0] * (w + 1) * (
+        q + 1) * 4
+    return dict(
+        shape=list(lanes.shape), real_entries=real, max_abs_err=0.0,
+        ms=cuda_ms(lambda: ops.bucket_ranks_lanes(keys, lanes, w)),
+        cold_ms=cuda_ms_cold(lambda: ops.bucket_ranks_lanes(keys, lanes, w)),
+        plain_ms=cuda_ms(lambda: kref.bucket_ranks_lanes_ref(keys, lanes, w),
+                         reps=5),
+        library_ms=cuda_ms(lambda: torch.sort(keys, dim=1, stable=True),
+                           reps=10),
+        bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
 
 
 def captured_replays(fn, statics, fresh, plain, what: str,
@@ -1685,22 +1922,33 @@ def main() -> int:
         check(got == want, f"{key} scale-12 counts {got} != {want}")
         counts[key] = dict(steps=got[0], msgs=got[1], bytes=got[2],
                            bytes_by_channel=res.bytes_by_channel)
-    # the batched plane: Q=32 sources of the registry recipe, W=8 (the
-    # JAX package's host-mode run_batch gives these counts)
+    # the batched plane: Q=32 queries of the registry recipe, W=8 (the
+    # JAX package's host-mode run_batch gives these counts); and
+    # pagerank:personal solo from source 0
     t_b = time.perf_counter()
-    batch_refs = {"reach:basic": (7, 118509, 948072),
-                  "sssp:basic": (16, 333297, 2666376)}
-    for key, want in batch_refs.items():
+    for key, want in PERSONAL_REFS.items():
+        spec = REGISTRY[key]
+        graph = spec.make_graph(12, 0)
+        pg = pgraph.partition_graph(graph, W, "random", build=spec.build)
+        res = eng.run(spec.factory(source=0), pg)
+        got = (res.steps, res.total_msgs, res.total_bytes,
+               res.bytes_by_channel)
+        check(got == want, f"{key} scale-12 counts {got} != {want}")
+        spec.check(graph, pg, res, {"source": 0})
+        counts[key] = dict(steps=got[0], msgs=got[1], bytes=got[2],
+                           bytes_by_channel=got[3])
+    for key, want in BATCH_REFS.items():
         spec = REGISTRY[key]
         graph = spec.make_graph(12, 0)
         pg = pgraph.partition_graph(graph, W, "random", build=spec.build)
         queries = spec.queries(graph, 0, NQ)
-        res = eng.run_batch(spec.factory(), pg, queries)
+        res = eng.run_batch(spec.factory(**spec.inputs(graph, 0)), pg,
+                            queries)
         got = (res.steps, res.total_msgs, res.total_bytes)
         check(got == want, f"{key} scale-12 batched counts {got} != {want}")
         check(res.num_pad_lanes == 0, f"{key}: {res.num_pad_lanes} pad lanes")
-        for qi, source in enumerate(queries):
-            solo = eng.run(spec.factory(source=source), pg)
+        for qi, query in enumerate(queries):
+            solo = eng.run(spec.factory(**{spec.query_knob: query}), pg)
             check(same_run(lane_of(res, qi), solo_of(solo)),
                   f"{key} scale-12 lane {qi} differs from its solo run")
         counts[f"{key} batched"] = dict(
@@ -2168,7 +2416,7 @@ def main() -> int:
             solo, s_ms = timed(lambda: eng.run(spec.factory(source=source),
                                                pg))
             solo_ms.append(s_ms)
-            solos.setdefault(key, {})[source] = solo_of(solo)
+            solos.setdefault(key, []).append(solo_of(solo))
             check(same_run(lane_of(res, qi), solo_of(solo)),
                   f"{key} scale-{FULL_SCALE} lane {qi} differs from its "
                   "solo run")
@@ -2211,7 +2459,7 @@ def main() -> int:
     batch_modes, serving = {}, {}
     for key, (queries, prog, _, _) in runs.items():
         graph, pg = batch_jobs[key]
-        batch_modes[key] = batch_mode_runs(prog, pg, queries)
+        batch_modes[key], _ = batch_mode_runs(prog, pg, queries)
         serving[key] = serve_runs(REGISTRY[key], prog, pg, graph,
                                   solos[key])
     plane_s = time.perf_counter() - t
@@ -2254,6 +2502,91 @@ def main() -> int:
           "second a replay, reported), every query equal to its solo host "
           "run: " + "; ".join(serve_row(k) for k in runs)
           + f" ({plane_s:.1f} s)", flush=True)
+
+    # pagerank:personal (the static channels under the batched plane:
+    # every segment_combine launch on Q·D columns) and batched pj:reqresp
+    # (the union RequestRespond, a new call site of bucket_ranks_lanes):
+    # personal solo from source 0 in every mode, then Q=32 queries of each
+    # solo, batched in every mode and served; then the lane route (one
+    # route pass a lane) against the union route at Q=32, fused
+    t = time.perf_counter()
+    pp_spec, pjr_spec = REGISTRY["pagerank:personal"], REGISTRY["pj:reqresp"]
+    check(pp_spec.make_graph is REGISTRY["pagerank:scatter"].make_graph
+          and set(pp_spec.build) <= set(REGISTRY["pagerank:scatter"].build),
+          "pagerank:personal no longer shares pagerank's recipe and plans")
+    pp_prog0 = pp_spec.factory(source=0)
+    pp_solo, pp_fused = mode_runs(pp_prog0, pr_pg)
+    pp_res = pp_fused.run(pp_prog0, pr_pg)
+    pp_spec.check(pr_graph, pr_pg, pp_res, {"source": 0})
+    pp_fused.clear_cache()
+    personal, pp_prog, pp_queries, _ = batched_program_runs(
+        pp_spec, pr_graph, pr_pg, "segment_combine",
+        (("segment_combine", 2),), "fused")
+    pjb, pj_prog, pj_queries, pj_host = batched_program_runs(
+        pjr_spec, pj_forest, pj_pg, "bucket_ranks_lanes",
+        (("bucket_ranks_lanes", 1),), "host")
+    # the kernels' inputs on these paths, for phase 5: pagerank:personal's
+    # send and receive combines and _request_union's route pass, as the
+    # first batched superstep hands them over
+    pp_calls = captured_calls(ops, "segment_combine", lambda: Engine(
+        mode="host").run_batch(pp_prog, pr_pg, pp_queries, max_steps=1))
+    check(len(pp_calls) == 2 and all(
+        c[0][0].shape[-1] == NQ for c in pp_calls),
+        f"pagerank:personal's batched step made {len(pp_calls)} "
+        "segment_combine calls, not 2 on Q columns")
+    pj_calls = captured_calls(routing, "union_ranks", lambda: Engine(
+        mode="host").run_batch(pj_prog, pj_pg, pj_queries, max_steps=1))
+    check(len(pj_calls) == 1, f"pj:reqresp's batched step made "
+          f"{len(pj_calls)} union route passes, not 1")
+    lane = {key: lane_baseline(runs[key][1], batch_jobs[key][1],
+                               runs[key][0], runs[key][2],
+                               batch_modes[key]["fused"])
+            for key in ("reach:basic", "sssp:basic")}
+    lane["pj:reqresp"] = lane_baseline(pj_prog, pj_pg, pj_queries, pj_host,
+                                       pjb["modes"]["fused"])
+    slice_s = time.perf_counter() - t
+    detail["personal_and_reqresp"] = dict(
+        personal_solo=pp_solo, personal=personal, pj_reqresp=pjb,
+        lane_baseline=lane, phase_s=slice_s)
+
+    def new_row(key, v):
+        return (f"{key} ({v['steps']} steps, lanes {min(v['query_steps'])}-"
+                f"{max(v['query_steps'])}): {NQ} solo {v['solo_mode']} runs "
+                f"{sum(v['solo_ms']):.1f} ms = {v['solo_qps']:.1f} q/s (loops "
+                f"{sum(v['solo_loop_ms']):.1f} ms); "
+                "batched " + ", ".join(
+                    f"{m} {v['modes'][m]['run_wall_ms']:.1f} ms = "
+                    f"{v['modes'][m]['qps']:.1f} q/s "
+                    f"({v['qps_vs_solo'][m]:.2f}x solo, loop "
+                    f"{v['modes'][m]['loop_wall_ms']:.1f} ms = "
+                    f"{v['ms_per_superstep'][m]:.2f} ms a superstep, peak "
+                    f"{v['modes'][m]['peak_gib']:.2f} GiB)"
+                    for m in ("host", *MODE_RUNS))
+                + "; served " + ", ".join(
+                    f"chunk {c}: {v['serving'][f'chunk{c}']['qps']:.1f} q/s, "
+                    f"p50 / p99 {v['serving'][f'chunk{c}']['p50_steps']:.0f}"
+                    f" / {v['serving'][f'chunk{c}']['p99_steps']:.0f} "
+                    "supersteps" for c in SERVE_CHUNKS))
+
+    print(f"[4/5] pagerank:personal solo from source 0, scale {FULL_SCALE}: "
+          + ", ".join(f"{m} {pp_solo[m]['run_wall_ms']:.1f} ms"
+                      for m in ("host", *MODE_RUNS))
+          + f", bit-identical, oracle ok, segment_combine "
+          f"{pp_solo['host']['launches']['segment_combine']} launches; "
+          f"every batched and served lane bit-identical to its solo run: "
+          + "; ".join(new_row(k, v) for k, v in (
+              ("pagerank:personal", personal), ("pj:reqresp", pjb))),
+          flush=True)
+    print(f"[4/5] the lane route (one route pass a lane) against the union "
+          f"route, Q={NQ}, fused, lanes equal: " + "; ".join(
+              f"{k} lane {v['lane_run_wall_ms']:.1f} ms vs union "
+              f"{v['union_run_wall_ms']:.1f} ms = {v['union_speedup']:.2f}x "
+              f"(loop {v['lane_loop_wall_ms']:.1f} vs "
+              f"{v['union_loop_wall_ms']:.1f} ms = "
+              f"{v['union_loop_speedup']:.2f}x; peak {v['peak_gib']:.2f} vs "
+              f"{v['union_peak_gib']:.2f} GiB)"
+              for k, v in lane.items())
+          + f" ({slice_s:.1f} s)", flush=True)
 
     # the Propagation programs at full size, each path with its own launch
     # counts: wcc:prop on the wcc:basic partition (held to the ground
@@ -2346,7 +2679,7 @@ def main() -> int:
           f"{prop_oracle_s:.1f} s; {time.perf_counter() - t:.1f} s)",
           flush=True)
 
-    # the device modes at full size: all 20 programs on the partitions
+    # the device modes at full size: all 21 programs on the partitions
     # built above (the seven with inner loops, which run as WHILE nodes of
     # the captured graph, among them), each in host mode and then fused,
     # chunked at K=64 and chunked at K=4 (two runs each: the first pays the
@@ -2360,6 +2693,7 @@ def main() -> int:
     mode_jobs = {key: wcc_pg for key in device_keys
                  if key.split(":")[0] in ("wcc", "sv")}
     mode_jobs.update({"pagerank:basic": pr_pg, "pagerank:scatter": pr_pg,
+                      "pagerank:personal": pr_pg,
                       "reach:basic": pr_pg, "sssp:basic": sssp_pg,
                       "sssp:prop": sssp_pg, "pj:basic": pj_pg,
                       "pj:reqresp": pj_pg, "msf:channels": msf_pg,
@@ -2369,6 +2703,9 @@ def main() -> int:
           "the device-mode programs and their partitions disagree")
     device_modes, fused_kept = {}, {}
     for key in device_keys:
+        if key == "pagerank:personal":  # its runs from source 0 above
+            device_modes[key] = pp_solo
+            continue
         pg = mode_jobs[key]
         spec = REGISTRY[key]
         check(all(getattr(pg, plan) is not None for plan in spec.build),
@@ -2653,6 +2990,61 @@ def main() -> int:
     prop_seg = sum(v["launches"]["segment_combine"]
                    for v in prop_main.values())
 
+    # rows 2e and 3a: segment_combine on pagerank:personal's Q·D columns
+    # (send and receive, as the batched step hands them over: each column
+    # bit-exact against its D=1 call), bucket_ranks_lanes at the
+    # _request_union shape of batched pj:reqresp
+    t_q = time.perf_counter()
+    qd_check = column_checks(pp_calls, "pagerank:personal Q·D")
+    qd_t = column_times(pp_calls)
+    ru_t = union_lanes_times(pj_calls[0])
+    row_2e = dict(
+        name="segment_combine: float32 sum on Q·D columns (2e)",
+        route="cuda", source=seg_source, replaces=seg_replaces,
+        launches=personal["modes"]["host"]["launches"]["segment_combine"],
+        launches_by_path={
+            "pagerank:personal solo": pp_solo["host"]["launches"][
+                "segment_combine"],
+            **{f"pagerank:personal batched {m}": personal["modes"][m][
+                "launches_on_device"]["segment_combine"]
+               for m in ("host", *MODE_RUNS)}},
+        max_abs_err=qd_check["max_abs_err"], ms=qd_t["ms"],
+        plain_ms=qd_t["plain_ms"], bound_ms=qd_t["bound_ms"],
+        bound_by="bytes", library_ms=qd_t["library_ms"],
+        library="index_add_", cold_ms=qd_t["cold_ms"],
+        send_shape=qd_t["send"]["shape"], recv_shape=qd_t["recv"]["shape"],
+        what=f"pagerank:personal's batched superstep at scale {FULL_SCALE}, "
+             f"Q={NQ} lanes as columns, send + recv")
+    row_3a = dict(
+        name="bucket_ranks_lanes: _request_union (3a)", route="cuda",
+        source="src/repro_torch/kernels/csrc/bucket_route.cu",
+        replaces="src/repro/kernels/bucket_route.py:128",
+        launches=pjb["modes"]["host"]["launches"]["bucket_ranks_lanes"],
+        launches_by_path={
+            f"pj:reqresp batched {m}": pjb["modes"][m]["launches_on_device"][
+                "bucket_ranks_lanes"] for m in ("host", *MODE_RUNS)},
+        max_abs_err=0.0, ms=ru_t["ms"], plain_ms=ru_t["plain_ms"],
+        bound_ms=ru_t["bound_ms"], bound_by="bytes",
+        library_ms=ru_t["library_ms"], library="stable torch.sort of the keys",
+        cold_ms=ru_t["cold_ms"], shape=ru_t["shape"],
+        real_entries=ru_t["real_entries"],
+        what=f"batched pj:reqresp's union request at scale {FULL_SCALE}, "
+             f"Q={NQ} forests")
+    print(f"[5/5] kernel 2 on pagerank:personal's Q·D columns (send "
+          f"{qd_t['send']['shape']} into {qd_t['send']['n']}, recv "
+          f"{qd_t['recv']['shape']} into {qd_t['recv']['n']}): every column "
+          f"bit-exact against its D=1 call, max|err| vs plain "
+          f"{qd_check['max_abs_err']:.3g}; {qd_t['ms']:.4f} ms warm [send "
+          f"{qd_t['send']['ms']:.4f}, recv {qd_t['recv']['ms']:.4f}], "
+          f"{qd_t['cold_ms']:.4f} L2 flushed, plain {qd_t['plain_ms']:.3f}, "
+          f"bound {qd_t['bound_ms']:.4f}, index_add_ {qd_t['library_ms']:.4f};"
+          f" kernel 3 at the _request_union shape {ru_t['shape']} "
+          f"({ru_t['real_entries']} real entries) exact, {ru_t['ms']:.4f} ms "
+          f"warm, {ru_t['cold_ms']:.4f} L2 flushed, plain "
+          f"{ru_t['plain_ms']:.3f}, bound {ru_t['bound_ms']:.4f}, stable "
+          f"torch.sort {ru_t['library_ms']:.4f} "
+          f"({time.perf_counter() - t_q:.1f} s)", flush=True)
+
     kernels = [
         dict(name="bucket_ranks", route="cuda",
              source="src/repro_torch/kernels/csrc/bucket_route.cu",
@@ -2701,7 +3093,7 @@ def main() -> int:
              random_ms=l_t["random"]["ms"],
              random_cold_ms=l_t["random"]["cold_ms"],
              all_entry_bound_ms=l_bound_all),
-        row_2b, row_2c, row_2d,
+        row_2b, row_2c, row_2d, row_2e, row_3a,
     ]
     detail["timings"] = dict(
         bucket_ranks=dict(shape=list(rkeys.shape), **b_t, plain_ms=b_plain,
@@ -2716,7 +3108,9 @@ def main() -> int:
                              bound_ms=s_bound, all_entry_bound_ms=s_bound_all),
         segment_combine_int32_min_sv=dict(sv_t, **svs, bound_ms=sv_bound),
         segment_combine_min_by_first=mbf_t,
-        segment_combine_combined_sum=csum_t)
+        segment_combine_combined_sum=csum_t,
+        segment_combine_personal_columns=dict(qd_t, checks=qd_check),
+        bucket_ranks_lanes_request_union=ru_t)
 
     def warm_cold(t):
         s, r = t["sorted"], t["random"]

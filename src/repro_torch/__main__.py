@@ -11,19 +11,21 @@ Subcommands:
           paper-style rows (supersteps / messages / bytes / wall time),
           optionally writing JSON.
   serve   serve a Poisson stream of queries of a batchable program
-          (``reach:basic``, ``sssp:basic``) through always-on lanes
-          (``Engine.serve``), print throughput and latency, and check
-          every served answer against a solo host-mode run.
+          (``reach:basic``, ``sssp:basic``, ``pagerank:personal``,
+          ``pj:reqresp``) through always-on lanes (``Engine.serve``),
+          print throughput and latency, and check every served answer
+          against a solo host-mode run.
 
 ``run`` and ``bench`` take ``--mode host|fused|chunked`` (default
 ``fused``, as in the JAX CLI) and ``--chunk-size K`` (default 64): the
 device modes run K supersteps a replay of a captured CUDA graph, every
 program's inner loops as WHILE nodes inside it. ``serve`` always runs
 the chunked serving substrate, ``--serve-chunk`` supersteps a dispatch,
-on the union route (the per-lane route is not ported). Everything runs
-on the card unless ``--device cpu`` is given. The JAX CLI's planner,
-checkpoints and the batched-bench and planning subcommands are not
-ported yet (ROADMAP).
+and ``--route-batch union|lane`` picks how the lanes' routed channels
+share their route passes (one pass over the union frontier, or one a
+lane). Everything runs on the card unless ``--device cpu`` is given.
+The JAX CLI's planner, checkpoints and the batched-bench and planning
+subcommands are not ported yet (ROADMAP).
 
 Examples:
 
@@ -37,6 +39,9 @@ Examples:
   python -m repro_torch serve sssp:basic --scale 20 --lanes 8 \\
       --serve-chunk 4
   python -m repro_torch serve reach:basic --device cpu --smoke
+  python -m repro_torch run pagerank:personal --scale 20
+  python -m repro_torch serve pagerank:personal --scale 20 --serve-chunk 4
+  python -m repro_torch serve pj:reqresp --scale 20 --route-batch lane
 """
 from __future__ import annotations
 
@@ -162,11 +167,14 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def _short(query) -> str:
+    """A query value for a message: a source id, or an array's head."""
+    if isinstance(query, np.ndarray):
+        return np.array2string(query, threshold=6)
+    return str(query)
+
+
 def cmd_serve(args) -> int:
-    if args.route_batch != "union":
-        print("serve: the port routes a batch's channels on the union route "
-              "only; route_batch='lane' is not ported yet (ROADMAP)")
-        return 2
     if args.smoke:
         # a small session with forced refills and every answer checked
         args.program = args.program or "reach:basic"
@@ -182,10 +190,12 @@ def cmd_serve(args) -> int:
     chunk = args.serve_chunk or args.chunk_size
     print(f"== serve {spec.key} (scale {args.scale}, W={args.workers}, "
           f"Q={args.queries}, lanes={args.lanes}, chunk={chunk}, "
-          f"rate={args.rate}/step, {args.device}) ==")
+          f"rate={args.rate}/step, route_batch={args.route_batch}, "
+          f"{args.device}) ==")
     graph, pg, _, prog = _prepare(spec, args)
     schedule = spec.stream(graph, args.seed, args.queries, args.rate)
-    eng = Engine(mode="chunked", chunk_size=chunk, device=args.device)
+    eng = Engine(mode="chunked", chunk_size=chunk, device=args.device,
+                 route_batch=args.route_batch)
     res = eng.serve(prog, pg, QueryQueue.from_schedule(schedule),
                     num_lanes=args.lanes, max_steps=args.max_steps)
     lat = res.latency_summary()
@@ -206,8 +216,8 @@ def cmd_serve(args) -> int:
                     and (rec.steps, rec.halted) == (solo.steps, solo.halted)
                     and rec.bytes_by_channel == solo.bytes_by_channel
                     and rec.msgs_by_channel == solo.msgs_by_channel):
-                print(f"  query {rec.qid} (source {rec.query}) differs "
-                      "from its solo run")
+                print(f"  query {rec.qid} ({spec.query_knob} "
+                      f"{_short(rec.query)}) differs from its solo run")
                 return 1
         print(f"  bit-identity: all {res.num_queries} served outputs, step "
               "counts and traffic match solo host-mode runs")
@@ -282,8 +292,9 @@ def main(argv=None) -> int:
                          help="Poisson arrival rate (queries a superstep)")
     p_serve.add_argument("--route-batch", default="union",
                          choices=("union", "lane"),
-                         help="how a batch's routed channels share a route "
-                              "pass; the port has the union route only")
+                         help="how the lanes' routed channels share their "
+                              "route passes: one over the union frontier "
+                              "(default) or one a lane")
     p_serve.add_argument("--no-check", dest="check", action="store_false",
                          help="skip checking each answer against a solo "
                               "run")

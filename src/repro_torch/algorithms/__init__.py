@@ -1,10 +1,9 @@
 """The port's algorithm registry: ``"algorithm:variant"`` → program
-factory plus its problem recipe, as in ``repro.algorithms``, for the
-programs ported so far (``wcc:basic``/``prop``/``switch``,
-``pagerank:basic``/``scatter``, ``reach:basic``, ``sssp:basic``/``prop``,
-the six ``sv`` variants, ``pj:basic``/``reqresp``,
-``msf:channels``/``monolithic`` and ``scc:basic``/``prop``: every JAX
-registry program but ``pagerank:personal``).
+factory plus its problem recipe, as in ``repro.algorithms``: all 21 JAX
+registry programs (``wcc:basic``/``prop``/``switch``,
+``pagerank:basic``/``scatter``/``personal``, ``reach:basic``,
+``sssp:basic``/``prop``, the six ``sv`` variants, ``pj:basic``/
+``reqresp``, ``msf:channels``/``monolithic`` and ``scc:basic``/``prop``).
 
     from repro_torch.algorithms import REGISTRY, get_program
     spec = REGISTRY["pagerank:scatter"]
@@ -126,6 +125,13 @@ def _random_sources(graph, seed, q):
                       replace=False).astype(int).tolist()
 
 
+def _forest_queries(graph, seed, q):
+    """Q distinct random forests over the same vertex set — the
+    pointer-jumping query batch (per-label pointer structures)."""
+    return [gen.random_tree_parents(graph.n, seed=100 + seed * 997 + i)
+            for i in range(q)]
+
+
 def _source0(graph, seed):
     return {"source": 0}
 
@@ -137,6 +143,12 @@ def _check_components(graph, pg, res, inputs=None):
 
 def _check_pagerank(graph, pg, res, inputs=None):
     want = oracles.pagerank_oracle(graph, iters=res.steps)
+    np.testing.assert_allclose(res.output, want, rtol=1e-4, atol=1e-7)
+
+
+def _check_ppr(graph, pg, res, inputs):
+    want = oracles.personalized_pagerank_oracle(
+        graph, source=inputs.get("source", 0), iters=res.steps)
     np.testing.assert_allclose(res.output, want, rtol=1e-4, atol=1e-7)
 
 
@@ -192,18 +204,29 @@ REGISTRY: Dict[str, ProgramSpec] = {
         build=("scatter_out", "prop_out", "raw_out"),
         make_graph=_sym_rmat, check=_check_components)
        for v in sv.VARIANTS},
+    # pj:reqresp carries a query axis: one query = one forest over the
+    # same vertex set (distinct random trees)
     **{f"pj:{v}": ProgramSpec(
         key=f"pj:{v}", algorithm="pj", variant=v,
         factory=_bind(pointer_jumping.program, v),
         build=(), make_graph=_forest_graph, make_inputs=_forest_inputs,
-        check=_check_pj, channel_class="routed", test_scale=9)
+        check=_check_pj, channel_class="routed", test_scale=9,
+        make_queries=_forest_queries if v == "reqresp" else None,
+        query_knob="parents" if v == "reqresp" else None)
        for v in pointer_jumping.VARIANTS},
     **{f"pagerank:{v}": ProgramSpec(
         key=f"pagerank:{v}", algorithm="pagerank", variant=v,
         factory=_bind(pagerank.program, v),
         build=("scatter_out", "raw_out"),
         make_graph=_directed_rmat, check=_check_pagerank)
-       for v in pagerank.VARIANTS},
+       for v in pagerank.VARIANTS if v != "personal"},
+    "pagerank:personal": ProgramSpec(
+        key="pagerank:personal", algorithm="pagerank", variant="personal",
+        factory=_bind(pagerank.program, "personal"),
+        build=("scatter_out",),
+        make_graph=_directed_rmat, make_inputs=_source0, check=_check_ppr,
+        make_queries=_random_sources, query_knob="source",
+        channel_class="static"),
     **{f"msf:{v}": ProgramSpec(
         key=f"msf:{v}", algorithm="msf", variant=v,
         factory=_bind(msf.program, v), build=("raw_out",),
@@ -248,9 +271,9 @@ DEFAULT_VARIANT: Dict[str, str] = {
 ALGORITHMS: Tuple[str, ...] = tuple(sorted(DEFAULT_VARIANT))
 
 #: specs with a query axis that ``Engine.run_batch`` and ``Engine.serve``
-#: run (union route only): ``sssp:prop``
-#: declares the JAX recipe's query axis, but the batched Propagation
-#: channel is not ported yet and raises (ROADMAP)
+#: run, under either ``route_batch``: ``sssp:prop`` declares the JAX
+#: recipe's query axis, but the batched Propagation channel is not
+#: ported yet and raises (ROADMAP)
 BATCHED: Tuple[str, ...] = tuple(
     sorted(k for k, s in REGISTRY.items()
            if s.make_queries is not None and k != "sssp:prop"))

@@ -1,7 +1,7 @@
 """Pointer jumping (paper Table V middle): every vertex of a rooted
 forest finds its root by repeated D[u] <- D[D[u]].
 
-The port of ``repro.algorithms.pointer_jumping``, solo runs. Variants:
+The port of ``repro.algorithms.pointer_jumping``. Variants:
 
   - ``"basic"``: two DirectMessage rounds per superstep (ids both ways,
     no dedup) — Pregel's way;
@@ -9,9 +9,11 @@ The port of ``repro.algorithms.pointer_jumping``, solo runs. Variants:
     replies).
 
 The forest (an old-id parent array) is the problem input, closed over
-by ``init``. The JAX ``pj:reqresp`` also carries a query axis
-(``query_init``); the port declares none until RequestRespond runs under
-the batched plane (``route_union``, ROADMAP).
+by ``init``. ``"reqresp"`` also carries a query axis (``query_init``, as
+in the JAX package): one query is one forest over the same vertex set,
+so ``Engine.run_batch`` and ``Engine.serve`` jump Q forests at once, the
+lanes' requests deduped and routed once over their union
+(``request_respond._request_union``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 from repro_torch.algorithms import common
 from repro_torch.core import request_respond as rr
 from repro_torch.graph.pgraph import PartitionedGraph
-from repro_torch.pregel.program import VertexProgram
+from repro_torch.pregel.program import VertexProgram, lane_view
 
 VARIANTS = ("basic", "reqresp")
 
@@ -48,6 +50,11 @@ def program(variant: str = "reqresp", *, parents: np.ndarray,
     def init(pg):
         return {"P": parents_to_local(pg, parents)}
 
+    def query_init(pg, parents_q):
+        # one query = one forest over the same vertex set (e.g. the
+        # per-label pointer structures of a multi-label contraction)
+        return {"P": parents_to_local(pg, parents_q)}
+
     def step(ctx, gs, state, step_idx):
         p = state["P"]
         if variant == "reqresp":
@@ -56,13 +63,14 @@ def program(variant: str = "reqresp", *, parents: np.ndarray,
         else:
             grand, overflow = common.direct_request_respond(
                 ctx, p, gs.v_mask, p)
-        newp = torch.where(gs.v_mask, grand, p)
-        return {"P": newp}, (newp == p).all(dim=1), overflow
+        newp = torch.where(lane_view(gs.v_mask, p), grand, p)
+        return {"P": newp}, (newp == p).all(dim=-1), overflow
 
     def extract(pg, state):
         return pg.to_global(state["P"])
 
     return VertexProgram(
         name=f"pj:{variant}", init=init, step=step, extract=extract,
+        query_init=query_init if variant == "reqresp" else None,
         max_steps=max_steps, meta={"algorithm": "pj", "variant": variant},
     )

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 
 class Knob:
@@ -28,29 +28,41 @@ class Knob:
       default: the fallback value.
       parse: maps the env string to a value.
       coerce: normalizes explicit and scope values (e.g. ``float``).
+      choices: optional closed value set; anything outside it raises.
+      describe: the noun of the rejection message (default ``name``).
     """
 
     def __init__(self, name: str, *, env: Optional[str] = None,
                  default: Any = None,
                  parse: Callable[[str], Any] = lambda text: text,
-                 coerce: Callable[[Any], Any] = lambda value: value):
+                 coerce: Callable[[Any], Any] = lambda value: value,
+                 choices: Optional[Sequence] = None,
+                 describe: Optional[str] = None):
         self.name = name
         self.env = env
         self.default = default
         self.parse = parse
         self.coerce = coerce
+        self.choices = None if choices is None else tuple(choices)
+        self.describe = name if describe is None else describe
         self._override: Any = None
+
+    def check(self, value):
+        if self.choices is not None and value not in self.choices:
+            raise ValueError(
+                f"unknown {self.describe} {value!r} (one of {self.choices})")
+        return value
 
     def resolve(self, value: Any = None):
         """The knob's value for a call site (see the module ladder)."""
         if value is not None:
-            return self.coerce(value)
+            return self.check(self.coerce(value))
         if self._override is not None:
             return self._override
         env = os.environ.get(self.env) if self.env else None
         if env:
-            return self.parse(env)
-        return self.coerce(self.default)
+            return self.check(self.parse(env))
+        return self.check(self.coerce(self.default))
 
     @contextlib.contextmanager
     def scope(self, value: Any):

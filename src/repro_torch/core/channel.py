@@ -292,13 +292,14 @@ class ChannelContext:
         return dict(self.stats_bytes), dict(self.stats_msgs)
 
 
-def payload_width(payload: Dict[str, torch.Tensor]) -> int:
+def payload_width(payload: Dict[str, torch.Tensor],
+                  batched: bool = False) -> int:
     """Total bytes per message for a dict payload of ``(W, M, ...)``
-    leaves."""
+    leaves (``(W, Q, M, ...)`` when ``batched``)."""
     total = 0
     for leaf in payload.values():
         per = 1
-        for d in leaf.shape[2:]:
+        for d in leaf.shape[3 if batched else 2:]:
             per *= d
         total += per * leaf.element_size()
     return total

@@ -161,25 +161,22 @@ class Combiner:
 
     def reduce_workers(self, x: torch.Tensor) -> torch.Tensor:
         """Cross-worker reduction over dim 0 (the W axis), broadcast back
-        to every worker — the port of ``psum``/``pmin``/``pmax``; ``prod``
-        and ``min_by_first`` fold the workers in index order, as the JAX
-        ``psum_like`` folds its ``all_gather``."""
-        if self.name in ("prod", "min_by_first"):
-            red = x[0]
-            for i in range(1, x.shape[0]):
-                red = (red * x[i] if self.name == "prod"
-                       else _min_by_first(red, x[i]))
-            return red[None].expand_as(x)
-        if self.name == "sum":
-            red = x.sum(0, keepdim=True)
-        elif self.name == "min":
+        to every worker — the port of ``psum``/``pmin``/``pmax``. ``sum``,
+        ``prod`` and ``min_by_first`` fold the workers in index order, as
+        the JAX ``psum_like`` folds its ``all_gather`` for the last two:
+        elementwise ops, so each trailing entry rounds the same whatever
+        the other dims hold (a batched lane as its solo run)."""
+        if self.name == "min":
             red = x.amin(0, keepdim=True)
         elif self.name == "max":
             red = x.amax(0, keepdim=True)
         elif self.name == "or":
             red = x.any(0, keepdim=True)
         else:
-            raise ValueError(self.name)
+            red = x[0]
+            for i in range(1, x.shape[0]):
+                red = self.fn(red, x[i])
+            red = red[None]
         return red.expand_as(x)
 
 

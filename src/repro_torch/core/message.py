@@ -16,11 +16,18 @@ float sums, ``prod`` and ``min_by_first`` are order-sensitive, and on
 the card they stable-sort their ids and run the ``segment_combine``
 kernel — no float atomics, so two runs are bit-identical.
 
-Under the batched query plane (a context with ``num_queries=Q``) a
+Under the batched query plane (a context with ``num_queries=Q``) and
+``route_batch="union"`` (``routing.resolve_batch``, the default) a
 CombinedMessage with a union-exact combiner dedups and routes ONCE over
 the union frontier of all Q lanes (``_combined_send_union``): values are
 ``(W, Q, M[, D])``, the route pass is the ``bucket_ranks_lanes`` kernel,
-and per-lane results and traffic are bit-identical to Q solo sends.
+and per-lane results and traffic are bit-identical to Q solo sends. A
+combiner that is not union-exact (a float ``sum``), or
+``route_batch="lane"``, runs the serial body once a lane, all lanes in
+one pass (``_combined_send_serial`` over a lane dim). A DirectMessage
+under the plane goes through ``routing.route_union`` (union) or one
+route pass a lane (lane); its payload leaves are ``(W, Q, M, ...)`` and
+its ``Delivery`` gains the Q dim after W.
 """
 from __future__ import annotations
 
@@ -38,7 +45,8 @@ from repro_torch.kernels import ops as kops
 
 @dataclasses.dataclass
 class Delivery:
-    """Messages delivered to each worker (flattened over peers)."""
+    """Messages delivered to each worker (flattened over peers); under
+    the batched query plane every field has Q after W."""
 
     dst_local: torch.Tensor           # (W, K) int32 local dst index (n_loc pad)
     payload: Dict[str, torch.Tensor]  # leaves (W, K, ...)
@@ -48,13 +56,15 @@ class Delivery:
 
 def _delivery(ctx: ChannelContext, routed: routing.Routed,
               capacity: int) -> Delivery:
-    """Flatten a Routed into per-message local-index delivery form."""
+    """Flatten a Routed (with or without a lane dim) into per-message
+    local-index delivery form."""
     w, c = ctx.num_workers, capacity
-    flat = {k: x.reshape((w, w * c) + tuple(x.shape[3:]))
+    lead = tuple(routed.slot.shape[:-1])
+    flat = {k: x.reshape(lead + (w * c,) + tuple(x.shape[len(lead) + 2:]))
             for k, x in (routed.payload or {}).items()}
-    ids = routed.ids.reshape(w, w * c)
-    mask = routed.mask.reshape(w, w * c)
-    base = (ctx.me() * ctx.n_loc)[:, None]
+    ids = routed.ids.reshape(lead + (w * c,))
+    mask = routed.mask.reshape(lead + (w * c,))
+    base = (ctx.me() * ctx.n_loc).reshape((w,) + (1,) * len(lead))
     dst_local = torch.where(mask, ids - base, ctx.n_loc).to(torch.int32)
     return Delivery(dst_local=dst_local, payload=flat, mask=mask,
                     overflow=routed.overflow)
@@ -71,16 +81,24 @@ def direct_send(
     id_bytes: int = 4,
     wire_width: Optional[int] = None,
 ) -> Delivery:
-    """DirectMessage: deliver (dst, payload) messages to dst's owner."""
-    if ctx.batched:
-        raise NotImplementedError(
-            "direct_send under the batched query plane needs route_union, "
-            "which is not ported yet (see ROADMAP)")
+    """DirectMessage: deliver (dst, payload) messages to dst's owner.
+
+    Under the batched query plane ``dst`` and ``valid`` are (W, M) or
+    (W, Q, M), the payload leaves (W, Q, M, ...), and the delivery and
+    the traffic are per lane: one union route pass
+    (``routing.route_union``) or, under ``route_batch="lane"``, one pass
+    a lane."""
     capacity = ctx.scale_capacity(name, capacity)
-    routed = routing.route(ctx, dst, valid, payload, capacity)
+    if not ctx.batched:
+        routed = routing.route(ctx, dst, valid, payload, capacity)
+    elif routing.resolve_batch() == "union":
+        routed = routing.route_union(ctx, dst, valid, payload, capacity)
+    else:
+        dst_l, valid_l = routing.lane_views(ctx, dst, valid)
+        routed = routing.route(ctx, dst_l, valid_l, payload, capacity)
     remote = routing.remote_count(ctx, routed.sent_count)
     width = id_bytes + (wire_width if wire_width is not None
-                        else payload_width(payload))
+                        else payload_width(payload, ctx.batched))
     ctx.add_traffic(name, remote * width, remote)
     ctx.add_overflow(name, routed.overflow)
     return _delivery(ctx, routed, capacity)
@@ -102,9 +120,14 @@ def _union_exact(combiner, dtype: torch.dtype) -> bool:
 
 def _combined_send_serial(ctx, dst, valid, v, combiner, capacity, use_kernel):
     """The CombinedMessage body. ``v`` is (W, M, D). Returns
-    (out (W, n_loc, D), got (W, n_loc), overflow (W,), remote (W,))."""
-    w, m, _ = v.shape
-    n_total = w * ctx.n_loc
+    (out (W, n_loc, D), got (W, n_loc), overflow (W,), remote (W,)).
+    Under the batched query plane it is each lane's own body, all lanes
+    in one pass: ``v`` is (W, Q, M, D), ``dst``/``valid`` (W, M) or
+    (W, Q, M), and every result gains Q after W."""
+    if ctx.batched:
+        dst, valid = routing.lane_views(ctx, dst, valid)
+    m = v.shape[-2]
+    n_total = ctx.num_workers * ctx.n_loc
     ident = combiner.ident_for(v.dtype)
 
     # sender-side combine, sort-free: compact the occupied destinations
@@ -112,8 +135,8 @@ def _combined_send_serial(ctx, dst, valid, v, combiner, capacity, use_kernel):
     u_dst, pos = routing.dedup_dense(dst, valid, n_total)
     u_valid = u_dst != routing.BIG
     safe = torch.clamp(dst.to(torch.int64), 0, n_total - 1)
-    seg = torch.where(valid, pos.gather(1, safe), m)
-    # (W, m, D), u_dst-aligned
+    seg = torch.where(valid, pos.gather(-1, safe), m)
+    # (W, [Q,] m, D), u_dst-aligned
     u_vals = kops.segment_reduce(v, seg, m, combiner, use_kernel=use_kernel)
 
     routed = routing.route(ctx, u_dst, u_valid, {"v": u_vals}, capacity,
@@ -149,10 +172,7 @@ def _combined_send_union(ctx, dst, valid, v, combiner, capacity,
     c = capacity
     routing._check_slot_range(W, c)
     ident = combiner.ident_for(v.dtype)
-    live = routing.lane_live(ctx)
-    dst_l = (dst if dst.dim() == 3 else dst[:, None]).expand(W, q, m)
-    valid_l = ((valid if valid.dim() == 3 else valid[:, None])
-               & live[None, :, None])
+    dst_l, valid_l = routing.lane_views(ctx, dst, valid)
 
     # ---- union dedup over the id space (one histogram, all lanes) ----
     u_cap = min(q * m, n_total)
@@ -228,7 +248,9 @@ def combined_send(
       vals: (W, M) or (W, M, D) values.
     Under the batched query plane (``ctx.batched``) ``vals`` is
     (W, Q, M[, D]), ``valid`` (W, M) or (W, Q, M) and ``dst`` (W, M) or
-    (W, Q, M), and every result gains the Q dim after W.
+    (W, Q, M), and every result gains the Q dim after W: one union pass
+    for a union-exact combiner under ``route_batch="union"``, else the
+    serial body once a lane.
     Returns:
       (combined (W, n_loc[, D]), got_any (W, n_loc) bool, overflow (W,)).
     """
@@ -237,14 +259,10 @@ def combined_send(
     squeeze = vals.dim() == (3 if ctx.batched else 2)
     v = vals[..., None] if squeeze else vals
     d = v.shape[-1]
-    if ctx.batched:
-        if not _union_exact(combiner, v.dtype):
-            raise NotImplementedError(
-                f"a batched CombinedMessage with a {combiner.name} combiner "
-                f"over {v.dtype} is not union-exact; the per-lane route "
-                "pass it needs is not ported yet (see ROADMAP)")
+    if (ctx.batched and routing.resolve_batch() == "union"
+            and _union_exact(combiner, v.dtype)):
         send = _combined_send_union
-    else:
+    else:  # solo, or each lane's serial body
         send = _combined_send_serial
     out, got, overflow, remote = send(
         ctx, dst, valid, v, combiner, capacity, use_kernel)

@@ -16,15 +16,22 @@ WHILE nodes inside it; ``"host"`` runs a step per Python iteration, one
 readback a step. ``run_batch`` runs in all three; ``serve`` always runs
 the chunked serving substrate, whatever the engine's mode.
 
+``route_batch`` (``"union"``, the default, or ``"lane"``) says how a
+batch's routed channels share their route passes across the query lanes
+(``repro_torch.core.routing.resolve_batch``): one pass over the lanes'
+union frontier, or one pass a lane, the measured baseline. The engine
+holds every run, warm-up and capture under ``routing.batch_scope``.
+
 A device mode's loop (its warm-up step and its captured graph) is cached
 per (program, graph object, ``max_steps``, ``check_overflow``) and the
-mode and chunk size; a batched loop also per bucket cap, a serving loop
-per lane count and serve chunk — the counterpart of the JAX compile
-cache, with ``cache_hit`` and ``engine_compiles`` on every result; a hit
-replays the graph with no warm-up and no capture. :meth:`Engine.clear_cache`
-drops the cached loops and their graph memory. The planner
-(``plan="auto"``), overflow escalation and checkpoints are not ported
-yet (ROADMAP) and raise ``NotImplementedError``.
+mode, chunk size and ``route_batch``; a batched loop also per bucket
+cap, a serving loop per lane count and serve chunk — the counterpart of
+the JAX compile cache, with ``cache_hit`` and ``engine_compiles`` on
+every result; a hit replays the graph with no warm-up and no capture.
+:meth:`Engine.clear_cache` drops the cached loops and their graph
+memory. The planner (``plan="auto"``), overflow escalation and
+checkpoints are not ported yet (ROADMAP) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import routing
 from repro_torch.device import resolve_device
 from repro_torch.graph.pgraph import PartitionedGraph
 from repro_torch.pregel import runtime
@@ -60,11 +68,14 @@ class Engine:
       (default 64, as in the JAX package).
     device: where the graphs it runs must live (None = CUDA; raises when
       CUDA is absent). Pass ``"cpu"`` for the plain PyTorch path.
+    route_batch: ``"union"`` or ``"lane"`` (None: ``REPRO_ROUTE_BATCH``,
+      else ``"union"``) — how batched runs and served sessions route.
     """
 
     def __init__(self, mode: Optional[str] = None, device=None,
                  plan: Any = "manual", on_overflow: str = "raise",
-                 chunk_size: Optional[int] = None):
+                 chunk_size: Optional[int] = None,
+                 route_batch: Optional[str] = None):
         mode = "fused" if mode is None else mode
         if mode not in runtime.MODES:
             raise ValueError(f"unknown execution mode {mode!r}")
@@ -78,6 +89,7 @@ class Engine:
             raise ValueError(f"chunk_size must be at least 1, got "
                              f"{self.chunk_size}")
         self.device: torch.device = resolve_device(device)
+        self.route_batch = routing.resolve_batch(route_batch)
         self._cache: Dict[Tuple, runtime.DeviceLoop] = {}
         self.compiles = 0
         self.cache_hits = 0
@@ -100,9 +112,11 @@ class Engine:
 
     def _loop(self, key: Tuple, build: Callable[[], runtime.DeviceLoop]
               ) -> Tuple[runtime.DeviceLoop, bool]:
-        """The cached device loop under ``key``, built on a miss; and
-        whether it was a hit. The loop holds its graph, so ``id(pg)`` in
-        a key names one live graph object."""
+        """The cached device loop under ``key`` (and the engine's
+        ``route_batch``), built on a miss; and whether it was a hit. The
+        loop holds its graph, so ``id(pg)`` in a key names one live graph
+        object."""
+        key = key + (self.route_batch,)
         loop = self._cache.get(key)
         if loop is not None:
             self.cache_hits += 1
@@ -135,6 +149,10 @@ class Engine:
         ``engine_cache_hits``) and, on a miss, ``compile_time_s``."""
         if checkpoint_every is not None or resume is not None:
             raise _not_ported("checkpoint/resume")
+        with routing.batch_scope(self.route_batch):
+            return self._run(prog, pg, max_steps, check_overflow)
+
+    def _run(self, prog, pg, max_steps, check_overflow):
         self._check_device(pg)
         ms, co = self._limits(prog, max_steps, check_overflow)
         state0 = prog.init(pg)
@@ -184,6 +202,13 @@ class Engine:
         ``query_halted`` and ``query_bytes``/``query_msgs``; the
         dict-of-int totals cover the Q real queries only.
         """
+        with routing.batch_scope(self.route_batch):
+            res = self._run_batch(prog, pg, queries, max_steps,
+                                  check_overflow)
+        res.route_batch = self.route_batch
+        return res
+
+    def _run_batch(self, prog, pg, queries, max_steps, check_overflow):
         self._query_axis(prog, pg, "batched")
         queries = list(queries)
         q = len(queries)
@@ -248,6 +273,14 @@ class Engine:
             raise ValueError(
                 f"unknown on_fault {on_fault!r} "
                 "(one of ('quarantine', 'raise'))")
+        with routing.batch_scope(self.route_batch):
+            res = self._serve(prog, pg, requests, num_lanes, chunk_size,
+                              max_steps, check_overflow, faults, on_fault)
+        res.route_batch = self.route_batch
+        return res
+
+    def _serve(self, prog, pg, requests, num_lanes, chunk_size, max_steps,
+               check_overflow, faults, on_fault):
         self._query_axis(prog, pg, "served")
         if num_lanes < 1:
             raise ValueError(f"need at least one lane, got {num_lanes}")

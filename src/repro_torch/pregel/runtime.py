@@ -114,6 +114,9 @@ class RunResult:
     engine_cache_hits: int = 0
     # name -> bool, or name -> (Q,) bool for batched runs
     overflow_by_channel: Optional[Dict[str, Any]] = None
+    # how the routed channels shared the query lanes' route passes
+    # ("union" or "lane", routing.resolve_batch) — batched runs only
+    route_batch: str = ""
     # Batched-query metadata (num_queries > 0 iff the loop carried a query
     # axis): host numpy views of the Q real lanes; bytes_by_channel and
     # msgs_by_channel hold their totals. ``outputs`` is the per-query

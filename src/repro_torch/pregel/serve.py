@@ -236,6 +236,8 @@ class ServeResult:
     wall_time_s: float
     bytes_by_channel: Dict[str, int]
     msgs_by_channel: Dict[str, int]
+    # how the routed channels shared the lanes' route passes
+    route_batch: str = ""
     # engine/session stamps (Engine.serve): a miss pays the warm-up step
     # and the capture (compile_time_s)
     cache_hit: bool = False

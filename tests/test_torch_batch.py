@@ -26,7 +26,7 @@ from repro.pregel.program import VertexProgram as JVertexProgram
 from repro_torch.algorithms import BATCHED, REGISTRY, get_program, sssp
 from repro_torch.core import aggregator, routing
 from repro_torch.core import message as msg
-from repro_torch.core import scatter_combine as sc
+from repro_torch.core import propagation as prop
 from repro_torch.core.channel import ChannelContext
 from repro_torch.graph import pgraph
 from repro_torch.pregel import errors, runtime
@@ -37,6 +37,10 @@ from test_torch_graph import jax_tables
 SEED = 0
 W = 4
 NQ = 5
+#: the union CombinedMessage programs, exact against the JAX package (the
+#: other batched programs: tests/test_torch_personal.py and
+#: tests/test_torch_batch_routed.py)
+KEYS = ("reach:basic", "sssp:basic")
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,16 +67,28 @@ def batched_runs(key):
 
 
 def test_registry_batched_keys():
-    assert BATCHED == ("reach:basic", "sssp:basic")
+    """Every JAX batched program but ``sssp:prop`` (its batched
+    Propagation channel is not ported), with the JAX recipes."""
+    assert BATCHED == ("pagerank:personal", "pj:reqresp", "reach:basic",
+                       "sssp:basic")
+    assert set(BATCHED) == set(jalgorithms.BATCHED) - {"sssp:prop"}
     for key in BATCHED:
         spec, jspec = REGISTRY[key], jalgorithms.REGISTRY[key]
-        assert (spec.query_knob, spec.channel_class, spec.test_scale) == (
-            jspec.query_knob, jspec.channel_class, jspec.test_scale)
+        assert (spec.query_knob, spec.channel_class, spec.test_scale,
+                spec.build) == (jspec.query_knob, jspec.channel_class,
+                                jspec.test_scale, jspec.build)
         graph = spec.make_graph(7, SEED)
         np.testing.assert_array_equal(
             graph.edges, jspec.make_graph(7, SEED).edges)
-        assert spec.queries(graph, SEED, 6) == jspec.queries(graph, SEED, 6)
-        assert spec.inputs(graph, SEED) == jspec.inputs(graph, SEED)
+        got, want = spec.queries(graph, SEED, 6), jspec.queries(graph, SEED,
+                                                                  6)
+        assert len(got) == len(want) == 6
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        a, b = spec.inputs(graph, SEED), jspec.inputs(graph, SEED)
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +96,7 @@ def test_registry_batched_keys():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("key", BATCHED)
+@pytest.mark.parametrize("key", KEYS)
 def test_run_batch_matches_jax_run_batch(key):
     want, got = batched_runs(key)
     assert got.num_queries == want.num_queries == NQ
@@ -98,7 +114,7 @@ def test_run_batch_matches_jax_run_batch(key):
     assert got.msgs_by_channel == want.msgs_by_channel
 
 
-@pytest.mark.parametrize("key", BATCHED)
+@pytest.mark.parametrize("key", KEYS)
 def test_pad_lanes_are_dead_like_jax(key):
     want, got = batched_runs(key)
     audit = (got.num_pad_lanes, got.pad_steps, got.pad_bytes, got.pad_msgs)
@@ -114,7 +130,7 @@ def test_pad_lanes_are_dead_like_jax(key):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("key", BATCHED)
+@pytest.mark.parametrize("key", KEYS)
 def test_run_batch_matches_solo_runs(key):
     graph, _, pg, queries = problem(key)
     _, got = batched_runs(key)
@@ -131,7 +147,7 @@ def test_run_batch_matches_solo_runs(key):
         assert got.bytes_by_channel[name] == int(per_q.sum())
 
 
-@pytest.mark.parametrize("key", BATCHED)
+@pytest.mark.parametrize("key", KEYS)
 @pytest.mark.parametrize("which", [0, 1])
 def test_solo_run_matches_jax_engine(key, which):
     graph, jpg, pg, queries = problem(key)
@@ -147,7 +163,7 @@ def test_solo_run_matches_jax_engine(key, which):
     spec.check(graph, pg, got, {"source": source})
 
 
-@pytest.mark.parametrize("key", BATCHED)
+@pytest.mark.parametrize("key", KEYS)
 def test_default_program_passes_its_oracle(key):
     spec = REGISTRY[key]
     graph = spec.make_graph(7, SEED)
@@ -304,16 +320,17 @@ def test_batched_context_stats_are_per_lane():
 
 
 def test_unported_batched_channels_raise_naming_roadmap():
+    """The Propagation channel is the one channel the batched plane does
+    not run yet (batched ``sssp:prop``); the others run there now
+    (tests/test_torch_personal.py, tests/test_torch_batch_routed.py)."""
     ctx = ChannelContext(2, 4, torch.device("cpu"), num_queries=2)
     z = torch.zeros(2, 2, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        aggregator.aggregate(ctx, z, "sum")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        msg.direct_send(ctx, z[:, 0].int(), z[:, 0] > 0, {}, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sc.plan_broadcast_combine(ctx, None, z, "sum")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        msg.combined_send(ctx, z[:, 0].int(), z > 0, z, "sum", capacity=4)
+        prop.propagate(ctx, None, z, "min")
+    assert aggregator.aggregate(ctx, z, "sum").shape == (2, 2)
+    out, got, ovf = msg.combined_send(ctx, z[:, 0].int(), z > 0, z, "sum",
+                                      capacity=4)
+    assert out.shape == (2, 2, 4) and not got.any() and not ovf.any()
 
 
 @pytest.mark.parametrize("seed,q,m", [(0, 5, 40), (1, 1, 64), (2, 8, 3)])

@@ -30,7 +30,7 @@ from repro.graph import pgraph as jpgraph
 from repro.pregel import errors as jerrors
 from repro.pregel.engine import Engine as JEngine
 from repro.pregel.program import VertexProgram as JVertexProgram
-from repro_torch.algorithms import BATCHED, REGISTRY
+from repro_torch.algorithms import REGISTRY
 from repro_torch.graph import pgraph
 from repro_torch.pregel import errors
 from repro_torch.pregel.engine import Engine
@@ -39,6 +39,10 @@ from test_torch_batch import _overflow_programs
 from test_torch_graph import jax_tables
 
 W, SCALE, SEED = 4, 8, 0
+#: the union CombinedMessage programs, exact against the JAX package (the
+#: other batched programs: tests/test_torch_personal.py and
+#: tests/test_torch_batch_routed.py)
+KEYS = ("reach:basic", "sssp:basic")
 MODES = [("fused", 64), ("chunked", 2), ("chunked", 3)]
 MODE_IDS = [f"{m}{k}" for m, k in MODES]
 
@@ -85,7 +89,7 @@ def _same_lanes(got, want, q):
 
 @pytest.mark.parametrize("q", [1, 3, 8])
 @pytest.mark.parametrize("mode,k", MODES, ids=MODE_IDS)
-@pytest.mark.parametrize("key", BATCHED)
+@pytest.mark.parametrize("key", KEYS)
 def test_batched_device_mode_matches_host_and_jax(key, mode, k, q):
     graph, jpg, pg, queries = problem(key)
     host = host_batch(key, q)

@@ -27,6 +27,8 @@ def test_list_names_every_ported_program(capsys):
     for key in REGISTRY:
         assert key in out
     assert f"{len(REGISTRY)} ported programs" in out
+    assert len(REGISTRY) == len(JREGISTRY) == 21
+    assert "21 ported programs" in out
 
 
 def test_list_json_declares_channels(capsys):
@@ -49,12 +51,30 @@ def test_run_checks_the_oracle(capsys, program):
         assert "candidate" in out
 
 
+def test_run_personal_pagerank_checks_its_oracle(capsys):
+    assert cli.main(["run", "pagerank:personal", "--scale", "8",
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "oracle: ok" in out and "scatter_combine" in out
+
+
+@pytest.mark.parametrize("program", ["pagerank:personal", "pj:reqresp"])
+@pytest.mark.parametrize("route_batch", ["union", "lane"])
+def test_serve_smoke_of_the_new_batched_programs(capsys, program,
+                                                 route_batch):
+    assert cli.main(["serve", program, "--device", "cpu", "--smoke",
+                     "--route-batch", route_batch]) == 0
+    out = capsys.readouterr().out
+    assert f"route_batch={route_batch}" in out
+    assert "bit-identity: all 12 served outputs" in out
+
+
 def test_run_without_check_and_unknown_program(capsys):
     assert cli.main(["run", "wcc", "--scale", "6", "--device", "cpu",
                      "--no-check"]) == 0
     assert "oracle" not in capsys.readouterr().out
     with pytest.raises(KeyError, match="not yet ported"):
-        cli.main(["run", "pagerank:personal", "--device", "cpu"])
+        cli.main(["run", "pagerank:teleport", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flag", ["--on-overflow", "--plan",
@@ -103,16 +123,18 @@ def test_run_and_bench_default_to_the_fused_mode(tmp_path, capsys):
 
 def test_serve_smoke_checks_every_answer_against_a_solo_run(capsys):
     """``serve --smoke``: 12 queries through 3 lanes at chunk 3 (forced
-    refills), every served answer held to a solo host-mode run; the lane
-    route is refused, naming the union route."""
+    refills), every served answer held to a solo host-mode run, on the
+    union route and on the lane route."""
     assert cli.main(["serve", "reach:basic", "--device", "cpu",
                      "--smoke"]) == 0
     out = capsys.readouterr().out
     assert "served 12 queries through 3 lanes" in out
     assert "bit-identity: all 12 served outputs" in out
-    assert cli.main(["serve", "reach", "--device", "cpu", "--route-batch",
-                     "lane"]) == 2
-    assert "union route only" in capsys.readouterr().out
+    assert cli.main(["serve", "--device", "cpu", "--smoke", "--route-batch",
+                     "lane"]) == 0
+    out = capsys.readouterr().out
+    assert "route_batch=lane" in out
+    assert "bit-identity: all 12 served outputs" in out
     assert cli.main(["serve", "wcc", "--device", "cpu"]) == 2
     assert "no query axis" in capsys.readouterr().out
 

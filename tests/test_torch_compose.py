@@ -106,13 +106,6 @@ def test_request_with_no_valid_entry_charges_nothing_under_both_keys():
         assert not s.any()
 
 
-def test_request_refuses_the_batched_plane():
-    dst, valid, vals = requests(3)
-    c = ctx(num_queries=2)
-    with pytest.raises(NotImplementedError, match="route_union"):
-        rr.request(c, t(dst), t(valid), t(vals), capacity=N_LOC)
-
-
 @pytest.mark.parametrize("cap", [N_LOC, 3], ids=["fits", "overflows"])
 def test_reply_matches_jax(cap):
     """Each requester gets the answer to its own message back, in its

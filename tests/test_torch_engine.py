@@ -16,7 +16,7 @@ from repro.graph import pgraph as jpgraph
 from repro.pregel import errors as jerrors
 from repro.pregel import runtime as jruntime
 from repro.pregel.engine import Engine as JEngine
-from repro_torch.algorithms import REGISTRY, get_program, pagerank
+from repro_torch.algorithms import REGISTRY, get_program
 from repro_torch.core import message as msg
 from repro_torch.graph import pgraph
 from repro_torch.pregel import errors, runtime
@@ -71,12 +71,6 @@ def test_unported_engine_options_raise_naming_roadmap(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng = Engine(device="cpu", **kw)
         eng.run_batch(spec.factory(), pg, [0, 1])
-
-
-@pytest.mark.parametrize("module,variant", [(pagerank, "personal")])
-def test_unported_variants_raise_naming_roadmap(module, variant):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        module.program(variant)
 
 
 def _overflow_graphs():

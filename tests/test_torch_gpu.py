@@ -1066,3 +1066,66 @@ def test_serve_on_the_card_equals_solo_runs(cuda, chunk):
             assert (rec.steps, rec.halted) == (solo.steps, solo.halted)
             assert rec.bytes_by_channel == solo.bytes_by_channel
     eng.clear_cache()
+
+
+@pytest.mark.gpu
+def test_segment_combine_columns_equal_their_d1_calls_on_the_card(cuda):
+    """A float32 sum over 32 columns (the lanes of a batched
+    ScatterCombine) equals, column by column, the kernel's D=1 call on
+    that column alone, bit for bit: the combine order depends only on
+    entry positions."""
+    g = torch.Generator().manual_seed(5)
+    rows, e, n, cols = 8, 50_000, 4096, 32
+    seg = torch.sort(torch.randint(0, n + 5, (rows, e), generator=g,
+                                   dtype=torch.int32), dim=1)[0].to(cuda)
+    vals = torch.rand((rows, e, cols), generator=g).to(cuda)
+    out = ops.segment_combine(vals, seg, n, "sum")
+    for j in range(cols):
+        one = ops.segment_combine(vals[..., j:j + 1].contiguous(), seg, n,
+                                  "sum")
+        assert bits_equal(out[..., j:j + 1].contiguous(), one), j
+    torch.testing.assert_close(out, ref.segment_combine_ref(vals, seg, n,
+                                                            "sum"),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key,route_batch", [
+    ("pagerank:personal", "union"), ("pj:reqresp", "union"),
+    ("pj:reqresp", "lane"), ("reach:basic", "lane")])
+def test_new_batched_paths_equal_solo_runs_on_the_card(cuda, key,
+                                                       route_batch):
+    """``run_batch`` of 12 queries (four pad lanes) at scale 10, W = 8, in
+    host and fused mode on the card: every lane bit-identical to the solo
+    host-mode run of its query, both modes equal, and every kernel
+    launched as often in both (the runtime's counts)."""
+    spec = REGISTRY[key]
+    graph = spec.make_graph(10, 0)
+    pg = pgraph.partition_graph(graph, 8, "random", build=spec.build)
+    queries = spec.queries(graph, 0, 12)
+    prog = spec.factory(**spec.inputs(graph, 0))
+    solo = Engine(mode="host", device=cuda)
+    counts = []
+    results = []
+    for mode in ("host", "fused"):
+        eng = Engine(mode=mode, device=cuda, route_batch=route_batch)
+        eng.run_batch(prog, pg, queries)
+        ops.reset_launch_counts()
+        results.append(eng.run_batch(prog, pg, queries))
+        counts.append(ops.launch_counts())
+        eng.clear_cache()
+    host, fused = results
+    assert counts[0] == counts[1]
+    assert host.route_batch == fused.route_batch == route_batch
+    kernel = ("segment_combine" if key == "pagerank:personal" else
+              "bucket_ranks" if route_batch == "lane" else
+              "bucket_ranks_lanes")
+    assert counts[0][kernel] > 0
+    for qi, query in enumerate(queries):
+        ref_run = solo.run(spec.factory(**{spec.query_knob: query}), pg)
+        for res in results:
+            np.testing.assert_array_equal(res.outputs[qi], ref_run.output)
+            assert res.query_bytes(qi) == ref_run.bytes_by_channel
+            assert int(res.query_steps[qi]) == ref_run.steps
+    assert all(bits_equal(fused.state[x], host.state[x])
+               for x in host.state)

@@ -298,8 +298,8 @@ def test_registry_matches_jax_for_the_prop_programs():
         np.testing.assert_array_equal(a.edges, b.edges)
         assert got.inputs(a, 0) == want.inputs(b, 0)
     assert DEFAULT_VARIANT == jalgorithms.DEFAULT_VARIANT
-    assert set(REGISTRY) == set(jalgorithms.REGISTRY) - {"pagerank:personal"}
-    assert len(REGISTRY) == 20
+    assert set(REGISTRY) == set(jalgorithms.REGISTRY)
+    assert len(REGISTRY) == 21
 
 
 def test_sssp_prop_batched_raises_naming_roadmap():
