@@ -30,7 +30,11 @@ harvested and refilled between replays); ``pagerank:personal`` (the
 static channels under the batched plane: the Q lanes as the columns of
 each ``segment_combine`` launch) and batched ``pj:reqresp`` (the union
 RequestRespond) solo, batched and served, and the ``route_batch="lane"``
-baseline against the union route. Phases, one or more lines each:
+baseline against the union route; batched ``sssp:prop`` (the Propagation
+channel under the batched plane, each lane its own fixpoint) solo,
+batched and served, checkpoint/resume on the chunked CUDA-graph loop,
+overflow escalation (``Engine(on_overflow="escalate")``) and ``python -m
+repro_torch bench-batch``. Phases, one or more lines each:
 
   1. environment and kernel build;
   2. each kernel against its plain PyTorch version on the card, the two
@@ -65,8 +69,10 @@ baseline against the union route. Phases, one or more lines each:
      Propagation programs with their bytes per channel and per-worker
      rounds and local iterations (``PROP_REFS``), and scipy's strong
      components against ``oracles.scc_oracle``; ``pagerank:personal``
-     from source 0 (``PERSONAL_REFS``) and the Q=32 batches of all four
-     batched programs (``BATCH_REFS``), every lane equal to its solo run;
+     from source 0 (``PERSONAL_REFS``) and the Q=32 batches of all five
+     batched programs (``BATCH_REFS``; batched ``sssp:prop``'s per-lane
+     rounds and local iterations too, ``BATCH_INFO_REFS``), every lane
+     equal to its solo run;
   4. the main paths at R-MAT scale 20, W=8, checked against the host
      oracles, each with its kernels' launch counts (counts reset just
      before the path and read just after): pagerank run twice
@@ -114,7 +120,21 @@ baseline against the union route. Phases, one or more lines each:
      64: queries/s batched against solo, ms a superstep, peak memory; and
      ``reach:basic``, ``sssp:basic`` and ``pj:reqresp`` at Q=32 fused
      under ``route_batch="lane"`` against the union route (lanes equal,
-     run walls and their ratio);
+     run walls and their ratio); batched ``sssp:prop`` the same way (32
+     sources solo fused, batched in every mode, served; every lane's
+     distances, ``info`` rows, bytes and msgs equal to its solo run, two
+     lanes against the oracle); ``wcc:basic`` and ``sv:composed``
+     chunked at K=2 with a checkpoint every two supersteps, resumed from
+     every checkpoint on the cached graph (no new capture), each resume
+     bit-identical to the uninterrupted run (checkpoint size, save and
+     load ms, resumed walls); ``sv:composed``, ``pagerank:basic``,
+     ``msf:channels`` and a Q=32 ``run_batch`` of ``reach:basic`` fused
+     from ``cap_scales={"*": 0.125}`` under ``on_overflow="escalate"``:
+     a trail naming channels (and lanes), the recovered run equal to the
+     plain run, the second run a cache hit without recovery (attempts,
+     each capture's seconds, peak memory); and ``python -m repro_torch
+     bench-batch --queries 32 --scale 20`` as a subprocess that must exit
+     0 (``chiprun_out/bench_batch.json``);
   5. each kernel's time against its plain version, its bound and a
      PyTorch yardstick at the scale-20 shapes (the bucket kernels also on
      random keys, warm and L2-flushed, and checked to run one device
@@ -127,7 +147,10 @@ baseline against the union route. Phases, one or more lines each:
      ``pagerank:personal``'s Q·D columns, send and receive, each column
      bit-exact against its D=1 call, and ``bucket_ranks_lanes`` at the
      ``_request_union`` shape, both as the first batched superstep hands
-     them over), and one run of each program (the batched sssp,
+     them over; row 2f: its float32 ``min`` on batched ``sssp:prop``'s 32
+     columns at the three Propagation sites, each column bit-exact
+     against its D=1 call, ``scatter_reduce_`` amin the yardstick), and
+     one run of each program (the batched sssp,
      ``sv:composed``, ``pagerank:basic``, ``msf:channels``, the four
      Propagation programs and the fused ``pagerank:scatter``,
      ``wcc:basic`` and ``wcc:prop`` among them) under torch.profiler
@@ -145,8 +168,10 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -274,6 +299,17 @@ BATCH_REFS = {
     "sssp:basic": (16, 333297, 2666376),
     "pagerank:personal": (30, 5441280, 21765120),
     "pj:reqresp": (6, 462150, 1848600),
+    "sssp:prop": (1, 277948, 1111792),
+}
+# batched sssp:prop's per-lane info counters in that run: each lane's
+# global rounds (equal on every worker) and its local iterations summed
+# over the W workers (the JAX package's host-mode run_batch gives these)
+BATCH_INFO_REFS = {
+    "sssp:prop": (
+        [1, 13, 12, 1, 1, 15, 1, 10, 1, 13, 12, 1, 12, 12, 12, 11, 1, 1, 1,
+         1, 1, 1, 15, 1, 9, 1, 1, 14, 1, 12, 1, 14],
+        [8, 216, 188, 8, 8, 249, 8, 182, 8, 234, 239, 8, 238, 223, 203, 210,
+         8, 8, 8, 8, 8, 8, 230, 8, 155, 8, 8, 231, 8, 215, 8, 224]),
 }
 # pagerank:personal from source 0 at scale 12, W=8, the same graph
 # (supersteps, messages, bytes, bytes by channel; the JAX package's
@@ -881,20 +917,22 @@ def captured_calls(module, attr: str, run) -> list:
 
 
 def batched_program_runs(spec, graph, pg, must_launch, per_step,
-                         solo_mode):
+                         solo_mode, lane_key=None):
     """One batched program of the registry at full size: ``NQ`` queries
     of its recipe run solo in ``solo_mode`` (a fused solo run captures
     its own loop first; the second run is timed: the serial baseline of
     queries/s), then ``run_batch`` in host mode and every device mode
-    (:func:`batch_mode_runs`, every lane equal to its solo run) and
-    ``Engine.serve`` of the same queries (:func:`serve_runs`). Returns
-    the rows, the program and the queries."""
+    (:func:`batch_mode_runs`, every lane equal to its solo run; with
+    ``lane_key``, that state leaf of every lane bit-identical to the solo
+    run's too) and ``Engine.serve`` of the same queries
+    (:func:`serve_runs`). Returns the rows, the program and the
+    queries."""
     from repro_torch.pregel.engine import Engine
 
     prog = spec.factory(**spec.inputs(graph, 0))
     queries = spec.queries(graph, 0, NQ)
     eng = Engine(mode=solo_mode)
-    solos, solo_ms, solo_loop_ms = [], [], []
+    solos, solo_ms, solo_loop_ms, solo_leaves = [], [], [], []
     for query in queries:
         one = spec.factory(**{spec.query_knob: query})
         if solo_mode != "host":
@@ -905,10 +943,16 @@ def batched_program_runs(spec, graph, pg, must_launch, per_step,
         solos.append(solo_of(res))
         solo_ms.append(ms)
         solo_loop_ms.append(1e3 * res.wall_time_s)
+        if lane_key is not None:
+            solo_leaves.append(res.state[lane_key])
         eng.clear_cache()
     modes, host = batch_mode_runs(prog, pg, queries, must_launch)
     check(all(same_run(lane_of(host, qi), solos[qi]) for qi in range(NQ)),
           f"{spec.key}: a batched lane differs from its solo "
+          f"{solo_mode} run")
+    check(all(bits_equal(host.state[lane_key][:, qi], leaf)
+              for qi, leaf in enumerate(solo_leaves)),
+          f"{spec.key}: a batched lane's {lane_key} differs from its solo "
           f"{solo_mode} run")
     serving = serve_runs(spec, prog, pg, graph, solos, per_step)
     solo_qps = NQ / (sum(solo_ms) / 1e3)
@@ -922,6 +966,146 @@ def batched_program_runs(spec, graph, pg, must_launch, per_step,
         ms_per_superstep={m: modes[m]["loop_wall_ms"] / host.steps
                           for m in ("host", *MODE_RUNS)})
     return rows, prog, queries, host
+
+
+def same_full(a, b) -> bool:
+    """Two runs of one program: state bit for bit, supersteps, halts, and
+    bytes and messages per channel."""
+    return ((a.steps, a.halted, a.bytes_by_channel, a.msgs_by_channel)
+            == (b.steps, b.halted, b.bytes_by_channel, b.msgs_by_channel)
+            and a.state.keys() == b.state.keys()
+            and all(bits_equal(a.state[k], b.state[k]) for k in a.state))
+
+
+def checkpoint_runs(prog, pg, tmp: Path) -> dict:
+    """``prog`` chunked at K=2 with a checkpoint every two supersteps into
+    ``tmp``, then resumed from every checkpoint on the same engine: the
+    checkpointed run must equal a run without checkpoints, and each resume
+    must replay the cached CUDA graph (a cache hit, no new capture) and
+    equal the uninterrupted run bit for bit (state, supersteps, halts,
+    bytes and msgs per channel). Returns the checkpoint count, file size,
+    save and load ms, the walls of the full and each resumed run, and the
+    launches of the checkpointed run."""
+    import os
+
+    from repro_torch.kernels import ops
+    from repro_torch.pregel import checkpoint as ckpt_io
+    from repro_torch.pregel.engine import Engine
+
+    eng = Engine(mode="chunked", chunk_size=2)
+    built = eng.run(prog, pg)  # the warm-up and the capture
+    plain, plain_ms = timed(lambda: eng.run(prog, pg))
+    ops.reset_launch_counts()
+    (full, full_ms), on_device = on_device_launches(lambda: timed(
+        lambda: eng.run(prog, pg, checkpoint_every=2,
+                        checkpoint_dir=str(tmp))))
+    launches = ops.launch_counts()
+    what = f"{prog.name} checkpointed"
+    check(plain.cache_hit and full.cache_hit and same_full(full, plain),
+          f"{what}: differs from the run without checkpoints")
+    paths = sorted(tmp.glob("*.ckpt"))
+    check(len(paths) == (full.steps - 1) // 2 and paths,
+          f"{what}: {len(paths)} checkpoints for {full.steps} supersteps")
+    compiles = eng.compiles
+    resumed, load_ms, save_ms = [], [], []
+    for path in paths:
+        t0 = time.perf_counter()
+        ck = ckpt_io.load(str(path))
+        load_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        ckpt_io.save(ck, str(tmp / "resaved"))
+        save_ms.append(1e3 * (time.perf_counter() - t0))
+        res, ms = timed(lambda: eng.run(prog, pg, resume=ck))
+        check(res.cache_hit and eng.compiles == compiles
+              and res.resumed_from == ck.step,
+              f"{what}: the resume from step {ck.step} was not a replay of "
+              "the cached graph")
+        check(same_full(res, full), f"{what}: the resume from step "
+              f"{ck.step} differs from the uninterrupted run")
+        resumed.append(dict(step=ck.step, run_wall_ms=ms,
+                            loop_wall_ms=1e3 * res.wall_time_s,
+                            dispatches=res.dispatches))
+    eng.clear_cache()
+    return dict(steps=full.steps, checkpoints=len(paths),
+                bytes_per_checkpoint=os.path.getsize(paths[0]),
+                save_ms=sum(save_ms) / len(save_ms),
+                load_ms=sum(load_ms) / len(load_ms), full_run_wall_ms=full_ms,
+                plain_run_wall_ms=plain_ms, capture_s=built.compile_time_s,
+                resumed=resumed, launches=launches,
+                launches_on_device=on_device)
+
+
+def escalation_run(prog, pg, plain, queries=None) -> dict:
+    """``prog`` (or a ``run_batch`` of ``queries``) fused from an eighth
+    of every channel capacity under ``on_overflow="escalate"``: the
+    trail must be non-empty and name a channel at each escalation (and
+    the lanes, batched), the recovered run must equal the plain run
+    ``plain`` bit for bit, and a second run of the engine must be a cache
+    hit with no recovery. Returns the attempts, the trail, each capture's
+    seconds (one a scale set tried), the walls, the launches of the
+    escalated run and its peak device memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.pregel.engine import Engine
+
+    eng = Engine(cap_scales={"*": 0.125}, on_overflow="escalate")
+    captures = []
+    real = eng._loop
+
+    def spy(key, build):
+        loop, hit = real(key, build)
+        if not hit:
+            captures.append(loop.compile_time_s)
+        return loop, hit
+
+    eng._loop = spy
+    if queries is None:
+        run, same = (lambda: eng.run(prog, pg)), same_full
+    else:
+        run, same = (lambda: eng.run_batch(prog, pg, queries)), same_batch
+    ops.reset_launch_counts()
+    ((res, ms), on_device), gib = peak_of(
+        lambda: on_device_launches(lambda: timed(run)))
+    launches = ops.launch_counts()
+    what = f"{prog.name} escalated"
+    check(bool(res.recovery) and all(ev["channels"] for ev in res.recovery),
+          f"{what}: trail {res.recovery} is empty or names no channel")
+    check(queries is None or all(ev["qids"] for ev in res.recovery),
+          f"{what}: the batched trail names no lanes")
+    check(same(res, plain), f"{what}: differs from the plain run")
+    check(len(captures) == len(res.recovery) + 1 and eng.cache_size == 1,
+          f"{what}: {len(captures)} captures for {len(res.recovery)} "
+          f"escalations, {eng.cache_size} loops cached")
+    again, again_ms = timed(run)
+    check(again.cache_hit and again.recovery is None and same(again, plain),
+          f"{what}: the second run is not a cache hit without recovery")
+    eng.clear_cache()
+    return dict(attempts=len(res.recovery) + 1, trail=[
+        dict(ev, channels=list(ev["channels"]),
+             qids=list(ev.get("qids", ()))) for ev in res.recovery],
+        capture_s=captures, run_wall_ms=ms, again_wall_ms=again_ms,
+        peak_gib=gib, launches=launches, launches_on_device=on_device)
+
+
+def bench_batch_run(out_dir: Path, timeout_s: int = 420) -> dict:
+    """``python -m repro_torch bench-batch --queries 32 --scale 20`` as a
+    subprocess (every batchable program, each lane held to its serial run
+    before anything is timed), writing ``bench_batch.json`` into
+    ``out_dir``. It must exit 0. Returns its JSON and its wall."""
+    import os
+
+    path = out_dir / "bench_batch.json"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "bench-batch", "--queries",
+         str(NQ), "--scale", str(FULL_SCALE), "--workers", str(W),
+         "--json", str(path)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=timeout_s)
+    wall = time.perf_counter() - t0
+    (out_dir / "bench_batch.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"bench-batch exited {proc.returncode}: "
+          f"{(proc.stdout + proc.stderr)[-2000:]}")
+    return dict(json.loads(path.read_text()), wall_s=wall)
 
 
 def lane_baseline(prog, pg, queries, union, union_row) -> dict:
@@ -998,32 +1182,66 @@ def column_checks(calls, what: str) -> dict:
     return dict(max_abs_err=err, calls=shapes)
 
 
-def column_times(calls) -> dict:
+def amin_yardstick(v, ids, n):
+    """One ``scatter_reduce_`` amin of the real entries of a (rows, E, D)
+    combine into a preset buffer."""
+    import torch
+
+    idx, src, _ = real_entries(v, ids, n)
+    buf = torch.full((v.shape[0] * n, v.shape[2]), float("inf"),
+                     device=v.device)
+    idx = idx[:, None].expand_as(src).contiguous()
+    return lambda: buf.scatter_reduce_(0, idx, src, "amin",
+                                       include_self=True)
+
+
+def first_calls(module, attr: str, run) -> list:
+    """The first call ``run()`` makes to ``module.attr`` with each ids
+    tensor (a plan table: one call site) and segment count: what a path
+    hands a kernel's wrapper at each of its call sites, without keeping
+    every call of a long run."""
+    calls = {}
+    real = getattr(module, attr)
+
+    def spy(*args, **kw):
+        calls.setdefault((args[1].data_ptr(), args[2]), (args, kw))
+        return real(*args, **kw)
+
+    setattr(module, attr, spy)
+    try:
+        run()
+    finally:
+        setattr(module, attr, real)
+    return list(calls.values())
+
+
+def column_times(calls, yardstick=None, sides=("send", "recv")) -> dict:
     """Per side of a captured Q·D combine: the kernel (warm, L2-flushed),
-    the plain version, ``index_add_`` of the real entries into a preset
-    buffer (the library yardstick), and the bytes the function must move:
-    each real id and its Q·D values read once, each output written once.
-    Then their sums."""
+    the plain version, a library call on the real entries into a preset
+    buffer (``yardstick``; default ``index_add_``), and the bytes the
+    function must move: each real id and its Q·D values read once, each
+    output written once. Then their sums."""
     from repro_torch.kernels import ops, ref as kref
 
-    sides = {}
-    for side, ((v, ids, n, comb), _) in zip(("send", "recv"), calls):
+    yardstick = yardstick or index_add_yardstick
+    out = {}
+    for side, ((v, ids, n, comb), _) in zip(sides, calls):
         rows, _, d = v.shape
         _, src, _ = real_entries(v, ids, n)
         r = src.shape[0]
-        sides[side] = dict(
+        out[side] = dict(
             shape=list(v.shape), n=n, real_entries=r,
             ms=cuda_ms(lambda: ops.segment_combine(v, ids, n, comb)),
             cold_ms=cuda_ms_cold(lambda: ops.segment_combine(v, ids, n,
                                                              comb)),
             plain_ms=cuda_ms(lambda: kref.segment_combine_ref(v, ids, n,
                                                               comb), reps=3),
-            library_ms=cuda_ms(index_add_yardstick(v, ids, n)),
+            library_ms=cuda_ms(yardstick(v, ids, n)),
             bytes=r * (4 + 4 * d) + rows * n * 4 * d)
-    total = {k: sum(x[k] for x in sides.values()) for k in (
+    total = {k: sum(x[k] for x in out.values()) for k in (
         "ms", "cold_ms", "plain_ms", "library_ms", "bytes")}
     total["bound_ms"] = 1e3 * total["bytes"] / HBM_BYTES_PER_S
-    return dict(sides, **total)
+    return dict(out, **total)
 
 
 def union_lanes_times(call) -> dict:
@@ -1951,6 +2169,14 @@ def main() -> int:
             solo = eng.run(spec.factory(**{spec.query_knob: query}), pg)
             check(same_run(lane_of(res, qi), solo_of(solo)),
                   f"{key} scale-12 lane {qi} differs from its solo run")
+        if key in BATCH_INFO_REFS:
+            info = res.state["info"]
+            got_info = (info[0, :, 0].tolist(),
+                        info[:, :, 1].sum(dim=0).tolist())
+            check(bool((info[..., 0] == info[:1, :, 0]).all())
+                  and got_info == BATCH_INFO_REFS[key],
+                  f"{key} scale-12 batched info {got_info} != "
+                  f"{BATCH_INFO_REFS[key]}")
         counts[f"{key} batched"] = dict(
             steps=got[0], msgs=got[1], bytes=got[2], queries=NQ,
             query_steps=res.query_steps.tolist())
@@ -2588,6 +2814,45 @@ def main() -> int:
               for k, v in lane.items())
           + f" ({slice_s:.1f} s)", flush=True)
 
+    # batched sssp:prop (the Propagation channel under the batched plane:
+    # each lane its own fixpoint, the lanes the columns of every
+    # segment_combine launch): 32 sources solo (fused), batched in every
+    # mode (every lane, its info rows included, equal to its solo run;
+    # launches equal on the device; a Q=20 batch with 12 pad lanes),
+    # served at chunks 4 and 64; two lanes against the host oracle
+    t = time.perf_counter()
+    spp_spec = REGISTRY["sssp:prop"]
+    spb, spp_prog, spp_queries, spp_host = batched_program_runs(
+        spp_spec, sssp_graph, sssp_pg, "segment_combine", (), "fused",
+        lane_key="info")
+    spp_oracle_lanes = sorted(range(NQ), key=lambda qi: (
+        -int(spp_host.state["info"][0, qi, 0]), qi))[:2]
+    for qi in spp_oracle_lanes:
+        spp_spec.check(sssp_graph, sssp_pg, SimpleNamespace(
+            output=spp_host.outputs[qi]), {"source": spp_queries[qi]})
+    spp_rounds = spp_host.state["info"][0, :NQ, 0].tolist()
+    # the kernel's inputs at its three sites (local fixpoint, cut send,
+    # cut receive) on 32 columns, as the batched step hands them over
+    spp_calls = first_calls(ops, "segment_combine", lambda: Engine(
+        mode="host").run_batch(spp_prog, sssp_pg, spp_queries))
+    check([c[0][2] for c in spp_calls] == [
+        sssp_pg.n_loc, sssp_pg.prop_out.cut.u_cap, sssp_pg.n_loc]
+        and all(c[0][0].shape[-1] == NQ for c in spp_calls),
+        f"batched sssp:prop's segment_combine sites "
+        f"{[(list(c[0][0].shape), c[0][2]) for c in spp_calls]}")
+    spp_s = time.perf_counter() - t
+    detail["sssp_prop_batched"] = dict(spb, rounds=spp_rounds,
+                                       oracle_lanes=spp_oracle_lanes,
+                                       phase_s=spp_s)
+    print(f"[4/5] batched sssp:prop, scale {FULL_SCALE}, W={W}, Q={NQ} "
+          f"(lanes' global rounds {min(spp_rounds)}-{max(spp_rounds)}), "
+          f"every lane (distances, info, bytes, msgs) bit-identical to its "
+          f"solo run, oracle ok on lanes {spp_oracle_lanes}: "
+          + new_row("sssp:prop", spb)
+          + f"; segment_combine launches on the device in each mode "
+          f"{spb['modes']['host']['launches_on_device']['segment_combine']}"
+          f" ({spp_s:.1f} s)", flush=True)
+
     # the Propagation programs at full size, each path with its own launch
     # counts: wcc:prop on the wcc:basic partition (held to the ground
     # truth, fewer global rounds and bytes than wcc:basic), sssp:prop on
@@ -2747,6 +3012,85 @@ def main() -> int:
           f"on the device): "
           + "; ".join(mode_row(k) for k in device_keys)
           + f" ({mode_s:.1f} s)", flush=True)
+
+    # checkpoint/resume on the chunked CUDA-graph loop: wcc:basic and
+    # sv:composed chunked at K=2, a checkpoint every two supersteps, a
+    # resume from every checkpoint replaying the cached graph, each equal
+    # to the uninterrupted run; then escalation from an eighth of every
+    # capacity (fused): sv:composed, pagerank:basic, msf:channels and a
+    # Q=32 run_batch of reach:basic, each recovered run equal to the plain
+    # run and the second run a cache hit with no recovery
+    t = time.perf_counter()
+    ckpts = {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as tmp:
+        for key in ("wcc:basic", "sv:composed"):
+            d = Path(tmp) / key.replace(":", "_")
+            ckpts[key] = checkpoint_runs(get_program(key), wcc_pg, d)
+    for key, v in ckpts.items():
+        check(v["launches"]["bucket_ranks"] > 0
+              and v["launches_on_device"] == v["launches"],
+              f"{key} checkpointed: launches {v['launches_on_device']} on the "
+              f"device, {v['launches']} counted")
+    ckpt_s = time.perf_counter() - t
+    t = time.perf_counter()
+    esc_jobs = {"sv:composed": (get_program("sv:composed"), wcc_pg),
+                "pagerank:basic": (prb_prog, pr_pg),
+                "msf:channels": (get_program("msf:channels"), msf_pg)}
+    esc = {key: escalation_run(prog, pg, eng.run(prog, pg))
+           for key, (prog, pg) in esc_jobs.items()}
+    r_queries, _, r_host, _ = runs["reach:basic"]
+    esc["reach:basic batched"] = escalation_run(
+        REGISTRY["reach:basic"].factory(), pr_pg, r_host, r_queries)
+    check(all(v["launches"]["bucket_ranks"] > 0 for k, v in esc.items()
+              if k != "reach:basic batched")
+          and esc["reach:basic batched"]["launches"]["bucket_ranks_lanes"]
+          > 0, "an escalated run did not launch its routing kernel")
+    esc_s = time.perf_counter() - t
+    detail["resilience"] = dict(checkpoint=ckpts, escalation=esc,
+                                checkpoint_s=ckpt_s, escalation_s=esc_s)
+
+    def ckpt_row(key):
+        v = ckpts[key]
+        return (f"{key} {v['steps']} steps, {v['checkpoints']} checkpoints "
+                f"of {v['bytes_per_checkpoint'] / 2**20:.1f} MiB (save "
+                f"{v['save_ms']:.1f} ms, load {v['load_ms']:.1f} ms), run "
+                f"{v['full_run_wall_ms']:.1f} ms with checkpoints vs "
+                f"{v['plain_run_wall_ms']:.1f} without; resumed from step "
+                + ", ".join(f"{r['step']} in {r['run_wall_ms']:.1f} ms"
+                            for r in v["resumed"]))
+
+    def esc_row(key):
+        v = esc[key]
+        return (f"{key} {v['attempts']} attempts (" + "; ".join(
+            f"{ev['channels']}" + (f" lanes {ev['qids'][:4]}..."
+                                   if ev["qids"] else "")
+            for ev in v["trail"]) + f" -> {v['trail'][-1]['cap_scales']}), "
+            f"captures {[round(c, 2) for c in v['capture_s']]} s, run "
+            f"{v['run_wall_ms']:.1f} ms, second run {v['again_wall_ms']:.1f} "
+            f"ms (hit), peak {v['peak_gib']:.2f} GiB")
+
+    print(f"[4/5] checkpoint/resume at scale {FULL_SCALE}, chunked K=2, "
+          f"every resume a replay of the cached graph and bit-identical to "
+          f"the uninterrupted run: " + "; ".join(ckpt_row(k) for k in ckpts)
+          + f" ({ckpt_s:.1f} s)", flush=True)
+    print(f"[4/5] escalation from cap_scales {{'*': 0.125}}, fused, scale "
+          f"{FULL_SCALE}, every recovered run bit-identical to the plain "
+          f"run, the second a cache hit without recovery: "
+          + "; ".join(esc_row(k) for k in esc) + f" ({esc_s:.1f} s)",
+          flush=True)
+
+    # python -m repro_torch bench-batch: every batchable program, each
+    # lane held to its serial run before anything is timed
+    bb = bench_batch_run(out_dir)
+    detail["bench_batch"] = bb
+    print(f"[4/5] bench-batch --queries {NQ} --scale {FULL_SCALE} (fused, "
+          f"every lane bit-identical to its serial run): " + "; ".join(
+              f"{r['program']} serial {r['queries_per_s_serial']:.1f} q/s, "
+              f"batched {r['queries_per_s_batched']:.1f} q/s = "
+              f"{r['speedup']:.2f}x" for r in bb["rows"])
+          + "; geomean " + ", ".join(
+              f"{c} {g:.2f}x" for c, g in bb["geomean_speedup"].items())
+          + f" ({bb['wall_s']:.1f} s)", flush=True)
 
     # -- 5. times at the scale-20 shapes ------------------------------------
     t = time.perf_counter()
@@ -3045,17 +3389,68 @@ def main() -> int:
           f"torch.sort {ru_t['library_ms']:.4f} "
           f"({time.perf_counter() - t_q:.1f} s)", flush=True)
 
+    # row 2f: segment_combine's float32 min on batched sssp:prop's 32
+    # columns at its three sites (a local-fixpoint iteration, the cut
+    # send, the cut receive), as the batched step hands them over: each
+    # column bit-exact against its D=1 call, the whole against plain
+    t_f = time.perf_counter()
+    f_sides = ("int_dst", "cut send", "cut recv")
+    f_check = column_checks(spp_calls, "sssp:prop Q columns")
+    for (vals, ids, n, comb), _ in spp_calls:
+        check(bits_equal(ops.segment_combine(vals, ids, n, comb),
+                         kref.segment_combine_ref(vals, ids, n, comb)),
+              f"segment_combine min {list(vals.shape)} differs from plain")
+    f_t = column_times(spp_calls, amin_yardstick, f_sides)
+    row_2f = dict(
+        name="segment_combine: float32 min on Q columns (2f)", route="cuda",
+        source=seg_source, replaces=seg_replaces,
+        launches=spb["modes"]["host"]["launches"]["segment_combine"],
+        launches_by_path={
+            f"sssp:prop batched {m}": spb["modes"][m]["launches_on_device"][
+                "segment_combine"] for m in ("host", *MODE_RUNS)},
+        max_abs_err=f_check["max_abs_err"], ms=f_t["ms"],
+        plain_ms=f_t["plain_ms"], bound_ms=f_t["bound_ms"], bound_by="bytes",
+        library_ms=f_t["library_ms"], library="scatter_reduce_ amin",
+        cold_ms=f_t["cold_ms"],
+        shapes={x: [f_t[x]["shape"], f_t[x]["n"]] for x in f_sides},
+        what=f"batched sssp:prop's first superstep at scale {FULL_SCALE}, "
+             f"Q={NQ} lanes as columns: one local-fixpoint iteration + the "
+             "cut send + the cut receive")
+    print(f"[5/5] kernel 2 float32 min on batched sssp:prop's {NQ} columns ("
+          + ", ".join(f"{x} {f_t[x]['shape']} into {f_t[x]['n']} "
+                      f"{f_t[x]['ms']:.4f} ms" for x in f_sides)
+          + f"): every column bit-exact against its D=1 call and the whole "
+          f"against plain; {f_t['ms']:.4f} ms warm, {f_t['cold_ms']:.4f} L2 "
+          f"flushed, plain {f_t['plain_ms']:.3f}, bound "
+          f"{f_t['bound_ms']:.4f}, scatter_reduce_ amin "
+          f"{f_t['library_ms']:.4f} ({time.perf_counter() - t_f:.1f} s)",
+          flush=True)
+
+    # the launches of this slice's paths, by kernel: checkpointed and
+    # escalated runs, and batched sssp:prop in host mode
+    new_paths = {f"{k} checkpointed": v["launches"] for k, v in ckpts.items()}
+    new_paths.update({f"{k} escalated": v["launches"]
+                      for k, v in esc.items() if "batched" not in k})
+    new_launches = {
+        "bucket_ranks": {k: v["bucket_ranks"] for k, v in new_paths.items()
+                         if v["bucket_ranks"]},
+        "segment_combine": {k: v["segment_combine"]
+                            for k, v in new_paths.items()
+                            if v["segment_combine"]}}
+    new_launches["segment_combine"]["sssp:prop batched"] = spb["modes"][
+        "host"]["launches"]["segment_combine"]
     kernels = [
         dict(name="bucket_ranks", route="cuda",
              source="src/repro_torch/kernels/csrc/bucket_route.cu",
              replaces="src/repro/kernels/bucket_route.py:87",
              launches=(launches["bucket_ranks"] + sv_launches["bucket_ranks"]
-                       + prop_main["scc:basic"]["launches"]["bucket_ranks"]),
+                       + prop_main["scc:basic"]["launches"]["bucket_ranks"]
+                       + sum(new_launches["bucket_ranks"].values())),
              launches_by_path=dict(
                  wcc_basic=launches["bucket_ranks"],
                  sv_composed=sv_launches["bucket_ranks"],
                  scc_basic=prop_main["scc:basic"]["launches"][
-                     "bucket_ranks"]),
+                     "bucket_ranks"], **new_launches["bucket_ranks"]),
              max_abs_err=errs["bucket_ranks"], ms=b_ms, plain_ms=b_plain,
              bound_ms=b_bound, bound_by="bytes", library_ms=None,
              cold_ms=b_t["sorted"]["cold_ms"], random_ms=b_t["random"]["ms"],
@@ -3064,12 +3459,14 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/segment_combine.cu",
              replaces="src/repro/kernels/segment_combine.py:101",
              launches=(launches["segment_combine"]
-                       + sv_launches["segment_combine"] + prop_seg),
+                       + sv_launches["segment_combine"] + prop_seg
+                       + sum(new_launches["segment_combine"].values())),
              launches_by_path=dict(
                  pagerank_scatter=launches["segment_combine"],
                  sv_composed=sv_launches["segment_combine"],
                  **{k: v["launches"]["segment_combine"]
-                    for k, v in prop_main.items()}),
+                    for k, v in prop_main.items()},
+                 **new_launches["segment_combine"]),
              max_abs_err=errs["segment_combine"], ms=s_ms, plain_ms=s_plain,
              bound_ms=s_bound, bound_by="bytes", library_ms=s_lib,
              library=s_lib_name, cold_ms=st["cold_ms"],
@@ -3077,8 +3474,13 @@ def main() -> int:
         dict(name="bucket_ranks_lanes", route="cuda",
              source="src/repro_torch/kernels/csrc/bucket_route.cu",
              replaces="src/repro/kernels/bucket_route.py:128",
-             launches=b_launches["bucket_ranks_lanes"],
+             launches=(b_launches["bucket_ranks_lanes"]
+                       + esc["reach:basic batched"]["launches"][
+                           "bucket_ranks_lanes"]),
              launches_by_path={
+                 "reach:basic batched escalated": esc[
+                     "reach:basic batched"]["launches"][
+                     "bucket_ranks_lanes"],
                  **{f"{k} {m}": v[m]["launches_on_device"][
                      "bucket_ranks_lanes"]
                     for k, v in batch_modes.items()
@@ -3093,7 +3495,7 @@ def main() -> int:
              random_ms=l_t["random"]["ms"],
              random_cold_ms=l_t["random"]["cold_ms"],
              all_entry_bound_ms=l_bound_all),
-        row_2b, row_2c, row_2d, row_2e, row_3a,
+        row_2b, row_2c, row_2d, row_2e, row_3a, row_2f,
     ]
     detail["timings"] = dict(
         bucket_ranks=dict(shape=list(rkeys.shape), **b_t, plain_ms=b_plain,
@@ -3110,6 +3512,7 @@ def main() -> int:
         segment_combine_min_by_first=mbf_t,
         segment_combine_combined_sum=csum_t,
         segment_combine_personal_columns=dict(qd_t, checks=qd_check),
+        segment_combine_sssp_prop_columns=dict(f_t, checks=f_check),
         bucket_ranks_lanes_request_union=ru_t)
 
     def warm_cold(t):

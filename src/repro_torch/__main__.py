@@ -10,22 +10,36 @@ Subcommands:
   bench   run a set of programs (one per algorithm by default) and print
           paper-style rows (supersteps / messages / bytes / wall time),
           optionally writing JSON.
+  bench-batch
+          the batched query plane: run every batchable program (or
+          ``--keys``) over Q queries, once as one ``Engine.run_batch``
+          and once as Q serial single-query batches, check every lane
+          against its serial run bit for bit (output, steps, bytes and
+          messages) before timing anything, and print queries/s for both,
+          the speedup, and the geomean speedup by channel class.
   serve   serve a Poisson stream of queries of a batchable program
           (``reach:basic``, ``sssp:basic``, ``pagerank:personal``,
           ``pj:reqresp``) through always-on lanes (``Engine.serve``),
           print throughput and latency, and check every served answer
           against a solo host-mode run.
 
-``run`` and ``bench`` take ``--mode host|fused|chunked`` (default
-``fused``, as in the JAX CLI) and ``--chunk-size K`` (default 64): the
-device modes run K supersteps a replay of a captured CUDA graph, every
-program's inner loops as WHILE nodes inside it. ``serve`` always runs
-the chunked serving substrate, ``--serve-chunk`` supersteps a dispatch,
-and ``--route-batch union|lane`` picks how the lanes' routed channels
-share their route passes (one pass over the union frontier, or one a
-lane). Everything runs on the card unless ``--device cpu`` is given.
-The JAX CLI's planner, checkpoints and the batched-bench and planning
-subcommands are not ported yet (ROADMAP).
+``run``, ``bench`` and ``bench-batch`` take ``--mode host|fused|chunked``
+(default ``fused``, as in the JAX CLI) and ``--chunk-size K`` (default
+64): the device modes run K supersteps a replay of a captured CUDA
+graph, every program's inner loops as WHILE nodes inside it. ``run``
+also takes ``--on-overflow raise|escalate`` (escalate: a channel that
+overflows gets twice the capacity and the run starts again, printed as
+"recovered"), and ``--checkpoint-every K --checkpoint-dir DIR`` /
+``--resume FILE_OR_DIR`` (chunked mode, the default with either flag:
+snapshots at chunk boundaries, and a resume from one, bit-identical to
+the uninterrupted run). ``serve`` always runs the chunked serving
+substrate, ``--serve-chunk`` supersteps a dispatch, and
+``--route-batch union|lane`` picks how the lanes' routed channels share
+their route passes (one pass over the union frontier, or one a lane).
+Every command takes ``--mirror-threshold N|auto`` (hub mirroring of the
+scatter and prop plans). Everything runs on the card unless ``--device
+cpu`` is given. The JAX CLI's planner and its ``plan`` subcommand are
+not ported yet (ROADMAP).
 
 Examples:
 
@@ -42,19 +56,27 @@ Examples:
   python -m repro_torch run pagerank:personal --scale 20
   python -m repro_torch serve pagerank:personal --scale 20 --serve-chunk 4
   python -m repro_torch serve pj:reqresp --scale 20 --route-batch lane
+  python -m repro_torch bench-batch --scale 20 --queries 32 \\
+      --json chiprun_out/bench_batch.json
+  python -m repro_torch run wcc:basic --scale 20 --checkpoint-every 2 \\
+      --checkpoint-dir /tmp/ckpt
+  python -m repro_torch run wcc:basic --scale 20 --resume /tmp/ckpt
+  python -m repro_torch run sv:composed --scale 12 --on-overflow escalate
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 
-from repro_torch.algorithms import (ALGORITHMS, DEFAULT_VARIANT, REGISTRY,
-                                    resolve)
+from repro_torch.algorithms import (ALGORITHMS, BATCHED, DEFAULT_VARIANT,
+                                    REGISTRY, resolve)
 from repro_torch.graph import partition as partition_lib
 from repro_torch.graph import pgraph
+from repro_torch.pregel import checkpoint as ckpt_io
 from repro_torch.pregel.engine import Engine
 from repro_torch.pregel.serve import QueryQueue
 
@@ -77,8 +99,12 @@ def _summary(res) -> str:
 def _prepare(spec, args):
     """(graph, pg, inputs, program) of the spec's default problem."""
     graph = spec.make_graph(args.scale, args.seed)
+    thr = args.mirror_threshold
+    if thr is not None and thr != "auto":
+        thr = int(thr)
     pg = pgraph.partition_graph(graph, args.workers, args.partitioner,
-                                build=spec.build, device=args.device)
+                                build=spec.build, device=args.device,
+                                mirror_threshold=thr)
     inputs = spec.inputs(graph, args.seed)
     return graph, pg, inputs, spec.factory(**inputs)
 
@@ -116,17 +142,39 @@ def cmd_list(args) -> int:
 
 def cmd_run(args) -> int:
     spec = resolve(args.program)
+    mode = args.mode
+    if mode is None:  # checkpoints snapshot the chunked carry
+        mode = ("chunked" if args.checkpoint_every or args.resume
+                else "fused")
     print(f"== {spec.key} (scale {args.scale}, W={args.workers}, "
-          f"{args.partitioner} partition, {args.mode} mode, "
+          f"{args.partitioner} partition, {mode} mode, "
           f"{args.device}) ==")
     graph, pg, inputs, prog = _prepare(spec, args)
     print(f"graph: n={graph.n} edges={graph.num_edges}  program: {prog}")
-    eng = Engine(mode=args.mode, chunk_size=args.chunk_size,
-                 device=args.device)
+    eng = Engine(mode=mode, chunk_size=args.chunk_size, device=args.device,
+                 on_overflow=args.on_overflow)
+    resume = args.resume
+    if resume:
+        if os.path.isdir(resume):
+            resume = ckpt_io.latest(resume)
+        if resume is None or not os.path.exists(resume):
+            print(f"run: no checkpoint at {args.resume}")
+            return 2
+        print(f"resuming from {resume}")
     res = None
     for i in range(max(1, args.repeat)):
-        res = eng.run(prog, pg, max_steps=args.max_steps)
+        res = eng.run(prog, pg, max_steps=args.max_steps,
+                      checkpoint_every=args.checkpoint_every,
+                      checkpoint_dir=args.checkpoint_dir, resume=resume)
         print(f"run {i}: {_summary(res)}")
+        if res.resumed_from:
+            print(f"  resumed at superstep {res.resumed_from}")
+        for ev in res.recovery or ():
+            print(f"  recovered: overflow of {list(ev['channels'])} at "
+                  f"superstep {ev['superstep']} -> cap_scales "
+                  f"{ev['cap_scales']}")
+    if args.repeat > 1:
+        print(f"engine session: {eng.stats()}")
     for name in sorted(res.bytes_by_channel):
         print(f"  {name:32s} {res.bytes_by_channel[name]:12d} B "
               f"{res.msgs_by_channel[name]:10d} msgs")
@@ -163,6 +211,94 @@ def cmd_bench(args) -> int:
         with open(args.json, "w") as f:
             json.dump({"scale": args.scale, "workers": args.workers,
                        "device": args.device, "rows": rows}, f, indent=2)
+        print(f"wrote {args.json}")
+    return 0
+
+
+def _same_lane(a, qa, b, qb) -> bool:
+    """Lane ``qa`` of batch ``a`` equals lane ``qb`` of batch ``b``:
+    output, steps, halt, and bytes and messages per channel."""
+    return (np.array_equal(np.asarray(a.outputs[qa]),
+                           np.asarray(b.outputs[qb]))
+            and int(a.query_steps[qa]) == int(b.query_steps[qb])
+            and bool(a.query_halted[qa]) == bool(b.query_halted[qb])
+            and a.query_bytes(qa) == b.query_bytes(qb)
+            and a.query_msgs(qa) == b.query_msgs(qb))
+
+
+def cmd_bench_batch(args) -> int:
+    named = args.programs or args.keys
+    keys = named.split(",") if named else list(BATCHED)
+    q = args.queries
+    print(f"== bench-batch (scale {args.scale}, W={args.workers}, Q={q}, "
+          f"{args.mode} mode, {args.device}) ==")
+    rows = []
+    for name in keys:
+        spec = resolve(name)
+        if spec.make_queries is None:
+            print(f"  {spec.key:22s} (no query axis — skipped)")
+            continue
+        if args.channel_class not in ("all", spec.channel_class):
+            continue
+        graph, pg, _, prog = _prepare(spec, args)
+        queries = spec.queries(graph, args.seed, q)
+        eng = Engine(mode=args.mode, chunk_size=args.chunk_size,
+                     device=args.device, route_batch=args.route_batch)
+        batched = lambda: eng.run_batch(prog, pg, queries,
+                                        max_steps=args.max_steps)
+        one = lambda s: eng.run_batch(prog, pg, [s],
+                                      max_steps=args.max_steps)
+        # build both loops, then hold the batch to the serial runs lane by
+        # lane before timing anything
+        res_b = batched()
+        serial = [one(s) for s in queries]
+        for qi in range(len(queries)):
+            if not _same_lane(res_b, qi, serial[qi], 0):
+                print(f"  {spec.key}: lane {qi} ({spec.query_knob} "
+                      f"{_short(queries[qi])}) differs from its serial run")
+                return 1
+        t0 = time.perf_counter()
+        res_t = batched()
+        t_batched = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for s in queries:
+            one(s)
+        t_serial = time.perf_counter() - t0
+        row = {"program": spec.key, "q": len(queries),
+               "channel_class": spec.channel_class,
+               "route_batch": eng.route_batch, "mode": args.mode,
+               "supersteps": res_b.steps,
+               "queries_per_s_serial": len(queries) / t_serial,
+               "queries_per_s_batched": len(queries) / t_batched,
+               "speedup": t_serial / t_batched,
+               "batched_wall_s": t_batched, "serial_wall_s": t_serial,
+               "batched_cache_hit": res_t.cache_hit,
+               "bytes": res_b.total_bytes}
+        rows.append(row)
+        print(f"  {spec.key:22s} [{spec.channel_class:6s}] "
+              f"steps {res_b.steps:4d}  "
+              f"serial {row['queries_per_s_serial']:8.1f} q/s  "
+              f"batched {row['queries_per_s_batched']:8.1f} q/s  "
+              f"speedup {row['speedup']:6.2f}x  [lanes bit-identical]")
+    # speedup by channel class: static-plan channels batch as columns of
+    # each launch; routed channels also share the union route pass
+    by_class = {}
+    for row in rows:
+        by_class.setdefault(row["channel_class"], []).append(row["speedup"])
+    geomeans = {}
+    for cls in sorted(by_class):
+        sp = by_class[cls]
+        geomeans[cls] = float(np.exp(np.mean(np.log(sp))))
+        print(f"  -- {cls:6s} ({len(sp)} programs): "
+              f"geomean speedup {geomeans[cls]:6.2f}x  "
+              f"(min {min(sp):.2f}x, max {max(sp):.2f}x)")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"scale": args.scale, "workers": args.workers,
+                       "q": q, "mode": args.mode, "device": args.device,
+                       "route_batch": args.route_batch or "union",
+                       "geomean_speedup": geomeans, "rows": rows}, f,
+                      indent=2)
         print(f"wrote {args.json}")
     return 0
 
@@ -248,6 +384,10 @@ def main(argv=None) -> int:
         p.add_argument("--chunk-size", type=int, default=64,
                        help="supersteps a dispatch of the fused/chunked "
                             "modes covers (default 64)")
+        p.add_argument("--mirror-threshold", default=None,
+                       help="hub-mirroring degree threshold for the "
+                            "scatter/prop plans: an int, 'auto', or unset "
+                            "(off)")
 
     def modes(p):
         p.add_argument("--mode", default="fused",
@@ -258,11 +398,27 @@ def main(argv=None) -> int:
     p_run.add_argument("program",
                        help="algorithm (default variant) or algorithm:variant")
     common(p_run)
-    modes(p_run)
+    p_run.add_argument("--mode", default=None,
+                       choices=("host", "fused", "chunked"),
+                       help="execution mode (default: fused, or chunked "
+                            "with a checkpoint flag)")
     p_run.add_argument("--repeat", type=int, default=1,
                        help="run the program this many times")
     p_run.add_argument("--no-check", dest="check", action="store_false",
                        help="skip the host-oracle verification")
+    p_run.add_argument("--on-overflow", default="raise",
+                       choices=("raise", "escalate"),
+                       help="channel-capacity overflow policy: escalate "
+                            "doubles the overflowed caps and runs again")
+    p_run.add_argument("--checkpoint-every", type=int, default=None,
+                       help="snapshot the run every K supersteps "
+                            "(chunked mode; needs --checkpoint-dir)")
+    p_run.add_argument("--checkpoint-dir", default=None,
+                       help="directory checkpoints are written into")
+    p_run.add_argument("--resume", default=None,
+                       help="checkpoint file (or directory: the newest "
+                            "in it) to resume from, bit-identical to the "
+                            "uninterrupted run")
     p_run.set_defaults(fn=cmd_run)
 
     p_bench = sub.add_parser("bench", help="bench programs")
@@ -273,6 +429,29 @@ def main(argv=None) -> int:
     modes(p_bench)
     p_bench.add_argument("--json", default=None, help="write rows to JSON")
     p_bench.set_defaults(fn=cmd_bench)
+
+    p_bb = sub.add_parser(
+        "bench-batch",
+        help="batched query plane: run_batch against serial Q=1 runs")
+    p_bb.add_argument("--keys", default=None,
+                      help="comma list of batched programs (default: "
+                           "every program with a query axis)")
+    p_bb.add_argument("--programs", default=None,
+                      help="alias for --keys (takes precedence)")
+    common(p_bb)
+    modes(p_bb)
+    p_bb.add_argument("--channel-class", default="all",
+                      choices=("static", "routed", "all"),
+                      help="only bench programs of this data-plane family")
+    p_bb.add_argument("--route-batch", default=None,
+                      choices=("union", "lane"),
+                      help="how batched routed channels share their route "
+                           "passes (default: REPRO_ROUTE_BATCH, else "
+                           "union)")
+    p_bb.add_argument("--queries", type=int, default=16,
+                      help="batch size Q")
+    p_bb.add_argument("--json", default=None, help="write rows to JSON")
+    p_bb.set_defaults(fn=cmd_bench_batch)
 
     p_serve = sub.add_parser(
         "serve", help="continuous-batching query service under a Poisson "

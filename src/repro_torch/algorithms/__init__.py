@@ -270,13 +270,21 @@ DEFAULT_VARIANT: Dict[str, str] = {
 
 ALGORITHMS: Tuple[str, ...] = tuple(sorted(DEFAULT_VARIANT))
 
-#: specs with a query axis that ``Engine.run_batch`` and ``Engine.serve``
-#: run, under either ``route_batch``: ``sssp:prop`` declares the JAX
-#: recipe's query axis, but the batched Propagation channel is not
-#: ported yet and raises (ROADMAP)
+#: specs with a query axis — what ``Engine.run_batch``, ``Engine.serve``
+#: and ``python -m repro_torch bench-batch`` run, under either
+#: ``route_batch`` (the JAX ``BATCHED``)
 BATCHED: Tuple[str, ...] = tuple(
-    sorted(k for k, s in REGISTRY.items()
-           if s.make_queries is not None and k != "sssp:prop"))
+    sorted(k for k, s in REGISTRY.items() if s.make_queries is not None))
+
+#: the abstract channel kinds a program may declare
+CHANNEL_CLASSES: Tuple[str, ...] = ("static", "routed")
+
+
+def channel_class_of(program_name: str) -> str:
+    """The data-plane family of a registered program (``"static"`` for
+    an unregistered name), as the JAX registry gives it."""
+    spec = REGISTRY.get(program_name)
+    return spec.channel_class if spec is not None else "static"
 
 
 def resolve(name: str) -> ProgramSpec:

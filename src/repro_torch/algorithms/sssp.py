@@ -8,12 +8,11 @@ The port of ``repro.algorithms.sssp``. Variants:
   - ``"prop"``: the Propagation channel with ``edge_transform = dist +
     w`` in one superstep — the channel generalizes beyond min-label
     propagation; ``state["info"]`` holds each worker's (global rounds,
-    local iterations). Solo only: under ``Engine.run_batch`` it raises
-    (ROADMAP: the batched Propagation channel).
+    local iterations); batched, ``(W, Q, 2)``, each lane's own.
 
 The source is the program's query axis (``query_init``):
 ``Engine.run_batch(prog, pg, sources)`` computes landmark distances —
-one distance array per source — in one host loop. The step serves both
+one distance array per source — in one loop. Each step serves both
 ``(W, n_loc)`` solo and ``(W, Q, n_loc)`` batched state (see
 ``repro_torch.algorithms.reachability``).
 """
@@ -81,7 +80,7 @@ def program(variant: str = "basic", *, source: int = 0,
                 edge_transform=lambda v, w: v + w[..., None])
             info = torch.stack([on_device(rounds, iters.device,
                                           iters.dtype).expand_as(iters),
-                                iters], dim=1)
+                                iters], dim=-1)
             return {"dist": dist, "info": info}, True
 
         return VertexProgram(

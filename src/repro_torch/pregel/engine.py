@@ -23,26 +23,51 @@ union frontier, or one pass a lane, the measured baseline. The engine
 holds every run, warm-up and capture under ``routing.batch_scope``.
 
 A device mode's loop (its warm-up step and its captured graph) is cached
-per (program, graph object, ``max_steps``, ``check_overflow``) and the
-mode, chunk size and ``route_batch``; a batched loop also per bucket
-cap, a serving loop per lane count and serve chunk — the counterpart of
-the JAX compile cache, with ``cache_hit`` and ``engine_compiles`` on
-every result; a hit replays the graph with no warm-up and no capture.
-:meth:`Engine.clear_cache` drops the cached loops and their graph
-memory. The planner (``plan="auto"``), overflow escalation and
-checkpoints are not ported yet (ROADMAP) and raise
+per (program, graph object, ``max_steps``, ``check_overflow``), the
+mode, chunk size, capacity scales and ``route_batch``; a batched loop
+also per bucket cap, a serving loop per lane count and serve chunk — the
+counterpart of the JAX compile cache, with ``cache_hit`` and
+``engine_compiles`` on every result; a hit replays the graph with no
+warm-up and no capture. :meth:`Engine.clear_cache` drops the cached
+loops and their graph memory; :meth:`Engine.stats` counts them.
+
+Resilience, as in the JAX engine:
+
+  - ``on_overflow="escalate"`` (with ``cap_scales`` and ``max_retries``):
+    a ``ChannelOverflowError`` doubles the capacity scale of each channel
+    it names (the ``"*"`` wildcard when it names none) and the run starts
+    again, up to ``max_retries`` times. Each escalation builds (on the
+    card: captures) a loop for the new scales; the loop of the scales
+    that overflowed is released, since a learned scale never goes back
+    down. ``RunResult.recovery`` lists the escalations, and the final
+    scales are remembered per problem fingerprint
+    (``repro_torch.plan.features``), so the next run of the same problem
+    starts right-sized: a cache hit with no recovery.
+  - ``checkpoint_every``/``checkpoint_dir``/``resume`` on
+    :meth:`Engine.run` (chunked mode): chunk-boundary snapshots, and a
+    resume bit-identical to the uninterrupted run
+    (``repro_torch.pregel.checkpoint``).
+  - ``on_nonconverged``: ``None`` (``RunResult.converged`` only),
+    ``"warn"`` or ``"raise"`` (``NonConvergenceError``) when a run spends
+    its ``max_steps`` without a unanimous halt vote.
+
+The planner (``plan="auto"``) is not ported yet (ROADMAP) and raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+import warnings
+from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
 from repro_torch.core import routing
 from repro_torch.device import resolve_device
 from repro_torch.graph.pgraph import PartitionedGraph
-from repro_torch.pregel import runtime
+from repro_torch.plan import features
+from repro_torch.pregel import checkpoint as ckpt_io
+from repro_torch.pregel import errors, runtime
 from repro_torch.pregel import serve as serving
 from repro_torch.pregel.program import VertexProgram
 
@@ -70,19 +95,42 @@ class Engine:
       CUDA is absent). Pass ``"cpu"`` for the plain PyTorch path.
     route_batch: ``"union"`` or ``"lane"`` (None: ``REPRO_ROUTE_BATCH``,
       else ``"union"``) — how batched runs and served sessions route.
+    on_overflow: ``"raise"`` or ``"escalate"``; cap_scales: the starting
+      channel-capacity scales (a channel's full name or ``"*"`` to a
+      factor); max_retries: the escalations a run may take.
+    on_nonconverged: ``None``, ``"warn"`` or ``"raise"``.
     """
 
     def __init__(self, mode: Optional[str] = None, device=None,
                  plan: Any = "manual", on_overflow: str = "raise",
                  chunk_size: Optional[int] = None,
-                 route_batch: Optional[str] = None):
+                 route_batch: Optional[str] = None,
+                 on_nonconverged: Optional[str] = None,
+                 cap_scales: Optional[Dict[str, float]] = None,
+                 max_retries: int = 8):
         mode = "fused" if mode is None else mode
         if mode not in runtime.MODES:
             raise ValueError(f"unknown execution mode {mode!r}")
-        if plan != "manual":
+        if plan not in ("manual", "auto"):
+            raise ValueError(f"unknown plan {plan!r} (one of ('manual', "
+                             "'auto'))")
+        if plan == "auto":
             raise _not_ported(f"plan={plan!r}")
-        if on_overflow != "raise":
-            raise _not_ported(f"on_overflow={on_overflow!r}")
+        if on_overflow not in ("raise", "escalate"):
+            raise ValueError(
+                f"unknown on_overflow {on_overflow!r} "
+                "(one of ('raise', 'escalate'))")
+        if on_nonconverged not in (None, "warn", "raise"):
+            raise ValueError(
+                f"unknown on_nonconverged {on_nonconverged!r} "
+                "(one of (None, 'warn', 'raise'))")
+        self.on_overflow = on_overflow
+        self.on_nonconverged = on_nonconverged
+        self.max_retries = int(max_retries)
+        self._base_scales = self._norm_scales(cap_scales or {})
+        # learned capacity scales: fingerprint.cache_key() -> scales
+        self._learned: Dict[str, Dict[str, float]] = {}
+        self.runs = 0
         self.mode = mode
         self.chunk_size = 64 if chunk_size is None else int(chunk_size)
         if self.chunk_size < 1:
@@ -98,6 +146,10 @@ class Engine:
     def cache_size(self) -> int:
         return len(self._cache)
 
+    def stats(self) -> Dict[str, int]:
+        return {"compiles": self.compiles, "cache_hits": self.cache_hits,
+                "cached_executables": self.cache_size, "runs": self.runs}
+
     def clear_cache(self) -> None:
         """Drop every cached device loop: its CUDA graph, the graph's
         memory pool and its kernels' scratch."""
@@ -110,11 +162,110 @@ class Engine:
             raise ValueError(
                 f"graph lives on {pg.device}, engine runs on {self.device}")
 
+    # -- resilience: capacity-scale escalation -------------------------------
+
+    @staticmethod
+    def _norm_scales(scales: Dict[str, float]) -> Dict[str, float]:
+        """The canonical form of a cap_scales dict: entries equal to the
+        wildcard are dropped, so an escalation that lands back on the
+        default capacities keys the same cached loop as a plain run."""
+        base = float(scales.get("*", 1.0))
+        out: Dict[str, float] = {}
+        if base != 1.0:
+            out["*"] = base
+        for k, v in scales.items():
+            if k != "*" and float(v) != base:
+                out[k] = float(v)
+        return out
+
+    def _fingerprint_key(self, prog, pg, num_queries: int) -> str:
+        return features.fingerprint(prog, pg,
+                                    num_queries=num_queries).cache_key()
+
+    def _effective_scales(self, prog, pg, num_queries: int
+                          ) -> Dict[str, float]:
+        """The constructor's scales merged with those an earlier
+        escalation learned for this (program, graph shape, Q) problem."""
+        scales = dict(self._base_scales)
+        if self.on_overflow == "escalate":
+            learned = self._learned.get(
+                self._fingerprint_key(prog, pg, num_queries), {})
+            for k, v in learned.items():
+                if v > scales.get(k, scales.get("*", 1.0)):
+                    scales[k] = v
+        return self._norm_scales(scales)
+
+    def _escalated(self, scales: Dict[str, float],
+                   channels: Sequence[str]) -> Dict[str, float]:
+        """Double the capacity scale of every overflowed channel (the
+        scaled capacity re-buckets to the next power of two); an overflow
+        with no channel named escalates the wildcard."""
+        out = dict(scales)
+        for name in (list(channels) or ["*"]):
+            out[name] = out.get(name, out.get("*", 1.0)) * 2.0
+        return self._norm_scales(out)
+
+    def _release(self, prog, pg, scales: Dict[str, float]) -> None:
+        """Drop the cached loops of ``prog`` on ``pg`` under ``scales``
+        (they overflowed; a learned scale never goes back down)."""
+        tag = tuple(sorted(scales.items()))
+        for key in [k for k in self._cache
+                    if k[0] is prog and k[1] == id(pg) and k[2] == tag]:
+            self._cache.pop(key).release()
+
+    def _with_escalation(self, prog, pg, num_queries: int,
+                         attempt: Callable[[Dict[str, float]], Any]):
+        """``attempt(scales)`` under the overflow policy: on
+        ``ChannelOverflowError`` and ``on_overflow="escalate"``, escalate
+        the named channels and try again, up to ``max_retries`` times.
+        The escalation log lands on ``recovery`` (on the error's partial
+        result when the retries run out)."""
+        scales = self._effective_scales(prog, pg, num_queries)
+        recovery: List[Dict[str, Any]] = []
+        while True:
+            try:
+                res = attempt(scales)
+                break
+            except errors.ChannelOverflowError as err:
+                if (self.on_overflow != "escalate"
+                        or len(recovery) >= self.max_retries):
+                    if recovery and err.result is not None:
+                        err.result.recovery = recovery
+                    raise
+                self._release(prog, pg, scales)
+                scales = self._escalated(scales, err.channels)
+                event = {"attempt": len(recovery),
+                         "superstep": err.superstep,
+                         "channels": tuple(err.channels)}
+                if num_queries:
+                    event["qids"] = tuple(err.qids)
+                event["cap_scales"] = dict(scales)
+                recovery.append(event)
+        if recovery:
+            res.recovery = recovery
+            self._learned[self._fingerprint_key(prog, pg, num_queries)] = \
+                dict(scales)
+        return res
+
+    def _check_converged(self, prog: VertexProgram, res) -> None:
+        if self.on_nonconverged is None or res.converged:
+            return
+        msg = (f"program {prog.name!r} did not converge: the max_steps "
+               f"budget ({res.steps} supersteps) ran out before every "
+               "vertex voted to halt")
+        if self.on_nonconverged == "raise":
+            raise errors.NonConvergenceError(
+                msg, superstep=res.steps, result=res)
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+    # -- execution -----------------------------------------------------------
+
     def _loop(self, key: Tuple, build: Callable[[], runtime.DeviceLoop]
               ) -> Tuple[runtime.DeviceLoop, bool]:
         """The cached device loop under ``key`` (and the engine's
-        ``route_batch``), built on a miss; and whether it was a hit. The
-        loop holds its graph, so ``id(pg)`` in a key names one live graph
+        ``route_batch``), built on a miss; and whether it was a hit. A key
+        starts (program, ``id(pg)``, sorted capacity scales, ...); the
+        loop holds its graph, so ``id(pg)`` names one live graph
         object."""
         key = key + (self.route_batch,)
         loop = self._cache.get(key)
@@ -142,32 +293,82 @@ class Engine:
             max_steps: Optional[int] = None,
             check_overflow: Optional[bool] = None,
             checkpoint_every: Optional[int] = None,
+            checkpoint_dir: Optional[str] = None,
             resume: Any = None) -> runtime.RunResult:
         """Run ``prog`` on ``pg``. Returns the runtime's ``RunResult`` with
         ``output`` set to ``prog.extract(pg, state)``; in a device mode
         also the cache state (``cache_hit``, ``engine_compiles``,
-        ``engine_cache_hits``) and, on a miss, ``compile_time_s``."""
-        if checkpoint_every is not None or resume is not None:
-            raise _not_ported("checkpoint/resume")
-        with routing.batch_scope(self.route_batch):
-            return self._run(prog, pg, max_steps, check_overflow)
+        ``engine_cache_hits``) and, on a miss, ``compile_time_s``.
 
-    def _run(self, prog, pg, max_steps, check_overflow):
-        self._check_device(pg)
+        ``checkpoint_every=K`` snapshots the chunked carry into
+        ``checkpoint_dir`` at the first chunk boundary at or past every K
+        supersteps; ``resume`` (a checkpoint path or
+        :class:`~repro_torch.pregel.checkpoint.Checkpoint`) goes on from
+        such a boundary, bit-identical to the uninterrupted run, on the
+        loop the engine has cached (no new capture). Both need
+        ``mode="chunked"``. Under ``on_overflow="escalate"`` an overflow
+        escalates and replays (``RunResult.recovery``)."""
         ms, co = self._limits(prog, max_steps, check_overflow)
+        resume_carry = None
+        if resume is not None:
+            ckpt = (resume if isinstance(resume, ckpt_io.Checkpoint)
+                    else ckpt_io.load(resume))
+            ckpt.validate(prog.name, pg, ms)
+            resume_carry = ckpt.carry()
+        checkpoint_cb = None
+        if checkpoint_every is not None:
+            if checkpoint_dir is None:
+                raise ValueError(
+                    "checkpoint_every needs checkpoint_dir to write into")
+            graph = ckpt_io.graph_hash(pg)
+
+            def checkpoint_cb(snap):
+                ckpt_io.save(ckpt_io.Checkpoint(
+                    program=prog.name, graph=graph, max_steps=ms, **snap),
+                    checkpoint_dir)
+        if (checkpoint_every is not None or resume is not None) \
+                and self.mode != "chunked":
+            raise ValueError(
+                "checkpoint/resume needs the unbatched chunked substrate — "
+                f"this engine runs mode={self.mode!r}. Use "
+                "Engine(mode='chunked') to checkpoint at dispatch "
+                "boundaries.")
+        with routing.batch_scope(self.route_batch):
+            res = self._with_escalation(
+                prog, pg, 0, lambda scales: self._run(
+                    prog, pg, ms, co, scales, checkpoint_every,
+                    checkpoint_cb, resume_carry))
+        self._check_converged(prog, res)
+        return res
+
+    def run_many(self, prog: VertexProgram,
+                 graphs: Iterable[PartitionedGraph], **kw) -> "ManyResults":
+        """Run one program over many graphs; each graph after the first
+        run on a graph object the engine holds replays its cached loop.
+        The returned list exposes each item's cache outcome."""
+        return ManyResults(self.run(prog, pg, **kw) for pg in graphs)
+
+    def _run(self, prog, pg, ms, co, scales, checkpoint_every,
+             checkpoint_cb, resume):
+        self._check_device(pg)
+        self.runs += 1
         state0 = prog.init(pg)
         if self.mode == "host":
             res = runtime.run_supersteps(
                 pg, prog.step, state0, max_steps=ms, check_overflow=co,
-                channels=prog.channels)
+                channels=prog.channels, cap_scales=scales)
         else:
             loop, hit = self._loop(
-                (prog, id(pg), ms, co, self.mode, self.chunk_size),
+                (prog, id(pg), tuple(sorted(scales.items())), ms, co,
+                 self.mode, self.chunk_size),
                 lambda: runtime.DeviceLoop(
                     pg, prog.step, state0, mode=self.mode, max_steps=ms,
                     check_overflow=co, chunk_size=self.chunk_size,
-                    channels=prog.channels, name=prog.name))
-            res = self._stamp(loop.execute(state0), loop, hit)
+                    channels=prog.channels, name=prog.name,
+                    cap_scales=scales))
+            res = self._stamp(loop.execute(
+                state0, checkpoint_every=checkpoint_every,
+                checkpoint_cb=checkpoint_cb, resume=resume), loop, hit)
         res.program = prog.name
         res.output = prog.extract(pg, res.state)
         return res
@@ -200,15 +401,10 @@ class Engine:
         Returns the RunResult with per-query views: ``outputs`` (list of
         Q extracted answers — also on ``output``), ``query_steps``,
         ``query_halted`` and ``query_bytes``/``query_msgs``; the
-        dict-of-int totals cover the Q real queries only.
+        dict-of-int totals cover the Q real queries only. Under
+        ``on_overflow="escalate"`` an overflow escalates and replays, the
+        overflowing lanes on each ``recovery`` entry (``qids``).
         """
-        with routing.batch_scope(self.route_batch):
-            res = self._run_batch(prog, pg, queries, max_steps,
-                                  check_overflow)
-        res.route_batch = self.route_batch
-        return res
-
-    def _run_batch(self, prog, pg, queries, max_steps, check_overflow):
         self._query_axis(prog, pg, "batched")
         queries = list(queries)
         q = len(queries)
@@ -220,18 +416,29 @@ class Engine:
         state0 = {k: torch.stack([s[k] for s in per_query], dim=1)
                   for k in per_query[0]}
         ms, co = self._limits(prog, max_steps, check_overflow)
+        with routing.batch_scope(self.route_batch):
+            res = self._with_escalation(
+                prog, pg, cap, lambda scales: self._run_batch(
+                    prog, pg, state0, q, cap, ms, co, scales))
+        res.route_batch = self.route_batch
+        self._check_converged(prog, res)
+        return res
+
+    def _run_batch(self, prog, pg, state0, q, cap, ms, co, scales):
+        self.runs += 1
         if self.mode == "host":
             res = runtime.run_batched_supersteps(
                 pg, prog.step, state0, q, max_steps=ms, check_overflow=co,
-                channels=prog.channels)
+                channels=prog.channels, cap_scales=scales)
         else:
             loop, hit = self._loop(
-                (prog, id(pg), ms, co, self.mode, self.chunk_size, "batch",
-                 cap),
+                (prog, id(pg), tuple(sorted(scales.items())), ms, co,
+                 self.mode, self.chunk_size, "batch", cap),
                 lambda: runtime.BatchedDeviceLoop(
                     pg, prog.step, state0, mode=self.mode, max_steps=ms,
                     check_overflow=co, chunk_size=self.chunk_size,
-                    channels=prog.channels, name=prog.name))
+                    channels=prog.channels, name=prog.name,
+                    cap_scales=scales))
             res = self._stamp(loop.execute(state0, q), loop, hit)
         res.program = prog.name
         res.outputs = [
@@ -301,8 +508,9 @@ class Engine:
         template = prog.query_init(pg, queue.peek_query())
         state0 = {k: torch.stack([v] * num_lanes, dim=1)
                   for k, v in template.items()}
+        self.runs += 1
         loop, hit = self._loop(
-            (prog, id(pg), ms, co, "serve", num_lanes, chunk),
+            (prog, id(pg), (), ms, co, "serve", num_lanes, chunk),
             lambda: runtime.BatchedDeviceLoop(
                 pg, prog.step, state0, mode="chunked", max_steps=ms,
                 check_overflow=co, chunk_size=chunk, channels=prog.channels,
@@ -311,3 +519,30 @@ class Engine:
                                  faults=faults, on_fault=on_fault)
         res.program = prog.name
         return self._stamp(res, loop, hit)
+
+
+class ManyResults(List[runtime.RunResult]):
+    """``Engine.run_many``'s return value: a plain result list that also
+    exposes each item's cache outcome."""
+
+    @property
+    def cache_hits(self) -> List[bool]:
+        return [r.cache_hit for r in self]
+
+    @property
+    def hit_count(self) -> int:
+        return sum(r.cache_hit for r in self)
+
+
+def run_program(prog: VertexProgram, pg: PartitionedGraph, *,
+                mode: Optional[str] = None, chunk_size: int = 64,
+                max_steps: Optional[int] = None,
+                check_overflow: Optional[bool] = None, device=None,
+                route_batch: Optional[str] = None) -> runtime.RunResult:
+    """One run on a throwaway Engine (on the graph's device unless
+    ``device`` says otherwise)."""
+    eng = Engine(mode=mode, chunk_size=chunk_size,
+                 device=pg.device if device is None else device,
+                 route_batch=route_batch)
+    return eng.run(prog, pg, max_steps=max_steps,
+                   check_overflow=check_overflow)

@@ -61,6 +61,15 @@ The serving substrate (``Engine.serve``, ``repro_torch.pregel.serve``)
 is the same batched loop built with ``serve=True``: always chunked, each
 lane with its own age, halt and overflow words, so the host can harvest
 and refill lanes between dispatches.
+
+Every loop takes ``cap_scales`` (``ChannelContext.cap_scales``: the
+capacity scales of ``Engine(on_overflow="escalate")``), so a loop is
+built per scale set. The chunked solo loop also checkpoints at chunk
+boundaries and resumes from a checkpoint (:meth:`DeviceLoop.execute`,
+``repro_torch.pregel.checkpoint``): the step goes into the counter the
+captured steps read, never into a launch argument frozen at capture.
+:func:`graph_signature` is a graph's static surface, which a checkpoint
+records.
 """
 from __future__ import annotations
 
@@ -133,6 +142,12 @@ class RunResult:
     pad_steps: int = 0
     pad_bytes: int = 0
     pad_msgs: int = 0
+    # the engine's escalation log (Engine(on_overflow="escalate")): one
+    # dict an escalation, None when the run needed none
+    recovery: Any = None
+    # the superstep of the checkpoint a chunked run resumed from (0: it
+    # ran from the start)
+    resumed_from: int = 0
 
     @property
     def total_bytes(self) -> int:
@@ -167,6 +182,32 @@ def _readback(halt_all, overflow, nbytes, nmsgs, novf):
             {k: int(per[0, i]) for i, k in enumerate(keys)},
             {k: int(per[1, i]) for i, k in enumerate(keys)},
             {k: bool(ovf[i]) for i, k in enumerate(okeys)})
+
+
+# the fields of a graph that name it rather than shape it: they never
+# enter a step (the JAX package's scrub_graph drops them too)
+_IDENTITY_FIELDS = frozenset({"name", "new_of_old", "device",
+                              "remote_entries", "total_edges",
+                              "mirrored_edges"})
+
+
+def graph_signature(graph: PartitionedGraph) -> tuple:
+    """Hashable static surface of a partitioned graph: every table's shape
+    and dtype and every static cap, plan by plan, without the fields that
+    only name the graph. Two graphs with equal signatures run the same
+    loops; a checkpoint records its hash (``checkpoint.graph_hash``)."""
+
+    def sig(x):
+        if isinstance(x, torch.Tensor):
+            return ("tensor", tuple(x.shape), str(x.dtype))
+        if dataclasses.is_dataclass(x):
+            return (type(x).__name__,) + tuple(
+                (f.name, sig(getattr(x, f.name)))
+                for f in dataclasses.fields(x)
+                if f.name not in _IDENTITY_FIELDS)
+        return x
+
+    return sig(graph)
 
 
 def _registry(channels) -> Optional[ChannelRegistry]:
@@ -215,6 +256,7 @@ def run_supersteps(
     channels: Optional[Any] = None,
     chunk_size: int = 64,
     name: str = "",
+    cap_scales: Optional[Dict[str, float]] = None,
 ) -> RunResult:
     """Run ``step_fn(ctx, graph, state, step)`` to halt.
 
@@ -230,6 +272,8 @@ def run_supersteps(
     channel such as ``compose.Stacked``, or a mixed sequence); every key
     then appears in the result, an undeclared key raises, and a declared
     key that no step reached raises.
+    cap_scales: channel-capacity scales (``ChannelContext.cap_scales``:
+    a channel's full name or the ``"*"`` wildcard to a factor).
 
     A device mode builds its loop for this one call (warm-up and capture
     are ``compile_time_s``); hold an ``Engine`` to replay it across runs.
@@ -240,7 +284,7 @@ def run_supersteps(
         loop = DeviceLoop(graph, step_fn, state0, mode=mode,
                           max_steps=max_steps, check_overflow=check_overflow,
                           chunk_size=chunk_size, channels=channels,
-                          name=name)
+                          name=name, cap_scales=cap_scales)
         try:
             res = loop.execute(state0)
         finally:
@@ -263,7 +307,8 @@ def run_supersteps(
     for step in range(max_steps):
         ts = time.perf_counter()
         ctx = ChannelContext(W, n_loc, graph.device, registry=registry,
-                             route_cap=graph.route_cap)
+                             route_cap=graph.route_cap,
+                             cap_scales=dict(cap_scales or {}))
         state, halt, overflow = _call_step(step_fn, ctx, graph, state, step)
         touched |= ctx.touched
         halt_all = aggregator.all_halted(ctx, halt)
@@ -401,7 +446,7 @@ class DeviceLoop:
                  state0: Dict[str, torch.Tensor], *, mode: str,
                  max_steps: int, check_overflow: bool = True,
                  chunk_size: int = 64, channels: Optional[Any] = None,
-                 name: str = ""):
+                 name: str = "", cap_scales: Optional[Dict] = None):
         if mode not in ("fused", "chunked"):
             raise ValueError(f"a device loop runs mode 'fused' or "
                              f"'chunked', not {mode!r}")
@@ -418,6 +463,9 @@ class DeviceLoop:
         self.K = max(1, int(chunk_size) if self.serve
                      else min(int(chunk_size), self.max_steps))
         self.registry = _registry(channels)
+        # the capacity scales enter each step's context, so the captured
+        # graph is sized by them (a loop per scale set)
+        self.cap_scales = dict(cap_scales or {})
         self.device = graph.device
         self.cuda = self.device.type == "cuda"
         self.token = next(_tokens)
@@ -449,7 +497,8 @@ class DeviceLoop:
                               self.device, registry=self.registry,
                               route_cap=self.graph.route_cap,
                               num_queries=self.q, query_live=live,
-                              device_loop=self.hooks)
+                              device_loop=self.hooks,
+                              cap_scales=self.cap_scales)
 
     @contextlib.contextmanager
     def _on_side_stream(self):
@@ -678,24 +727,56 @@ class DeviceLoop:
         for k, v in state0.items():
             self.state[k].copy_(v)
 
-    def execute(self, state0: Dict[str, torch.Tensor]) -> RunResult:
+    def execute(self, state0: Dict[str, torch.Tensor], *,
+                checkpoint_every: Optional[int] = None,
+                checkpoint_cb: Optional[Callable] = None,
+                resume: Optional[dict] = None) -> RunResult:
         """Run the loop from ``state0`` to a halt, ``max_steps`` or an
         overflow; the result's state is a copy, so a later run does not
         overwrite it. On the card the replays' kernel launches go to
-        ``ops.launch_counts`` (:meth:`replays_counted`)."""
-        with self.replays_counted():
-            return self._execute(state0)
+        ``ops.launch_counts`` (:meth:`replays_counted`).
 
-    def _execute(self, state0) -> RunResult:
+        Chunked only (``repro_torch.pregel.checkpoint``): at the first
+        chunk boundary at or past every ``checkpoint_every`` supersteps,
+        ``checkpoint_cb`` gets the carry (step, state as host numpy, the
+        traffic and overflow so far, dispatches); ``resume`` (such a
+        carry) writes the step into the loop's counter, the state into its
+        buffers and seeds the host's int64 accumulators, so the replays
+        go on from that boundary bit for bit, with no new capture."""
+        if (checkpoint_every is not None or checkpoint_cb is not None
+                or resume is not None) and self.mode != "chunked":
+            raise ValueError(
+                "checkpoint/resume needs the unbatched chunked substrate — "
+                f"this loop is mode={self.mode!r}. Build it with "
+                "mode='chunked' (Engine(mode='chunked')) to checkpoint at "
+                "dispatch boundaries.")
+        with self.replays_counted():
+            return self._execute(state0, checkpoint_every, checkpoint_cb,
+                                 resume)
+
+    def _execute(self, state0, checkpoint_every=None, checkpoint_cb=None,
+                 resume=None) -> RunResult:
         t0 = time.perf_counter()
-        self.load(state0)
-        self.out.zero_()
-        self.go.fill_(self.max_steps > 0)
-        chunked = self.mode == "chunked"
-        w = self.graph.num_workers
         bytes_acc = dict.fromkeys(self.bkeys, 0)
         msgs_acc = dict.fromkeys(self.bkeys, 0)
         ovf_acc = dict.fromkeys(self.okeys, False)
+        start = 0
+        if resume is not None:
+            start = int(resume["step"])
+            state0 = {k: torch.as_tensor(v).to(self.device)
+                      for k, v in resume["state"].items()}
+            bytes_acc.update(resume["bytes_by_channel"])
+            msgs_acc.update(resume["msgs_by_channel"])
+            ovf_acc.update(resume.get("overflow_by_channel", {}))
+        self.load(state0)
+        self.out.zero_()
+        # the captured steps read the counter from the buffer, never a
+        # Python int frozen at capture, so a resume is a fill
+        self.flags[0].fill_(start)
+        self.go.fill_(start < self.max_steps)
+        next_due = start + checkpoint_every if checkpoint_every else None
+        chunked = self.mode == "chunked"
+        w = self.graph.num_workers
         wrapped: set = set()
         times, dispatches, overhead = [], 0, 0.0
         n_read = self.out.numel() if chunked else 4
@@ -723,6 +804,18 @@ class DeviceLoop:
             overflowed = self.check_overflow and bool(overflow)
             if overflowed or wrapped or halted or steps >= self.max_steps:
                 break
+            if checkpoint_cb is not None and next_due is not None \
+                    and steps >= next_due:
+                checkpoint_cb({
+                    "step": steps,
+                    "state": {k: v.cpu().numpy().copy()
+                              for k, v in self.state.items()},
+                    "bytes_by_channel": dict(bytes_acc),
+                    "msgs_by_channel": dict(msgs_acc),
+                    "overflow_by_channel": dict(ovf_acc),
+                    "dispatches": dispatches,
+                })
+                next_due = steps + checkpoint_every
         latch = False
         if not chunked:  # the totals, once
             t_r = time.perf_counter()
@@ -742,7 +835,8 @@ class DeviceLoop:
             bytes_by_channel=bytes_acc, msgs_by_channel=msgs_acc,
             wall_time_s=time.perf_counter() - t0, step_times_s=times,
             mode=self.mode, dispatches=dispatches, host_overhead_s=overhead,
-            converged=bool(halted), overflow_by_channel=ovf_acc)
+            converged=bool(halted), overflow_by_channel=ovf_acc,
+            resumed_from=start)
         if overflowed:
             raise _overflow_error(steps, ovf_acc, res)
         if wrapped:
@@ -862,6 +956,7 @@ def run_batched_supersteps(
     max_steps: int = 10_000,
     check_overflow: bool = True,
     channels: Optional[Any] = None,
+    cap_scales: Optional[Dict[str, float]] = None,
 ) -> RunResult:
     """Run Q query lanes of ``step_fn`` to halt in one host-driven loop.
 
@@ -897,7 +992,8 @@ def run_batched_supersteps(
         live = ~halted
         ctx = ChannelContext(W, n_loc, dev, registry=registry,
                              route_cap=graph.route_cap, num_queries=q,
-                             query_live=live)
+                             query_live=live,
+                             cap_scales=dict(cap_scales or {}))
         new_state, halt, overflow = _call_step(step_fn, ctx, graph, state,
                                                step)
         touched |= ctx.touched
@@ -977,7 +1073,8 @@ class BatchedDeviceLoop(DeviceLoop):
                  state0: Dict[str, torch.Tensor], *, mode: str,
                  max_steps: int, check_overflow: bool = True,
                  chunk_size: int = 64, channels: Optional[Any] = None,
-                 name: str = "", serve: bool = False):
+                 name: str = "", serve: bool = False,
+                 cap_scales: Optional[Dict] = None):
         if serve and mode != "chunked":
             raise ValueError(f"the serving substrate is chunked, not "
                              f"{mode!r}")
@@ -985,7 +1082,8 @@ class BatchedDeviceLoop(DeviceLoop):
         self.serve = serve
         super().__init__(graph, step_fn, state0, mode=mode,
                          max_steps=max_steps, check_overflow=check_overflow,
-                         chunk_size=chunk_size, channels=channels, name=name)
+                         chunk_size=chunk_size, channels=channels, name=name,
+                         cap_scales=cap_scales)
 
     def _step(self, k: int) -> None:
         halted, overflow, age, steps = self.lanes

@@ -67,11 +67,10 @@ def batched_runs(key):
 
 
 def test_registry_batched_keys():
-    """Every JAX batched program but ``sssp:prop`` (its batched
-    Propagation channel is not ported), with the JAX recipes."""
+    """Every JAX batched program, with the JAX recipes."""
     assert BATCHED == ("pagerank:personal", "pj:reqresp", "reach:basic",
-                       "sssp:basic")
-    assert set(BATCHED) == set(jalgorithms.BATCHED) - {"sssp:prop"}
+                       "sssp:basic", "sssp:prop")
+    assert set(BATCHED) == set(jalgorithms.BATCHED)
     for key in BATCHED:
         spec, jspec = REGISTRY[key], jalgorithms.REGISTRY[key]
         assert (spec.query_knob, spec.channel_class, spec.test_scale,
@@ -283,15 +282,17 @@ def test_bucket_queries_pow2():
 
 
 def test_sssp_rejects_negative_weights_and_prop():
-    """Negative weights are refused; ``sssp:prop`` runs solo, but its
-    batched Propagation channel is not ported (ROADMAP)."""
+    """Negative weights are refused, in a batch of ``sssp:prop`` too
+    (its ``query_init`` checks them, as the JAX one does)."""
     spec = REGISTRY["sssp:basic"]
     graph = spec.make_graph(6, SEED)
     pg = pgraph.partition_graph(graph, W, "random", build=spec.build,
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    pg.prop_out.int_w[0, 0] = -1.0
+    with pytest.raises(ValueError, match="non-negative"):
         Engine(mode="host", device="cpu").run_batch(
             sssp.program("prop"), pg, spec.queries(graph, SEED, 2))
+    pg.prop_out.int_w[0, 0] = 0.0
     pg.raw_out.w[0, 0] = -1.0
     with pytest.raises(ValueError, match="non-negative"):
         sssp.program().init(pg)
@@ -319,18 +320,25 @@ def test_batched_context_stats_are_per_lane():
     assert not solo.batched and aggregator.all_halted(solo, True).dim() == 0
 
 
-def test_unported_batched_channels_raise_naming_roadmap():
-    """The Propagation channel is the one channel the batched plane does
-    not run yet (batched ``sssp:prop``); the others run there now
-    (tests/test_torch_personal.py, tests/test_torch_batch_routed.py)."""
+def test_batched_channels_run_on_the_plane():
+    """Every channel runs under the batched plane, the Propagation
+    channel too (batched ``sssp:prop``; tests/test_torch_prop_batch.py,
+    tests/test_torch_personal.py, tests/test_torch_batch_routed.py)."""
     ctx = ChannelContext(2, 4, torch.device("cpu"), num_queries=2)
     z = torch.zeros(2, 2, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prop.propagate(ctx, None, z, "min")
     assert aggregator.aggregate(ctx, z, "sum").shape == (2, 2)
     out, got, ovf = msg.combined_send(ctx, z[:, 0].int(), z > 0, z, "sum",
                                       capacity=4)
     assert out.shape == (2, 2, 4) and not got.any() and not ovf.any()
+    spec = REGISTRY["sssp:prop"]
+    pg = pgraph.partition_graph(spec.make_graph(5, SEED), 2, "random",
+                                build=spec.build, device="cpu")
+    ctx = ChannelContext(2, pg.n_loc, torch.device("cpu"), num_queries=3)
+    lab = pg.global_ids()[:, None].expand(2, 3, pg.n_loc)
+    out, rounds, iters = prop.propagate(ctx, pg.prop_out, lab, "min")
+    assert out.shape == (2, 3, pg.n_loc) and rounds.shape == (3,)
+    assert iters.shape == (2, 3) and ctx.stats_bytes["propagation"].shape \
+        == (2, 3)
 
 
 @pytest.mark.parametrize("seed,q,m", [(0, 5, 40), (1, 1, 64), (2, 8, 3)])

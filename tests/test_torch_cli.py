@@ -6,6 +6,7 @@ run through the JAX package's ``Engine(mode="host")`` on the same
 datasets (supersteps, messages, bytes); the JAX table's own ``run`` is
 not called, since it also compiles the fused mode.
 """
+import functools
 import json
 
 import numpy as np
@@ -17,8 +18,8 @@ from repro.graph import pgraph as jpgraph
 from repro.pregel.engine import Engine as JEngine
 from repro_torch import __main__ as cli
 from repro_torch import paper_tables
-from repro_torch.algorithms import (ALGORITHMS, DEFAULT_VARIANT, REGISTRY,
-                                    resolve)
+from repro_torch.algorithms import (ALGORITHMS, BATCHED, DEFAULT_VARIANT,
+                                    REGISTRY, resolve)
 
 
 def test_list_names_every_ported_program(capsys):
@@ -79,9 +80,108 @@ def test_run_without_check_and_unknown_program(capsys):
 
 @pytest.mark.parametrize("flag", ["--on-overflow", "--plan",
                                   "--checkpoint-every", "--resume"])
-def test_unported_options_are_absent(flag):
-    with pytest.raises(SystemExit):
-        cli.main(["run", "wcc", "--device", "cpu", flag, "1"])
+def test_unported_options_are_absent(flag, capsys):
+    """``--plan`` (the planner) is the one JAX ``run`` option the port
+    lacks; the resilience options are there and refuse a bad value as
+    the JAX CLI does."""
+    argv = ["run", "wcc", "--scale", "6", "--device", "cpu", flag, "1"]
+    if flag in ("--plan", "--on-overflow"):
+        with pytest.raises(SystemExit):
+            cli.main(argv)
+    elif flag == "--checkpoint-every":
+        with pytest.raises(ValueError, match="checkpoint_dir"):
+            cli.main(argv)
+    else:
+        assert cli.main(argv) == 2
+        assert "no checkpoint at 1" in capsys.readouterr().out
+
+
+def test_bench_batch_checks_lanes_and_writes_json(tmp_path, capsys):
+    """``bench-batch`` over every batchable program (``sssp:prop``
+    among them): each lane held to its serial run, q/s both ways, the
+    speedup and the geomean by channel class, and the JSON rows."""
+    path = tmp_path / "bb.json"
+    assert cli.main(["bench-batch", "--device", "cpu", "--scale", "6",
+                     "--workers", "4", "--queries", "3", "--mode",
+                     "chunked", "--chunk-size", "3", "--json",
+                     str(path)]) == 0
+    out = capsys.readouterr().out
+    assert out.count("[lanes bit-identical]") == len(BATCHED) == 5
+    assert "geomean speedup" in out and "-- static" in out
+    data = json.loads(path.read_text())
+    assert [r["program"] for r in data["rows"]] == list(BATCHED)
+    for row in data["rows"]:
+        assert row["q"] == 3 and row["speedup"] > 0
+        assert {"queries_per_s_serial", "queries_per_s_batched",
+                "channel_class", "route_batch"} <= set(row)
+        assert row["batched_cache_hit"]
+    assert set(data["geomean_speedup"]) == {"static", "routed"}
+    assert cli.main(["bench-batch", "--device", "cpu", "--scale", "6",
+                     "--workers", "4", "--queries", "2", "--programs",
+                     "sssp:prop,wcc:basic", "--keys", "reach:basic",
+                     "--channel-class", "static"]) == 0
+    out = capsys.readouterr().out
+    assert "sssp:prop" in out and "no query axis" in out
+    assert "reach:basic" not in out
+
+
+def test_run_checkpoints_then_resumes(tmp_path, capsys):
+    ck = str(tmp_path / "ck")
+    assert cli.main(["run", "wcc:basic", "--scale", "8", "--device", "cpu",
+                     "--chunk-size", "1", "--checkpoint-every", "2",
+                     "--checkpoint-dir", ck]) == 0
+    out = capsys.readouterr().out
+    assert "chunked mode" in out and "oracle: ok" in out
+    full = [l for l in out.splitlines() if l.startswith("run 0:")][0]
+    assert len(list((tmp_path / "ck").glob("*.ckpt"))) >= 2
+    assert cli.main(["run", "wcc:basic", "--scale", "8", "--device", "cpu",
+                     "--chunk-size", "1", "--resume", ck,
+                     "--repeat", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "resuming from" in out and "resumed at superstep 4" in out
+    assert "oracle: ok" in out and "engine session:" in out
+    again = [l for l in out.splitlines() if l.startswith("run 0:")][0]
+    # the same supersteps, messages and bytes as the uninterrupted run
+    assert again.split("wall")[0] == full.split("wall")[0]
+
+
+def test_run_on_overflow_escalate_prints_the_recovery(capsys, monkeypatch):
+    """With every capacity at an eighth (an Engine built with
+    ``cap_scales``), ``--on-overflow escalate`` recovers and prints each
+    escalation; the counts equal a plain run's."""
+    monkeypatch.setattr(cli, "Engine", functools.partial(
+        cli.Engine, cap_scales={"*": 0.125}))
+    assert cli.main(["run", "wcc:basic", "--scale", "8", "--device", "cpu",
+                     "--on-overflow", "escalate", "--repeat", "2"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("recovered: overflow of ['combined_message']") == 3
+    assert "oracle: ok" in out and "[hit]" in out
+    with pytest.raises(RuntimeError, match="capacity overflow"):
+        cli.main(["run", "wcc:basic", "--scale", "8", "--device", "cpu"])
+
+
+def test_mirror_threshold_counts_match_jax(capsys):
+    """``--mirror-threshold``: the mirrored plans' run has the JAX
+    package's counts on the same mirrored partition."""
+    spec = JREGISTRY["pagerank:scatter"]
+    assert cli.main(["run", "pagerank:scatter", "--scale", "8",
+                     "--workers", "4", "--device", "cpu", "--mode", "host",
+                     "--mirror-threshold", "8"]) == 0
+    out = capsys.readouterr().out
+    graph = spec.make_graph(8, 0)
+    jpg = jpgraph.partition_graph(graph, 4, "random", build=spec.build,
+                                  mirror_threshold=8)
+    assert jpg.scatter_out.hub_cap > 0
+    want = JEngine(mode="host").run(spec.factory(**spec.inputs(graph, 0)),
+                                    jpg)
+    for name, nbytes in want.bytes_by_channel.items():
+        line = [l for l in out.splitlines()
+                if l.strip().startswith(name + " ")][0]
+        assert line.split()[1:4] == [str(int(nbytes)), "B",
+                                     str(int(want.msgs_by_channel[name]))]
+    assert cli.main(["run", "pagerank:scatter", "--scale", "8",
+                     "--workers", "4", "--device", "cpu", "--mode", "host",
+                     "--mirror-threshold", "auto"]) == 0
 
 
 @pytest.mark.parametrize("mode", ["fused", "chunked"])

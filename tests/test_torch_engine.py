@@ -57,20 +57,11 @@ def test_engine_defaults_to_the_card():
         Engine()
 
 
-@pytest.mark.parametrize("kw", [{"mode": "fused"}, {"mode": "chunked"},
-                                {"plan": "auto"},
-                                {"on_overflow": "escalate"}])
-def test_unported_engine_options_raise_naming_roadmap(kw):
-    """The device modes run batches of ``reach:basic`` and ``sssp:basic``
-    (tests/test_torch_batch_fused.py); the batched Propagation channel of
-    ``sssp:prop`` still raises under them, as do the planner and overflow
-    escalation at construction."""
-    spec = REGISTRY["sssp:prop"]
-    pg = pgraph.partition_graph(spec.make_graph(7, 0), 4, "random",
-                                build=spec.build, device="cpu")
+def test_unported_engine_options_raise_naming_roadmap():
+    """The planner is the one engine option not ported yet; it raises at
+    construction."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng = Engine(device="cpu", **kw)
-        eng.run_batch(spec.factory(), pg, [0, 1])
+        Engine(device="cpu", plan="auto")
 
 
 def _overflow_graphs():

@@ -1129,3 +1129,106 @@ def test_new_batched_paths_equal_solo_runs_on_the_card(cuda, key,
             assert int(res.query_steps[qi]) == ref_run.steps
     assert all(bits_equal(fused.state[x], host.state[x])
                for x in host.state)
+
+
+@pytest.mark.gpu
+def test_segment_combine_min_columns_equal_their_d1_calls_on_the_card(cuda):
+    """Batched ``sssp:prop``'s combines: a float32 ``min`` over 32
+    columns (the lanes, +inf where a lane has not reached a vertex)
+    equals, column by column, the kernel's D=1 call, bit for bit."""
+    g = torch.Generator().manual_seed(6)
+    rows, e, n, cols = 8, 50_000, 4096, 32
+    seg = torch.sort(torch.randint(0, n + 5, (rows, e), generator=g,
+                                   dtype=torch.int32), dim=1)[0].to(cuda)
+    vals = torch.rand((rows, e, cols), generator=g)
+    vals[torch.rand(vals.shape, generator=g) < 0.5] = float("inf")
+    vals = vals.to(cuda)
+    out = ops.segment_combine(vals, seg, n, "min")
+    for j in range(cols):
+        one = ops.segment_combine(vals[..., j:j + 1].contiguous(), seg, n,
+                                  "min")
+        assert bits_equal(out[..., j:j + 1].contiguous(), one), j
+    assert bits_equal(out, ref.segment_combine_ref(vals, seg, n, "min"))
+
+
+@pytest.mark.gpu
+def test_batched_sssp_prop_on_the_card_equals_solo_runs(cuda):
+    """``run_batch`` of 12 ``sssp:prop`` sources (four pad lanes) at scale
+    10 in host, fused and chunked mode: every lane (distances, ``info``,
+    bytes) equal to its solo run, the modes equal, ``segment_combine``
+    launched as often in each."""
+    spec = REGISTRY["sssp:prop"]
+    graph = spec.make_graph(10, 0)
+    pg = pgraph.partition_graph(graph, 8, "random", build=spec.build)
+    queries = spec.queries(graph, 0, 12)
+    prog = spec.factory()
+    solo = Engine(mode="host", device=cuda)
+    counts, results = [], []
+    for mode, k in (("host", 64), ("fused", 64), ("chunked", 4)):
+        eng = Engine(mode=mode, chunk_size=k, device=cuda)
+        eng.run_batch(prog, pg, queries)
+        ops.reset_launch_counts()
+        results.append(eng.run_batch(prog, pg, queries))
+        counts.append(ops.launch_counts())
+        eng.clear_cache()
+    assert counts[0]["segment_combine"] > 0
+    assert counts[0] == counts[1] == counts[2]
+    for qi, source in enumerate(queries):
+        ref_run = solo.run(spec.factory(source=source), pg)
+        for res in results:
+            np.testing.assert_array_equal(res.outputs[qi], ref_run.output)
+            assert torch.equal(res.state["info"][:, qi],
+                               ref_run.state["info"])
+            assert res.query_bytes(qi) == ref_run.bytes_by_channel
+    assert (results[1].pad_bytes, results[1].pad_steps) == (0, 0)
+
+
+@pytest.mark.gpu
+def test_checkpoint_resume_replays_the_captured_loop(cuda, tmp_path):
+    """A chunked ``wcc:basic`` run at scale 12 checkpointed every two
+    supersteps; a resume from each checkpoint replays the cached CUDA
+    graph (no new capture) and equals the uninterrupted run."""
+    from repro_torch.pregel import checkpoint as ckpt_io
+
+    spec = REGISTRY["wcc:basic"]
+    pg = pgraph.partition_graph(spec.make_graph(12, 0), 8, "random",
+                                build=spec.build)
+    prog = spec.factory()
+    eng = Engine(mode="chunked", chunk_size=2, device=cuda)
+    full = eng.run(prog, pg, checkpoint_every=2, checkpoint_dir=str(tmp_path))
+    paths = sorted(tmp_path.glob("*.ckpt"))
+    assert paths and eng.compiles == 1
+    for path in paths:
+        res = eng.run(prog, pg, resume=str(path))
+        assert res.cache_hit and eng.compiles == 1
+        assert res.resumed_from == ckpt_io.load(str(path)).step
+        assert (res.steps, res.halted) == (full.steps, full.halted)
+        assert res.bytes_by_channel == full.bytes_by_channel
+        assert res.msgs_by_channel == full.msgs_by_channel
+        assert all(bits_equal(res.state[n], full.state[n])
+                   for n in full.state)
+    eng.clear_cache()
+
+
+@pytest.mark.gpu
+def test_escalation_recaptures_on_the_card(cuda):
+    """``sv:composed`` at scale 12 from an eighth of every capacity: each
+    escalation captures a new graph, the recovered run equals the plain
+    one, and a second run is a cache hit with no recovery."""
+    spec = REGISTRY["sv:composed"]
+    pg = pgraph.partition_graph(spec.make_graph(12, 0), 8, "random",
+                                build=spec.build)
+    prog = spec.factory()
+    plain = Engine(mode="host", device=cuda).run(prog, pg)
+    eng = Engine(device=cuda, cap_scales={"*": 0.125},
+                 on_overflow="escalate")
+    res = eng.run(prog, pg)
+    assert res.recovery and eng.compiles == len(res.recovery) + 1
+    assert eng.cache_size == 1
+    again = eng.run(prog, pg)
+    assert again.cache_hit and again.recovery is None
+    for run in (res, again):
+        np.testing.assert_array_equal(run.output, plain.output)
+        assert run.steps == plain.steps
+        assert run.bytes_by_channel == plain.bytes_by_channel
+    eng.clear_cache()

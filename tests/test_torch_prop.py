@@ -212,13 +212,6 @@ def test_propagate_matches_jax(case, w):
         assert pg.prop_out.cut.hub_cap > 0
 
 
-def test_propagate_refuses_the_batched_plane():
-    _, pg = _both(_graph("int_min")(jgen), 4, ("prop_out",))
-    c = ChannelContext(4, pg.n_loc, torch.device("cpu"), num_queries=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prop.propagate(c, pg.prop_out, pg.global_ids(), "min")
-
-
 @pytest.mark.parametrize("direction", ["raw_out", "raw_in"])
 def test_cm_propagate_matches_jax(direction):
     """The CombinedMessage baseline with scc's masked update: labels, the
@@ -300,15 +293,6 @@ def test_registry_matches_jax_for_the_prop_programs():
     assert DEFAULT_VARIANT == jalgorithms.DEFAULT_VARIANT
     assert set(REGISTRY) == set(jalgorithms.REGISTRY)
     assert len(REGISTRY) == 21
-
-
-def test_sssp_prop_batched_raises_naming_roadmap():
-    spec = REGISTRY["sssp:prop"]
-    g = spec.make_graph(6, 0)
-    pg = pgraph.partition_graph(g, 4, build=spec.build, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(mode="host", device="cpu").run_batch(
-            spec.factory(), pg, spec.queries(g, 0, 2))
 
 
 def test_sssp_rejects_negative_weights_in_the_prop_plans():
