@@ -34,7 +34,10 @@ baseline against the union route; batched ``sssp:prop`` (the Propagation
 channel under the batched plane, each lane its own fixpoint) solo,
 batched and served, checkpoint/resume on the chunked CUDA-graph loop,
 overflow escalation (``Engine(on_overflow="escalate")``) and ``python -m
-repro_torch bench-batch``. Phases, one or more lines each:
+repro_torch bench-batch``; and the channel planner (``Engine(plan=
+"auto")``, its calibration probes on the card, a hand-set twin with the
+plan's knobs, the ``dense_threshold`` knob and ``python -m repro_torch
+plan --explain``). Phases, one or more lines each:
 
   1. environment and kernel build;
   2. each kernel against its plain PyTorch version on the card, the two
@@ -72,7 +75,10 @@ repro_torch bench-batch``. Phases, one or more lines each:
      from source 0 (``PERSONAL_REFS``) and the Q=32 batches of all five
      batched programs (``BATCH_REFS``; batched ``sssp:prop``'s per-lane
      rounds and local iterations too, ``BATCH_INFO_REFS``), every lane
-     equal to its solo run;
+     equal to its solo run; ``wcc:switch`` and ``sssp:basic`` under
+     ``Engine(mode="host", plan="auto")`` (``PLAN_REFS``: the JAX planned
+     counts, the plan on the kernels, the bucket route and the default
+     threshold);
   4. the main paths at R-MAT scale 20, W=8, checked against the host
      oracles, each with its kernels' launch counts (counts reset just
      before the path and read just after): pagerank run twice
@@ -134,7 +140,22 @@ repro_torch bench-batch``. Phases, one or more lines each:
      plain run, the second run a cache hit without recovery (attempts,
      each capture's seconds, peak memory); and ``python -m repro_torch
      bench-batch --queries 32 --scale 20`` as a subprocess that must exit
-     0 (``chiprun_out/bench_batch.json``);
+     0 (``chiprun_out/bench_batch.json``); the planner: every program
+     planned on its scale-20 partition (the five batched ones also at
+     Q=32) with a probe cache in a temporary directory, each plan on the
+     kernels and the bucket route, a second planner on the warm cache
+     giving the same plans, the probe times on the card (bucket kernel
+     against the sort baseline, combine kernel against its plain
+     version; every table in ``chiprun_out/plans_explain.txt``);
+     ``Engine(plan="auto")`` against an Engine given the plan's knobs
+     for ``wcc:switch``, ``sssp:basic`` and ``pagerank:scatter`` fused,
+     chunked K=4 and host, and batched ``reach:basic`` Q=32 fused: planning
+     leaves ``stats()`` alone, the second run a cache hit on one key,
+     bit-identical, the same launches on the device; ``wcc:switch`` fused
+     at its planned threshold against 0.1 (supersteps, bytes a branch,
+     run wall; both the ground truth); and ``python -m repro_torch plan
+     --scale 20 --explain`` as a subprocess
+     (``chiprun_out/plan_explain_cli.txt``);
   5. each kernel's time against its plain version, its bound and a
      PyTorch yardstick at the scale-20 shapes (the bucket kernels also on
      random keys, warm and L2-flushed, and checked to run one device
@@ -318,6 +339,23 @@ PERSONAL_REFS = {
     "pagerank:personal": (30, 170040, 680160,
                           {"aggregator": 13440, "scatter_combine": 666720}),
 }
+
+# (supersteps, messages, bytes, bytes by channel) of Engine(mode="host",
+# plan="auto") at scale 12, W=8, random partitioner, on the registry
+# recipes (wcc:switch on rmat(12, 4, seed=2) symmetrised; sssp:basic on
+# rmat(12, 4, seed=5, weighted) from source 0) — the JAX package's planned
+# host-mode Engine gives these. Its CPU corpus plans dense_threshold 0.02;
+# a card plan takes the default 0.1 (no card corpus), and at scale 12 both
+# thresholds give these counts.
+PLAN_REFS = {
+    "wcc:switch": (6, 40474, 161972,
+                   {"wcc/dense/scatter_combine": 161820,
+                    "wcc/sparse/combined_message": 152}),
+    "sssp:basic": (11, 18819, 150552, {"combined_message": 150552}),
+}
+# (label, mode, K) of the planner phase's planned-against-hand-set runs
+PLAN_MODES = {"fused": ("fused", 64), "chunked4": ("chunked", 4),
+              "host": ("host", 64)}
 
 # the state key of each program's per-worker counter
 PROP_COUNTER = {"wcc:prop": "info", "sssp:prop": "info", "scc:prop": "iters",
@@ -1051,8 +1089,8 @@ def escalation_run(prog, pg, plain, queries=None) -> dict:
     captures = []
     real = eng._loop
 
-    def spy(key, build):
-        loop, hit = real(key, build)
+    def spy(*args):
+        loop, hit = real(*args)
         if not hit:
             captures.append(loop.compile_time_s)
         return loop, hit
@@ -1106,6 +1144,267 @@ def bench_batch_run(out_dir: Path, timeout_s: int = 420) -> dict:
     check(proc.returncode == 0, f"bench-batch exited {proc.returncode}: "
           f"{(proc.stdout + proc.stderr)[-2000:]}")
     return dict(json.loads(path.read_text()), wall_s=wall)
+
+
+def planned_against_hand_set(prog, pg, mode: str, k: int,
+                             queries=None) -> dict:
+    """``Engine(plan="auto", mode=mode, chunk_size=k)`` against an Engine
+    given the plan's knobs explicitly (mode, chunk size, route_batch and
+    dense_threshold; the kernels and the bucket route are the port's one
+    path on the card), ``prog`` on ``pg`` (a ``run_batch``
+    of ``queries`` when given), two runs each, the second reported.
+    Planning must leave ``stats()`` unchanged and pick the kernels and
+    the bucket route; both engines must key one loop; the second runs
+    must be cache hits (device modes) and equal bit for bit (state,
+    supersteps, halts, bytes and msgs per channel, per lane when
+    batched), launching each kernel as often, as the wrappers count and
+    as the kernels count on the device. The plan is resolved before the
+    counts are read, so its probes' launches are not among them."""
+    from repro_torch.kernels import ops
+    from repro_torch.pregel.engine import Engine, bucket_queries
+
+    nq = 0 if queries is None else bucket_queries(len(queries))
+    what = f"{prog.name}{' batched' if queries else ''} {mode} K={k}"
+    auto = Engine(plan="auto", mode=mode, chunk_size=k)
+    before = auto.stats()
+    plan, plan_ms = timed(lambda: auto.resolve_plan(prog, pg, nq))
+    check(auto.stats() == before and auto.cache_size == 0,
+          f"{what}: planning touched the engine ({auto.stats()})")
+    check(plan.source == "auto" and plan.use_kernel is True
+          and plan.route_impl == "bucket",
+          f"{what}: the plan takes {plan.use_kernel}/{plan.route_impl}")
+    hand = Engine(mode=mode, chunk_size=k, route_batch=plan.route_batch,
+                  dense_threshold=plan.dense_threshold)
+    check(hand.resolve_plan(prog, pg, nq).key() == plan.key(),
+          f"{what}: the hand-set plan differs from the planned one")
+    run = ((lambda eng: eng.run(prog, pg)) if queries is None
+           else (lambda eng: eng.run_batch(prog, pg, queries)))
+    rows, res = {}, {}
+    for label, eng in (("planned", auto), ("hand_set", hand)):
+        first = run(eng)
+        ops.reset_launch_counts()
+        (res[label], ms), on_device = on_device_launches(
+            lambda: timed(lambda: run(eng)))
+        r = res[label]
+        check(mode == "host" or r.cache_hit,
+              f"{what} {label}: the second run is not a cache hit")
+        check(r.plan.key() == plan.key(), f"{what} {label}: ran "
+              f"{r.plan.key()}, not {plan.key()}")
+        rows[label] = dict(steps=r.steps, run_wall_ms=ms,
+                           loop_wall_ms=1e3 * r.wall_time_s,
+                           capture_s=first.compile_time_s,
+                           cache_hit=r.cache_hit,
+                           launches=ops.launch_counts(),
+                           launches_on_device=on_device)
+    a, h = res["planned"], res["hand_set"]
+    same = (same_batch(a, h) if queries is not None else
+            (a.steps, a.halted, a.bytes_by_channel, a.msgs_by_channel)
+            == (h.steps, h.halted, h.bytes_by_channel, h.msgs_by_channel))
+    check(same and all(bits_equal(a.state[x], h.state[x]) for x in h.state),
+          f"{what}: the planned run differs from the hand-set run")
+    p, q = rows["planned"], rows["hand_set"]
+    check(p["launches"] == q["launches"] == p["launches_on_device"]
+          == q["launches_on_device"],
+          f"{what}: launches planned {p['launches']} (device "
+          f"{p['launches_on_device']}), hand-set {q['launches']} (device "
+          f"{q['launches_on_device']})")
+    check(mode == "host" or set(auto._cache) == set(hand._cache),
+          f"{what}: the two engines keyed different loops")
+    check(auto.stats()["runs"] == 2, f"{what}: {auto.stats()}")
+    auto.clear_cache()
+    hand.clear_cache()
+    return dict(rows, plan_ms=plan_ms, plan_key=list(plan.key()),
+                steps=a.steps, bytes=a.total_bytes,
+                bytes_by_channel=a.bytes_by_channel)
+
+
+def plan_cli_run(out_dir: Path, cache: Path, timeout_s: int = 300) -> dict:
+    """``python -m repro_torch plan --scale 20 --explain`` (its default
+    programs, ``wcc:switch`` and ``sssp:basic``) as a subprocess with a
+    probe cache of its own; it must exit 0 and print one decision table a
+    program, the kernels and the bucket route chosen."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               REPRO_TORCH_PLAN_CACHE=str(cache))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "plan", "--scale",
+         str(FULL_SCALE), "--workers", str(W), "--explain"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=timeout_s)
+    wall = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    (out_dir / "plan_explain_cli.txt").write_text(text)
+    check(proc.returncode == 0,
+          f"plan --explain exited {proc.returncode}: {text[-2000:]}")
+    check(proc.stdout.count("plan [auto]") == 2
+          and proc.stdout.count("use_kernel       True") == 2
+          and proc.stdout.count("route_impl       bucket") == 2,
+          f"plan --explain printed no two kernel/bucket tables: "
+          f"{proc.stdout[-2000:]}")
+    return dict(wall_s=wall, stdout=proc.stdout)
+
+
+def planner_phase(plan_jobs, reach, sw_pg, truth, out_dir: Path,
+                  cache_root: Path):
+    """Phase 4's planner part: every program of ``plan_jobs`` (key ->
+    (program, scale-20 partition)) planned at Q=0, the batched five also
+    at Q=``NQ``; the card's probe times; every plan on the kernels and the
+    bucket route; a second planner on the warm cache giving the same
+    plans (``plans_explain.txt`` holds every table); ``Engine(plan=
+    "auto")`` against the hand-set Engine (:func:`planned_against_hand_set`)
+    for wcc:switch, sssp:basic and pagerank:scatter in ``PLAN_MODES`` and
+    for ``reach`` = (program, partition, queries) batched fused;
+    wcc:switch on ``sw_pg`` fused at its planned threshold (the default
+    0.1: no card corpus) and at the CPU corpus fit's, both held to
+    ``truth``; and ``python -m repro_torch plan --explain``
+    (:func:`plan_cli_run`). Returns the details, the planned host runs'
+    launches by kernel and path, and the batched run's lanes-kernel
+    launches."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.algorithms import BATCHED
+    from repro_torch.plan import Planner, cost_model
+    from repro_torch.pregel.engine import Engine
+
+    t = time.perf_counter()
+    # explained plans: the probes decide nothing on the card, so only a
+    # plan to be explained times them
+    planner, plans, plan_ms = Planner(explain=True), {}, {}
+    for key, (prog, pg) in plan_jobs.items():
+        for q in ((0, NQ) if key in BATCHED else (0,)):
+            plans[key, q], plan_ms[key, q] = timed(
+                lambda: planner.plan(prog, pg, num_queries=q))
+    again, unexplained = Planner(explain=True), Planner()
+    for (key, q), plan in plans.items():
+        check(plan.use_kernel is True and plan.route_impl == "bucket"
+              and plan.dense_threshold == 0.1,
+              f"{key} Q={q}: planned {plan.knobs()}")
+        prog, pg = plan_jobs[key]
+        check(again.plan(prog, pg, num_queries=q).to_json()
+              == plan.to_json(),
+              f"{key} Q={q}: a second planner on the warm cache differs")
+        check(unexplained.plan(prog, pg, num_queries=q).knobs()
+              == plan.knobs(),
+              f"{key} Q={q}: the unexplained plan differs")
+    probes = {}
+    for plan in plans.values():
+        fp = plan.fingerprint
+        probes[fp.cache_key()] = cost_model.calibrate(fp)
+    (out_dir / "plans_explain.txt").write_text("\n\n".join(
+        f"{key} Q={q}\n{plan.explain()}" for (key, q), plan in plans.items()))
+
+    def spread(name):
+        vals = [1e3 * p[name] for p in probes.values()]
+        return min(vals), max(vals)
+
+    probe_ms = {n: spread(n) for n in ("route_bucket_s", "route_sort_s",
+                                       "combine_kernel_s", "combine_ref_s")}
+    sizes = sorted({(int(p["m_probe"]), int(p["e_probe"]))
+                    for p in probes.values()})
+    versus = {}
+    for key in ("wcc:switch", "sssp:basic", "pagerank:scatter"):
+        prog, pg = plan_jobs[key]
+        versus[key] = {label: planned_against_hand_set(prog, pg, mode, k)
+                       for label, (mode, k) in PLAN_MODES.items()}
+    r_prog, r_pg, r_queries = reach
+    versus["reach:basic batched"] = {"fused": planned_against_hand_set(
+        r_prog, r_pg, "fused", 64, r_queries)}
+    plan_launches = {
+        kern: {f"{k} planned": v["host"]["planned"]["launches"][kern]
+               for k, v in versus.items() if "host" in v
+               and v["host"]["planned"]["launches"][kern]}
+        for kern in ("bucket_ranks", "segment_combine")}
+    plan_lanes = versus["reach:basic batched"]["fused"]["planned"][
+        "launches"]["bucket_ranks_lanes"]
+    check(plan_lanes > 0 and all(plan_launches.values())
+          and len(plan_launches["bucket_ranks"]) >= 2,
+          f"the planned runs did not launch every kernel: {plan_launches}, "
+          f"bucket_ranks_lanes {plan_lanes}")
+    sw_prog, sw_pg = plan_jobs["wcc:switch"]
+    sw_fp = plans["wcc:switch", 0].fingerprint
+    cpu_thr = cost_model.CostModel(
+        dataclasses.replace(sw_fp, backend="cpu"), planner.corpus,
+        {}).dense_threshold()[0]
+    thr_runs = {}
+    for thr in dict.fromkeys((plans["wcc:switch", 0].dense_threshold,
+                              cpu_thr)):
+        eng_t = Engine(mode="fused", dense_threshold=thr)
+        first = eng_t.run(sw_prog, sw_pg)
+        res, ms = timed(lambda: eng_t.run(sw_prog, sw_pg))
+        check(res.cache_hit and np.array_equal(canon(res.output), truth)
+              and np.array_equal(canon(first.output), truth),
+              f"wcc:switch at threshold {thr}: labels differ from the "
+              "ground truth")
+        thr_runs[thr] = dict(steps=res.steps, bytes=res.total_bytes,
+                             bytes_by_channel=res.bytes_by_channel,
+                             run_wall_ms=ms,
+                             loop_wall_ms=1e3 * res.wall_time_s,
+                             capture_s=first.compile_time_s)
+        eng_t.clear_cache()
+    cli_plan = plan_cli_run(out_dir, cache_root / "cli")
+    plan_s = time.perf_counter() - t
+    detail = dict(
+        plans={f"{k} Q={q}": p.to_json() for (k, q), p in plans.items()},
+        cpu_corpus_threshold=cpu_thr,
+        plan_ms={f"{k} Q={q}": v for (k, q), v in plan_ms.items()},
+        probes=probes, probe_ms=probe_ms, probe_sizes=sizes,
+        planned_vs_hand_set=versus, threshold=thr_runs,
+        plan_cli_wall_s=cli_plan["wall_s"], phase_s=plan_s)
+    thresholds = sorted({p.dense_threshold for p in plans.values()})
+    print(f"[4/5] the planner at scale {FULL_SCALE}, W={W}: {len(plans)} "
+          f"plans (21 programs at Q=0, {len(BATCHED)} at Q={NQ}), every one "
+          f"use_kernel=True route_impl=bucket dense_threshold=0.1 (no card "
+          f"corpus), a second planner on the warm cache identical, the "
+          f"unexplained planner (no probes) the same knobs; knobs "
+          f"mode/chunk/use_kernel/route_impl/"
+          f"route_batch/dense_threshold: " + "; ".join(
+              f"{k}{'' if q == 0 else f' Q={q}'} "
+              + "/".join(str(v) for v in p.key())
+              for (k, q), p in plans.items())
+          + f"; thresholds {thresholds}; planning ms (cold probes first) "
+          f"{min(plan_ms.values()):.1f}-{max(plan_ms.values()):.1f}; "
+          f"probe times on the card at (m, e) = {sizes}, min-max over "
+          f"{len(probes)} fingerprints: route bucket kernel "
+          f"{probe_ms['route_bucket_s'][0]:.3f}-"
+          f"{probe_ms['route_bucket_s'][1]:.3f} ms vs sort "
+          f"{probe_ms['route_sort_s'][0]:.3f}-"
+          f"{probe_ms['route_sort_s'][1]:.3f} ms; combine kernel "
+          f"{probe_ms['combine_kernel_s'][0]:.3f}-"
+          f"{probe_ms['combine_kernel_s'][1]:.3f} ms vs plain "
+          f"{probe_ms['combine_ref_s'][0]:.3f}-"
+          f"{probe_ms['combine_ref_s'][1]:.3f} ms", flush=True)
+
+    def versus_row(key):
+        one = next(iter(versus[key].values()))
+        return f"{key}: " + ", ".join(
+            f"{m} {v['planned']['run_wall_ms']:.1f} / "
+            f"{v['hand_set']['run_wall_ms']:.1f} ms"
+            for m, v in versus[key].items()) + (
+            f" ({one['steps']} steps, launches "
+            f"{one['planned']['launches_on_device']})")
+
+    print(f"[4/5] Engine(plan=\"auto\") against the hand-set Engine with "
+          f"the plan's knobs (fused, chunked K=4, host; batched reach:basic "
+          f"Q={NQ} fused), bit-identical (state, supersteps, bytes and msgs "
+          f"per channel), the same launches on the device, the second run a "
+          f"cache hit on one key, stats() untouched by planning; run ms "
+          f"planned / hand-set: " + "; ".join(versus_row(k) for k in versus)
+          + f"; wcc:switch fused at the planned threshold and at the CPU "
+          f"corpus fit's {cpu_thr}: " + ", ".join(
+              f"{thr}: {v['steps']} steps, {v['bytes']} bytes "
+              f"{v['bytes_by_channel']}, run {v['run_wall_ms']:.1f} ms "
+              f"(loop {v['loop_wall_ms']:.1f})"
+              for thr, v in thr_runs.items())
+          + f", both = the ground truth; python -m repro_torch plan "
+          f"--explain: two tables, kernels and bucket route "
+          f"({cli_plan['wall_s']:.1f} s) ({plan_s:.1f} s)", flush=True)
+    print("\n".join(ln for ln in cli_plan["stdout"].splitlines()
+                    if ln.startswith(("plan [", "  use_kernel", "  route_impl",
+                                      "    ^ one legal", "  dense_threshold",
+                                      "wcc:", "sssp:"))), flush=True)
+    return detail, plan_launches, plan_lanes
 
 
 def lane_baseline(prog, pg, queries, union, union_row) -> dict:
@@ -1860,6 +2159,8 @@ def profile_runs(jobs, out_dir: Path) -> dict:
 
 
 def main() -> int:
+    import os
+
     import numpy as np
     import torch
 
@@ -1886,6 +2187,11 @@ def main() -> int:
     detail = {}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    # the planner's probe cache: a temporary directory, so every run
+    # probes the card afresh and leaves nothing behind
+    build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    plan_cache = tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent)
+    os.environ["REPRO_TORCH_PLAN_CACHE"] = str(Path(plan_cache.name) / "smoke")
 
     # -- 1. environment and build ------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -2274,10 +2580,32 @@ def main() -> int:
                          canon(oracles.scc_oracle(scc12))),
           "scipy's strong components differ from scc_oracle at scale 12")
     prop3_s = time.perf_counter() - t_p
+    # the planner: Engine(mode="host", plan="auto") held to the JAX
+    # package's planned counts, on the kernels at the default threshold
+    t_pl = time.perf_counter()
+    for key, want in PLAN_REFS.items():
+        spec = REGISTRY[key]
+        graph = spec.make_graph(12, 0)
+        pg = pgraph.partition_graph(graph, W, "random", build=spec.build)
+        inputs = spec.inputs(graph, 0)
+        res = Engine(mode="host", plan="auto").run(spec.factory(**inputs),
+                                                   pg)
+        got = (res.steps, res.total_msgs, res.total_bytes,
+               res.bytes_by_channel)
+        check(got == want, f"{key} scale-12 planned counts {got} != {want}")
+        check((res.plan.use_kernel, res.plan.route_impl,
+               res.plan.dense_threshold) == (True, "bucket", 0.1),
+              f"{key} scale-12 plan {res.plan.knobs()}")
+        spec.check(graph, pg, res, inputs)
+        counts[f"{key} planned"] = dict(
+            steps=got[0], msgs=got[1], bytes=got[2], bytes_by_channel=got[3],
+            dense_threshold=res.plan.dense_threshold)
+    plan3_s = time.perf_counter() - t_pl
     detail["reference_counts"] = dict(counts, batched_part_s=batch3_s,
                                       composition_part_s=sv3_s,
                                       paper_table_part_s=new3_s,
                                       propagation_part_s=prop3_s,
+                                      planned_part_s=plan3_s,
                                       paper_table_12=table12)
     print(f"[3/5] scale-12 reference counts exact: " + "; ".join(
         f"{k} {v['steps']}/{v['msgs']}/{v['bytes']}"
@@ -2293,10 +2621,12 @@ def main() -> int:
         f"held; msf edges {MSF_REF_EDGES}; the {len(PROP_REFS)} "
         f"Propagation programs' bytes per channel and per-worker rounds/"
         f"iterations exact, their oracles ok, scipy's strong components = "
-        f"scc_oracle ({time.perf_counter() - t:.1f} s, batched part "
+        f"scc_oracle; Engine(plan=\"auto\") of {', '.join(PLAN_REFS)} "
+        f"= the JAX planned counts, on the kernels at threshold 0.1 "
+        f"({time.perf_counter() - t:.1f} s, batched part "
         f"{batch3_s:.1f} s, composition part {sv3_s:.1f} s, paper-table "
-        f"part {new3_s:.1f} s, propagation part {prop3_s:.1f} s)",
-        flush=True)
+        f"part {new3_s:.1f} s, propagation part {prop3_s:.1f} s, planned "
+        f"part {plan3_s:.1f} s)", flush=True)
 
     # -- 4. the main path at full size --------------------------------------
     t = time.perf_counter()
@@ -3092,6 +3422,17 @@ def main() -> int:
               f"{c} {g:.2f}x" for c, g in bb["geomean_speedup"].items())
           + f" ({bb['wall_s']:.1f} s)", flush=True)
 
+    # the planner at full size (planner_phase)
+    plan_jobs = {}
+    for key in device_keys:
+        knobs = dict(pj_in) if key.startswith("pj") else (
+            {"iters": 30} if key.startswith("pagerank") else {})
+        plan_jobs[key] = (REGISTRY[key].factory(**knobs), mode_jobs[key])
+    detail["planner"], plan_launches, plan_lanes = planner_phase(
+        plan_jobs, (REGISTRY["reach:basic"].factory(), pr_pg,
+                    runs["reach:basic"][0]), wcc_pg, truth, out_dir,
+        Path(plan_cache.name))
+
     # -- 5. times at the scale-20 shapes ------------------------------------
     t = time.perf_counter()
     raw = wcc_pg.raw_out
@@ -3439,6 +3780,8 @@ def main() -> int:
                             if v["segment_combine"]}}
     new_launches["segment_combine"]["sssp:prop batched"] = spb["modes"][
         "host"]["launches"]["segment_combine"]
+    for kern, paths in plan_launches.items():
+        new_launches[kern].update(paths)
     kernels = [
         dict(name="bucket_ranks", route="cuda",
              source="src/repro_torch/kernels/csrc/bucket_route.cu",
@@ -3476,11 +3819,12 @@ def main() -> int:
              replaces="src/repro/kernels/bucket_route.py:128",
              launches=(b_launches["bucket_ranks_lanes"]
                        + esc["reach:basic batched"]["launches"][
-                           "bucket_ranks_lanes"]),
+                           "bucket_ranks_lanes"] + plan_lanes),
              launches_by_path={
                  "reach:basic batched escalated": esc[
                      "reach:basic batched"]["launches"][
                      "bucket_ranks_lanes"],
+                 "reach:basic batched planned": plan_lanes,
                  **{f"{k} {m}": v[m]["launches_on_device"][
                      "bucket_ranks_lanes"]
                     for k, v in batch_modes.items()
@@ -3605,6 +3949,7 @@ def main() -> int:
         f"{v['launches_on_device']}"
         for k, v in detail["profile"].items()), flush=True)
     detail["total_s"] = time.perf_counter() - t_start
+    plan_cache.cleanup()
     print(f"chip_smoke: all phases ok in {detail['total_s']:.1f} s",
           flush=True)
     (out_dir / "chip_smoke.json").write_text(

@@ -22,11 +22,21 @@ Subcommands:
           ``pj:reqresp``) through always-on lanes (``Engine.serve``),
           print throughput and latency, and check every served answer
           against a solo host-mode run.
+  plan    the channel planner: fingerprint each program on its problem
+          graph, lower its declared channels to a concrete Plan, and
+          print the knob line or (``--explain``) the per-knob decision
+          table with the predicted and measured cost of every candidate.
+          ``--queries Q`` plans a Q-query batch; ``--no-calibrate`` skips
+          the timed probes (corpus fits and defaults only). On the card
+          the probes decide nothing and run only under ``--explain``.
 
-``run``, ``bench`` and ``bench-batch`` take ``--mode host|fused|chunked``
-(default ``fused``, as in the JAX CLI) and ``--chunk-size K`` (default
-64): the device modes run K supersteps a replay of a captured CUDA
-graph, every program's inner loops as WHILE nodes inside it. ``run``
+``run`` and ``bench-batch`` take ``--mode host|fused|chunked`` (default
+``fused``, as in the JAX CLI), ``bench`` a comma list ``--modes`` (one
+engine a mode), and all three ``--chunk-size K`` (default 64): the
+device modes run K supersteps a replay of a captured CUDA graph, every
+program's inner loops as WHILE nodes inside it. ``run`` and ``bench``
+take ``--plan manual|auto`` (auto: the cost-model planner chooses the
+knobs a flag does not set) and print each run's knob line. ``run``
 also takes ``--on-overflow raise|escalate`` (escalate: a channel that
 overflows gets twice the capacity and the run starts again, printed as
 "recovered"), and ``--checkpoint-every K --checkpoint-dir DIR`` /
@@ -38,8 +48,7 @@ substrate, ``--serve-chunk`` supersteps a dispatch, and
 their route passes (one pass over the union frontier, or one a lane).
 Every command takes ``--mirror-threshold N|auto`` (hub mirroring of the
 scatter and prop plans). Everything runs on the card unless ``--device
-cpu`` is given. The JAX CLI's planner and its ``plan`` subcommand are
-not ported yet (ROADMAP).
+cpu`` is given.
 
 Examples:
 
@@ -62,6 +71,10 @@ Examples:
       --checkpoint-dir /tmp/ckpt
   python -m repro_torch run wcc:basic --scale 20 --resume /tmp/ckpt
   python -m repro_torch run sv:composed --scale 12 --on-overflow escalate
+  python -m repro_torch run wcc:switch --scale 20 --plan auto
+  python -m repro_torch bench --scale 12 --modes host,fused --plan auto
+  python -m repro_torch plan --scale 20 --explain
+  python -m repro_torch plan sssp:basic --scale 20 --queries 32 --explain
 """
 from __future__ import annotations
 
@@ -94,6 +107,14 @@ def _summary(res) -> str:
             "[hit]" if res.cache_hit
             else f"[capture {res.compile_time_s:.3f}s]"))
     return out
+
+
+def _knob_line(plan) -> str:
+    """The resolved knob set a run ran under."""
+    return (f"knobs: mode={plan.mode} chunk={plan.chunk_size} "
+            f"use_kernel={plan.use_kernel} route_impl={plan.route_impl} "
+            f"route_batch={plan.route_batch} "
+            f"dense_threshold={plan.dense_threshold} [plan: {plan.source}]")
 
 
 def _prepare(spec, args):
@@ -143,16 +164,17 @@ def cmd_list(args) -> int:
 def cmd_run(args) -> int:
     spec = resolve(args.program)
     mode = args.mode
-    if mode is None:  # checkpoints snapshot the chunked carry
-        mode = ("chunked" if args.checkpoint_every or args.resume
-                else "fused")
+    if mode is None and (args.checkpoint_every or args.resume):
+        mode = "chunked"  # checkpoints snapshot the chunked carry
+    if mode is None and args.plan == "manual":
+        mode = "fused"
     print(f"== {spec.key} (scale {args.scale}, W={args.workers}, "
-          f"{args.partitioner} partition, {mode} mode, "
+          f"{args.partitioner} partition, {mode or 'planned'} mode, "
           f"{args.device}) ==")
     graph, pg, inputs, prog = _prepare(spec, args)
     print(f"graph: n={graph.n} edges={graph.num_edges}  program: {prog}")
     eng = Engine(mode=mode, chunk_size=args.chunk_size, device=args.device,
-                 on_overflow=args.on_overflow)
+                 plan=args.plan, on_overflow=args.on_overflow)
     resume = args.resume
     if resume:
         if os.path.isdir(resume):
@@ -166,6 +188,8 @@ def cmd_run(args) -> int:
         res = eng.run(prog, pg, max_steps=args.max_steps,
                       checkpoint_every=args.checkpoint_every,
                       checkpoint_dir=args.checkpoint_dir, resume=resume)
+        if i == 0:
+            print(_knob_line(res.plan))
         print(f"run {i}: {_summary(res)}")
         if res.resumed_from:
             print(f"  resumed at superstep {res.resumed_from}")
@@ -188,29 +212,41 @@ def cmd_run(args) -> int:
 def cmd_bench(args) -> int:
     keys = (args.keys.split(",") if args.keys
             else [f"{a}:{DEFAULT_VARIANT[a]}" for a in ALGORITHMS])
-    eng = Engine(mode=args.mode, chunk_size=args.chunk_size,
-                 device=args.device)
+    modes = args.modes.split(",")
+    engines = {m: Engine(mode=m, chunk_size=args.chunk_size,
+                         device=args.device, plan=args.plan)
+               for m in modes}
     rows = []
-    print(f"== bench (scale {args.scale}, W={args.workers}, {args.mode} "
-          f"mode, {args.device}) ==")
+    shown = set()
+    print(f"== bench (scale {args.scale}, W={args.workers}, modes "
+          f"{','.join(modes)}, plan {args.plan}, {args.device}) ==")
     for name in keys:
         spec = resolve(name)
         graph, pg, inputs, prog = _prepare(spec, args)
-        res = eng.run(prog, pg, max_steps=args.max_steps)
-        rows.append({
-            "program": spec.key, "mode": res.mode, "supersteps": res.steps,
-            "messages": res.total_msgs, "bytes": res.total_bytes,
-            "wall_time_s": res.wall_time_s,
-            "step_times_s": res.step_times_s,
-            "dispatches": res.dispatches,
-            "host_overhead_s": res.host_overhead_s,
-            "compile_time_s": res.compile_time_s,
-        })
-        print(f"  {spec.key:22s} {_summary(res)}")
+        for mode in modes:
+            res = engines[mode].run(prog, pg, max_steps=args.max_steps)
+            if res.plan.key() not in shown:
+                shown.add(res.plan.key())
+                print(f"  {_knob_line(res.plan)}")
+            rows.append({
+                "program": spec.key, "mode": res.mode,
+                "supersteps": res.steps, "messages": res.total_msgs,
+                "bytes": res.total_bytes, "wall_time_s": res.wall_time_s,
+                "step_times_s": res.step_times_s,
+                "dispatches": res.dispatches,
+                "host_overhead_s": res.host_overhead_s,
+                "compile_time_s": res.compile_time_s,
+                "cache_hit": res.cache_hit,
+                "plan": res.plan.to_json(),
+            })
+            print(f"  {spec.key:22s} {_summary(res)}")
+    stats = {m: engines[m].stats() for m in modes}
+    print(f"engine sessions: {stats}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"scale": args.scale, "workers": args.workers,
-                       "device": args.device, "rows": rows}, f, indent=2)
+                       "device": args.device, "rows": rows,
+                       "engines": stats}, f, indent=2)
         print(f"wrote {args.json}")
     return 0
 
@@ -323,7 +359,7 @@ def cmd_serve(args) -> int:
     if spec.make_queries is None:
         print(f"serve: {spec.key} has no query axis")
         return 2
-    chunk = args.serve_chunk or args.chunk_size
+    chunk = args.serve_chunk or args.chunk_size or 64
     print(f"== serve {spec.key} (scale {args.scale}, W={args.workers}, "
           f"Q={args.queries}, lanes={args.lanes}, chunk={chunk}, "
           f"rate={args.rate}/step, route_batch={args.route_batch}, "
@@ -360,6 +396,27 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_plan(args) -> int:
+    from repro_torch.plan import Planner, cost_model, manual_plan
+
+    keys = args.programs or ["wcc:switch", "sssp:basic"]
+    planner = Planner(calibrate=not args.no_calibrate, explain=args.explain)
+    print(f"== plan (scale {args.scale}, W={args.workers}, "
+          f"Q={args.queries}, {args.device}) ==")
+    print(f"config ladder (what plan=manual runs under): "
+          f"{_knob_line(manual_plan())}")
+    for name in keys:
+        spec = resolve(name)
+        graph, pg, _, prog = _prepare(spec, args)
+        plan = planner.plan(prog, pg, num_queries=args.queries)
+        print(f"\n{spec.key}  (n={graph.n}, edges={graph.num_edges}, "
+              f"class={spec.channel_class})")
+        print(plan.explain() if args.explain else _knob_line(plan))
+    if not args.no_calibrate:
+        print(f"\ncalibration cache: {cost_model.cache_dir()}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="repro_torch", description=__doc__,
@@ -381,13 +438,21 @@ def main(argv=None) -> int:
         p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                        help="where the graph and the run live (default: "
                             "the card)")
-        p.add_argument("--chunk-size", type=int, default=64,
+        p.add_argument("--chunk-size", type=int, default=None,
                        help="supersteps a dispatch of the fused/chunked "
-                            "modes covers (default 64)")
+                            "modes covers (default 64; unset lets "
+                            "--plan auto choose)")
         p.add_argument("--mirror-threshold", default=None,
                        help="hub-mirroring degree threshold for the "
                             "scatter/prop plans: an int, 'auto', or unset "
                             "(off)")
+
+    def plan_flag(p):
+        p.add_argument("--plan", default="manual",
+                       choices=("manual", "auto"),
+                       help="knob source: manual = flags/env/defaults, "
+                            "auto = the cost-model planner (explicit "
+                            "flags still win)")
 
     def modes(p):
         p.add_argument("--mode", default="fused",
@@ -400,8 +465,10 @@ def main(argv=None) -> int:
     common(p_run)
     p_run.add_argument("--mode", default=None,
                        choices=("host", "fused", "chunked"),
-                       help="execution mode (default: fused, or chunked "
-                            "with a checkpoint flag)")
+                       help="execution mode (default: fused, chunked "
+                            "with a checkpoint flag, or the planner's "
+                            "choice under --plan auto)")
+    plan_flag(p_run)
     p_run.add_argument("--repeat", type=int, default=1,
                        help="run the program this many times")
     p_run.add_argument("--no-check", dest="check", action="store_false",
@@ -426,7 +493,10 @@ def main(argv=None) -> int:
                          help="comma list of programs (default: one per "
                               "algorithm)")
     common(p_bench)
-    modes(p_bench)
+    p_bench.add_argument("--modes", "--mode", dest="modes", default="fused",
+                         help="comma list of execution modes, one engine "
+                              "a mode (default: fused)")
+    plan_flag(p_bench)
     p_bench.add_argument("--json", default=None, help="write rows to JSON")
     p_bench.set_defaults(fn=cmd_bench)
 
@@ -481,6 +551,23 @@ def main(argv=None) -> int:
                          help="a small session (scale 8, 12 queries, 3 "
                               "lanes, chunk 3), every answer checked")
     p_serve.set_defaults(fn=cmd_serve)
+
+    p_plan = sub.add_parser(
+        "plan", help="lower programs' channels to concrete Plans "
+                     "(decision table)")
+    p_plan.add_argument("programs", nargs="*", default=None,
+                        help="programs to plan (default: wcc:switch, "
+                             "sssp:basic)")
+    common(p_plan)
+    p_plan.add_argument("--queries", type=int, default=0,
+                        help="plan for a Q-query batch (0 = single run)")
+    p_plan.add_argument("--explain", action="store_true",
+                        help="print the full per-knob decision table "
+                             "(candidates, predicted and measured cost)")
+    p_plan.add_argument("--no-calibrate", action="store_true",
+                        help="skip the timed calibration probes: corpus "
+                             "fits and defaults only")
+    p_plan.set_defaults(fn=cmd_plan)
 
     args = ap.parse_args(argv)
     return args.fn(args)

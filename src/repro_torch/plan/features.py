@@ -1,21 +1,23 @@
 """Graph/program fingerprints — the port of ``repro.plan.features``.
 
-A :class:`Fingerprint` is what makes two runs the same problem: the
-device (type, name, count), the partitioned graph's static surface
-(workers, vertex counts, edges, degree statistics, the plan caps that
-enter the tables' shapes), the program's data-plane family
-(``channel_class``) and the query-axis width. ``Engine(on_overflow=
-"escalate")`` keys the capacity scales an escalation learned by
-:meth:`Fingerprint.cache_key`, so a later run of the same problem starts
-right-sized. Degree statistics are rounded to one decimal, as in the
-JAX package.
+A :class:`Fingerprint` is what makes two runs the same problem, and all
+the planner's cost model may see: the device (type, name, count), the
+partitioned graph's static surface (workers, vertex counts, edges,
+degree statistics, the plan caps that enter the tables' shapes), the
+program's data-plane family (``channel_class``) and the query-axis
+width. The planner memoizes its plans and keys its probe cache by
+:meth:`Fingerprint.cache_key`; ``Engine(on_overflow="escalate")`` keys
+the capacity scales an escalation learned by it, so a later run of the
+same problem starts right-sized. Degree statistics are rounded to one
+decimal, as in the JAX package. The fields and their JSON are the JAX
+package's, so on the CPU both give the same ``cache_key()``.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,6 +46,15 @@ class Fingerprint:
         """Stable content hash of the fingerprint."""
         blob = json.dumps(dataclasses.asdict(self), sort_keys=True)
         return hashlib.sha1(blob.encode()).hexdigest()[:16]
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, data: dict) -> "Fingerprint":
+        data = dict(data)
+        data["caps"] = tuple((str(k), int(v)) for k, v in data["caps"])
+        return cls(**data)
 
 
 def channel_class_of(prog) -> str:
@@ -79,10 +90,12 @@ def _plan_caps(pg: PartitionedGraph) -> Tuple[Tuple[str, int], ...]:
     return tuple(sorted(caps.items()))
 
 
-def fingerprint(prog, pg: PartitionedGraph,
-                num_queries: int = 0) -> Fingerprint:
+def fingerprint(prog, pg: PartitionedGraph, num_queries: int = 0,
+                backend: Optional[str] = None) -> Fingerprint:
     """The fingerprint of running ``prog`` on ``pg`` with Q query lanes.
-    Two reductions over ``deg_out`` and ``v_mask``; no side effects."""
+    Two reductions over ``deg_out`` and ``v_mask``; no side effects.
+    ``backend`` overrides the graph's device type (``"cuda"``/``"cpu"``)
+    in the fingerprint, as the JAX package's override does."""
     deg = pg.deg_out.to(torch.int64)
     edges = int(deg.sum())
     n = int(pg.v_mask.sum())
@@ -93,7 +106,7 @@ def fingerprint(prog, pg: PartitionedGraph,
                 if k.startswith("raw_") and k.endswith("e_cap")]
     cuda = pg.device.type == "cuda"
     return Fingerprint(
-        backend=pg.device.type,
+        backend=backend or pg.device.type,
         device_kind=torch.cuda.get_device_name(pg.device) if cuda else "cpu",
         device_count=torch.cuda.device_count() if cuda else 1,
         workers=pg.num_workers,

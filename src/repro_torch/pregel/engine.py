@@ -16,20 +16,38 @@ WHILE nodes inside it; ``"host"`` runs a step per Python iteration, one
 readback a step. ``run_batch`` runs in all three; ``serve`` always runs
 the chunked serving substrate, whatever the engine's mode.
 
-``route_batch`` (``"union"``, the default, or ``"lane"``) says how a
-batch's routed channels share their route passes across the query lanes
-(``repro_torch.core.routing.resolve_batch``): one pass over the lanes'
-union frontier, or one pass a lane, the measured baseline. The engine
-holds every run, warm-up and capture under ``routing.batch_scope``.
+The data-plane knobs: ``route_batch`` (``"union"``, the default, or
+``"lane"``: how a batch's routed channels share their route passes
+across the query lanes) and ``dense_threshold`` (the density switch's
+frontier fraction). The port has one implementation per device, so the
+JAX engine's ``use_kernel`` and ``route_impl`` are no constructor knobs
+here: every wrapper launches its CUDA kernel on a card tensor and runs
+its plain version on a CPU tensor, and every route takes the bucket
+ranks. They stay fields of a ``Plan``, for the JSON layout the JAX
+package shares; an ``Engine`` on the card refuses a given ``Plan`` with
+``use_kernel=False`` or ``route_impl="sort"``, and on the CPU, where both
+values name plain paths whose outputs are bit-identical, it records them.
+
+``plan`` says where the knobs come from (``repro_torch.plan``):
+``"manual"`` (the default) takes the constructor's knobs through each
+knob's config ladder; ``"auto"`` asks the cost-model planner per
+(program, graph shape, Q), before any loop is built and never inside a
+capture, without touching :meth:`stats`; a ``Plan`` is used as given.
+Knobs the caller set explicitly win under every policy. Every result
+carries the ``Plan`` it ran under (``RunResult.plan``,
+``ServeResult.plan``), and every loop runs under its knobs
+(``runtime.knob_scope``).
 
 A device mode's loop (its warm-up step and its captured graph) is cached
-per (program, graph object, ``max_steps``, ``check_overflow``), the
-mode, chunk size, capacity scales and ``route_batch``; a batched loop
-also per bucket cap, a serving loop per lane count and serve chunk — the
-counterpart of the JAX compile cache, with ``cache_hit`` and
-``engine_compiles`` on every result; a hit replays the graph with no
-warm-up and no capture. :meth:`Engine.clear_cache` drops the cached
-loops and their graph memory; :meth:`Engine.stats` counts them.
+per (program, graph object, ``max_steps``, ``check_overflow``, capacity
+scales) and the resolved ``Plan.key()`` (mode, chunk size and the
+data-plane knobs, which a capture freezes), so a planned run and the
+identical hand-set run share one loop; a batched loop also per bucket
+cap, a serving loop per lane count and serve chunk — the counterpart of
+the JAX compile cache, with ``cache_hit`` and ``engine_compiles`` on
+every result; a hit replays the graph with no warm-up and no capture.
+:meth:`Engine.clear_cache` drops the cached loops and their graph
+memory; :meth:`Engine.stats` counts them.
 
 Resilience, as in the JAX engine:
 
@@ -50,22 +68,20 @@ Resilience, as in the JAX engine:
   - ``on_nonconverged``: ``None`` (``RunResult.converged`` only),
     ``"warn"`` or ``"raise"`` (``NonConvergenceError``) when a run spends
     its ``max_steps`` without a unanimous halt vote.
-
-The planner (``plan="auto"``) is not ported yet (ROADMAP) and raises
-``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
                     Tuple)
 
 import torch
 
-from repro_torch.core import routing
+from repro_torch.core import compose, routing
 from repro_torch.device import resolve_device
 from repro_torch.graph.pgraph import PartitionedGraph
-from repro_torch.plan import features
+from repro_torch.plan import features, planner as planning
 from repro_torch.pregel import checkpoint as ckpt_io
 from repro_torch.pregel import errors, runtime
 from repro_torch.pregel import serve as serving
@@ -81,10 +97,6 @@ def bucket_queries(q: int) -> int:
     return 1 << (q - 1).bit_length()
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (see ROADMAP)")
-
-
 class Engine:
     """Session for running VertexPrograms on one device.
 
@@ -93,8 +105,10 @@ class Engine:
       (default 64, as in the JAX package).
     device: where the graphs it runs must live (None = CUDA; raises when
       CUDA is absent). Pass ``"cpu"`` for the plain PyTorch path.
-    route_batch: ``"union"`` or ``"lane"`` (None: ``REPRO_ROUTE_BATCH``,
-      else ``"union"``) — how batched runs and served sessions route.
+    route_batch, dense_threshold: the data-plane knobs (None:
+      ``REPRO_ROUTE_BATCH``/``REPRO_DENSE_THRESHOLD``, else ``"union"``,
+      0.1).
+    plan: ``"manual"``, ``"auto"`` or a ``repro_torch.plan.Plan``.
     on_overflow: ``"raise"`` or ``"escalate"``; cap_scales: the starting
       channel-capacity scales (a channel's full name or ``"*"`` to a
       factor); max_retries: the escalations a run may take.
@@ -107,15 +121,15 @@ class Engine:
                  route_batch: Optional[str] = None,
                  on_nonconverged: Optional[str] = None,
                  cap_scales: Optional[Dict[str, float]] = None,
-                 max_retries: int = 8):
-        mode = "fused" if mode is None else mode
-        if mode not in runtime.MODES:
+                 max_retries: int = 8,
+                 dense_threshold: Optional[float] = None):
+        if mode is not None and mode not in runtime.MODES:
             raise ValueError(f"unknown execution mode {mode!r}")
-        if plan not in ("manual", "auto"):
-            raise ValueError(f"unknown plan {plan!r} (one of ('manual', "
-                             "'auto'))")
-        if plan == "auto":
-            raise _not_ported(f"plan={plan!r}")
+        if not (plan in ("manual", "auto")
+                or isinstance(plan, planning.Plan)):
+            raise ValueError(
+                f"unknown plan {plan!r} (one of ('manual', 'auto') or a "
+                "repro_torch.plan.Plan)")
         if on_overflow not in ("raise", "escalate"):
             raise ValueError(
                 f"unknown on_overflow {on_overflow!r} "
@@ -131,13 +145,25 @@ class Engine:
         # learned capacity scales: fingerprint.cache_key() -> scales
         self._learned: Dict[str, Dict[str, float]] = {}
         self.runs = 0
-        self.mode = mode
+        # the knobs the caller set: they win under every plan policy
+        self._explicit = {
+            "mode": mode, "chunk_size": chunk_size,
+            "route_batch": route_batch, "dense_threshold": dense_threshold,
+        }
+        self.mode = "fused" if mode is None else mode
         self.chunk_size = 64 if chunk_size is None else int(chunk_size)
         if self.chunk_size < 1:
             raise ValueError(f"chunk_size must be at least 1, got "
                              f"{self.chunk_size}")
         self.device: torch.device = resolve_device(device)
         self.route_batch = routing.resolve_batch(route_batch)
+        self.dense_threshold = compose.resolve_dense_threshold(
+            dense_threshold)
+        self.plan_policy = plan
+        self._planner = planning.Planner() if plan == "auto" else None
+        self._manual_plan: Optional[planning.Plan] = None
+        if isinstance(plan, planning.Plan):
+            self._check_legal(plan)
         self._cache: Dict[Tuple, runtime.DeviceLoop] = {}
         self.compiles = 0
         self.cache_hits = 0
@@ -156,6 +182,68 @@ class Engine:
         for loop in self._cache.values():
             loop.release()
         self._cache.clear()
+
+    # -- planning -------------------------------------------------------------
+
+    def _overrides(self) -> Dict[str, Any]:
+        return {k: getattr(self, k) for k, raw in self._explicit.items()
+                if raw is not None}
+
+    def _check_legal(self, plan: planning.Plan) -> None:
+        """Refuse a given Plan that names a plain path on the card: the
+        kernels are the only implementation a CUDA tensor takes (the
+        planner keeps to them by itself)."""
+        if self.device.type != "cuda":
+            return
+        if not plan.use_kernel:
+            raise ValueError(
+                f"Engine on {self.device}: the given plan's use_kernel="
+                "False — the plain versions run only on the CPU; the card "
+                "runs the kernels")
+        if plan.route_impl != "bucket":
+            raise ValueError(
+                f"Engine on {self.device}: the given plan's route_impl="
+                f"{plan.route_impl!r} — the sort baseline runs only on the "
+                "CPU; the card routes through the bucket kernels")
+
+    def resolve_plan(self, prog: VertexProgram, pg: PartitionedGraph,
+                     num_queries: int = 0) -> planning.Plan:
+        """The Plan a run of ``prog`` on ``pg`` (Q query lanes) runs
+        under, per the engine's plan policy. Explicit constructor knobs
+        win under every policy; ``"auto"`` consults the cost-model
+        planner (its probes are cached on disk, never in this engine's
+        cache, never in ``stats()``)."""
+        if self.plan_policy == "auto":
+            return self._planner.plan(prog, pg, num_queries=num_queries,
+                                      overrides=self._overrides())
+        if isinstance(self.plan_policy, planning.Plan):
+            return self._given_plan()
+        return self._manual()
+
+    def _manual(self) -> planning.Plan:
+        if self._manual_plan is None:
+            self._manual_plan = planning.manual_plan(
+                mode=self.mode, chunk_size=self.chunk_size,
+                route_batch=self.route_batch,
+                dense_threshold=self.dense_threshold,
+                explicit=self._explicit)
+        return self._manual_plan
+
+    def _given_plan(self) -> planning.Plan:
+        """A caller-supplied Plan, with any explicit constructor knobs
+        replacing the plan's choices (explicit still wins)."""
+        base = self.plan_policy
+        over = self._overrides()
+        if not over:
+            return base
+        decisions = tuple(
+            planning.Decision(
+                knob=d.knob, chosen=over[d.knob], source="explicit",
+                candidates=d.candidates,
+                reason="engine-constructor knob overrides the given plan")
+            if d.knob in over else d
+            for d in base.decisions)
+        return dataclasses.replace(base, decisions=decisions, **over)
 
     def _check_device(self, pg: PartitionedGraph) -> None:
         if pg.device.type != self.device.type:
@@ -260,14 +348,14 @@ class Engine:
 
     # -- execution -----------------------------------------------------------
 
-    def _loop(self, key: Tuple, build: Callable[[], runtime.DeviceLoop]
+    def _loop(self, key: Tuple, plan: planning.Plan,
+              build: Callable[[], runtime.DeviceLoop]
               ) -> Tuple[runtime.DeviceLoop, bool]:
-        """The cached device loop under ``key`` (and the engine's
-        ``route_batch``), built on a miss; and whether it was a hit. A key
-        starts (program, ``id(pg)``, sorted capacity scales, ...); the
-        loop holds its graph, so ``id(pg)`` names one live graph
-        object."""
-        key = key + (self.route_batch,)
+        """The cached device loop under ``key`` and ``plan.key()``, built
+        on a miss; and whether it was a hit. A key starts (program,
+        ``id(pg)``, sorted capacity scales, ...); the loop holds its
+        graph, so ``id(pg)`` names one live graph object."""
+        key = key + plan.key()
         loop = self._cache.get(key)
         if loop is not None:
             self.cache_hits += 1
@@ -283,6 +371,13 @@ class Engine:
         res.engine_compiles = self.compiles
         res.engine_cache_hits = self.cache_hits
         return res
+
+    @staticmethod
+    def _knobs(plan: planning.Plan) -> Dict[str, Any]:
+        """The plan's data-plane knobs, as the runtime's loops take
+        them."""
+        return {"route_batch": plan.route_batch,
+                "dense_threshold": plan.dense_threshold}
 
     def _limits(self, prog, max_steps, check_overflow) -> Tuple[int, bool]:
         return (prog.max_steps if max_steps is None else max_steps,
@@ -309,6 +404,8 @@ class Engine:
         ``mode="chunked"``. Under ``on_overflow="escalate"`` an overflow
         escalates and replays (``RunResult.recovery``)."""
         ms, co = self._limits(prog, max_steps, check_overflow)
+        self._check_device(pg)
+        plan = self.resolve_plan(prog, pg)
         resume_carry = None
         if resume is not None:
             ckpt = (resume if isinstance(resume, ckpt_io.Checkpoint)
@@ -327,17 +424,16 @@ class Engine:
                     program=prog.name, graph=graph, max_steps=ms, **snap),
                     checkpoint_dir)
         if (checkpoint_every is not None or resume is not None) \
-                and self.mode != "chunked":
+                and plan.mode != "chunked":
             raise ValueError(
                 "checkpoint/resume needs the unbatched chunked substrate — "
-                f"this engine runs mode={self.mode!r}. Use "
+                f"this engine runs mode={plan.mode!r}. Use "
                 "Engine(mode='chunked') to checkpoint at dispatch "
                 "boundaries.")
-        with routing.batch_scope(self.route_batch):
-            res = self._with_escalation(
-                prog, pg, 0, lambda scales: self._run(
-                    prog, pg, ms, co, scales, checkpoint_every,
-                    checkpoint_cb, resume_carry))
+        res = self._with_escalation(
+            prog, pg, 0, lambda scales: self._run(
+                prog, pg, plan, ms, co, scales, checkpoint_every,
+                checkpoint_cb, resume_carry))
         self._check_converged(prog, res)
         return res
 
@@ -348,28 +444,29 @@ class Engine:
         The returned list exposes each item's cache outcome."""
         return ManyResults(self.run(prog, pg, **kw) for pg in graphs)
 
-    def _run(self, prog, pg, ms, co, scales, checkpoint_every,
+    def _run(self, prog, pg, plan, ms, co, scales, checkpoint_every,
              checkpoint_cb, resume):
-        self._check_device(pg)
         self.runs += 1
         state0 = prog.init(pg)
-        if self.mode == "host":
+        knobs = self._knobs(plan)
+        if plan.mode == "host":
+            knobs.pop("route_batch")
             res = runtime.run_supersteps(
                 pg, prog.step, state0, max_steps=ms, check_overflow=co,
-                channels=prog.channels, cap_scales=scales)
+                channels=prog.channels, cap_scales=scales, **knobs)
         else:
             loop, hit = self._loop(
-                (prog, id(pg), tuple(sorted(scales.items())), ms, co,
-                 self.mode, self.chunk_size),
+                (prog, id(pg), tuple(sorted(scales.items())), ms, co), plan,
                 lambda: runtime.DeviceLoop(
-                    pg, prog.step, state0, mode=self.mode, max_steps=ms,
-                    check_overflow=co, chunk_size=self.chunk_size,
+                    pg, prog.step, state0, mode=plan.mode, max_steps=ms,
+                    check_overflow=co, chunk_size=plan.chunk_size,
                     channels=prog.channels, name=prog.name,
-                    cap_scales=scales))
+                    cap_scales=scales, **knobs))
             res = self._stamp(loop.execute(
                 state0, checkpoint_every=checkpoint_every,
                 checkpoint_cb=checkpoint_cb, resume=resume), loop, hit)
         res.program = prog.name
+        res.plan = plan
         res.output = prog.extract(pg, res.state)
         return res
 
@@ -416,31 +513,32 @@ class Engine:
         state0 = {k: torch.stack([s[k] for s in per_query], dim=1)
                   for k in per_query[0]}
         ms, co = self._limits(prog, max_steps, check_overflow)
-        with routing.batch_scope(self.route_batch):
-            res = self._with_escalation(
-                prog, pg, cap, lambda scales: self._run_batch(
-                    prog, pg, state0, q, cap, ms, co, scales))
-        res.route_batch = self.route_batch
+        plan = self.resolve_plan(prog, pg, cap)
+        res = self._with_escalation(
+            prog, pg, cap, lambda scales: self._run_batch(
+                prog, pg, plan, state0, q, cap, ms, co, scales))
         self._check_converged(prog, res)
         return res
 
-    def _run_batch(self, prog, pg, state0, q, cap, ms, co, scales):
+    def _run_batch(self, prog, pg, plan, state0, q, cap, ms, co, scales):
         self.runs += 1
-        if self.mode == "host":
+        knobs = self._knobs(plan)
+        if plan.mode == "host":
             res = runtime.run_batched_supersteps(
                 pg, prog.step, state0, q, max_steps=ms, check_overflow=co,
-                channels=prog.channels, cap_scales=scales)
+                channels=prog.channels, cap_scales=scales, **knobs)
         else:
             loop, hit = self._loop(
                 (prog, id(pg), tuple(sorted(scales.items())), ms, co,
-                 self.mode, self.chunk_size, "batch", cap),
+                 "batch", cap), plan,
                 lambda: runtime.BatchedDeviceLoop(
-                    pg, prog.step, state0, mode=self.mode, max_steps=ms,
-                    check_overflow=co, chunk_size=self.chunk_size,
+                    pg, prog.step, state0, mode=plan.mode, max_steps=ms,
+                    check_overflow=co, chunk_size=plan.chunk_size,
                     channels=prog.channels, name=prog.name,
-                    cap_scales=scales))
+                    cap_scales=scales, **knobs))
             res = self._stamp(loop.execute(state0, q), loop, hit)
         res.program = prog.name
+        res.plan = plan
         res.outputs = [
             prog.extract(pg, {k: v[:, qi] for k, v in res.state.items()})
             for qi in range(q)]
@@ -480,11 +578,8 @@ class Engine:
             raise ValueError(
                 f"unknown on_fault {on_fault!r} "
                 "(one of ('quarantine', 'raise'))")
-        with routing.batch_scope(self.route_batch):
-            res = self._serve(prog, pg, requests, num_lanes, chunk_size,
-                              max_steps, check_overflow, faults, on_fault)
-        res.route_batch = self.route_batch
-        return res
+        return self._serve(prog, pg, requests, num_lanes, chunk_size,
+                           max_steps, check_overflow, faults, on_fault)
 
     def _serve(self, prog, pg, requests, num_lanes, chunk_size, max_steps,
                check_overflow, faults, on_fault):
@@ -493,15 +588,16 @@ class Engine:
             raise ValueError(f"need at least one lane, got {num_lanes}")
         queue = serving.as_queue(requests)
         ms, co = self._limits(prog, max_steps, check_overflow)
-        chunk = self.chunk_size if chunk_size is None else chunk_size
+        plan = self.resolve_plan(prog, pg, num_lanes)
+        chunk = plan.chunk_size if chunk_size is None else chunk_size
         if len(queue) == 0:
             return serving.ServeResult(
                 program=prog.name, records=[], num_lanes=num_lanes,
                 chunk_size=chunk, max_steps=ms, supersteps=0, clock=0,
                 dispatches=0, wall_time_s=0.0, bytes_by_channel={},
-                msgs_by_channel={}, cache_hit=True,
-                engine_compiles=self.compiles,
-                engine_cache_hits=self.cache_hits)
+                msgs_by_channel={}, route_batch=plan.route_batch,
+                cache_hit=True, engine_compiles=self.compiles,
+                engine_cache_hits=self.cache_hits, plan=plan)
         # the lanes' layout comes from any query's state: every lane is
         # written on admission, and an unoccupied lane is dead (halted,
         # no traffic, out of the union route pass)
@@ -509,15 +605,18 @@ class Engine:
         state0 = {k: torch.stack([v] * num_lanes, dim=1)
                   for k, v in template.items()}
         self.runs += 1
+        # the chunked serving substrate, whatever the plan's mode
         loop, hit = self._loop(
-            (prog, id(pg), (), ms, co, "serve", num_lanes, chunk),
+            (prog, id(pg), (), ms, co, "serve", num_lanes, chunk), plan,
             lambda: runtime.BatchedDeviceLoop(
                 pg, prog.step, state0, mode="chunked", max_steps=ms,
                 check_overflow=co, chunk_size=chunk, channels=prog.channels,
-                name=prog.name, serve=True))
+                name=prog.name, serve=True, **self._knobs(plan)))
         res = serving.serve_loop(loop, prog, pg, state0, queue,
                                  faults=faults, on_fault=on_fault)
         res.program = prog.name
+        res.route_batch = plan.route_batch
+        res.plan = plan
         return self._stamp(res, loop, hit)
 
 

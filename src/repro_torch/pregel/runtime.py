@@ -62,9 +62,17 @@ is the same batched loop built with ``serve=True``: always chunked, each
 lane with its own age, halt and overflow words, so the host can harvest
 and refill lanes between dispatches.
 
-Every loop takes ``cap_scales`` (``ChannelContext.cap_scales``: the
-capacity scales of ``Engine(on_overflow="escalate")``), so a loop is
-built per scale set. The chunked solo loop also checkpoints at chunk
+Every loop takes the data-plane knobs ``route_batch`` and
+``dense_threshold`` (None: each knob's config ladder,
+:func:`resolve_knobs`), resolved once when the loop is made, and runs
+its warm-up, its capture and every host step under their scopes
+(:func:`knob_scope`), as the JAX package traces its loop under them: on
+the card they are frozen into the captured graph, so a loop is built per
+knob set (``Engine`` keys its loops by the resolved ``Plan.key()``); the
+result records them. Every loop takes ``cap_scales``
+(``ChannelContext.cap_scales``: the capacity scales of
+``Engine(on_overflow="escalate")``), so a loop is also built per scale
+set. The chunked solo loop also checkpoints at chunk
 boundaries and resumes from a checkpoint (:meth:`DeviceLoop.execute`,
 ``repro_torch.pregel.checkpoint``): the step goes into the counter the
 captured steps read, never into a launch argument frozen at capture.
@@ -83,7 +91,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.core import aggregator, compose
+from repro_torch.core import aggregator, compose, routing
 from repro_torch.core.channel import (ChannelContext, ChannelRegistry,
                                       DeviceLoopHooks, on_device, store)
 from repro_torch.graph.pgraph import PartitionedGraph
@@ -123,9 +131,15 @@ class RunResult:
     engine_cache_hits: int = 0
     # name -> bool, or name -> (Q,) bool for batched runs
     overflow_by_channel: Optional[Dict[str, Any]] = None
-    # how the routed channels shared the query lanes' route passes
-    # ("union" or "lane", routing.resolve_batch) — batched runs only
+    # the data-plane knobs the loop ran under (resolve_knobs): the
+    # density-switch threshold, and for batched runs how the routed
+    # channels shared the lanes' route passes
+    dense_threshold: float = 0.0
     route_batch: str = ""
+    # the Plan the Engine ran under (repro_torch.plan.Plan: knobs,
+    # source, fingerprint, decisions; JSON via plan.to_json()); None for
+    # plain runtime calls
+    plan: Any = None
     # Batched-query metadata (num_queries > 0 iff the loop carried a query
     # axis): host numpy views of the Q real lanes; bytes_by_channel and
     # msgs_by_channel hold their totals. ``outputs`` is the per-query
@@ -164,6 +178,33 @@ class RunResult:
     def query_msgs(self, q: int) -> Dict[str, int]:
         """Per-channel message totals attributed to query ``q``."""
         return {k: int(v[q]) for k, v in self.query_msgs_by_channel.items()}
+
+
+def resolve_knobs(route_batch: Optional[str] = None,
+                  dense_threshold: Optional[float] = None
+                  ) -> Dict[str, Any]:
+    """The data-plane knobs a loop runs under, each through its config
+    ladder (explicit > scope > env > default)."""
+    return {"route_batch": routing.resolve_batch(route_batch),
+            "dense_threshold": compose.resolve_dense_threshold(
+                dense_threshold)}
+
+
+@contextlib.contextmanager
+def knob_scope(knobs: Dict[str, Any]):
+    """Pin ``knobs`` (:func:`resolve_knobs`) for every channel and kernel
+    call under the scope."""
+    with routing.batch_scope(knobs["route_batch"]), \
+            compose.dense_threshold_scope(knobs["dense_threshold"]):
+        yield
+
+
+def _stamp_knobs(res: "RunResult", knobs: Dict[str, Any],
+                 batched: bool = False) -> "RunResult":
+    res.dense_threshold = knobs["dense_threshold"]
+    if batched:
+        res.route_batch = knobs["route_batch"]
+    return res
 
 
 def _readback(halt_all, overflow, nbytes, nmsgs, novf):
@@ -257,6 +298,7 @@ def run_supersteps(
     chunk_size: int = 64,
     name: str = "",
     cap_scales: Optional[Dict[str, float]] = None,
+    dense_threshold: Optional[float] = None,
 ) -> RunResult:
     """Run ``step_fn(ctx, graph, state, step)`` to halt.
 
@@ -274,6 +316,8 @@ def run_supersteps(
     key that no step reached raises.
     cap_scales: channel-capacity scales (``ChannelContext.cap_scales``:
     a channel's full name or the ``"*"`` wildcard to a factor).
+    dense_threshold: the density-switch threshold the run is held under
+    (None: :func:`resolve_knobs`).
 
     A device mode builds its loop for this one call (warm-up and capture
     are ``compile_time_s``); hold an ``Engine`` to replay it across runs.
@@ -284,7 +328,8 @@ def run_supersteps(
         loop = DeviceLoop(graph, step_fn, state0, mode=mode,
                           max_steps=max_steps, check_overflow=check_overflow,
                           chunk_size=chunk_size, channels=channels,
-                          name=name, cap_scales=cap_scales)
+                          name=name, cap_scales=cap_scales,
+                          dense_threshold=dense_threshold)
         try:
             res = loop.execute(state0)
         finally:
@@ -303,38 +348,41 @@ def run_supersteps(
     step_times = []
     overhead = 0.0
     t0 = time.perf_counter()
-    step = -1  # so max_steps=0 reports zero executed supersteps
-    for step in range(max_steps):
-        ts = time.perf_counter()
-        ctx = ChannelContext(W, n_loc, graph.device, registry=registry,
-                             route_cap=graph.route_cap,
-                             cap_scales=dict(cap_scales or {}))
-        state, halt, overflow = _call_step(step_fn, ctx, graph, state, step)
-        touched |= ctx.touched
-        halt_all = aggregator.all_halted(ctx, halt)
-        overflow_any = on_device(overflow, graph.device, torch.bool).any()
-        nbytes, nmsgs = ctx.stats()
-        t_enq = time.perf_counter()
-        halt_now, ovf_now, db, dm, dovf = _readback(
-            halt_all, overflow_any, nbytes, nmsgs, ctx.stats_ovf)
-        t_dev = time.perf_counter()
-        for acc, delta in ((bytes_acc, db), (msgs_acc, dm)):
-            for k, d in delta.items():
-                if d < 0:
-                    wrapped.add(k)
-                acc[k] = acc.get(k, 0) + d
-        for k, v in dovf.items():
-            ovf_acc[k] = ovf_acc.get(k, False) or v
-        step_times.append(t_dev - ts)
-        overhead += (t_enq - ts) + (time.perf_counter() - t_dev)
-        if check_overflow and ovf_now:
-            overflowed = True
-            break
-        if wrapped:
-            break
-        if halt_now:
-            halted = True
-            break
+    knobs = resolve_knobs(None, dense_threshold)
+    with knob_scope(knobs):
+        step = -1  # so max_steps=0 reports zero executed supersteps
+        for step in range(max_steps):
+            ts = time.perf_counter()
+            ctx = ChannelContext(W, n_loc, graph.device, registry=registry,
+                                 route_cap=graph.route_cap,
+                                 cap_scales=dict(cap_scales or {}))
+            state, halt, overflow = _call_step(step_fn, ctx, graph, state,
+                                               step)
+            touched |= ctx.touched
+            halt_all = aggregator.all_halted(ctx, halt)
+            overflow_any = on_device(overflow, graph.device, torch.bool).any()
+            nbytes, nmsgs = ctx.stats()
+            t_enq = time.perf_counter()
+            halt_now, ovf_now, db, dm, dovf = _readback(
+                halt_all, overflow_any, nbytes, nmsgs, ctx.stats_ovf)
+            t_dev = time.perf_counter()
+            for acc, delta in ((bytes_acc, db), (msgs_acc, dm)):
+                for k, d in delta.items():
+                    if d < 0:
+                        wrapped.add(k)
+                    acc[k] = acc.get(k, 0) + d
+            for k, v in dovf.items():
+                ovf_acc[k] = ovf_acc.get(k, False) or v
+            step_times.append(t_dev - ts)
+            overhead += (t_enq - ts) + (time.perf_counter() - t_dev)
+            if check_overflow and ovf_now:
+                overflowed = True
+                break
+            if wrapped:
+                break
+            if halt_now:
+                halted = True
+                break
     if registry is not None and step >= 0:
         _check_declared(registry, touched)
     res = RunResult(
@@ -351,6 +399,7 @@ def run_supersteps(
         converged=halted,
         overflow_by_channel=ovf_acc,
     )
+    _stamp_knobs(res, knobs)
     if overflowed:
         raise _overflow_error(step + 1, ovf_acc, res)
     if wrapped:
@@ -446,7 +495,9 @@ class DeviceLoop:
                  state0: Dict[str, torch.Tensor], *, mode: str,
                  max_steps: int, check_overflow: bool = True,
                  chunk_size: int = 64, channels: Optional[Any] = None,
-                 name: str = "", cap_scales: Optional[Dict] = None):
+                 name: str = "", cap_scales: Optional[Dict] = None,
+                 route_batch: Optional[str] = None,
+                 dense_threshold: Optional[float] = None):
         if mode not in ("fused", "chunked"):
             raise ValueError(f"a device loop runs mode 'fused' or "
                              f"'chunked', not {mode!r}")
@@ -466,6 +517,9 @@ class DeviceLoop:
         # the capacity scales enter each step's context, so the captured
         # graph is sized by them (a loop per scale set)
         self.cap_scales = dict(cap_scales or {})
+        # the data-plane knobs, frozen into the capture and pinned for
+        # every step the host runs (module docstring)
+        self.knobs = resolve_knobs(route_batch, dense_threshold)
         self.device = graph.device
         self.cuda = self.device.type == "cuda"
         self.token = next(_tokens)
@@ -478,10 +532,11 @@ class DeviceLoop:
         # superstep of a run: the counts go back to what they were
         before = kops.wrapper_launch_counts()
         try:
-            self._warm_up(state0)
-            self._allocate(state0)
-            if self.cuda:
-                self._capture()
+            with knob_scope(self.knobs):
+                self._warm_up(state0)
+                self._allocate(state0)
+                if self.cuda:
+                    self._capture()
         except BaseException:
             self.release()
             raise
@@ -750,9 +805,10 @@ class DeviceLoop:
                 f"this loop is mode={self.mode!r}. Build it with "
                 "mode='chunked' (Engine(mode='chunked')) to checkpoint at "
                 "dispatch boundaries.")
-        with self.replays_counted():
-            return self._execute(state0, checkpoint_every, checkpoint_cb,
-                                 resume)
+        with self.replays_counted(), knob_scope(self.knobs):
+            return _stamp_knobs(self._execute(
+                state0, checkpoint_every, checkpoint_cb, resume),
+                self.knobs)
 
     def _execute(self, state0, checkpoint_every=None, checkpoint_cb=None,
                  resume=None) -> RunResult:
@@ -957,6 +1013,8 @@ def run_batched_supersteps(
     check_overflow: bool = True,
     channels: Optional[Any] = None,
     cap_scales: Optional[Dict[str, float]] = None,
+    route_batch: Optional[str] = None,
+    dense_threshold: Optional[float] = None,
 ) -> RunResult:
     """Run Q query lanes of ``step_fn`` to halt in one host-driven loop.
 
@@ -965,7 +1023,18 @@ def run_batched_supersteps(
     step sees a batched ``ChannelContext`` (``num_queries=Q``) and
     returns ``(new_state, halt[, overflow])`` with ``(W, Q)`` (or scalar)
     votes. Returns a RunResult with the per-query views of the real lanes.
+    ``dense_threshold`` as in :func:`run_supersteps`; ``route_batch``
+    says how the routed channels share the lanes' route passes.
     """
+    knobs = resolve_knobs(route_batch, dense_threshold)
+    with knob_scope(knobs):
+        res = _host_batched(graph, step_fn, state0, num_real_queries,
+                            max_steps, check_overflow, channels, cap_scales)
+    return _stamp_knobs(res, knobs, batched=True)
+
+
+def _host_batched(graph, step_fn, state0, num_real_queries, max_steps,
+                  check_overflow, channels, cap_scales) -> RunResult:
     registry = _registry(channels)
     W, n_loc, dev = graph.num_workers, graph.n_loc, graph.device
     q = next(iter(state0.values())).shape[1]
@@ -1074,7 +1143,7 @@ class BatchedDeviceLoop(DeviceLoop):
                  max_steps: int, check_overflow: bool = True,
                  chunk_size: int = 64, channels: Optional[Any] = None,
                  name: str = "", serve: bool = False,
-                 cap_scales: Optional[Dict] = None):
+                 cap_scales: Optional[Dict] = None, **knobs):
         if serve and mode != "chunked":
             raise ValueError(f"the serving substrate is chunked, not "
                              f"{mode!r}")
@@ -1083,7 +1152,7 @@ class BatchedDeviceLoop(DeviceLoop):
         super().__init__(graph, step_fn, state0, mode=mode,
                          max_steps=max_steps, check_overflow=check_overflow,
                          chunk_size=chunk_size, channels=channels, name=name,
-                         cap_scales=cap_scales)
+                         cap_scales=cap_scales, **knobs)
 
     def _step(self, k: int) -> None:
         halted, overflow, age, steps = self.lanes
@@ -1156,8 +1225,10 @@ class BatchedDeviceLoop(DeviceLoop):
         if self.serve:
             raise ValueError("a serving loop runs a chunk at a time "
                              "(serve_chunk)")
-        with self.replays_counted():
-            return self._execute_batch(state0, num_real_queries)
+        with self.replays_counted(), knob_scope(self.knobs):
+            return _stamp_knobs(self._execute_batch(state0,
+                                                    num_real_queries),
+                                self.knobs, batched=True)
 
     def _execute_batch(self, state0, q_real: int) -> RunResult:
         t0 = time.perf_counter()
@@ -1225,7 +1296,8 @@ class BatchedDeviceLoop(DeviceLoop):
         live = ~(halted | (age >= self.max_steps))
         self.go.fill_(bool(live.any()) and not (
             self.check_overflow and bool(overflow.any())))
-        self._dispatch()
+        with knob_scope(self.knobs):
+            self._dispatch()
         host = self._read(self.out.numel())
         db, dm, dovf = self._totals()
         self._add_rows(host[self.head:].reshape(self.K, -1), db, dm, dovf)

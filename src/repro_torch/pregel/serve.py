@@ -244,6 +244,9 @@ class ServeResult:
     compile_time_s: float = 0.0
     engine_compiles: int = 0
     engine_cache_hits: int = 0
+    # the Plan the serving loop ran under (repro_torch.plan.Plan; its
+    # data-plane knobs only: the serving substrate pins mode and chunk)
+    plan: Any = None
     # dispatch indices whose wall time the StragglerMonitor flagged as
     # outliers (> threshold x rolling median), plus the session median
     straggler_dispatches: List[int] = dataclasses.field(default_factory=list)

@@ -408,7 +408,10 @@ def test_route_batch_is_part_of_the_cache_key_and_the_results():
     again = eng.run_batch(prog, pg, queries)
     assert (first.cache_hit, again.cache_hit) == (False, True)
     assert first.route_batch == again.route_batch == "lane"
+    # the key ends with the resolved Plan's knob tuple, route_batch in it
+    knobs = first.plan.key()
+    assert first.plan.route_batch == "lane" and "lane" in knobs
     keys = [k for k in eng._cache if "batch" in k]
-    assert keys and all(k[-1] == "lane" for k in keys)
+    assert keys and all(k[-len(knobs):] == knobs for k in keys)
     served = eng.serve(prog, pg, queries[:2], num_lanes=2)
     assert served.route_batch == "lane"

@@ -80,14 +80,20 @@ def test_run_without_check_and_unknown_program(capsys):
 
 @pytest.mark.parametrize("flag", ["--on-overflow", "--plan",
                                   "--checkpoint-every", "--resume"])
-def test_unported_options_are_absent(flag, capsys):
-    """``--plan`` (the planner) is the one JAX ``run`` option the port
-    lacks; the resilience options are there and refuse a bad value as
-    the JAX CLI does."""
+def test_unported_options_are_absent(flag, capsys, tmp_path, monkeypatch):
+    """Every JAX ``run`` option is ported: each refuses a bad value as the
+    JAX CLI does, and ``--plan auto`` (the planner, the last one ported)
+    plans the run and prints its knob line."""
     argv = ["run", "wcc", "--scale", "6", "--device", "cpu", flag, "1"]
     if flag in ("--plan", "--on-overflow"):
         with pytest.raises(SystemExit):
             cli.main(argv)
+        if flag == "--plan":
+            monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", str(tmp_path))
+            capsys.readouterr()
+            assert cli.main(argv[:-1] + ["auto"]) == 0
+            out = capsys.readouterr().out
+            assert "[plan: auto]" in out and "oracle: ok" in out
     elif flag == "--checkpoint-every":
         with pytest.raises(ValueError, match="checkpoint_dir"):
             cli.main(argv)
@@ -321,3 +327,46 @@ def test_paper_table_datasets_are_the_jax_benchmarks():
         np.testing.assert_array_equal(got.edges, want.edges)
         if want.weights is not None:
             np.testing.assert_array_equal(got.weights, want.weights)
+
+
+def test_plan_command_prints_each_decision_table(capsys, tmp_path,
+                                                 monkeypatch):
+    """``plan --explain`` prints one table a program with both cost
+    columns and the probe cache; ``--no-calibrate`` plans from the corpus
+    alone; ``--queries`` plans a batch."""
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", str(tmp_path / "cache"))
+    assert cli.main(["plan", "wcc:switch", "sssp:basic", "--scale", "7",
+                     "--workers", "4", "--device", "cpu", "--explain"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("plan [auto]") == 2
+    assert "measured probe" in out or "corpus fit" in out
+    assert f"calibration cache: {tmp_path / 'cache'}" in out
+    assert "config ladder" in out
+    assert cli.main(["plan", "reach:basic", "--scale", "7", "--workers",
+                     "4", "--device", "cpu", "--queries", "16",
+                     "--no-calibrate"]) == 0
+    out = capsys.readouterr().out
+    assert "knobs: mode=fused" in out and "[plan: auto]" in out
+    assert "calibration cache" not in out
+
+
+def test_bench_takes_modes_and_a_plan(tmp_path, capsys, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", str(tmp_path / "cache"))
+    path = tmp_path / "bench.json"
+    assert cli.main(["bench", "--scale", "6", "--device", "cpu", "--keys",
+                     "wcc:switch,sssp:basic", "--modes", "host,fused",
+                     "--plan", "auto", "--chunk-size", "4", "--json",
+                     str(path)]) == 0
+    out = capsys.readouterr().out
+    assert "[plan: auto]" in out and "engine sessions" in out
+    data = json.loads(path.read_text())
+    rows = data["rows"]
+    assert [(r["program"], r["mode"]) for r in rows] == [
+        ("wcc:switch", "host"), ("wcc:switch", "fused"),
+        ("sssp:basic", "host"), ("sssp:basic", "fused")]
+    for r in rows:
+        assert r["plan"]["source"] == "auto"
+        assert r["plan"]["mode"] == r["mode"]
+        assert r["plan"]["chunk_size"] == 4
+    assert rows[0]["bytes"] == rows[1]["bytes"]
+    assert set(data["engines"]) == {"host", "fused"}

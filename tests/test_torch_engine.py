@@ -57,11 +57,24 @@ def test_engine_defaults_to_the_card():
         Engine()
 
 
-def test_unported_engine_options_raise_naming_roadmap():
-    """The planner is the one engine option not ported yet; it raises at
-    construction."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(device="cpu", plan="auto")
+def test_unported_engine_options_raise_naming_roadmap(tmp_path,
+                                                      monkeypatch):
+    """Every engine option of the JAX package is ported: the planner
+    (``plan="auto"``), once the one that raised here, plans a run that
+    equals the hand-set run; an unknown plan still raises."""
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", str(tmp_path))
+    spec = REGISTRY["wcc:basic"]
+    g = spec.make_graph(7, 0)
+    jpg = jpgraph.partition_graph(g, 4, "random", build=spec.build)
+    pg = pgraph.from_arrays(*jax_tables(jpg), device="cpu")
+    prog = get_program("wcc:basic")
+    auto = Engine(device="cpu", mode="host", plan="auto").run(prog, pg)
+    hand = Engine(device="cpu", mode="host").run(prog, pg)
+    assert auto.plan.source == "auto" and hand.plan.source == "manual"
+    np.testing.assert_array_equal(auto.output, hand.output)
+    assert auto.bytes_by_channel == hand.bytes_by_channel
+    with pytest.raises(ValueError, match="unknown plan"):
+        Engine(device="cpu", plan="always")
 
 
 def _overflow_graphs():

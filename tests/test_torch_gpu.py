@@ -1232,3 +1232,69 @@ def test_escalation_recaptures_on_the_card(cuda):
         assert run.steps == plain.steps
         assert run.bytes_by_channel == plain.bytes_by_channel
     eng.clear_cache()
+
+
+@pytest.mark.gpu
+def test_engine_refuses_the_plain_paths_on_the_card(cuda):
+    """A given Plan with ``use_kernel=False`` or ``route_impl="sort"``
+    raises at construction on the card, and neither is an engine knob;
+    nothing falls back."""
+    from repro_torch.plan import Plan
+
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        Engine(plan=Plan(use_kernel=False))
+    with pytest.raises(ValueError, match="route_impl='sort'"):
+        Engine(plan=Plan(route_impl="sort"))
+    with pytest.raises(TypeError):
+        Engine(use_kernel=False)
+    with pytest.raises(TypeError):
+        Engine(route_impl="sort")
+    Engine(plan=Plan())  # the card's values
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["host", "fused", "chunked"])
+def test_planned_runs_equal_hand_set_runs_on_the_card(cuda, mode, tmp_path,
+                                                      monkeypatch):
+    """The card's plan takes the kernels, the bucket route and the
+    default threshold, and times no probe; the planned run equals the
+    hand-set run with its knobs bit for bit and launches each kernel as
+    often; planning leaves ``stats()`` alone."""
+    from repro_torch.plan import Planner
+
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", str(tmp_path))
+    spec = REGISTRY["wcc:switch"]
+    graph = spec.make_graph(10, 0)
+    pg = pgraph.partition_graph(graph, 4, "random", build=spec.build,
+                                device=cuda)
+    prog = spec.factory()
+    auto = Engine(plan="auto", mode=mode, chunk_size=4)
+    plan = auto.resolve_plan(prog, pg)
+    assert auto.stats()["runs"] == 0 and auto.cache_size == 0
+    assert (plan.use_kernel, plan.route_impl, plan.dense_threshold) == (
+        True, "bucket", 0.1)
+    assert plan.fingerprint.backend == "cuda"
+    measured = {c[0]: c[2] for c in plan.decision("route_impl").candidates}
+    assert measured == {"bucket": None, "sort": None}
+    assert not list(tmp_path.iterdir())
+    # a plan to be explained times the probes on the card, decides alike
+    explained = Planner(explain=True).plan(
+        prog, pg, overrides={"mode": mode, "chunk_size": 4})
+    assert explained.knobs() == plan.knobs()
+    for knob in ("route_impl", "use_kernel"):
+        assert all(c[2] > 0 for c in explained.decision(knob).candidates)
+    hand = Engine(mode=mode, chunk_size=4, route_batch=plan.route_batch,
+                  dense_threshold=plan.dense_threshold)
+    runs = []
+    for eng in (auto, hand):
+        eng.run(prog, pg)
+        ops.reset_launch_counts()
+        res = eng.run(prog, pg)
+        runs.append((res, ops.launch_counts()))
+    (a, la), (h, lh) = runs
+    assert la == lh and la["bucket_ranks"] > 0
+    assert all(bits_equal(a.state[k], h.state[k]) for k in h.state)
+    assert (a.steps, a.bytes_by_channel, a.msgs_by_channel) == (
+        h.steps, h.bytes_by_channel, h.msgs_by_channel)
+    if mode != "host":
+        assert a.cache_hit and set(auto._cache) == set(hand._cache)
