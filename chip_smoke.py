@@ -140,7 +140,20 @@ plan --explain``). Phases, one or more lines each:
      plain run, the second run a cache hit without recovery (attempts,
      each capture's seconds, peak memory); and ``python -m repro_torch
      bench-batch --queries 32 --scale 20`` as a subprocess that must exit
-     0 (``chiprun_out/bench_batch.json``); the planner: every program
+     0 (``chiprun_out/bench_batch.json``); the multi-device phase
+     (:func:`dist_phase`): ``python -m repro_torch.launch.jobs`` as a
+     subprocess, W=4 ranks of one gloo group sharing the card
+     (``Engine(backend="dist")``, host mode; NCCL, one card a rank, too
+     when there are 4 cards) at scale 20 — ``wcc:basic``,
+     ``sv:composed``, ``sssp:basic``, ``pagerank:scatter``; ``wcc:switch``,
+     ``sv:composed``, ``sssp:basic`` on the ``degree`` partition mirrored
+     at 8 and unmirrored; Q=8 batches of ``sssp:basic`` and
+     ``pj:reqresp`` — each held bit for bit to one process's host run at
+     W=4 on the card (state, outputs, supersteps, halts, bytes and msgs
+     per channel and per lane, and each kernel's launches on every rank),
+     with the oracles; transport, walls and ms a superstep on both
+     backends, collectives, peak memory per rank
+     (``chiprun_out/dist_gloo.log``); the planner: every program
      planned on its scale-20 partition (the five batched ones also at
      Q=32) with a probe cache in a temporary directory, each plan on the
      kernels and the bucket route, a second planner on the warm cache
@@ -186,6 +199,7 @@ raises: the script exits non-zero and prints no result. Details go to
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -2158,6 +2172,166 @@ def profile_runs(jobs, out_dir: Path) -> dict:
     return out
 
 
+DIST_WORLD = 4  # ranks of the multi-device phase (W of its runs)
+DIST_QUERIES = 8
+
+
+def dist_transport_start(transport: str):
+    """Start ``python -m repro_torch.launch.jobs`` as a subprocess: W=4
+    ranks of one ``transport`` group at scale 20 run the multi-device job
+    set (``jobs.default_jobs``) in host mode, ``Engine(backend="dist")``;
+    rank 0's summaries and every rank's agreement go to a pickle under
+    ``build/``. Returns what :func:`dist_transport_finish` takes."""
+    import os
+
+    path = ROOT / "build" / f"dist_{transport}.pkl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    log = open(ROOT / "build" / f"dist_{transport}.log", "w")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.jobs", "--out", str(path),
+         "--world", str(DIST_WORLD), "--scale", str(FULL_SCALE),
+         "--queries", str(DIST_QUERIES), "--transport", transport,
+         "--timeout", "120"], cwd=ROOT, env=env, stdout=log,
+        stderr=subprocess.STDOUT)
+    return transport, proc, path, log, time.perf_counter()
+
+
+def dist_transport_finish(started, out_dir: Path, timeout_s: int) -> dict:
+    """Wait for a started group (killed past ``timeout_s`` from its
+    start); it must exit 0. Returns its pickle and its wall."""
+    import pickle
+
+    transport, proc, path, log, t0 = started
+    try:
+        rc = proc.wait(timeout=max(1.0, timeout_s - (time.perf_counter()
+                                                     - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    wall = time.perf_counter() - t0
+    log.close()
+    text = Path(log.name).read_text()
+    (out_dir / f"dist_{transport}.log").write_text(text)
+    check(rc == 0, f"the {transport} group exited {rc}: {text[-3000:]}")
+    with open(path, "rb") as f:
+        got = pickle.load(f)
+    path.unlink()
+    return dict(got, wall_s=wall)
+
+
+def dist_phase(out_dir: Path, smi: str) -> dict:
+    """The multi-device phase: ``Engine(backend="dist")``, one worker a
+    process, W=4 ranks on the card at scale 20 over gloo (and over NCCL,
+    one card a rank, when there are 4 cards). Each job — ``wcc:basic``,
+    ``sv:composed``, ``sssp:basic`` and ``pagerank:scatter``; ``wcc:switch``,
+    ``sv:composed`` and ``sssp:basic`` on the ``degree`` partition mirrored
+    at 8 and unmirrored; batched ``sssp:basic`` and ``pj:reqresp`` at
+    Q=8 — is held bit for bit to a single-process ``Engine(mode="host")``
+    run at W=4 on the same card and partition (outputs, final state,
+    supersteps, halts, bytes and messages per channel and per lane, each
+    kernel's launches on every rank against the local wrappers' count),
+    every rank agreeing with rank 0; the four `random`-partition solo
+    outputs meet their oracles and each mirrored output equals its
+    unmirrored twin. The ranks partition their graphs while this process
+    partitions its own; the local runs wait until the ranks are done, so
+    no two runs share the card. A gloo group of ranks that share one card
+    is a correctness run, not a scaling number."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import jobs as J
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    started = dist_transport_start("gloo")
+    jobs = J.default_jobs(FULL_SCALE, DIST_QUERIES, DIST_WORLD)
+    problems = J.Problems()
+    for job in jobs:  # the host half, beside the ranks'
+        problems.tables(job)
+    runs = {"gloo": dist_transport_finish(started, out_dir, 600)}
+    if cards >= DIST_WORLD:
+        runs["nccl"] = dist_transport_finish(
+            dist_transport_start("nccl"), out_dir, 600)
+    check([j.name for j in runs["gloo"]["jobs"]] == [j.name for j in jobs],
+          "the ranks ran another job list")
+    dev = torch.device("cuda")
+    rows, outputs = {}, {}
+    for i, job in enumerate(jobs):
+        local = J.run_job(job, dev, problems=problems)
+        outputs[job] = local["output"]
+        if job.partitioner == "random":
+            J.check_oracle(job, local, dev, problems)
+        elif job.mirror_threshold is None:
+            twin = dataclasses.replace(job, mirror_threshold=8)
+            check(np.array_equal(np.asarray(outputs[twin]),
+                                 np.asarray(local["output"])),
+                  f"{twin.name}: mirrored output differs from unmirrored")
+        row = dict(steps=local["steps"], local_wall_s=local["wall_s"],
+                   local_ms_per_step=local["ms_per_step"],
+                   local_peak_bytes=local["peak_bytes"],
+                   launches=local["launches"])
+        for transport, run in runs.items():
+            check(all(not d[i] for d in run["agree"]),
+                  f"{job.name}: the {transport} ranks disagree: "
+                  f"{[d[i] for d in run['agree']]}")
+            got = run["ranks"][0][i]
+            diff = J.differences(got, local)
+            check(not diff, f"{job.name} on a {transport} group differs "
+                  f"from the local run in {diff}")
+            walls = [r[i]["wall_s"] for r in run["ranks"]]
+            row[transport] = dict(
+                wall_s=walls, ms_per_step=1e3 * max(walls) / got["steps"],
+                peak_bytes=[r[i]["peak_bytes"] for r in run["ranks"]],
+                collectives=got["collectives"],
+                collective_bytes=got["collective_bytes"])
+        check(sum(local["launches"].values()) > 0,
+              f"{job.name}: no kernel launched")
+        rows[job.name] = row
+    return dict(rows=rows, cards=cards, smi=smi, world=DIST_WORLD,
+                transports={t: dict(seconds=r["seconds"], wall_s=r["wall_s"])
+                            for t, r in runs.items()},
+                nccl_not_run=None if "nccl" in runs else
+                f"{cards} card(s), NCCL takes one a rank",
+                seconds=time.perf_counter() - t0)
+
+
+def dist_lines(d: dict) -> list:
+    """The phase's printed lines: transports, device count, each job's
+    walls and ms a superstep on both backends, peak memory per rank."""
+    gb = 1 / 2**30
+    head = (f"[4/5] multi-device phase: W={d['world']} ranks, scale "
+            f"{FULL_SCALE}, Engine(backend=\"dist\", mode=\"host\") "
+            f"against one process's Engine(mode=\"host\") at W="
+            f"{d['world']}, bit for bit with the same launches on every "
+            f"rank | {d['smi']} | torch.cuda.device_count() {d['cards']} | "
+            + "; ".join(f"{t}: ranks' spawn {v['seconds']:.1f} s, "
+                        f"subprocess {v['wall_s']:.1f} s"
+                        for t, v in d["transports"].items())
+            + (f"; nccl: not run ({d['nccl_not_run']})"
+               if d["nccl_not_run"] else "")
+            + f" | phase {d['seconds']:.1f} s (the gloo walls: {d['world']}"
+            f" ranks sharing one card, a correctness run, not a scaling "
+            f"number)")
+    lines = [head]
+    for name, r in d["rows"].items():
+        parts = [f"{name}: {r['steps']} supersteps, local wall "
+                 f"{1e3 * r['local_wall_s']:.1f} ms ("
+                 f"{r['local_ms_per_step']:.2f} ms a superstep, peak "
+                 f"{gb * r['local_peak_bytes']:.2f} GiB)"]
+        for t in d["transports"]:
+            x = r[t]
+            parts.append(
+                f"{t} wall (slowest rank) {1e3 * max(x['wall_s']):.1f} ms "
+                f"({x['ms_per_step']:.2f} ms a superstep, "
+                f"{x['collectives']} collectives, "
+                f"{x['collective_bytes'] / 2**20:.1f} MiB sent a rank, peak "
+                f"per rank {'/'.join(f'{gb * p:.2f}' for p in x['peak_bytes'])}"
+                f" GiB)")
+        lines.append("[4/5]   " + "; ".join(parts) + f" | {d['smi']}")
+    return lines
+
+
 def main() -> int:
     import os
 
@@ -3422,6 +3596,13 @@ def main() -> int:
               f"{c} {g:.2f}x" for c, g in bb["geomean_speedup"].items())
           + f" ({bb['wall_s']:.1f} s)", flush=True)
 
+    # the multi-device phase: Engine(backend="dist"), W=4 ranks on the
+    # card, each job bit for bit against one process's host run
+    dist = dist_phase(out_dir, smi)
+    detail["dist"] = dist
+    for line in dist_lines(dist):
+        print(line, flush=True)
+
     # the planner at full size (planner_phase)
     plan_jobs = {}
     for key in device_keys:
@@ -3782,6 +3963,15 @@ def main() -> int:
         "host"]["launches"]["segment_combine"]
     for kern, paths in plan_launches.items():
         new_launches[kern].update(paths)
+    # the multi-device phase: each rank launches what the local run's
+    # wrappers count (checked there); the column counts every rank
+    dist_lanes = {}
+    for jname, r in dist["rows"].items():
+        for kern, n in r["launches"].items():
+            if n:
+                key = f"{jname} on {DIST_WORLD} ranks ({n} each)"
+                (dist_lanes if kern == "bucket_ranks_lanes"
+                 else new_launches[kern])[key] = n * DIST_WORLD
     kernels = [
         dict(name="bucket_ranks", route="cuda",
              source="src/repro_torch/kernels/csrc/bucket_route.cu",
@@ -3819,8 +4009,10 @@ def main() -> int:
              replaces="src/repro/kernels/bucket_route.py:128",
              launches=(b_launches["bucket_ranks_lanes"]
                        + esc["reach:basic batched"]["launches"][
-                           "bucket_ranks_lanes"] + plan_lanes),
+                           "bucket_ranks_lanes"] + plan_lanes
+                       + sum(dist_lanes.values())),
              launches_by_path={
+                 **dist_lanes,
                  "reach:basic batched escalated": esc[
                      "reach:basic batched"]["launches"][
                      "bucket_ranks_lanes"],

@@ -52,7 +52,7 @@ def direct_request_respond(
       payload's own width).
     Returns (resp (W, R[, D]), overflow (W,)).
     """
-    w, n_loc = ctx.num_workers, ctx.n_loc
+    w, n_loc = ctx.rows, ctx.n_loc
     squeeze = respond_vals.dim() == 2
     rv = respond_vals[..., None] if squeeze else respond_vals
     d = rv.shape[-1]
@@ -121,12 +121,13 @@ def pj_converge(ctx: ChannelContext, parents: torch.Tensor,
     package's ``while_loop`` carries it. Returns (roots, rounds): rounds
     a Python int in host mode, a 0-d int32 tensor in the device modes.
     """
-    w, n_loc = ctx.num_workers, ctx.n_loc
+    n_loc = ctx.n_loc
 
     def body(carry):
         p, _, rounds, nb, nm = carry
-        tmp = ChannelContext(w, n_loc, ctx.device,
-                             device_loop=ctx.device_loop)
+        tmp = ChannelContext(ctx.num_workers, n_loc, ctx.device,
+                             device_loop=ctx.device_loop,
+                             workers=ctx.workers)
         if use_reqresp:
             grand, _ = rr.request(tmp, p, mask, p, capacity=n_loc, name="x")
         else:
@@ -134,9 +135,9 @@ def pj_converge(ctx: ChannelContext, parents: torch.Tensor,
                                               wire_width=wire_width)
         newp = torch.where(mask, grand, p)
         nb, nm = _sum_traffic(tmp, nb, nm)
-        return newp, (newp != p).any(), rounds + 1, nb, nm
+        return newp, ctx.workers.any(newp != p), rounds + 1, nb, nm
 
-    nb = torch.zeros(w, dtype=TRAFFIC_DTYPE, device=ctx.device)
+    nb = torch.zeros(ctx.rows, dtype=TRAFFIC_DTYPE, device=ctx.device)
     p, _, rounds, nb, nm = inner_loop(
         ctx, lambda c: c[1] & (c[2] < max_iters), body,
         (parents, True, 0, nb, torch.zeros_like(nb)))
@@ -164,14 +165,16 @@ def cm_propagate(ctx: ChannelContext, raw_edges, init: torch.Tensor,
     returns its rounds.
     """
     comb = cb.get(combiner_name)
-    w, n_loc = ctx.num_workers, ctx.n_loc
+    n_loc = ctx.n_loc
     upd = update or (lambda lab, inc, got: comb.fn(lab, inc))
     src = raw_edges.src_local.long()
 
     def body(carry):
         lab, active, _, iters, nb, nm = carry
-        tmp = ChannelContext(w, n_loc, ctx.device, route_cap=ctx.route_cap,
-                             device_loop=ctx.device_loop)
+        tmp = ChannelContext(ctx.num_workers, n_loc, ctx.device,
+                             route_cap=ctx.route_cap,
+                             device_loop=ctx.device_loop,
+                             workers=ctx.workers)
         valid = raw_edges.mask & active.gather(1, src)
         inc, got, _ = msg.combined_send(
             tmp, raw_edges.dst_global, valid, lab.gather(1, src), comb,
@@ -179,9 +182,9 @@ def cm_propagate(ctx: ChannelContext, raw_edges, init: torch.Tensor,
         new = upd(lab, inc, got)
         active = new != lab
         nb, nm = _sum_traffic(tmp, nb, nm)
-        return new, active, active.any(), iters + 1, nb, nm
+        return new, active, ctx.workers.any(active), iters + 1, nb, nm
 
-    nb = torch.zeros(w, dtype=TRAFFIC_DTYPE, device=ctx.device)
+    nb = torch.zeros(ctx.rows, dtype=TRAFFIC_DTYPE, device=ctx.device)
     lab, _, _, iters, nb, nm = inner_loop(
         ctx, lambda c: c[2] & (c[3] < max_iters), body,
         (init, active0, True, 0, nb, torch.zeros_like(nb)))

@@ -135,7 +135,7 @@ def program(variant: str = "channels", *,
 
     def init(pg):
         assert pg.n < (1 << 24), "ids must be exact in float32"
-        w = pg.num_workers
+        w = pg.rows
         return {
             "L": pg.global_ids(),
             "msf_w": torch.zeros(w, dtype=torch.float32, device=pg.device),

@@ -63,7 +63,7 @@ def program(variant: str = "scatter", *, iters: int = 30,
         pr = state["pr"]
         deg = torch.clamp(gs.deg_out, min=1).to(torch.float32)
         contrib = torch.where(gs.deg_out > 0, pr / deg, 0.0)
-        overflow = torch.zeros(ctx.num_workers, dtype=torch.bool,
+        overflow = torch.zeros(ctx.rows, dtype=torch.bool,
                                device=gs.device)
         if variant == "scatter":
             incoming = sc.broadcast_combine(
@@ -104,7 +104,7 @@ def _personal(*, iters: int, damping: float, source: int,
         src_new = int(pg.new_of_old[src_old])
         e = (pg.global_ids() == src_new) & pg.v_mask
         return {"pr": e.to(torch.float32),
-                "src": torch.full((pg.num_workers,), src_new,
+                "src": torch.full((pg.rows,), src_new,
                                   dtype=torch.int32, device=pg.device)}
 
     def init(pg):

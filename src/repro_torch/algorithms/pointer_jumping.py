@@ -30,13 +30,13 @@ VARIANTS = ("basic", "reqresp")
 
 def parents_to_local(pg: PartitionedGraph,
                      parents_old: np.ndarray) -> torch.Tensor:
-    """(n,) old-id parent array -> (W, n_loc) int32 in new-id space; pad
-    slots point to themselves."""
+    """(n,) old-id parent array -> (W, n_loc) int32 in new-id space (the
+    rows ``pg`` holds); pad slots point to themselves."""
     new = pg.new_of_old
     flat = np.arange(pg.n_pad, dtype=np.int64)
     flat[new] = new[parents_old]
     return torch.as_tensor(
-        flat.reshape(pg.num_workers, pg.n_loc).astype(np.int32),
+        pg.mine(flat.reshape(pg.num_workers, pg.n_loc).astype(np.int32)),
         device=pg.device)
 
 

@@ -92,9 +92,9 @@ def program(variant: str = "prop", *, max_steps: int = 500) -> VertexProgram:
     def init(pg):
         return {
             "alive": pg.v_mask.clone(),
-            "scc": torch.full((pg.num_workers, pg.n_loc), -1,
+            "scc": torch.full((pg.rows, pg.n_loc), -1,
                               dtype=torch.int32, device=pg.device),
-            "iters": torch.zeros(pg.num_workers, dtype=torch.int32,
+            "iters": torch.zeros(pg.rows, dtype=torch.int32,
                                  device=pg.device),
         }
 

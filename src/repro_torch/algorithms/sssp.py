@@ -68,7 +68,7 @@ def program(variant: str = "basic", *, source: int = 0,
         def query_init(pg, src_old):
             _check_nonnegative_weights(pg)
             return {"dist": dist0_of(pg, src_old)[0],
-                    "info": torch.zeros((pg.num_workers, 2),
+                    "info": torch.zeros((pg.rows, 2),
                                         dtype=torch.int32, device=pg.device)}
 
         def init(pg):

@@ -141,7 +141,7 @@ def program(variant: str = "both", *,
         """min over the neighbours' vals, via the selected channel."""
         if use_sc:
             t = sc.broadcast_combine(ctx, gs.scatter_out, vals, "min")
-            return t, torch.zeros(ctx.num_workers, dtype=torch.bool,
+            return t, torch.zeros(ctx.rows, dtype=torch.bool,
                                   device=ctx.device)
         raw = gs.raw_out
         per_edge = vals.gather(1, raw.src_local.long())

@@ -54,7 +54,7 @@ def program(variant: str = "prop", *, max_steps: int = 10_000,
         def init(pg):
             return {
                 "lab": torch.where(pg.v_mask, pg.global_ids(), INF32),
-                "info": torch.zeros((pg.num_workers, 2), dtype=torch.int32,
+                "info": torch.zeros((pg.rows, 2), dtype=torch.int32,
                                     device=pg.device),
             }
 

@@ -3,8 +3,9 @@ every vertex next superstep; traffic is accounted like the paper does
 (one value per worker toward the master, broadcast back).
 
 The port of ``repro.core.aggregator``: the local reduce runs over each
-worker's vertex axis and the cross-worker collective is a reduction over
-dim 0, broadcast back to every worker. Under the batched query plane the
+worker's vertex axis and the cross-worker collective is the workers
+layer's reduction (``repro_torch.distributed.workers``), broadcast back
+to every worker. Under the batched query plane the
 values carry Q after W and each lane reduces alone.
 
 Every batched lane must equal its solo run bit for bit, so a reduction
@@ -13,7 +14,7 @@ whose result depends on the order of its combines (a float ``sum`` or
 local reduce is a pairwise tree over the vertex axis (elementwise ops
 only, the same ones in a solo run, which is the Q=1 case of the same
 code) and the workers fold in index order
-(``Combiner.reduce_workers``). A library reduction would
+(``ctx.workers.reduce``, on both backends). A library reduction would
 pick its own strategy from the tensor's shape and could round a lane
 differently than its solo run.
 """
@@ -119,7 +120,7 @@ def aggregate(
             valid = valid[:, None]
         mask = valid.reshape(valid.shape + (1,) * (values.dim() - valid.dim()))
         values = torch.where(mask, values, combiner.ident_for(values.dtype))
-    out = combiner.reduce_workers(_local(values, dim, combiner))
+    out = ctx.workers.reduce(_local(values, dim, combiner), combiner)
     per = values.element_size()
     for size in values.shape[dim + 1:]:
         per *= int(size)
@@ -135,9 +136,11 @@ def aggregate(
 
 
 def all_halted(ctx: ChannelContext, local_halt) -> torch.Tensor:
-    """Voting-to-halt: a 0-d bool, true iff every worker votes halt
-    (``local_halt`` is a (W,) vote or one scalar vote for all). Under the
-    batched query plane the votes are (W, Q) and the result is (Q,), one
-    verdict per query lane."""
+    """Voting-to-halt: a 0-d bool, true iff every worker of this
+    process votes halt (``local_halt`` is a (W,) vote or one scalar vote
+    for all). Under the batched query plane the votes are (W, Q) and the
+    result is (Q,), one verdict per query lane. On a rank of a group it
+    is the rank's own vote; the host loop ANDs the ranks' votes in its
+    one readback a superstep (``runtime._readback``)."""
     votes = on_device(local_halt, ctx.device, torch.bool)
     return votes.expand(ctx.stat_shape).all(dim=0)

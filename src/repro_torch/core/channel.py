@@ -8,6 +8,12 @@ and the per-channel traffic statistics: logical bytes and message counts
 that cross worker boundaries, one int32 counter per worker (stat leaves
 of shape ``(W,)``, as the JAX package's ``vmap`` surfaces them).
 
+On a rank of a ``torch.distributed`` group (``Engine(backend="dist")``)
+the leading dim holds that one worker's row: ``ChannelContext.rows`` is
+1 while ``num_workers`` stays W, the peer count of every exchange, and
+the context's ``workers`` layer (``repro_torch.distributed.workers``)
+turns each cross-worker step into a collective.
+
 Per-step counters are ``TRAFFIC_DTYPE`` (int32) on the device and wrap
 like the JAX ones; the host-driven loop accumulates them across
 supersteps in Python ints and raises ``TrafficWrapError`` on a negative
@@ -31,6 +37,8 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.distributed import workers as workers_lib
 
 TRAFFIC_DTYPE = torch.int32
 
@@ -210,8 +218,17 @@ class ChannelContext:
     # the device (a CUDA graph on the card), and its inner loops
     # (inner_loop) run there too
     device_loop: Optional[DeviceLoopHooks] = None
+    # the cross-worker operations (repro_torch.distributed.workers): all
+    # W workers in this process (None: LocalWorkers), or one a rank of a
+    # torch.distributed group
+    workers: Any = None
 
     def __post_init__(self):
+        self.workers = workers_lib.resolve(self.workers, self.num_workers)
+        if self.workers.size != self.num_workers:
+            raise ValueError(
+                f"a context of {self.num_workers} workers over a workers "
+                f"layer of {self.workers.size}")
         if self.registry is not None:
             for n in self.registry.names:
                 self.stats_bytes.setdefault(n, self._zeros())
@@ -224,11 +241,19 @@ class ChannelContext:
         return self.num_queries is not None
 
     @property
+    def rows(self) -> int:
+        """The leading dim of every tensor of the step: W when all
+        workers run in this process, 1 on a rank of a group. The peer
+        count (every exchange buffer's second dim) stays
+        ``num_workers``."""
+        return self.workers.rows
+
+    @property
     def stat_shape(self) -> Tuple[int, ...]:
-        """``(W,)``, or ``(W, Q)`` under the batched query plane."""
+        """``(rows,)``, or ``(rows, Q)`` under the batched query plane."""
         if self.batched:
-            return (self.num_workers, self.num_queries)
-        return (self.num_workers,)
+            return (self.rows, self.num_queries)
+        return (self.rows,)
 
     def _zeros(self, dtype=TRAFFIC_DTYPE) -> torch.Tensor:
         return torch.zeros(self.stat_shape, dtype=dtype, device=self.device)
@@ -237,8 +262,9 @@ class ChannelContext:
         return on_device(x, self.device, dtype).expand(self.stat_shape)
 
     def me(self) -> torch.Tensor:
-        """(W,) worker index — the port of ``axis_index``."""
-        return torch.arange(self.num_workers, device=self.device)
+        """(rows,) worker index of each row — the port of
+        ``axis_index``."""
+        return self.workers.me(self.device)
 
     def query_index(self) -> torch.Tensor:
         """(Q,) lane index — what the JAX package's per-lane

@@ -27,6 +27,7 @@ import math
 import torch
 
 from repro_torch.core import segmented
+from repro_torch.distributed import workers
 
 _SCATTER_REDUCE = {"min": "amin", "max": "amax", "or": "amax",
                    "prod": "prod"}
@@ -160,24 +161,11 @@ class Combiner:
         return out
 
     def reduce_workers(self, x: torch.Tensor) -> torch.Tensor:
-        """Cross-worker reduction over dim 0 (the W axis), broadcast back
-        to every worker — the port of ``psum``/``pmin``/``pmax``. ``sum``,
-        ``prod`` and ``min_by_first`` fold the workers in index order, as
-        the JAX ``psum_like`` folds its ``all_gather`` for the last two:
-        elementwise ops, so each trailing entry rounds the same whatever
-        the other dims hold (a batched lane as its solo run)."""
-        if self.name == "min":
-            red = x.amin(0, keepdim=True)
-        elif self.name == "max":
-            red = x.amax(0, keepdim=True)
-        elif self.name == "or":
-            red = x.any(0, keepdim=True)
-        else:
-            red = x[0]
-            for i in range(1, x.shape[0]):
-                red = self.fn(red, x[i])
-            red = red[None]
-        return red.expand_as(x)
+        """Cross-worker reduction over dim 0 of all W workers' rows,
+        broadcast back to every worker — ``LocalWorkers.reduce``
+        (``repro_torch.distributed.workers``, which holds the fold order
+        both backends share)."""
+        return workers.LocalWorkers(x.shape[0]).reduce(x, self)
 
 
 SUM = Combiner("sum", 0.0)

@@ -34,6 +34,7 @@ import torch
 from repro_torch.configs import knobs
 from repro_torch.core import message as msg
 from repro_torch.core import request_respond as rr
+from repro_torch.core.combiners import SUM
 from repro_torch.core.channel import (TRAFFIC_DTYPE, ChannelContext,
                                       key_under, on_device)
 from repro_torch.core.routing import exchange
@@ -73,7 +74,8 @@ def child_context(ctx: ChannelContext, prefix: str = "") -> ChannelContext:
         ctx.num_workers, ctx.n_loc, ctx.device, cap_scales=ctx.cap_scales,
         name_prefix=ctx.full_name(prefix) if prefix else ctx.name_prefix,
         route_cap=ctx.route_cap, num_queries=ctx.num_queries,
-        query_live=ctx.query_live, device_loop=ctx.device_loop)
+        query_live=ctx.query_live, device_loop=ctx.device_loop,
+        workers=ctx.workers)
 
 
 def merge_child(ctx: ChannelContext, child: ChannelContext, prefix: str = "",
@@ -232,10 +234,12 @@ def fused_exchange(ctx: ChannelContext,
             groups.setdefault(leaf.dtype, []).append((pi, key, leaf))
 
     recv: List[Dict[str, torch.Tensor]] = [{} for _ in parts]
+    w = ctx.num_workers
     for items in groups.values():
-        w = items[0][2].shape[0]
-        cols = [leaf.reshape(w, w, -1) for _, _, leaf in items]
-        back = exchange(torch.cat(cols, dim=2) if len(cols) > 1 else cols[0])
+        rows = items[0][2].shape[0]
+        cols = [leaf.reshape(rows, w, -1) for _, _, leaf in items]
+        back = exchange(ctx, torch.cat(cols, dim=2) if len(cols) > 1
+                        else cols[0])
         off = 0
         for (pi, key, leaf), col in zip(items, cols):
             width = col.shape[2]
@@ -258,11 +262,15 @@ def global_fraction(ctx: ChannelContext, local_count,
                     local_total) -> torch.Tensor:
     """Worker-uniform fraction ``sum(count) / sum(total)``: a float32
     ``(W,)`` tensor, the same value on every worker (the port of the
-    ``psum`` pair). Counts are per worker, ``(W,)``."""
-    num = on_device(local_count, ctx.device, torch.float32).sum()
-    den = on_device(local_total, ctx.device, torch.float32).sum()
+    ``psum`` pair). Counts are per worker, ``(W,)`` (``(1,)`` on a rank of
+    a group); the workers layer sums them in index order on both
+    backends."""
+    both = torch.stack([
+        on_device(x, ctx.device, torch.float32).expand(ctx.rows)
+        for x in (local_count, local_total)], dim=-1)
+    num, den = ctx.workers.reduce(both, SUM)[0].unbind(-1)
     frac = num / torch.clamp(den, min=1.0)
-    return frac.expand(ctx.num_workers)
+    return frac.expand(ctx.rows)
 
 
 def _select(flag: torch.Tensor, a, b):
@@ -339,7 +347,7 @@ def density_adaptive_combine(
 
     def dense(sub):
         out = sc.broadcast_combine(sub, plan, dense_vals, combiner)
-        return out, torch.zeros(ctx.num_workers, dtype=torch.bool,
+        return out, torch.zeros(ctx.rows, dtype=torch.bool,
                                 device=ctx.device)
 
     def sparse(sub):

@@ -64,7 +64,7 @@ def _delivery(ctx: ChannelContext, routed: routing.Routed,
             for k, x in (routed.payload or {}).items()}
     ids = routed.ids.reshape(lead + (w * c,))
     mask = routed.mask.reshape(lead + (w * c,))
-    base = (ctx.me() * ctx.n_loc).reshape((w,) + (1,) * len(lead))
+    base = (ctx.me() * ctx.n_loc).reshape((ctx.rows,) + (1,) * len(lead))
     dst_local = torch.where(mask, ids - base, ctx.n_loc).to(torch.int32)
     return Delivery(dst_local=dst_local, payload=flat, mask=mask,
                     overflow=routed.overflow)
@@ -167,6 +167,7 @@ def _combined_send_union(ctx, dst, valid, v, combiner, capacity,
     A lane's union rank dominates its solo rank, so ``overflow`` is a
     superset of the solo overflow, never a silent drop."""
     W, n_loc, q = ctx.num_workers, ctx.n_loc, ctx.num_queries
+    R = ctx.rows  # the rows this process holds (W, or 1 on a rank)
     n_total = W * n_loc
     m, d = v.shape[2], v.shape[3]
     c = capacity
@@ -182,16 +183,16 @@ def _combined_send_union(ctx, dst, valid, v, combiner, capacity,
     # is column u * Q + l of a (W, u_cap * Q) grid (dump column u_cap * Q)
     # (in place: at scale these are (W, Q·M) int64 index tensors)
     lane_seg = pos.gather(1, torch.clamp(
-        dst_l.reshape(W, q * m).long(), 0, n_total - 1)).long()
-    lane_seg.view(W, q, m).mul_(q).add_(ctx.query_index()[None, :, None])
-    lane_seg.masked_fill_(~valid_l.reshape(W, q * m), u_cap * q)
+        dst_l.reshape(R, q * m).long(), 0, n_total - 1)).long()
+    lane_seg.view(R, q, m).mul_(q).add_(ctx.query_index()[None, :, None])
+    lane_seg.masked_fill_(~valid_l.reshape(R, q * m), u_cap * q)
     u_vals = combiner.segment_reduce(
-        v.reshape(W, q * m, d), lane_seg, u_cap * q).reshape(W, u_cap, q, d)
+        v.reshape(R, q * m, d), lane_seg, u_cap * q).reshape(R, u_cap, q, d)
     # (dump column u_cap * Q, padded so that rows stay 16-byte aligned for
     # the route kernel, which reads the rows in place)
-    lanes = torch.zeros((W, u_cap * q + 16), dtype=torch.bool,
+    lanes = torch.zeros((R, u_cap * q + 16), dtype=torch.bool,
                         device=v.device).scatter_(1, lane_seg, True)
-    lanes = lanes[:, :u_cap * q].reshape(W, u_cap, q)  # (W, u_cap, Q)
+    lanes = lanes[:, :u_cap * q].reshape(R, u_cap, q)  # (W, u_cap, Q)
 
     # ---- ONE bucket-route pass over the union unique list ----
     owner = torch.clamp(u_dst // n_loc, 0, W - 1)
@@ -203,27 +204,27 @@ def _combined_send_union(ctx, dst, valid, v, combiner, capacity,
     overflow = (lanes & ~fits[..., None]).any(dim=1)  # (W, Q)
     sent_l = torch.clamp(lane_counts, max=c)  # (W, W_dst, Q)
     me = ctx.me()
-    remote = (sent_l.sum(dim=1) - sent_l[me, me]).to(TRAFFIC_DTYPE)
+    remote = (sent_l.sum(dim=1) - ctx.workers.own(sent_l)).to(TRAFFIC_DTYPE)
 
     # ---- pack + exchange: ids, lane membership, lane values ----
-    recv_ids = routing.exchange(
-        routing.pack(slot, u_dst, W * c, routing.BIG).reshape(W, W, c))
-    recv_has = routing.exchange(
-        routing.pack(slot, lanes, W * c, False).reshape(W, W, c, q))
+    recv_ids = routing.exchange(ctx, routing.pack(
+        slot, u_dst, W * c, routing.BIG).reshape(R, W, c))
+    recv_has = routing.exchange(ctx, routing.pack(
+        slot, lanes, W * c, False).reshape(R, W, c, q))
     # a lane that does not send an entry holds the identity there (an
     # empty segment), so the values need no membership mask
-    recv_v = routing.exchange(
-        routing.pack(slot, u_vals, W * c, ident).reshape(W, W, c, q, d))
+    recv_v = routing.exchange(ctx, routing.pack(
+        slot, u_vals, W * c, ident).reshape(R, W, c, q, d))
 
     # ---- receiver-side per-lane combine: one segment pass over Q·D ----
-    flat_ids = recv_ids.reshape(W, W * c)
+    flat_ids = recv_ids.reshape(R, W * c)
     dst_local = torch.where(flat_ids != routing.BIG,
                             flat_ids - (me * n_loc)[:, None],
                             n_loc).to(torch.int32)
-    out = combiner.segment_reduce(recv_v.reshape(W, W * c, q * d),
+    out = combiner.segment_reduce(recv_v.reshape(R, W * c, q * d),
                                   dst_local, n_loc)
-    out = out.reshape(W, n_loc, q, d).permute(0, 2, 1, 3)
-    got = cb.SUM.segment_reduce(recv_has.reshape(W, W * c, q).to(torch.int32),
+    out = out.reshape(R, n_loc, q, d).permute(0, 2, 1, 3)
+    got = cb.SUM.segment_reduce(recv_has.reshape(R, W * c, q).to(torch.int32),
                                 dst_local, n_loc) > 0
     return out, got.transpose(1, 2), overflow, remote
 

@@ -96,11 +96,12 @@ def propagate(
     combiner = cb.get(combiner)
     q = ctx.num_queries if ctx.batched else None
     lanes = q or 1
+    rows = ctx.rows  # the rows this process holds (W, or 1 on a rank)
     squeeze = init_vals.dim() == (3 if q else 2)
     lab = init_vals[..., None] if squeeze else init_vals
     d, dtype = lab.shape[-1], lab.dtype
     if q:  # (W, Q, n_loc, D) -> the lanes as columns, (W, n_loc, Q·D)
-        lab = lab.permute(0, 2, 1, 3).reshape(lab.shape[0], -1, q * d)
+        lab = lab.permute(0, 2, 1, 3).reshape(rows, -1, q * d)
     dq = lanes * d
     ident = combiner.ident_for(dtype)
     cut = plan.cut
@@ -116,12 +117,12 @@ def propagate(
     int_src, edge_src, recv_order = (
         index(x) for x in (plan.int_src, cut.edge_src, cut.recv_order))
 
-    def per_lane(x, rows):  # (W, R, Q·D) -> (W, R, Q): any over D
-        return x.reshape(w, rows, lanes, d).any(dim=-1)
+    def per_lane(x, n):  # (W, n, Q·D) -> (W, n, Q): any over D
+        return x.reshape(rows, n, lanes, d).any(dim=-1)
 
     def cols(flags):  # (W, Q) lane flags -> a (W, 1, Q·D) column mask
-        return flags[:, None, :, None].expand(w, 1, lanes, d).reshape(
-            w, 1, dq)
+        return flags[:, None, :, None].expand(rows, 1, lanes, d).reshape(
+            rows, 1, dq)
 
     def changed_rows(new, old):  # (W, Q) any change per worker and lane
         return per_lane(new != old, n_loc).any(dim=1)
@@ -142,13 +143,15 @@ def propagate(
             iters = iters + active.to(torch.int32)
             return lab, active & changed & (iters < max_inner), iters
 
-        active = torch.full((w, lanes), max_inner > 0, dtype=torch.bool,
+        active = torch.full((rows, lanes), max_inner > 0, dtype=torch.bool,
                             device=dev)
         if going is not None:
             active = active & going
-        iters = torch.zeros(w, lanes, dtype=torch.int32, device=dev)
-        lab, _, iters = inner_loop(ctx, lambda c: c[1].any(), body,
-                                   (lab, active, iters))
+        iters = torch.zeros(rows, lanes, dtype=torch.int32, device=dev)
+        # "any worker still going": on a group every rank runs every
+        # iteration (a frozen worker keeps its carry), as the local loop
+        lab, _, iters = inner_loop(ctx, lambda c: ctx.workers.any(c[1]),
+                                   body, (lab, active, iters))
         return lab, iters
 
     # owner of each unique cut destination (W = padding)
@@ -164,12 +167,14 @@ def propagate(
 
     def cut_edge_vals(lab, prev_hub):
         base = srcv(lab)
-        changed_h = torch.zeros(w, lanes, dtype=TRAFFIC_DTYPE, device=dev)
+        changed_h = torch.zeros(rows, lanes, dtype=TRAFFIC_DTYPE,
+                                device=dev)
         mine = prev_hub
         if cut.hub_cap:
             mine = torch.where(exported[..., None], base.gather(1, hub_safe),
                                ident)  # (W, hub_cap, Q·D)
-            hubs = mine.reshape(1, -1, dq).expand(w, -1, dq)  # all_gather
+            hubs = ctx.workers.gather(mine).reshape(1, -1, dq).expand(
+                rows, -1, dq)  # all_gather
             base = torch.cat([base, hubs], dim=1)
             changed_h = (per_lane(mine != prev_hub, cut.hub_cap)
                          & exported[..., None]).sum(dim=1).to(TRAFFIC_DTYPE)
@@ -190,13 +195,15 @@ def propagate(
         u_vals = kops.segment_combine(pe, cut.edge_seg, cut.u_cap, combiner)
         remote_changed = (per_lane(u_vals != prev_u, cut.u_cap)
                           & remote_u).sum(dim=1).to(TRAFFIC_DTYPE)
-        recv = exchange(pack(cut.pack_slot, u_vals, w * c, ident).reshape(
-            w, w, c, dq)).reshape(w, w * c, dq)
+        recv = exchange(ctx, pack(cut.pack_slot, u_vals, w * c,
+                                  ident).reshape(rows, w, c, dq)).reshape(
+            rows, w * c, dq)
         inc = kops.segment_combine(recv.gather(1, recv_order),
                                    cut.recv_sorted, n_loc, combiner)
         new = upd(lab, inc)
         delta = remote_changed + changed_h * (w - 1)
-        changed = changed_rows(new, lab).any(dim=0)  # the psum, per lane
+        changed = ctx.workers.reduce(changed_rows(new, lab), cb.OR)[0]
+        # (the psum, per lane)
         return (new, u_vals, prev_hub_next, nbytes + delta * width,
                 nmsgs + delta, iters + it, rounds + 1,
                 changed if q else changed.any())
@@ -206,17 +213,18 @@ def propagate(
         # carry, as the vmapped while_loop selects it
         going = carry[7] & (carry[6] < max_outer)  # (Q,)
         new = round_(carry, going)
-        g_cols = cols(going.expand(w, q))
-        g_wq = going.expand(w, q)
+        g_cols = cols(going.expand(rows, q))
+        g_wq = going.expand(rows, q)
         keep = (g_cols, g_cols, g_cols, g_wq, g_wq, g_wq, going, going)
         return tuple(torch.where(g, a, b)
                      for g, a, b in zip(keep, new, carry))
 
-    prev_u = torch.full((w, cut.u_cap, dq), ident, dtype=dtype, device=dev)
-    prev_hub = torch.full((w, cut.hub_cap, dq), ident, dtype=dtype,
+    prev_u = torch.full((rows, cut.u_cap, dq), ident, dtype=dtype,
+                        device=dev)
+    prev_hub = torch.full((rows, cut.hub_cap, dq), ident, dtype=dtype,
                           device=dev)
-    nbytes = torch.zeros(w, lanes, dtype=TRAFFIC_DTYPE, device=dev)
-    iters = torch.zeros(w, lanes, dtype=torch.int32, device=dev)
+    nbytes = torch.zeros(rows, lanes, dtype=TRAFFIC_DTYPE, device=dev)
+    iters = torch.zeros(rows, lanes, dtype=torch.int32, device=dev)
     if q:
         # pad lanes and lanes that have halted start stopped: they run no
         # round and charge nothing
@@ -228,7 +236,8 @@ def propagate(
             ctx, lambda c: (c[7] & (c[6] < max_outer)).any(), lane_round,
             carry)
         ctx.add_traffic(name, nbytes, nmsgs)
-        lab = lab.reshape(w, n_loc, q, d).permute(0, 2, 1, 3).contiguous()
+        lab = lab.reshape(rows, n_loc, q, d).permute(0, 2, 1,
+                                                     3).contiguous()
         return (lab[..., 0] if squeeze else lab), rounds, iters
     lab, _, _, nbytes, nmsgs, iters, rounds, _ = inner_loop(
         ctx, lambda c: c[7] & (c[6] < max_outer), round_,

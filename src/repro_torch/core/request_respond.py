@@ -51,12 +51,13 @@ def _request_core(ctx: ChannelContext, dst, valid, rv, capacity):
     remote = routing.remote_count(ctx, routed.sent_count)
 
     # --- respond phase: positional values, no ids ---
-    base = (ctx.me() * n_loc).reshape((w,) + (1,) * (len(lead) + 1))
+    base = (ctx.me() * n_loc).reshape((ctx.rows,) + (1,) * (len(lead) + 1))
     lidx = torch.where(routed.mask, routed.ids - base, n_loc).clamp(0, n_loc)
     rv_pad = torch.cat([rv, rv.new_zeros(lead + (1, d))], dim=-2)
     resp = rv_pad.gather(-2, lidx.reshape(lead + (-1, 1)).long().expand(
         lead + (-1, d)))
-    back = routing.reply(routed, {"v": resp.reshape(routed.ids.shape + (d,))})
+    back = routing.reply(routed,
+                         {"v": resp.reshape(routed.ids.shape + (d,))}, ctx)
     back = back["v"]  # (W, [Q,] R, D), one row per unique destination
 
     # --- expand to all requests: each request gathers its unique row ---
@@ -76,6 +77,7 @@ def _request_union(ctx: ChannelContext, dst, valid, rv, capacity):
     whenever the union pass does not overflow (the overflow is
     conservative: union ranks dominate lane ranks)."""
     W, n_loc, q = ctx.num_workers, ctx.n_loc, ctx.num_queries
+    R = ctx.rows  # the rows this process holds (W, or 1 on a rank)
     n_total = W * n_loc
     r, d, c = dst.shape[-1], rv.shape[-1], capacity
     routing._check_slot_range(W, c)
@@ -86,17 +88,17 @@ def _request_union(ctx: ChannelContext, dst, valid, rv, capacity):
     u_cap = min(q * r, n_total)
     u_dst, pos = routing.union_dedup(dst_l, valid_l, n_total, u_cap)
     u_valid = u_dst != routing.BIG
-    seg_l = pos.gather(1, torch.clamp(dst_l.reshape(W, q * r).long(), 0,
-                                      n_total - 1)).long().view(W, q, r)
+    seg_l = pos.gather(1, torch.clamp(dst_l.reshape(R, q * r).long(), 0,
+                                      n_total - 1)).long().view(R, q, r)
     seg_l = torch.where(valid_l, seg_l, u_cap)  # (W, Q, R)
     # lane membership of each unique entry, one (u_cap, Q) matrix (the
     # dump column u_cap * Q, padded so that rows stay 16-byte aligned for
     # the route kernel, which reads them in place)
     col = seg_l * q + ctx.query_index()[None, :, None]
-    col = torch.where(valid_l, col, u_cap * q).reshape(W, q * r)
-    lanes = torch.zeros((W, u_cap * q + 16), dtype=torch.bool,
+    col = torch.where(valid_l, col, u_cap * q).reshape(R, q * r)
+    lanes = torch.zeros((R, u_cap * q + 16), dtype=torch.bool,
                         device=rv.device).scatter_(1, col, True)
-    lanes = lanes[:, :u_cap * q].reshape(W, u_cap, q)
+    lanes = lanes[:, :u_cap * q].reshape(R, u_cap, q)
 
     # ---- ONE route pass over the union unique list ----
     owner = torch.clamp(u_dst // n_loc, 0, W - 1)
@@ -107,29 +109,29 @@ def _request_union(ctx: ChannelContext, dst, valid, rv, capacity):
     overflow = (lanes & ~fits[..., None]).any(dim=1)  # (W, Q)
     sent_l = torch.clamp(lane_counts, max=c)  # (W, W_dst, Q)
     me = ctx.me()
-    remote = (sent_l.sum(dim=1) - sent_l[me, me]).to(TRAFFIC_DTYPE)
+    remote = (sent_l.sum(dim=1) - ctx.workers.own(sent_l)).to(TRAFFIC_DTYPE)
 
     # ---- request wire: the shared unique ids, one exchange ----
-    recv_ids = routing.exchange(
-        routing.pack(slot, u_dst, W * c, routing.BIG).reshape(W, W, c))
+    recv_ids = routing.exchange(ctx, routing.pack(
+        slot, u_dst, W * c, routing.BIG).reshape(R, W, c))
 
     # ---- respond wire: a positional (slots, Q, D) lane matrix ----
     lidx = torch.where(recv_ids != routing.BIG,
                        recv_ids - (me * n_loc)[:, None, None], n_loc)
-    rv_pad = torch.cat([rv, rv.new_zeros((W, q, 1, d))], dim=2)
-    resp = rv_pad.gather(2, lidx.reshape(W, 1, W * c, 1).long().expand(
-        W, q, W * c, d))  # (W_resp, Q, W_req * C, D)
+    rv_pad = torch.cat([rv, rv.new_zeros((R, q, 1, d))], dim=2)
+    resp = rv_pad.gather(2, lidx.reshape(R, 1, W * c, 1).long().expand(
+        R, q, W * c, d))  # (W_resp, Q, W_req * C, D)
     back = routing.exchange(
-        resp.reshape(W, q, W, c, d).permute(0, 2, 3, 1, 4))
-    flat = torch.cat([back.reshape(W, W * c, q, d),
-                      back.new_zeros((W, 1, q, d))], dim=1)
+        ctx, resp.reshape(R, q, W, c, d).permute(0, 2, 3, 1, 4))
+    flat = torch.cat([back.reshape(R, W * c, q, d),
+                      back.new_zeros((R, 1, q, d))], dim=1)
     back_u = flat.gather(1, slot.long()[..., None, None].expand(
-        W, u_cap, q, d))  # (W, u_cap, Q, D)
+        R, u_cap, q, d))  # (W, u_cap, Q, D)
 
     # ---- each lane gathers its own requests' unique rows ----
     idx_l = torch.clamp(seg_l, 0, max(u_cap - 1, 0))
     per_req = back_u.permute(0, 2, 1, 3).gather(
-        2, idx_l[..., None].expand(W, q, r, d))  # (W, Q, R, D)
+        2, idx_l[..., None].expand(R, q, r, d))  # (W, Q, R, D)
     out = torch.where(valid_l[..., None], per_req, 0)
     return out, overflow, remote
 

@@ -54,6 +54,7 @@ import torch
 
 from repro_torch.configs import knobs
 from repro_torch.core.channel import TRAFFIC_DTYPE
+from repro_torch.distributed.workers import LocalWorkers
 from repro_torch.kernels import ops as kops
 from repro_torch.pregel.errors import PlanRangeError
 
@@ -122,12 +123,16 @@ def pack(slot: torch.Tensor, leaf: torch.Tensor, width: int, fill):
                                                           width)
 
 
-def exchange(buf: torch.Tensor, peer_dim: int = 1) -> torch.Tensor:
-    """The tiled ``all_to_all``: worker q's block for peer p becomes
-    worker p's block from peer q — ``(W_src, W_dst, ...)`` to
+def exchange(ctx, buf: torch.Tensor, peer_dim: int = 1) -> torch.Tensor:
+    """The tiled ``all_to_all`` of ``ctx``'s workers layer (all workers
+    in this process when ``ctx`` is None): worker q's block for peer p
+    becomes worker p's block from peer q — ``(W_src, W_dst, ...)`` to
     ``(W_dst, W_src, ...)``; with a lane dim between them, ``(W_src, Q,
-    W_dst, ...)`` to ``(W_dst, Q, W_src, ...)`` (``peer_dim=2``)."""
-    return buf.transpose(0, peer_dim).contiguous()
+    W_dst, ...)`` to ``(W_dst, Q, W_src, ...)`` (``peer_dim=2``). On a
+    rank of a group the leading dim is the rank's one row."""
+    workers = (LocalWorkers(buf.shape[peer_dim]) if ctx is None
+               else ctx.workers)
+    return workers.exchange(buf, peer_dim)
 
 
 def route(
@@ -187,7 +192,7 @@ def route(
     def wire(leaf, fill):
         buf = pack(slot, leaf, W * c, fill)
         rest = tuple(buf.shape[peer + 1:])
-        return exchange(buf.reshape(lead + (W, c) + rest), peer)
+        return exchange(ctx, buf.reshape(lead + (W, c) + rest), peer)
 
     recv_ids = wire(ids, BIG)
     recv_payload = None
@@ -197,7 +202,7 @@ def route(
                   slot=slot, sent_count=sent_count, overflow=overflow)
 
 
-def reply(routed: Routed, resp: Dict[str, torch.Tensor]):
+def reply(routed: Routed, resp: Dict[str, torch.Tensor], ctx=None):
     """Send per-slot responses back positionally (no ids on the wire) and
     deliver them in the original message order.
 
@@ -206,6 +211,8 @@ def reply(routed: Routed, resp: Dict[str, torch.Tensor]):
       resp: dict of ``(W_resp, W_req, C, ...)`` responses aligned with
         ``routed.ids`` (``[p, q]`` answers the block that q sent to p);
         ``(W_resp, Q, W_req, C, ...)`` when the route had lanes.
+      ctx: the route's ChannelContext, whose workers layer runs the
+        exchange (None: all workers in this process).
     Returns:
       dict of ``(W, M, ...)`` (with lanes ``(W, Q, M, ...)``) responses
       in each requester's original message order; messages that were
@@ -214,7 +221,7 @@ def reply(routed: Routed, resp: Dict[str, torch.Tensor]):
     peer = routed.slot.dim() - 1
     out = {}
     for k, leaf in resp.items():
-        back = exchange(leaf, peer)  # [q, .., p] = p's answers to q's block
+        back = exchange(ctx, leaf, peer)  # [q, .., p] = p's answers to q's block
         lead, rest = tuple(back.shape[:peer]), tuple(back.shape[peer + 2:])
         flat = back.reshape(lead + (-1,) + rest)
         flat = torch.cat([flat, flat.new_zeros(lead + (1,) + rest)], dim=peer)
@@ -226,7 +233,7 @@ def reply(routed: Routed, resp: Dict[str, torch.Tensor]):
 def remote_count(ctx, sent_count: torch.Tensor) -> torch.Tensor:
     """(W,) wire messages that cross a worker boundary (exclude self);
     (W, Q) from a per-lane ``sent_count`` (W, Q, W)."""
-    own = sent_count.diagonal(dim1=0, dim2=-1).movedim(-1, 0)
+    own = ctx.workers.own(sent_count.movedim(-1, 1))
     return (sent_count.sum(dim=-1) - own).to(TRAFFIC_DTYPE)
 
 
@@ -395,6 +402,7 @@ def route_union(
                      exchange_payload=exchange_payload, use_kernel=use_kernel)
 
     # ---- one shared pass over the union frontier ----
+    rows = dst.shape[0]
     uvalid = valid_l.any(dim=1)  # (W, M)
     ids = torch.where(uvalid, dst.to(torch.int32), BIG)
     owner = torch.clamp(ids // n_loc, 0, W - 1)
@@ -409,10 +417,11 @@ def route_union(
     sent = torch.clamp(lane_counts, max=c).transpose(1, 2)  # (W, Q, W)
     slot_l = torch.where(valid_l & packed[:, None], slot[:, None], W * c)
 
-    recv_ids = exchange(pack(slot, ids, W * c, BIG).reshape(W, W, c))
+    recv_ids = exchange(ctx, pack(slot, ids, W * c, BIG).reshape(
+        rows, W, c))
     # per-lane wire membership rides as one (slots, Q) lane matrix
-    recv_mask = exchange(pack(slot, lanes, W * c, False).reshape(
-        W, W, c, q)).permute(0, 3, 1, 2)  # (W, Q, W_src, C)
+    recv_mask = exchange(ctx, pack(slot, lanes, W * c, False).reshape(
+        rows, W, c, q)).permute(0, 3, 1, 2)  # (W, Q, W_src, C)
     # a lane's ids view pads the slots it did not occupy (= serial view)
     out_ids = torch.where(recv_mask, recv_ids[:, None], BIG)
     recv_payload = None
@@ -423,7 +432,8 @@ def route_union(
             leaf_t = leaf.movedim(1, 2)  # (W, M, Q, ...)
             sel = lanes.reshape(lanes.shape + (1,) * len(rest))
             leaf_t = torch.where(sel, leaf_t, 0)  # the serial pack fill
-            buf = pack(slot, leaf_t, W * c, 0).reshape((W, W, c, q) + rest)
-            recv_payload[k] = exchange(buf).movedim(3, 1)
+            buf = pack(slot, leaf_t, W * c, 0).reshape((rows, W, c, q)
+                                                       + rest)
+            recv_payload[k] = exchange(ctx, buf).movedim(3, 1)
     return Routed(ids=out_ids, mask=recv_mask, payload=recv_payload,
                   slot=slot_l, sent_count=sent, overflow=overflow)

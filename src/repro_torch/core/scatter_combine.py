@@ -50,13 +50,14 @@ def plan_broadcast_combine(
     ``finish`` does the receive-side combine."""
     combiner = cb.get(combiner)
     w, c = ctx.num_workers, plan.slot_cap
+    rows = ctx.rows
     squeeze = vertex_vals.dim() == (3 if ctx.batched else 2)
     vals = vertex_vals[..., None] if squeeze else vertex_vals
     d = vals.shape[-1]  # the payload width of one lane
     lanes = ()
     if ctx.batched:  # the lanes as columns: (W, n_loc, Q·D)
         lanes = (vals.shape[1],)
-        vals = vals.movedim(1, 2).reshape(w, ctx.n_loc, -1)
+        vals = vals.movedim(1, 2).reshape(rows, ctx.n_loc, -1)
     cols = vals.shape[-1]
     ident = combiner.ident_for(vals.dtype)
 
@@ -64,7 +65,7 @@ def plan_broadcast_combine(
     # gather space with every worker's exported-hub values (index
     # n_loc + owner * hub_cap + hub_rank): the static all_gather of the
     # (hub_cap, D) hub tables, charged below under this channel.
-    mirror_msgs = torch.zeros(w, dtype=TRAFFIC_DTYPE, device=vals.device)
+    mirror_msgs = torch.zeros(rows, dtype=TRAFFIC_DTYPE, device=vals.device)
     if plan.hub_cap:
         exported = plan.hub_local < ctx.n_loc  # (W, hub_cap) real slots
         safe = torch.clamp(plan.hub_local.long(), max=ctx.n_loc - 1)
@@ -72,7 +73,8 @@ def plan_broadcast_combine(
             exported[..., None],
             vals.gather(1, safe[..., None].expand(-1, -1, cols)),
             ident)  # (W, hub_cap, Q·D)
-        hubs = mine.reshape(1, -1, cols).expand(w, -1, cols)  # all_gather
+        hubs = ctx.workers.gather(mine).reshape(1, -1, cols).expand(
+            rows, -1, cols)  # all_gather
         vals_ext = torch.cat([vals, hubs], dim=1)
         mirror_msgs = (exported.sum(dim=1) * (w - 1)).to(TRAFFIC_DTYPE)
     else:
@@ -89,21 +91,20 @@ def plan_broadcast_combine(
 
     # 3. positional pack (payload only — the routing is static)
     send = pack(plan.pack_slot, u_vals, w * c, ident).reshape(
-        (w, w, c) + lanes + (d,))
+        (rows, w, c) + lanes + (d,))
 
     # 4. (deferred) receive-side combine into dense per-vertex values
     def finish(recv):
-        flat = recv["v"].reshape(w, w * c, cols)
+        flat = recv["v"].reshape(rows, w * c, cols)
         order = plan.recv_order.long()[..., None].expand(-1, -1, cols)
         out = kops.segment_combine(flat.gather(1, order), plan.recv_sorted,
                                    ctx.n_loc, combiner, use_kernel=use_kernel)
         if lanes:  # (W, n_loc, Q·D) -> (W, Q, n_loc, D)
-            out = out.reshape((w, ctx.n_loc) + lanes + (d,)).movedim(2, 1)
+            out = out.reshape((rows, ctx.n_loc) + lanes + (d,)).movedim(2, 1)
         return out[..., 0] if squeeze else out
 
-    me = ctx.me()
-    remote = (plan.send_count.sum(dim=1) - plan.send_count[me, me]).to(
-        TRAFFIC_DTYPE)
+    remote = (plan.send_count.sum(dim=1)
+              - ctx.workers.own(plan.send_count)).to(TRAFFIC_DTYPE)
     remote = remote + mirror_msgs  # hub broadcast crosses (W-1) boundaries
     if lanes:  # each live lane sends the plan's messages
         remote = torch.where(lane_live(ctx), remote[:, None], 0).to(

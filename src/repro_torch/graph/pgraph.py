@@ -142,19 +142,34 @@ class PartitionedGraph:
     # partition-derived per-peer capacity bound for edge-derived routed
     # sends (see ChannelContext.edge_capacity; 0 = unknown)
     route_cap: int = 0
+    # None: every worker's row of every table (the local backend); an
+    # index: this process holds that one worker's row (a rank of a group,
+    # Engine(backend="dist")), every table (1, ...) and every static
+    # global
+    worker: Optional[int] = None
+
+    @property
+    def rows(self) -> int:
+        """The leading dim of every table: W, or 1 for one worker's
+        graph."""
+        return self.num_workers if self.worker is None else 1
 
     @property
     def n_pad(self) -> int:
         return self.num_workers * self.n_loc
 
+    def mine(self, x):
+        """``x`` (W, ...) cut to the rows this graph holds."""
+        return x if self.worker is None else x[self.worker:self.worker + 1]
+
     def to_local(self, per_vertex_np) -> torch.Tensor:
         """(n,) old-id host array -> (W, n_loc) device tensor in new-id
-        space."""
+        space ((1, n_loc) for one worker's graph)."""
         arr = np.asarray(per_vertex_np)
         out = np.zeros((self.n_pad,) + arr.shape[1:], dtype=arr.dtype)
         out[self.new_of_old] = arr
-        return _tensor(
-            out.reshape((self.num_workers, self.n_loc) + arr.shape[1:]),
+        return _tensor(self.mine(
+            out.reshape((self.num_workers, self.n_loc) + arr.shape[1:])),
             self.device)
 
     def to_global(self, per_local: torch.Tensor) -> np.ndarray:
@@ -164,10 +179,11 @@ class PartitionedGraph:
         return flat[self.new_of_old]
 
     def global_ids(self) -> torch.Tensor:
-        """(W, n_loc) int32 new-space global id of every slot."""
-        return torch.arange(self.n_pad, dtype=torch.int32,
-                            device=self.device).reshape(
-                                self.num_workers, self.n_loc)
+        """(W, n_loc) int32 new-space global id of every slot (the rows
+        this graph holds)."""
+        return self.mine(torch.arange(self.n_pad, dtype=torch.int32,
+                                       device=self.device).reshape(
+                                           self.num_workers, self.n_loc))
 
 
 # ---------------------------------------------------------------------------
@@ -441,8 +457,23 @@ _FROM_ARRAYS = {"scatter": _scatter_from_arrays, "prop": _prop_from_arrays,
                 "raw": _raw_from_arrays}
 
 
+def _row_of(tables, worker: int):
+    """Every per-worker table of ``tables`` (nested plan dicts included)
+    cut to row ``worker``, as a (1, ...) array."""
+    out = {}
+    for k, v in tables.items():
+        if isinstance(v, dict):
+            out[k] = _row_of(v, worker)
+        elif v is None:
+            out[k] = None
+        else:
+            out[k] = np.asarray(v)[worker:worker + 1]
+    return out
+
+
 def from_arrays(tables: Dict[str, Any], statics: Dict[str, Any],
-                device=None) -> PartitionedGraph:
+                device=None, worker: Optional[int] = None
+                ) -> PartitionedGraph:
     """Build the port's graph from host arrays — the port's own plans, or
     the JAX package's ``PartitionedGraph`` leaves handed over as numpy
     (the tests feed both packages the identical plan this way).
@@ -457,8 +488,16 @@ def from_arrays(tables: Dict[str, Any], statics: Dict[str, Any],
         dict of its static ints (a PropPlan's cut ones nested under
         ``"cut"``).
       device: target device (None = CUDA; raises without it).
+      worker: None for every worker's rows (the local backend), or the
+        index of the one worker whose rows go to ``device`` (a rank of a
+        group): every table becomes ``(1, ...)``, the statics stay global.
     """
     device = resolve_device(device)
+    if worker is not None:
+        if not 0 <= worker < int(statics["num_workers"]):
+            raise ValueError(f"worker {worker} of a graph of "
+                             f"{statics['num_workers']} workers")
+        tables = _row_of(tables, worker)
     plans = {}
     for p in PLANS:
         if tables.get(p) is None:
@@ -478,6 +517,7 @@ def from_arrays(tables: Dict[str, Any], statics: Dict[str, Any],
         new_of_old=np.asarray(statics["new_of_old"]),
         device=device,
         route_cap=int(statics["route_cap"]),
+        worker=worker,
     )
 
 
@@ -549,6 +589,7 @@ def partition_graph(
     align: int = 8,
     mirror_threshold=None,
     device=None,
+    worker: Optional[int] = None,
 ) -> PartitionedGraph:
     """Partition + relabel a graph, precompute the requested plans on the
     host and move them to ``device`` once (None = CUDA; raises without
@@ -560,8 +601,10 @@ def partition_graph(
     plans — ``None`` (off),
     an int degree threshold, or ``"auto"`` (see the JAX package's
     ``partition_graph``).
+    worker: None, or the one worker whose rows go to ``device`` (a rank
+    of ``Engine(backend="dist")``; see :func:`from_arrays`).
     """
     device = resolve_device(device)
     tables, statics = partition_tables(
         g, n_workers, partitioner, seed, build, align, mirror_threshold)
-    return from_arrays(tables, statics, device)
+    return from_arrays(tables, statics, device, worker=worker)

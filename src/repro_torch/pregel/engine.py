@@ -68,6 +68,22 @@ Resilience, as in the JAX engine:
   - ``on_nonconverged``: ``None`` (``RunResult.converged`` only),
     ``"warn"`` or ``"raise"`` (``NonConvergenceError``) when a run spends
     its ``max_steps`` without a unanimous halt vote.
+
+Backends (``repro_torch.distributed.workers``): ``"local"`` (the
+default; the JAX engine's ``"vmap"``) runs all W workers in this process,
+W the leading dim of every tensor; ``"dist"`` (the JAX ``"shard_map"``)
+runs one worker a process of a ``torch.distributed`` group of size W
+(``group=``, the world group by default), each rank on a graph that
+holds its own worker's rows (``pgraph.partition_graph(...,
+worker=rank)``), every cross-worker operation a collective of the group,
+bit-identical to ``"local"``. Every rank calls the same entry point with
+the same arguments and gets the whole result: state and outputs of every
+worker, and the group's bytes and messages. ``"dist"`` runs the host
+mode, solo (:meth:`Engine.run`) and batched (:meth:`Engine.run_batch`),
+and its mode defaults to ``"host"``; it refuses the device modes and
+checkpoints (ROADMAP item 8.2), :meth:`Engine.serve` (8.3) and
+``plan="auto"`` (8.4). ``repro_torch.launch.workers.spawn`` starts the
+ranks.
 """
 from __future__ import annotations
 
@@ -80,6 +96,7 @@ import torch
 
 from repro_torch.core import compose, routing
 from repro_torch.device import resolve_device
+from repro_torch.distributed import workers as workers_lib
 from repro_torch.graph.pgraph import PartitionedGraph
 from repro_torch.plan import features, planner as planning
 from repro_torch.pregel import checkpoint as ckpt_io
@@ -113,7 +130,12 @@ class Engine:
       channel-capacity scales (a channel's full name or ``"*"`` to a
       factor); max_retries: the escalations a run may take.
     on_nonconverged: ``None``, ``"warn"`` or ``"raise"``.
+    backend: ``"local"`` (all W workers in this process) or ``"dist"``
+      (one worker a rank of ``group``, a ``torch.distributed``
+      ``ProcessGroup``; None = the world group), host mode only.
     """
+
+    BACKENDS = ("local", "dist")
 
     def __init__(self, mode: Optional[str] = None, device=None,
                  plan: Any = "manual", on_overflow: str = "raise",
@@ -122,9 +144,19 @@ class Engine:
                  on_nonconverged: Optional[str] = None,
                  cap_scales: Optional[Dict[str, float]] = None,
                  max_retries: int = 8,
-                 dense_threshold: Optional[float] = None):
+                 dense_threshold: Optional[float] = None,
+                 backend: str = "local", group=None):
         if mode is not None and mode not in runtime.MODES:
             raise ValueError(f"unknown execution mode {mode!r}")
+        if backend not in self.BACKENDS:
+            raise ValueError(f"unknown backend {backend!r} (one of "
+                             f"{self.BACKENDS})")
+        if backend == "dist":
+            _refuse_on_group(mode, plan)
+            mode = "host" if mode is None else mode
+        elif group is not None:
+            raise ValueError('group= needs backend="dist"')
+        self.backend = backend
         if not (plan in ("manual", "auto")
                 or isinstance(plan, planning.Plan)):
             raise ValueError(
@@ -167,6 +199,8 @@ class Engine:
         self._cache: Dict[Tuple, runtime.DeviceLoop] = {}
         self.compiles = 0
         self.cache_hits = 0
+        self.workers = (workers_lib.GroupWorkers(group)
+                        if backend == "dist" else None)
 
     @property
     def cache_size(self) -> int:
@@ -249,6 +283,23 @@ class Engine:
         if pg.device.type != self.device.type:
             raise ValueError(
                 f"graph lives on {pg.device}, engine runs on {self.device}")
+        if self.workers is None:
+            if pg.worker is not None:
+                raise ValueError(
+                    f"graph holds worker {pg.worker}'s rows only: the "
+                    'local backend runs every worker (backend="dist" runs '
+                    "one a rank)")
+            return
+        if self.workers.size != pg.num_workers:
+            raise ValueError(
+                f"dist backend needs one worker per rank of the group: "
+                f"graph has W={pg.num_workers}, group size "
+                f"{self.workers.size}")
+        if pg.worker != self.workers.rank:
+            raise ValueError(
+                f"rank {self.workers.rank} of the group runs worker "
+                f"{self.workers.rank}: build its graph with worker="
+                f"{self.workers.rank}, not {pg.worker}")
 
     # -- resilience: capacity-scale escalation -------------------------------
 
@@ -355,7 +406,7 @@ class Engine:
         on a miss; and whether it was a hit. A key starts (program,
         ``id(pg)``, sorted capacity scales, ...); the loop holds its
         graph, so ``id(pg)`` names one live graph object."""
-        key = key + plan.key()
+        key = key + (self.backend,) + plan.key()
         loop = self._cache.get(key)
         if loop is not None:
             self.cache_hits += 1
@@ -403,6 +454,12 @@ class Engine:
         loop the engine has cached (no new capture). Both need
         ``mode="chunked"``. Under ``on_overflow="escalate"`` an overflow
         escalates and replays (``RunResult.recovery``)."""
+        if (checkpoint_every is not None or resume is not None) \
+                and self.backend == "dist":
+            raise ValueError(
+                'checkpoint/resume on backend="dist": checkpoints are taken '
+                "on the chunked device loop, which a group does not run yet "
+                "(ROADMAP item 8.2)")
         ms, co = self._limits(prog, max_steps, check_overflow)
         self._check_device(pg)
         plan = self.resolve_plan(prog, pg)
@@ -453,7 +510,8 @@ class Engine:
             knobs.pop("route_batch")
             res = runtime.run_supersteps(
                 pg, prog.step, state0, max_steps=ms, check_overflow=co,
-                channels=prog.channels, cap_scales=scales, **knobs)
+                channels=prog.channels, cap_scales=scales,
+                workers=self.workers, **knobs)
         else:
             loop, hit = self._loop(
                 (prog, id(pg), tuple(sorted(scales.items())), ms, co), plan,
@@ -467,6 +525,7 @@ class Engine:
                 checkpoint_cb=checkpoint_cb, resume=resume), loop, hit)
         res.program = prog.name
         res.plan = plan
+        res.backend = self.backend
         res.output = prog.extract(pg, res.state)
         return res
 
@@ -526,7 +585,8 @@ class Engine:
         if plan.mode == "host":
             res = runtime.run_batched_supersteps(
                 pg, prog.step, state0, q, max_steps=ms, check_overflow=co,
-                channels=prog.channels, cap_scales=scales, **knobs)
+                channels=prog.channels, cap_scales=scales,
+                workers=self.workers, **knobs)
         else:
             loop, hit = self._loop(
                 (prog, id(pg), tuple(sorted(scales.items())), ms, co,
@@ -539,6 +599,7 @@ class Engine:
             res = self._stamp(loop.execute(state0, q), loop, hit)
         res.program = prog.name
         res.plan = plan
+        res.backend = self.backend
         res.outputs = [
             prog.extract(pg, {k: v[:, qi] for k, v in res.state.items()})
             for qi in range(q)]
@@ -578,6 +639,11 @@ class Engine:
             raise ValueError(
                 f"unknown on_fault {on_fault!r} "
                 "(one of ('quarantine', 'raise'))")
+        if self.backend == "dist":
+            raise ValueError(
+                'Engine.serve on backend="dist": the serving substrate is '
+                "the chunked device loop, which a group does not run yet "
+                "(ROADMAP item 8.3)")
         return self._serve(prog, pg, requests, num_lanes, chunk_size,
                            max_steps, check_overflow, faults, on_fault)
 
@@ -618,6 +684,24 @@ class Engine:
         res.route_batch = plan.route_batch
         res.plan = plan
         return self._stamp(res, loop, hit)
+
+
+def _refuse_on_group(mode: Optional[str], plan: Any) -> None:
+    """What ``backend="dist"`` does not run in this slice, each refusal
+    naming the ROADMAP item that will lift it."""
+    given = plan.mode if isinstance(plan, planning.Plan) else None
+    for m in (mode, given):
+        if m in ("fused", "chunked"):
+            raise ValueError(
+                f'backend="dist" runs mode="host" only, not {m!r}: the '
+                "device loops need NCCL inside captured CUDA graphs and "
+                "their conditional nodes, one card a rank (ROADMAP item "
+                "8.2)")
+    if plan == "auto":
+        raise ValueError(
+            'backend="dist" with plan="auto": one plan must be decided on '
+            "rank 0 and broadcast to the group (ROADMAP item 8.4); give "
+            'the knobs or a Plan with mode="host"')
 
 
 class ManyResults(List[runtime.RunResult]):

@@ -42,6 +42,15 @@ capture raises; nothing falls back to the eager loop.
 Voting-to-halt: the step returns per-worker halt votes; the runtime ANDs
 them (``aggregator.all_halted``).
 
+The host loops also run on a group (``workers``, a
+``repro_torch.distributed.workers.GroupWorkers``; ``Engine(backend=
+"dist")``): one worker a rank, the graph and state holding that worker's
+rows, every cross-worker step a collective of the group, and the one
+readback a superstep an ``all_gather`` of each rank's row, so every rank
+sums the same totals and takes the same halt, overflow and wrap
+verdicts; the final state is gathered to ``(W, ...)`` on every rank. The
+device modes run all W workers in one process.
+
 Batched query plane (under ``Engine.run_batch``): one loop advances Q
 query instances per superstep, state leaves ``(W, Q, n_loc, ...)``.
 Halting is per query: a ``(Q,)`` halted mask lives on the device, a lane
@@ -94,6 +103,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.core import aggregator, compose, routing
 from repro_torch.core.channel import (ChannelContext, ChannelRegistry,
                                       DeviceLoopHooks, on_device, store)
+from repro_torch.distributed import workers as workers_lib
 from repro_torch.graph.pgraph import PartitionedGraph
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import graph_if, scratch
@@ -162,6 +172,9 @@ class RunResult:
     # the superstep of the checkpoint a chunked run resumed from (0: it
     # ran from the start)
     resumed_from: int = 0
+    # the engine's backend: "local" (every worker in this process) or
+    # "dist" (one worker a rank of a torch.distributed group)
+    backend: str = "local"
 
     @property
     def total_bytes(self) -> int:
@@ -207,22 +220,51 @@ def _stamp_knobs(res: "RunResult", knobs: Dict[str, Any],
     return res
 
 
-def _readback(halt_all, overflow, nbytes, nmsgs, novf):
-    """One device-to-host copy of everything the loop reads per step.
-    Returns (halt, overflow, {key: bytes}, {key: msgs}, {key: ovf})."""
+def _readback(workers, halt_all, overflow, nbytes, nmsgs, novf):
+    """One device-to-host copy of everything the loop reads per step —
+    on a rank of a group, one ``all_gather`` of the rank's flat int64
+    row, so every rank sums every worker's bytes and messages and sees
+    the same halt, overflow and wrap verdicts (the JAX ``shard_map``
+    psums its stats on the device for the same reason). Returns (halt,
+    overflow, {key: bytes}, {key: msgs}, {key: ovf})."""
     keys = sorted(nbytes)
     okeys = sorted(novf)
     parts = [halt_all.reshape(1), overflow.reshape(1)]
     parts += [nbytes[k] for k in keys] + [nmsgs[k] for k in keys]
     parts += [novf[k].any().reshape(1) for k in okeys]
-    flat = torch.cat([p.to(torch.int64) for p in parts]).cpu().numpy()
+    rows = workers.gather_host(
+        torch.cat([p.to(torch.int64) for p in parts])).numpy()
     w = nbytes[keys[0]].numel() if keys else 0
-    per = flat[2:2 + 2 * len(keys) * w].reshape(2, len(keys), w).sum(axis=2)
-    ovf = flat[2 + 2 * len(keys) * w:]
-    return (bool(flat[0]), bool(flat[1]),
+    per = rows[:, 2:2 + 2 * len(keys) * w].reshape(
+        rows.shape[0], 2, len(keys), w).sum(axis=(0, 3))
+    ovf = rows[:, 2 + 2 * len(keys) * w:].any(axis=0)
+    return (bool(rows[:, 0].all()), bool(rows[:, 1].any()),
             {k: int(per[0, i]) for i, k in enumerate(keys)},
             {k: int(per[1, i]) for i, k in enumerate(keys)},
             {k: bool(ovf[i]) for i, k in enumerate(okeys)})
+
+
+def _check_workers(graph: PartitionedGraph, workers):
+    """The workers layer of a host loop (None: all of ``graph``'s workers
+    in this process), checked against the rows ``graph`` holds."""
+    workers = workers_lib.resolve(workers, graph.num_workers)
+    if workers.size != graph.num_workers or workers.rows != graph.rows:
+        raise ValueError(
+            f"a graph of {graph.num_workers} workers holding {graph.rows} "
+            f"row(s) under a workers layer of {workers.size} workers and "
+            f"{workers.rows} row(s)")
+    if workers.distributed and graph.worker != workers.rank:
+        raise ValueError(f"rank {workers.rank} holds the rows of worker "
+                         f"{graph.worker}")
+    return workers
+
+
+def _gathered(workers, state):
+    """Every worker's rows of each state leaf, ``(W, ...)`` on every
+    rank (the state itself locally)."""
+    if not workers.distributed:
+        return state
+    return {k: workers.gather(v) for k, v in state.items()}
 
 
 # the fields of a graph that name it rather than shape it: they never
@@ -299,6 +341,7 @@ def run_supersteps(
     name: str = "",
     cap_scales: Optional[Dict[str, float]] = None,
     dense_threshold: Optional[float] = None,
+    workers: Any = None,
 ) -> RunResult:
     """Run ``step_fn(ctx, graph, state, step)`` to halt.
 
@@ -318,6 +361,11 @@ def run_supersteps(
     a channel's full name or the ``"*"`` wildcard to a factor).
     dense_threshold: the density-switch threshold the run is held under
     (None: :func:`resolve_knobs`).
+    workers: the cross-worker layer (``repro_torch.distributed.workers``):
+    None for all W workers in this process; a ``GroupWorkers`` runs one
+    worker a rank of its group (host mode only), ``graph`` holding that
+    worker's rows, and returns every worker's state ``(W, ...)`` on every
+    rank.
 
     A device mode builds its loop for this one call (warm-up and capture
     are ``compile_time_s``); hold an ``Engine`` to replay it across runs.
@@ -325,6 +373,10 @@ def run_supersteps(
     if mode not in MODES:
         raise ValueError(f"unknown execution mode {mode!r}")
     if mode != "host":
+        if workers is not None and workers.distributed:
+            raise ValueError(
+                f"mode={mode!r} on a group: the device loops run one "
+                "process's workers (ROADMAP item 8.2)")
         loop = DeviceLoop(graph, step_fn, state0, mode=mode,
                           max_steps=max_steps, check_overflow=check_overflow,
                           chunk_size=chunk_size, channels=channels,
@@ -337,6 +389,7 @@ def run_supersteps(
         res.compile_time_s = loop.compile_time_s
         return res
     registry = _registry(channels)
+    workers = _check_workers(graph, workers)
     W, n_loc = graph.num_workers, graph.n_loc
     bytes_acc: Dict[str, int] = {}
     msgs_acc: Dict[str, int] = {}
@@ -355,7 +408,8 @@ def run_supersteps(
             ts = time.perf_counter()
             ctx = ChannelContext(W, n_loc, graph.device, registry=registry,
                                  route_cap=graph.route_cap,
-                                 cap_scales=dict(cap_scales or {}))
+                                 cap_scales=dict(cap_scales or {}),
+                                 workers=workers)
             state, halt, overflow = _call_step(step_fn, ctx, graph, state,
                                                step)
             touched |= ctx.touched
@@ -364,7 +418,8 @@ def run_supersteps(
             nbytes, nmsgs = ctx.stats()
             t_enq = time.perf_counter()
             halt_now, ovf_now, db, dm, dovf = _readback(
-                halt_all, overflow_any, nbytes, nmsgs, ctx.stats_ovf)
+                workers, halt_all, overflow_any, nbytes, nmsgs,
+                ctx.stats_ovf)
             t_dev = time.perf_counter()
             for acc, delta in ((bytes_acc, db), (msgs_acc, dm)):
                 for k, d in delta.items():
@@ -386,7 +441,7 @@ def run_supersteps(
     if registry is not None and step >= 0:
         _check_declared(registry, touched)
     res = RunResult(
-        state=state,
+        state=_gathered(workers, state),
         steps=step + 1,
         halted=halted,
         bytes_by_channel=bytes_acc,
@@ -925,23 +980,26 @@ def _qmask(live: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     return live.reshape((1,) + live.shape + (1,) * (leaf.dim() - 2))
 
 
-def _readback_lanes(halted, overflow, nbytes, nmsgs, novf):
+def _readback_lanes(workers, halted, overflow, nbytes, nmsgs, novf):
     """One device-to-host copy of everything the batched loop reads per
     step: the (Q,) halt and overflow flags, the (W, Q) per-lane stats
     (summed over W on the host in int64) and the per-channel overflow
-    latches. Returns (halted, overflow, {key: bytes (Q,)}, {key: msgs
-    (Q,)}, {key: ovf (Q,)}) as numpy."""
+    latches — on a rank of a group one ``all_gather`` of the rank's row,
+    the halt flags ANDed and the rest ORed and summed over the ranks, as
+    :func:`_readback`. Returns (halted, overflow, {key: bytes (Q,)},
+    {key: msgs (Q,)}, {key: ovf (Q,)}) as numpy."""
     q = halted.numel()
     keys, okeys = sorted(nbytes), sorted(novf)
     parts = [halted, overflow] + [nbytes[k] for k in keys]
     parts += [nmsgs[k] for k in keys] + [novf[k].any(dim=0) for k in okeys]
-    flat = torch.cat([p.reshape(-1).to(torch.int64) for p in parts])
-    flat = flat.cpu().numpy()
+    rows = workers.gather_host(
+        torch.cat([p.reshape(-1).to(torch.int64) for p in parts])).numpy()
     off = 2 * q + 2 * sum(nbytes[k].numel() for k in keys)
     w = nbytes[keys[0]].shape[0] if keys else 0
-    per = flat[2 * q:off].reshape(2, len(keys), w, q).sum(axis=2)
-    ovf = flat[off:].reshape(len(okeys), q).astype(bool)
-    return (flat[:q].astype(bool), flat[q:2 * q].astype(bool),
+    n = rows.shape[0]
+    per = rows[:, 2 * q:off].reshape(n, 2, len(keys), w, q).sum(axis=(0, 3))
+    ovf = rows[:, off:].reshape(n, len(okeys), q).any(axis=0)
+    return (rows[:, :q].all(axis=0), rows[:, q:2 * q].any(axis=0),
             {k: per[0, i] for i, k in enumerate(keys)},
             {k: per[1, i] for i, k in enumerate(keys)},
             {k: ovf[i] for i, k in enumerate(okeys)})
@@ -1015,6 +1073,7 @@ def run_batched_supersteps(
     cap_scales: Optional[Dict[str, float]] = None,
     route_batch: Optional[str] = None,
     dense_threshold: Optional[float] = None,
+    workers: Any = None,
 ) -> RunResult:
     """Run Q query lanes of ``step_fn`` to halt in one host-driven loop.
 
@@ -1023,18 +1082,21 @@ def run_batched_supersteps(
     step sees a batched ``ChannelContext`` (``num_queries=Q``) and
     returns ``(new_state, halt[, overflow])`` with ``(W, Q)`` (or scalar)
     votes. Returns a RunResult with the per-query views of the real lanes.
-    ``dense_threshold`` as in :func:`run_supersteps`; ``route_batch``
-    says how the routed channels share the lanes' route passes.
+    ``dense_threshold`` and ``workers`` as in :func:`run_supersteps`;
+    ``route_batch`` says how the routed channels share the lanes' route
+    passes.
     """
+    workers = _check_workers(graph, workers)
     knobs = resolve_knobs(route_batch, dense_threshold)
     with knob_scope(knobs):
         res = _host_batched(graph, step_fn, state0, num_real_queries,
-                            max_steps, check_overflow, channels, cap_scales)
+                            max_steps, check_overflow, channels, cap_scales,
+                            workers)
     return _stamp_knobs(res, knobs, batched=True)
 
 
 def _host_batched(graph, step_fn, state0, num_real_queries, max_steps,
-                  check_overflow, channels, cap_scales) -> RunResult:
+                  check_overflow, channels, cap_scales, workers) -> RunResult:
     registry = _registry(channels)
     W, n_loc, dev = graph.num_workers, graph.n_loc, graph.device
     q = next(iter(state0.values())).shape[1]
@@ -1062,7 +1124,8 @@ def _host_batched(graph, step_fn, state0, num_real_queries, max_steps,
         ctx = ChannelContext(W, n_loc, dev, registry=registry,
                              route_cap=graph.route_cap, num_queries=q,
                              query_live=live,
-                             cap_scales=dict(cap_scales or {}))
+                             cap_scales=dict(cap_scales or {}),
+                             workers=workers)
         new_state, halt, overflow = _call_step(step_fn, ctx, graph, state,
                                                step)
         touched |= ctx.touched
@@ -1070,14 +1133,16 @@ def _host_batched(graph, step_fn, state0, num_real_queries, max_steps,
                  for k, v in new_state.items()}
         halted = halted | aggregator.all_halted(ctx, halt)
         ovf_q = torch.as_tensor(overflow, device=dev).to(torch.bool).expand(
-            W, q).any(dim=0) & live
+            workers.rows, q).any(dim=0) & live
         nbytes, nmsgs = ctx.stats()
         nbytes = {k: torch.where(live, v, 0) for k, v in nbytes.items()}
         nmsgs = {k: torch.where(live, v, 0) for k, v in nmsgs.items()}
         novf = {k: v & live for k, v in ctx.stats_ovf.items()}
         t_enq = time.perf_counter()
         halted_np, ovf_now, db, dm, dovf = _readback_lanes(
-            halted, ovf_q, nbytes, nmsgs, novf)
+            workers, halted, ovf_q, nbytes, nmsgs, novf)
+        if workers.distributed:  # the group's verdict, every lane
+            halted = torch.as_tensor(halted_np, device=dev)
         t_dev = time.perf_counter()
         step_times.append(t_dev - ts)
         steps = step + 1
@@ -1098,8 +1163,8 @@ def _host_batched(graph, step_fn, state0, num_real_queries, max_steps,
     if registry is not None and steps:
         _check_declared(registry, touched)
     return _batched_result(
-        state, steps, halted_np, overflow_np, q_bytes, q_msgs, steps_q,
-        q_real, mode="host", dispatches=steps,
+        _gathered(workers, state), steps, halted_np, overflow_np, q_bytes,
+        q_msgs, steps_q, q_real, mode="host", dispatches=steps,
         wall=time.perf_counter() - t0, step_times=step_times,
         overhead=overhead, check_overflow=check_overflow, ovf_by=q_ovf,
         wrapped=wrapped)

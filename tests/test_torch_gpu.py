@@ -1298,3 +1298,71 @@ def test_planned_runs_equal_hand_set_runs_on_the_card(cuda, mode, tmp_path,
         h.steps, h.bytes_by_channel, h.msgs_by_channel)
     if mode != "host":
         assert a.cache_hit and set(auto._cache) == set(hand._cache)
+
+
+# ---------------------------------------------------------------------------
+# Engine(backend="dist") on the card: four ranks share it over gloo
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_dist_gloo_probe_on_the_card(cuda):
+    """Every workers-layer operation on four gloo ranks that hold CUDA
+    tensors on one card, each rank's row bit for bit against
+    ``LocalWorkers`` on all rows on the same card (NaN payloads
+    included, which the card and the CPU make differently)."""
+    import test_torch_dist as ranks
+    from repro_torch.distributed.workers import LocalWorkers
+    from repro_torch.launch import workers as launch
+
+    w = 4
+    probes = launch.spawn(ranks.layer_probe, w, device="cuda", timeout_s=60,
+                          join_timeout_s=240)
+    inp = ranks.layer_inputs(w)
+    local = LocalWorkers(w)
+
+    def t(a):
+        return torch.from_numpy(a).to(cuda)
+
+    def same(got, want):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert got.tobytes() == want.tobytes()
+
+    for rank, got in enumerate(probes):
+        row = slice(rank, rank + 1)
+        same(got["me"], np.arange(w)[row])
+        for k, a in inp["exchange"].items():
+            same(got["exchange"][k],
+                 local.exchange(t(a)).cpu().numpy()[row])
+        for k, a in inp["exchange_lanes"].items():
+            same(got["exchange_lanes"][k],
+                 local.exchange(t(a), peer_dim=2).cpu().numpy()[row])
+        for (k, c), v in got["reduce"].items():
+            same(v, local.reduce(t(inp["reduce"][k]),
+                                 cb.get(c)).cpu().numpy()[row])
+        for k, a in inp["votes"].items():
+            assert got["any"][k] == bool(a.any())
+            assert got["all"][k] == bool(a.all())
+        same(got["gather"], inp["gather"])
+
+
+@pytest.mark.gpu
+def test_dist_programs_on_the_card_match_local(cuda):
+    """``wcc:basic`` and ``pagerank:scatter`` at scale 16 on four gloo
+    ranks of one card, bit for bit against the single-process host run on
+    the card, each kernel launched on each rank as often as the local
+    wrappers count."""
+    from repro_torch.launch import jobs as J
+    from repro_torch.launch import workers as launch
+
+    jobs = [J.Job("wcc:basic", 16), J.Job("pagerank:scatter", 16)]
+    per_rank = launch.spawn(J.rank_jobs, 4, jobs, device="cuda",
+                            timeout_s=60, join_timeout_s=400)
+    problems = J.Problems()
+    for i, job in enumerate(jobs):
+        local = J.run_job(job, cuda, problems=problems)
+        assert local["launches"]["bucket_ranks" if job.key.startswith("wcc")
+                                 else "segment_combine"] > 0
+        for rank, got in enumerate(per_rank):
+            assert J.differences(got[i], local) == [], (job.name, rank)
+        J.check_oracle(job, local, cuda, problems)
