@@ -39,7 +39,25 @@ repro_torch bench-batch``; and the channel planner (``Engine(plan=
 plan's knobs, the ``dense_threshold`` knob and ``python -m repro_torch
 plan --explain``). Phases, one or more lines each:
 
-  1. environment and kernel build;
+  1. environment and kernel build; then, on a card that holds nothing
+     else yet, the LM serving path (:func:`lm_phase`, lines ``[lm]``,
+     ``chiprun_out/lm_serve.json``): all ten registry smoke configs in
+     float32 (weights drawn on the CPU and moved to the card; the card's
+     forward within 1e-3 of the CPU's, prefill plus four decode steps
+     within 2e-3 of the full forward, greedy ``generate`` twice
+     bit-identical); ``qwen2-moe-a2.7b`` at full width, depth 2, float32
+     (the prefill's last logits equal the full forward's bit for bit at
+     capacity factor 1.25; at E/k, no drops, 8 decode steps within 2e-3
+     of the full forward); ``qwen2-moe-a2.7b`` at full width and depth in
+     bfloat16, weights drawn on the card, serving 4 requests of 512 prompt
+     tokens and 32 new tokens greedy twice (bit-identical) and sampled at
+     0.8 twice from one seed (identical), the prefill bit for bit against
+     the full forward, every logit finite, the pairs its MoE layers
+     dropped, prefill ms and decode ms a token at batch 1, 8 and 32 beside
+     their bounds, peak memory and init seconds; ``mamba2-130m`` at full
+     width in float32 (a 300-token prompt, 8 decode steps within 2e-3 of
+     the full forward). The LM path launches none of the three kernels
+     (wrapper and device counts checked);
   2. each kernel against its plain PyTorch version on the card, the two
      bucket kernels at the main path's full shapes on random, sorted,
      one-bucket, all-sentinel and out-of-range keys, and
@@ -92,7 +110,8 @@ plan --explain``). Phases, one or more lines each:
      ``chiprun_out/paper_tables_torch.json``); every lane of the batched
      runs bit-identical to its solo run, queries/s batched and solo, peak
      device memory; the same Q=32 batches in ``fused``, ``chunked`` K=64
-     and K=4 (the second, cached run each), bit-identical to the host run
+     (the second, cached run each) and K=4 (one run, the capture
+     included), bit-identical to the host run
      (outputs, per-query steps, halts, bytes, msgs, pad audit, state),
      ``bucket_ranks_lanes`` launching as often as the host run's wrappers
      count, as the kernel counts on the device, and a Q=20 batch (12 pad
@@ -112,10 +131,11 @@ plan --explain``). Phases, one or more lines each:
      in all four, ``bucket_ranks`` in ``scc:basic``); all 21 programs
      (the seven with inner loops among them, whose kernels then launch
      many times inside one graph launch) on those partitions in host
-     mode and in ``fused``, ``chunked`` K=64 and ``chunked`` K=4 (the
-     second, cached
-     run each), each bit-identical to host mode and launching each kernel
-     as often, as the kernels count their launches on the device: wall
+     mode and in ``fused`` and ``chunked`` K=64 (the second, cached run
+     each) and ``chunked`` K=4 (one run), each bit-identical to host mode
+     and launching each kernel as often, as the kernels count their
+     launches on the device (K=4: as the runtime counts its replays; the
+     device's count adds the warm-up step): wall
      time, capture time, dispatches, host overhead a superstep and peak
      memory of each; ``pagerank:personal`` from source 0 in host, fused,
      chunked K=64 and K=4 (bit-identical, oracle), then for it and for
@@ -189,7 +209,10 @@ plan --explain``). Phases, one or more lines each:
      Propagation programs and the fused ``pagerank:scatter``,
      ``wcc:basic`` and ``wcc:prop`` among them) under torch.profiler
      (device busy share, top kernels and aten ops;
-     ``chiprun_out/profile_*.txt``).
+     ``chiprun_out/profile_*.txt``); then the served LM's prefill and
+     its decode steps at batch 1 and 32 under torch.profiler
+     (:func:`lm_traced`: device time and device kernels a step against
+     the untraced ms, ``chiprun_out/profile_lm_*.txt``).
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -222,9 +245,12 @@ INT32_MAX, INT32_MIN = 2**31 - 1, -2**31
 LAUNCH_EVENTS = {"bucket_ranks": "::ranks_kernel<false>",
                  "bucket_ranks_lanes": "::ranks_kernel<true>",
                  "segment_combine": "::tile_kernel<"}
-# (label, mode, K) of the device-mode runs in phase 4
-MODE_RUNS = {"fused": ("fused", 64), "chunked64": ("chunked", 64),
-             "chunked4": ("chunked", 4)}
+# (label, mode, K, runs) of the device-mode runs in phase 4: fused and
+# chunked K=64 run twice (the second replays the cached loop and is
+# reported); chunked K=4 runs once, its capture inside its wall, which
+# keeps the script inside its time limit with the LM phase
+MODE_RUNS = {"fused": ("fused", 64, 2), "chunked64": ("chunked", 64, 2),
+             "chunked4": ("chunked", 4, 1)}
 # the programs whose fused run phase 5 profiles
 PROFILED_FUSED = ("pagerank:scatter", "wcc:basic", "wcc:prop")
 # the serving sessions of phase 4: lanes, and the serve chunks (4 forces
@@ -706,9 +732,18 @@ def on_device_launches(fn):
     return out, n
 
 
+def launches_match(on_device: dict, want: dict, runs: int) -> bool:
+    """A device-mode run's launches as the kernels count them on the
+    device against the host run's: equal for a replay (``runs`` 2), at
+    least as many for a first run, whose warm-up step launches too."""
+    if runs == 2:
+        return on_device == want
+    return all(on_device[n] >= c for n, c in want.items())
+
+
 def mode_runs(prog, pg):
-    """``prog`` on ``pg`` in host mode and in each of ``MODE_RUNS``, two
-    runs each, the second reported: wall ms of ``Engine.run`` (init and
+    """``prog`` on ``pg`` in host mode and in each of ``MODE_RUNS``, as
+    many runs as it says, the last reported: wall ms of ``Engine.run`` (init and
     extract included) and of the loop alone (``RunResult.wall_time_s``:
     from loading the state to the copy of the result), host overhead a
     superstep, dispatches, capture time and peak device memory (over both
@@ -718,17 +753,19 @@ def mode_runs(prog, pg):
     count, as the kernels count their launches on the device
     (:func:`on_device_launches`; a replayed graph launches its kernels
     without the wrappers), as must the counts the runtime adds for its
-    replays. Returns the rows and the fused engine, which keeps its
-    captured graph for the profiled run."""
+    replays. A mode run once (its first run builds the loop) launches the
+    warm-up step's kernels on the device as well: there the device's
+    count must be at least the host run's. Returns the rows and the fused
+    engine, which keeps its captured graph for the profiled run."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.pregel.engine import Engine
 
-    def two_runs(eng):
+    def two_runs(eng, runs=2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        first = eng.run(prog, pg)
+        first = eng.run(prog, pg) if runs == 2 else None
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         (res, ms), on_device = on_device_launches(
@@ -738,8 +775,8 @@ def mode_runs(prog, pg):
             loop_wall_ms=1e3 * res.wall_time_s,
             overhead_ms_per_step=1e3 * res.host_overhead_s
             / max(res.steps, 1),
-            capture_s=first.compile_time_s, launches=ops.launch_counts(),
-            launches_on_device=on_device,
+            capture_s=(res if first is None else first).compile_time_s,
+            launches=ops.launch_counts(), launches_on_device=on_device,
             peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
             step_ms=[1e3 * x for x in res.step_times_s])
         return res, row
@@ -750,20 +787,22 @@ def mode_runs(prog, pg):
           f"{rows['launches_on_device']} != the wrappers' {rows['launches']}")
     out = {"host": rows}
     fused = None
-    for label, (mode, k) in MODE_RUNS.items():
+    for label, (mode, k, runs) in MODE_RUNS.items():
         eng = Engine(mode=mode, chunk_size=k)
-        res, row = two_runs(eng)
+        res, row = two_runs(eng, runs)
         what = f"{prog.name} {label}"
-        check(res.cache_hit and res.mode == mode, f"{what}: not a replay")
+        check(res.cache_hit == (runs == 2) and res.mode == mode,
+              f"{what}: cache hit {res.cache_hit} in run {runs}")
         check((res.steps, res.halted) == (host.steps, host.halted)
               and res.bytes_by_channel == host.bytes_by_channel
               and res.msgs_by_channel == host.msgs_by_channel,
               f"{what}: counts differ from host mode")
         check(all(bits_equal(res.state[x], host.state[x])
                   for x in host.state), f"{what}: state differs from host")
-        check(row["launches_on_device"] == rows["launches"],
+        check(launches_match(row["launches_on_device"], rows["launches"],
+                             runs),
               f"{what}: launches on the device {row['launches_on_device']} "
-              f"!= host's {rows['launches']}")
+              f"against host's {rows['launches']} in run {runs}")
         check(row["launches"] == rows["launches"],
               f"{what}: counted launches {row['launches']} != host's "
               f"{rows['launches']}")
@@ -806,8 +845,9 @@ def same_batch(a, b) -> bool:
 
 def batch_mode_runs(prog, pg, queries, must_launch="bucket_ranks_lanes"):
     """``Engine.run_batch`` of ``queries`` in host mode (once: it builds
-    nothing) and in each of ``MODE_RUNS`` (twice, the second, a replay of
-    the cached loop, reported): run wall (``query_init`` and extract
+    nothing) and in each of ``MODE_RUNS`` (as often as it says, the last
+    run, a replay of the cached loop where there are two, reported): run
+    wall (``query_init`` and extract
     included), loop wall, host overhead a superstep, dispatches, capture
     time, queries/s and peak device memory. The host run must launch
     ``must_launch`` (the path's kernel: ``bucket_ranks_lanes`` for the
@@ -842,17 +882,21 @@ def batch_mode_runs(prog, pg, queries, must_launch="bucket_ranks_lanes"):
     check(row["launches_on_device"] == want,
           f"{prog.name} batched host: launches on the device "
           f"{row['launches_on_device']} != the wrappers' {want}")
-    for label, (mode, k) in MODE_RUNS.items():
+    for label, (mode, k, runs) in MODE_RUNS.items():
         eng = Engine(mode=mode, chunk_size=k)
         (first, (res, row)), gib = peak_of(
-            lambda: (eng.run_batch(prog, pg, queries), one(eng)))
+            lambda: (eng.run_batch(prog, pg, queries) if runs == 2
+                     else None, one(eng)))
+        first = res if first is None else first
         what = f"{prog.name} batched {label}"
-        check(res.cache_hit and res.mode == mode, f"{what}: not a replay")
+        check(res.cache_hit == (runs == 2) and res.mode == mode,
+              f"{what}: cache hit {res.cache_hit} in run {runs}")
         check(same_batch(res, host) and same_batch(first, host),
               f"{what}: differs from host mode")
         check(all(bits_equal(res.state[x], host.state[x])
                   for x in host.state), f"{what}: state differs from host")
-        check(row["launches_on_device"] == want and row["launches"] == want,
+        check(launches_match(row["launches_on_device"], want, runs)
+              and row["launches"] == want,
               f"{what}: launches {row['launches_on_device']} on the device, "
               f"{row['launches']} counted, != host's {want}")
         kk = max(1, min(k, prog.max_steps))
@@ -2332,6 +2376,456 @@ def dist_lines(d: dict) -> list:
     return lines
 
 
+# -- the LM serving path (models/, serve/decode) ------------------------------
+LM_ARCH = "qwen2-moe-a2.7b"  # the largest registry model one card holds whole
+LM_REQUESTS, LM_PROMPT, LM_NEW = 4, 512, 32  # the served run
+LM_SWEEP = (1, 8, 32)  # decode batch sizes timed
+LM_SWEEP_STEPS = 8  # timed decode steps a batch size (after one warm step)
+LM_CARD_TOL = 1e-3  # smoke forward: card against the CPU, same weights
+LM_DECODE_TOL = 2e-3  # decode against the full forward
+BF16_FLOP_S = 989e12  # H100 SXM dense bf16 (data sheet)
+
+
+def _moe_counter(dropped: list):
+    """An ``moe_impl`` that records the (token, choice) pairs each MoE
+    layer's capacity drops (0-d tensors, no host sync)."""
+    from repro_torch.models import layers
+
+    def moe(cfg, lp, x):
+        stats = {}
+        y = layers.moe_layer(cfg, lp, x, stats=stats)
+        dropped.append(stats["dropped"])
+        return y
+    return moe
+
+
+def _lm_close(got, want, tol, what):
+    import torch
+
+    err = float((got.float() - want.float()).abs().max())
+    try:
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    except AssertionError as e:
+        raise SmokeFailure(f"{what}: {e}") from None
+    return err
+
+
+def _decode_against_full(cfg, params, toks, s, dev, what, moe_impl=None):
+    """Prefill ``toks[:, :s]`` and decode the rest one token a step; each
+    step's logits within LM_DECODE_TOL of the full forward's. Returns the
+    largest error and the prefill's last logits."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import decode as D
+
+    b, total = toks.shape
+    full, _ = M.forward(cfg, params, {"tokens": toks}, moe_impl=moe_impl)
+    cache = M.init_cache(cfg, b, total, device=dev)
+    last, cache = D.make_prefill_step(cfg, moe_impl)(
+        params, {"tokens": toks[:, :s]}, cache)
+    step = D.make_decode_step(cfg, moe_impl)
+    err = 0.0
+    for pos in range(s, total):
+        _, logits, cache = step(params, cache, toks[:, pos:pos + 1], pos)
+        err = max(err, _lm_close(logits, full[:, pos], LM_DECODE_TOL,
+                                 f"{what} decode at {pos}"))
+    return err, last
+
+
+def lm_smoke_configs(dev) -> dict:
+    """Every registry smoke config, float32: one set of weights drawn on
+    the CPU and moved to the card; the card's forward against the CPU's,
+    prefill + 4 decode steps against the full forward, greedy generate
+    twice bit-identical."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M, params as Pm
+    from repro_torch.serve import decode as D
+
+    rows = {}
+    for i, (arch, spec) in enumerate(registry.ARCHS.items()):
+        cfg = spec.smoke
+        cpu_p = Pm.init_params(cfg, torch.Generator().manual_seed(i),
+                               device="cpu")
+        p = Pm.tree_map(lambda t: t.to(dev), cpu_p)
+        g = torch.Generator().manual_seed(100 + i)
+        toks = torch.randint(0, cfg.vocab, (2, 13), generator=g)
+        batch = {"tokens": toks}
+        if cfg.frontend == "audio_frames":
+            batch = {"embeds": 0.02 * torch.randn(2, 13, cfg.d_model,
+                                                  generator=g)}
+        elif cfg.frontend == "vision_patches":
+            batch["embeds"] = 0.02 * torch.randn(
+                2, cfg.frontend_tokens, cfg.d_model, generator=g)
+        want, _ = M.forward(cfg, cpu_p, batch)
+        got, _ = M.forward(cfg, p, {k: v.to(dev) for k, v in batch.items()})
+        card_err = _lm_close(got.cpu(), want, LM_CARD_TOL,
+                             f"{arch} smoke forward, card against CPU")
+        toks = toks.to(dev)
+        dec_err, _ = _decode_against_full(cfg, p, toks, 9, dev,
+                                          f"{arch} smoke")
+        a = D.generate(cfg, p, toks[:, :9], 8)
+        b = D.generate(cfg, p, toks[:, :9], 8)
+        check(torch.equal(a, b), f"{arch} smoke: greedy generate twice "
+                                 f"differs")
+        rows[arch] = dict(card_vs_cpu_err=card_err, decode_err=dec_err,
+                          tokens=a.tolist())
+    return rows
+
+
+def lm_full_width_depth2(dev) -> dict:
+    """qwen2-moe-a2.7b at full width, 2 of its 24 layers, float32: the
+    prefill's last logits equal the full forward's bit for bit (the same
+    tokens through the same capacity); at capacity_factor E/k (no drops)
+    8 decode steps equal the full forward within LM_DECODE_TOL."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M, params as Pm
+    from repro_torch.serve import decode as D
+
+    cfg = dataclasses.replace(registry.ARCHS[LM_ARCH].config, n_layers=2,
+                              dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(1)
+    p = Pm.init_params(cfg, g, torch.float32, dev)
+    b, s, new = 4, 64, 8
+    toks = torch.randint(0, cfg.vocab, (b, s + new), device=dev, generator=g)
+    prefix, _ = M.forward(cfg, p, {"tokens": toks[:, :s]})
+    dropped = []
+    cache = M.init_cache(cfg, b, s + new, device=dev)
+    last, _ = D.make_prefill_step(cfg, _moe_counter(dropped))(
+        p, {"tokens": toks[:, :s]}, cache)
+    check(bits_equal(last, prefix[:, -1]),
+          f"{LM_ARCH} depth 2 fp32: prefill's last logits differ from the "
+          f"full forward's at s-1")
+    wide = dataclasses.replace(
+        cfg, capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    no_drop = []
+    err, _ = _decode_against_full(wide, p, toks, s, dev,
+                                  f"{LM_ARCH} depth 2 fp32 (no drops)",
+                                  moe_impl=_moe_counter(no_drop))
+    check(int(sum(no_drop)) == 0, "capacity_factor E/k still drops")
+    return dict(batch=b, prompt=s, new=new, prefill_bits_equal=True,
+                capacity_factor=cfg.capacity_factor,
+                prefill_dropped_pairs=int(sum(dropped)),
+                pairs_routed=b * s * cfg.moe_top_k * cfg.n_layers,
+                capacity_factor_no_drop=wide.capacity_factor,
+                decode_err=err)
+
+
+def lm_mamba_full(dev) -> dict:
+    """mamba2-130m at full width, float32: a 300-token prompt (not a
+    multiple of the 128 chunk) and 8 decode steps against the full
+    forward."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import params as Pm
+
+    cfg = dataclasses.replace(registry.ARCHS["mamba2-130m"].config,
+                              dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(3)
+    p = Pm.init_params(cfg, g, torch.float32, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 308), device=dev, generator=g)
+    err, _ = _decode_against_full(cfg, p, toks, 300, dev,
+                                  "mamba2-130m full fp32")
+    return dict(batch=2, prompt=300, new=8, decode_err=err)
+
+
+def _lm_profile(fn, steps: int, untraced_ms: float, stem: str,
+                out_dir: Path) -> dict:
+    """``fn()`` (``steps`` prefill or decode steps) under torch.profiler:
+    device time and device kernels a step, the busy share against the
+    untraced ms a step, and the kernels that take the device time
+    (``chiprun_out/profile_lm_<stem>.txt``)."""
+    from torch.autograd import DeviceType
+
+    (_, wall_s), events = traced(lambda: _sync_s(fn))
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    out = dict(device_ms=device_ms,
+               kernels_a_step=sum(e.count for e in kernels) / steps,
+               traced_ms=1e3 * wall_s / steps, untraced_ms=untraced_ms,
+               busy_vs_untraced=device_ms / untraced_ms,
+               top=[(e.key[:90], e.self_device_time_total / 1e3 / steps,
+                     e.count / steps) for e in top])
+    (out_dir / f"profile_lm_{stem}.txt").write_text(
+        f"{stem}: device {device_ms:.3f} ms a step, "
+        f"{out['kernels_a_step']:.0f} device kernels a step, untraced "
+        f"{untraced_ms:.3f} ms a step, busy {out['busy_vs_untraced']:.3f}\n"
+        + "\n".join(f"{ms:10.3f} ms {n:8.1f}x  {k}"
+                     for k, ms, n in out["top"]) + "\n")
+    return out
+
+
+def _sync_s(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def lm_served(dev) -> dict:
+    """qwen2-moe-a2.7b at full width and depth in bfloat16, weights drawn
+    on the card: LM_REQUESTS prompts of LM_PROMPT tokens served greedy
+    twice (bit-identical) and sampled twice from one seed (identical);
+    the prefill's last logits equal the full forward's bit for bit, every
+    logit finite; the prefill's dropped pairs; prefill ms and decode ms a
+    token at LM_SWEEP batch sizes beside their bounds."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M, params as Pm
+    from repro_torch.serve import decode as D
+
+    cfg = registry.ARCHS[LM_ARCH].config
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(2)
+    p, init_s = _sync_s(lambda: Pm.init_params(cfg, g, torch.bfloat16, dev))
+    leaves = Pm.tree_leaves(p)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(sum(t.numel() for t in leaves) == cfg.num_params(),
+          "the full tree is not num_params() elements")
+    prompts = torch.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT),
+                            device=dev, generator=g)
+
+    greedy = [_sync_s(lambda: D.generate(cfg, p, prompts, LM_NEW))
+              for _ in range(2)]
+    check(torch.equal(greedy[0][0], greedy[1][0]),
+          "served greedy runs differ")
+    sampled = [_sync_s(lambda: D.generate(
+        cfg, p, prompts, LM_NEW, temperature=0.8,
+        generator=torch.Generator(device=dev).manual_seed(5)))
+        for _ in range(2)]
+    check(torch.equal(sampled[0][0], sampled[1][0]),
+          "sampled runs from one seed differ")
+    check(not torch.equal(sampled[0][0], greedy[0][0]),
+          "sampling at 0.8 gave the greedy tokens")
+
+    (full, _), full_s = _sync_s(lambda: M.forward(cfg, p,
+                                                  {"tokens": prompts}))
+    check(bool(torch.isfinite(full).all()), "full forward: a logit is not "
+                                            "finite")
+    dropped = []
+    cache = M.init_cache(cfg, LM_REQUESTS, LM_PROMPT + LM_NEW, device=dev)
+    last, _ = D.make_prefill_step(cfg, _moe_counter(dropped))(
+        p, {"tokens": prompts}, cache)
+    check(bits_equal(last, full[:, -1]), "bf16 prefill's last logits differ "
+                                         "from the full forward's at s-1")
+    del full
+    prefill = D.make_prefill_step(cfg)
+    _, prefill_s = _sync_s(lambda: prefill(p, {"tokens": prompts}, cache))
+
+    d, hkv, hd = cfg.d_model, cfg.n_kv_heads, cfg.hd
+    embed_bytes = cfg.vocab * d * 2
+    tokens = LM_REQUESTS * LM_PROMPT
+    flops = (2 * tokens * (cfg.active_params() - cfg.vocab * d)
+             + 4 * LM_REQUESTS * cfg.n_heads * LM_PROMPT ** 2 * hd
+             * cfg.n_layers)
+    kv_bytes = lambda b, s: cfg.n_layers * 2 * b * s * hkv * hd * 2
+    prefill_bound_ms = 1e3 * max(
+        (param_bytes - embed_bytes + kv_bytes(LM_REQUESTS, LM_PROMPT))
+        / HBM_BYTES_PER_S, flops / BF16_FLOP_S)
+
+    step = D.make_decode_step(cfg)
+    sweep = {}
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    for b in LM_SWEEP:
+        pr = torch.randint(0, cfg.vocab, (b, LM_PROMPT), device=dev,
+                           generator=g)
+        s_max = LM_PROMPT + LM_SWEEP_STEPS + 1
+        cache = M.init_cache(cfg, b, s_max, device=dev)
+        last, cache = prefill(p, {"tokens": pr}, cache)
+        finite &= torch.isfinite(last).all()
+        tok = torch.argmax(last, -1)[:, None].int()
+        tok, last, cache = step(p, cache, tok, LM_PROMPT)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(1, LM_SWEEP_STEPS + 1):
+            tok, last, cache = step(p, cache, tok, LM_PROMPT + i)
+            finite &= torch.isfinite(last).all()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t) / LM_SWEEP_STEPS
+        # a decode step reads every weight but the embedding (a gather of
+        # b rows), and every slot of the KV cache
+        step_bytes = (param_bytes - embed_bytes + b * d * 2
+                      + kv_bytes(b, s_max))
+        sweep[b] = dict(ms_per_token=ms, tokens_per_s=1e3 * b / ms,
+                        bytes_read=step_bytes,
+                        bound_ms=1e3 * step_bytes / HBM_BYTES_PER_S)
+        del cache
+    check(bool(finite), "a served logit is not finite")
+    return dict(
+        arch=LM_ARCH, params=cfg.num_params(), param_bytes=param_bytes,
+        init_s=init_s, requests=LM_REQUESTS, prompt=LM_PROMPT, new=LM_NEW,
+        greedy_walls_s=[w for _, w in greedy],
+        sampled_walls_s=[w for _, w in sampled],
+        served_tokens_per_s=LM_REQUESTS * LM_NEW / greedy[1][1],
+        greedy_tokens=greedy[0][0].tolist(),
+        sampled_tokens=sampled[0][0].tolist(),
+        prefill_dropped_pairs=int(sum(dropped)),
+        pairs_routed=tokens * cfg.moe_top_k * cfg.n_layers,
+        full_forward_ms=1e3 * full_s, prefill_ms=1e3 * prefill_s,
+        prefill_flops=flops, prefill_bound_ms=prefill_bound_ms,
+        sweep=sweep, peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def lm_traced(dev, out_dir: Path) -> dict:
+    """The served model's prefill (LM_REQUESTS x LM_PROMPT) and decode
+    steps at the smallest and largest LM_SWEEP batch under torch.profiler:
+    device time and device kernels a step against the untraced ms a step.
+    It runs after phase 5's profiled runs: a profiler session early in
+    the script left phase 5's traces without a device event (H100, torch
+    2.11)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M, params as Pm
+    from repro_torch.serve import decode as D
+
+    cfg = registry.ARCHS[LM_ARCH].config
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(2)
+    p = Pm.init_params(cfg, g, torch.bfloat16, dev)
+    prefill, step = D.make_prefill_step(cfg), D.make_decode_step(cfg)
+    out = {}
+    for b in (LM_REQUESTS, LM_SWEEP[0], LM_SWEEP[-1]):
+        prompts = torch.randint(0, cfg.vocab, (b, LM_PROMPT), device=dev,
+                                generator=g)
+        cache = M.init_cache(cfg, b, LM_PROMPT + 2 * LM_SWEEP_STEPS,
+                             device=dev)
+        if b == LM_REQUESTS:
+            prefill(p, {"tokens": prompts}, cache)  # warm
+            _, s_ = _sync_s(lambda: prefill(p, {"tokens": prompts}, cache))
+            out["prefill"] = _lm_profile(
+                lambda: prefill(p, {"tokens": prompts}, cache), 1, 1e3 * s_,
+                "prefill", out_dir)
+            continue
+        last, cache = prefill(p, {"tokens": prompts}, cache)
+        tok = torch.argmax(last, -1)[:, None].int()
+
+        def steps(first, n, tok=tok):
+            for i in range(first, first + n):
+                tok, _, _ = step(p, cache, tok, LM_PROMPT + i)
+        steps(0, 1)  # warm
+        n = LM_SWEEP_STEPS // 2
+        _, s_ = _sync_s(lambda: steps(1, n))
+        out[f"decode_b{b}"] = _lm_profile(lambda: steps(1 + n, n), n,
+                                          1e3 * s_ / n, f"decode_b{b}",
+                                          out_dir)
+        del cache
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_traced_line(t: dict, smi: str) -> str:
+    return (f"[5/5] {LM_ARCH} bf16 traced (device time and device kernels "
+            f"a step; busy = device / untraced ms a step): " + "; ".join(
+                f"{k} device {v['device_ms']:.2f} of {v['untraced_ms']:.2f} "
+                f"ms (busy {v['busy_vs_untraced']:.2f}, "
+                f"{v['kernels_a_step']:.0f} kernels; top "
+                f"{v['top'][0][0][:40]} {v['top'][0][1]:.2f} ms)"
+                for k, v in t.items()) + f" | {smi}")
+
+
+def lm_phase(dev, smi: str, out_dir: Path) -> dict:
+    """The LM serving path on the card (``repro_torch.models``,
+    ``repro_torch.serve.decode``): the four parts above, each check
+    raising; details in ``chiprun_out/lm_serve.json``. The path reaches
+    none of the three kernels: their wrappers count no launch."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    on_device = ops.device_launch_counts()
+    with torch.no_grad():
+        smoke = lm_smoke_configs(dev)
+        t1 = time.perf_counter()
+        depth2 = lm_full_width_depth2(dev)
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        served = lm_served(dev)
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        mamba_full = lm_mamba_full(dev)
+    torch.cuda.empty_cache()
+    launches = ops.launch_counts()
+    on_device = {k: v - on_device[k]
+                 for k, v in ops.device_launch_counts().items()}
+    check(not any(launches.values()) and not any(on_device.values()),
+          f"the LM path launched a graph kernel: {launches}, on the "
+          f"device {on_device}")
+    out = dict(smi=smi, smoke=smoke, depth2=depth2, served=served,
+               mamba_full=mamba_full, kernel_launches=launches,
+               kernel_launches_on_device=on_device,
+               seconds=dict(smoke=t1 - t0, depth2=t2 - t1, served=t3 - t2,
+                            mamba=time.perf_counter() - t3,
+                            total=time.perf_counter() - t0))
+    (out_dir / "lm_serve.json").write_text(json.dumps(out, indent=1))
+    return out
+
+
+def lm_lines(d: dict) -> list:
+    """The phase's printed lines, each with the card's name and power
+    limit."""
+    smi, sv, d2, mb = d["smi"], d["served"], d["depth2"], d["mamba_full"]
+    sec = d["seconds"]
+    smoke = "; ".join(f"{a} {r['card_vs_cpu_err']:.1e}/{r['decode_err']:.1e}"
+                      for a, r in d["smoke"].items())
+    sweep = "; ".join(
+        f"batch {b}: {r['ms_per_token']:.2f} ms a token, "
+        f"{r['tokens_per_s']:.1f} tokens/s (bound {r['bound_ms']:.2f} ms: "
+        f"{r['bytes_read'] / 1e9:.2f} GB a step over 3.35 TB/s)"
+        for b, r in sv["sweep"].items())
+    return [
+        f"[lm] ten smoke configs fp32 (max |card - CPU| within "
+        f"{LM_CARD_TOL} / max |decode - full forward| within "
+        f"{LM_DECODE_TOL}): {smoke}; greedy generate twice bit-identical "
+        f"each ({sec['smoke']:.1f} s) | {smi}",
+        f"[lm] {LM_ARCH} full width, depth 2, fp32: prefill's last "
+        f"logits = full forward's at s-1 bit for bit ({d2['batch']}x"
+        f"{d2['prompt']} tokens, {d2['prefill_dropped_pairs']} of "
+        f"{d2['pairs_routed']} routed pairs dropped at capacity_factor "
+        f"{d2['capacity_factor']:g}); at capacity_factor "
+        f"{d2['capacity_factor_no_drop']:g} "
+        f"{d2['new']} decode steps within {d2['decode_err']:.1e} of the "
+        f"full forward ({sec['depth2']:.1f} s) | {smi}",
+        f"[lm] {LM_ARCH} served, full width and depth, bf16, "
+        f"{sv['params'] / 1e9:.2f} B params ({sv['param_bytes'] / 1e9:.2f} "
+        f"GB) drawn on the card in {sv['init_s']:.2f} s: {sv['requests']} "
+        f"requests x {sv['prompt']} prompt + {sv['new']} new tokens, greedy "
+        f"twice bit-identical (walls {sv['greedy_walls_s'][0]:.2f} / "
+        f"{sv['greedy_walls_s'][1]:.2f} s, {sv['served_tokens_per_s']:.1f} "
+        f"new tokens/s), sampled at 0.8 twice identical (walls "
+        f"{sv['sampled_walls_s'][0]:.2f} / {sv['sampled_walls_s'][1]:.2f} "
+        f"s); prefill's last logits = full forward's bit for bit, every "
+        f"logit finite; prefill dropped {sv['prefill_dropped_pairs']} of "
+        f"{sv['pairs_routed']} routed (token, expert) pairs; prefill "
+        f"{sv['prefill_ms']:.2f} ms (bound {sv['prefill_bound_ms']:.2f} ms, "
+        f"{sv['prefill_flops'] / 1e12:.2f} TFLOP over 989 TFLOP/s), full "
+        f"forward {sv['full_forward_ms']:.2f} ms; {sweep}; peak "
+        f"{sv['peak_bytes'] / 2**30:.2f} GiB ({sec['served']:.1f} s) | {smi}",
+        f"[lm] mamba2-130m full width fp32: {mb['prompt']}-token prompt "
+        f"(chunk 128) + {mb['new']} decode steps within "
+        f"{mb['decode_err']:.1e} of the full forward; graph kernels "
+        f"launched by the LM path {d['kernel_launches']}; phase "
+        f"{sec['total']:.1f} s | {smi}",
+    ]
+
+
 def main() -> int:
     import os
 
@@ -2381,6 +2875,11 @@ def main() -> int:
     print(f"[1/5] env: {name} | {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | kernels built in {build_s:.1f} s "
           f"({len(logs)} nvcc)", flush=True)
+
+    # -- the LM serving path, on a card that holds nothing else yet --------
+    detail["lm"] = lm_phase(dev, smi, out_dir)
+    for line in lm_lines(detail["lm"]):
+        print(line, flush=True)
 
     # -- 2. kernels against their plain versions on the card ----------------
     t = time.perf_counter()
@@ -4140,6 +4639,10 @@ def main() -> int:
         f"in the trace {v['launches_in_trace']}, on the device "
         f"{v['launches_on_device']}"
         for k, v in detail["profile"].items()), flush=True)
+    with torch.no_grad():
+        detail["lm"]["traced"] = lm_traced(dev, out_dir)
+    print(lm_traced_line(detail["lm"]["traced"], smi), flush=True)
+    (out_dir / "lm_serve.json").write_text(json.dumps(detail["lm"], indent=1))
     detail["total_s"] = time.perf_counter() - t_start
     plan_cache.cleanup()
     print(f"chip_smoke: all phases ok in {detail['total_s']:.1f} s",

@@ -1366,3 +1366,46 @@ def test_dist_programs_on_the_card_match_local(cuda):
         for rank, got in enumerate(per_rank):
             assert J.differences(got[i], local) == [], (job.name, rank)
         J.check_oracle(job, local, cuda, problems)
+
+
+LM_ARCHS = ["musicgen-medium", "mamba2-130m", "chatglm3-6b", "granite-8b",
+            "qwen1.5-32b", "qwen2-7b", "mixtral-8x7b", "qwen2-moe-a2.7b",
+            "internvl2-2b", "jamba-1.5-large-398b"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_smoke_config_on_the_card(cuda, arch):
+    """A registry smoke config (float32): the card's forward equals the
+    CPU's on the same weights within 1e-3; prefill plus four decode steps
+    equal the full forward within 2e-3; greedy generate twice is
+    bit-identical."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M, params as Pm
+    from repro_torch.serve import decode as D
+
+    cfg = registry.ARCHS[arch].smoke
+    cpu_p = Pm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    p = Pm.tree_map(lambda t: t.to(cuda), cpu_p)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 13), generator=g)
+    batch = {"tokens": toks}
+    if cfg.frontend_tokens:
+        batch["embeds"] = 0.02 * torch.randn(2, cfg.frontend_tokens,
+                                             cfg.d_model, generator=g)
+    with torch.no_grad():
+        want, _ = M.forward(cfg, cpu_p, batch)
+        got, _ = M.forward(cfg, p, {k: v.to(cuda) for k, v in batch.items()})
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+        toks = toks.to(cuda)
+        full, _ = M.forward(cfg, p, {"tokens": toks})
+        cache = M.init_cache(cfg, 2, 13, device=cuda)
+        _, cache = D.make_prefill_step(cfg)(p, {"tokens": toks[:, :9]}, cache)
+        step = D.make_decode_step(cfg)
+        for pos in range(9, 13):
+            _, logits, cache = step(p, cache, toks[:, pos:pos + 1], pos)
+            torch.testing.assert_close(logits, full[:, pos], rtol=2e-3,
+                                       atol=2e-3)
+    first = D.generate(cfg, p, toks[:, :9], 8)
+    assert torch.equal(first, D.generate(cfg, p, toks[:, :9], 8))
