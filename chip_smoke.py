@@ -57,7 +57,21 @@ plan --explain``). Phases, one or more lines each:
      their bounds, peak memory and init seconds; ``mamba2-130m`` at full
      width in float32 (a 300-token prompt, 8 decode steps within 2e-3 of
      the full forward). The LM path launches none of the three kernels
-     (wrapper and device counts checked);
+     (wrapper and device counts checked). Then LM training
+     (:func:`train_phase`, lines ``[train]``, ``chiprun_out/train.json``):
+     the ten smoke configs in float32 (loss and gradients on the card
+     against the CPU's, one step twice bit-identical, microbatches 2
+     against 1); ``internvl2-2b`` at full width and depth (float32 master
+     weights and AdamW, bf16 compute, remat, microbatches 2, 8 x (256 +
+     768) positions, 8 steps: step 0 twice from one seed with equal
+     checksums, losses finite, ms a step, positions/s and tokens/s, the
+     FLOP bound, peak
+     memory); ``qwen2-moe-a2.7b`` at full width, depth 2, float32, one
+     step twice bit-identical; ``mamba2-130m`` at full width through
+     ``launch.train.main``: 12 steps, then a resume to 20 equal to a
+     straight 20-step run bit for bit (save and restore ms); ``python -m
+     repro_torch.train_lm --steps 10`` beside the smoke configs' checks,
+     before the timed parts. No graph kernel launches;
   2. each kernel against its plain PyTorch version on the card, the two
      bucket kernels at the main path's full shapes on random, sorted,
      one-bucket, all-sentinel and out-of-range keys, and
@@ -78,7 +92,14 @@ plan --explain``). Phases, one or more lines each:
      inside a WHILE node; before that, the WHILE node alone in one
      captured graph (inside an IF, inside a WHILE inside an IF, zero
      trips, replayed from fresh trip counts and with the IF false), every
-     loop counting its iterations exactly;
+     loop counting its iterations exactly; last (ROADMAP fault 11,
+     :func:`fault11_cases`), the bucket kernels bit for bit past 63
+     buckets (W = 64, 256, 1,024 with their counts in shared memory,
+     4,096 in global memory), past 65,535 rows and past a 32 KB lane tile
+     (Q = 1,024, 4,096 and 6,500 at W=8), ``segment_combine`` on 70,000
+     rows, ``wcc:basic`` and ``sv:composed`` at W=64 (host and fused) and
+     a Q=1,024 ``run_batch`` equal to the port's CPU runs, and the times
+     of kernel-table rows 1b and 3b;
   3. reference traffic counts at scale 12, W=8 (exact), solo and batched
      (every batched lane bit-identical to its solo run), and the nine
      composition-layer programs (six S-V variants, ``wcc:switch``,
@@ -109,8 +130,8 @@ plan --explain``). Phases, one or more lines each:
      bytes; the port's paper table at scale 20 (host mode, headline held,
      ``chiprun_out/paper_tables_torch.json``); every lane of the batched
      runs bit-identical to its solo run, queries/s batched and solo, peak
-     device memory; the same Q=32 batches in ``fused``, ``chunked`` K=64
-     (the second, cached run each) and K=4 (one run, the capture
+     device memory; the same Q=32 batches in ``fused`` (the second,
+     cached run) and ``chunked`` K=64 and K=4 (one run each, the capture
      included), bit-identical to the host run
      (outputs, per-query steps, halts, bytes, msgs, pad audit, state),
      ``bucket_ranks_lanes`` launching as often as the host run's wrappers
@@ -131,10 +152,10 @@ plan --explain``). Phases, one or more lines each:
      in all four, ``bucket_ranks`` in ``scc:basic``); all 21 programs
      (the seven with inner loops among them, whose kernels then launch
      many times inside one graph launch) on those partitions in host
-     mode and in ``fused`` and ``chunked`` K=64 (the second, cached run
-     each) and ``chunked`` K=4 (one run), each bit-identical to host mode
-     and launching each kernel as often, as the kernels count their
-     launches on the device (K=4: as the runtime counts its replays; the
+     mode and in ``fused`` (the second, cached run) and ``chunked`` K=64
+     and K=4 (one run each), each bit-identical to host mode and
+     launching each kernel as often, as the kernels count their launches
+     on the device (chunked: as the runtime counts its replays; the
      device's count adds the warm-up step): wall
      time, capture time, dispatches, host overhead a superstep and peak
      memory of each; ``pagerank:personal`` from source 0 in host, fused,
@@ -159,8 +180,9 @@ plan --explain``). Phases, one or more lines each:
      a trail naming channels (and lanes), the recovered run equal to the
      plain run, the second run a cache hit without recovery (attempts,
      each capture's seconds, peak memory); and ``python -m repro_torch
-     bench-batch --queries 32 --scale 20`` as a subprocess that must exit
-     0 (``chiprun_out/bench_batch.json``); the multi-device phase
+     bench-batch --queries 32 --scale 20`` on ``BENCH_BATCH_KEYS`` as a
+     subprocess that must exit 0 (``chiprun_out/bench_batch.json``); the
+     multi-device phase
      (:func:`dist_phase`): ``python -m repro_torch.launch.jobs`` as a
      subprocess, W=4 ranks of one gloo group sharing the card
      (``Engine(backend="dist")``, host mode; NCCL, one card a rank, too
@@ -212,7 +234,8 @@ plan --explain``). Phases, one or more lines each:
      ``chiprun_out/profile_*.txt``); then the served LM's prefill and
      its decode steps at batch 1 and 32 under torch.profiler
      (:func:`lm_traced`: device time and device kernels a step against
-     the untraced ms, ``chiprun_out/profile_lm_*.txt``).
+     the untraced ms, ``chiprun_out/profile_lm_*.txt``), and one
+     ``internvl2-2b`` train step (:func:`train_traced`, its busy share).
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -240,16 +263,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT32_MAX, INT32_MIN = 2**31 - 1, -2**31
 # the device kernel that marks one launch of each wrapper in a
 # torch.profiler trace (a segment_combine call runs tile_kernel, then
-# join_kernel): the profiled runs hold the trace's counts beside the
-# kernels' own
-LAUNCH_EVENTS = {"bucket_ranks": "::ranks_kernel<false>",
-                 "bucket_ranks_lanes": "::ranks_kernel<true>",
+# join_kernel; a bucket call runs ranks_kernel or wide_ranks_kernel): the
+# profiled runs hold the trace's counts beside the kernels' own
+LAUNCH_EVENTS = {"bucket_ranks": "ranks_kernel<false>(",
+                 "bucket_ranks_lanes": "ranks_kernel<true>(",
                  "segment_combine": "::tile_kernel<"}
-# (label, mode, K, runs) of the device-mode runs in phase 4: fused and
-# chunked K=64 run twice (the second replays the cached loop and is
-# reported); chunked K=4 runs once, its capture inside its wall, which
-# keeps the script inside its time limit with the LM phase
-MODE_RUNS = {"fused": ("fused", 64, 2), "chunked64": ("chunked", 64, 2),
+# (label, mode, K, runs) of the device-mode runs in phase 4: fused runs
+# twice (the second replays the cached loop and is reported, the replay
+# check); chunked K=64 and K=4 run once, the capture inside the wall,
+# which keeps the script inside its time limit with the LM phases
+MODE_RUNS = {"fused": ("fused", 64, 2), "chunked64": ("chunked", 64, 1),
              "chunked4": ("chunked", 4, 1)}
 # the programs whose fused run phase 5 profiles
 PROFILED_FUSED = ("pagerank:scatter", "wcc:basic", "wcc:prop")
@@ -541,6 +564,268 @@ def bucket_edge_cases(dev, g, lkeys) -> list:
               "from plain")
         names.append(f"bucket_ranks_lanes {what}")
     return names
+
+
+# ROADMAP fault 11: shapes the narrow bucket kernels refused, held bit for
+# bit to kernels/ref.py (W workers: B + 1 = W + 1 buckets)
+WIDE_WORKERS = (64, 256, 1024)
+WIDE_GLOBAL_WORKERS = 4096  # the wide kernel's counts in global memory
+TALL_ROWS = 70_000  # past the 65,535 rows a grid dimension held
+WIDE_E2E = ("wcc:basic", "sv:composed")  # at W=64, scale WIDE_E2E_SCALE
+WIDE_E2E_SCALE = 16
+WIDE_Q = 1024  # the batched run's lanes at W=8 (the limit was Q = 909)
+WIDE_Q_SCALE = 10
+
+
+def fault11_cases(dev, g) -> dict:
+    """The case list of fault 11 (:data:`WIDE_WORKERS` and more): each
+    call bit for bit against the plain version; then ``wcc:basic`` and
+    ``sv:composed`` at W=64 through ``Engine.run`` in host and fused mode
+    equal to the port's CPU host run (outputs, supersteps, halts, bytes
+    and msgs per channel), and a Q = WIDE_Q ``run_batch`` of
+    ``reach:basic`` at W=8 equal to the CPU's lane for lane. Returns the
+    cases, the runs and the times of kernel-table rows 1b and 3b."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.algorithms import REGISTRY
+    from repro_torch.graph import pgraph
+    from repro_torch.kernels import bucket_route as kbucket, ops, ref as kref
+    from repro_torch.pregel.engine import Engine
+
+    tile = kbucket.TILE_KEYS
+
+    def keys_of(case, rows, m, b):
+        k = torch.randint(0, b + 1, (rows, m), device=dev, dtype=torch.int32,
+                          generator=g)
+        if case == "sorted":
+            k = torch.sort(k, dim=1)[0]
+        elif case == "hub":
+            k.fill_(b // 2)
+        return k
+
+    def lanes_of(keys, q, b):
+        return (torch.rand(keys.shape + (q,), device=dev, generator=g)
+                < 0.5) & (keys != b)[..., None]
+
+    cases = []
+    plain = [(c, 8, 3 * tile + 17, w) for w in WIDE_WORKERS
+             for c in ("sorted", "random")]
+    plain += [("random", 1, 40 * tile + 3, 1024), ("hub", 1, 5 * tile, 1024),
+              ("sorted", 2, 5 * tile + 1, WIDE_GLOBAL_WORKERS),
+              ("random", 2, 5 * tile + 1, WIDE_GLOBAL_WORKERS),
+              ("random", TALL_ROWS, 1000, 8), ("sorted", TALL_ROWS, 1000, 64)]
+    for case, rows, m, b in plain:
+        keys = keys_of(case, rows, m, b)
+        got = kbucket.bucket_ranks_cuda(keys, b)
+        want = kref.bucket_ranks_ref(keys, b)
+        check(all(torch.equal(a, w) for a, w in zip(got, want)),
+              f"bucket_ranks {case} ({rows}, {m}) at B={b} differs from "
+              f"plain")
+        cases.append(f"ranks {case} ({rows}, {m}) B={b} "
+                     f"{kbucket.launch_plan(b, rows, m)[:3]}")
+    lane = [("sorted", 2, 2 * tile + 3, 8, 1024),
+            ("random", 2, 2 * tile + 3, 8, 1024),
+            ("random", 2, tile + 3, 8, 4096), ("random", 1, tile + 3, 8, 6500),
+            ("sorted", 8, 3 * tile + 17, 64, 32),
+            ("random", 8, 3 * tile + 17, 64, 32),
+            ("random", 2, tile + 1, WIDE_GLOBAL_WORKERS, 16),
+            ("random", TALL_ROWS, 100, 8, 32)]
+    for case, rows, m, b, q in lane:
+        keys = keys_of(case, rows, m, b)
+        lanes = lanes_of(keys, q, b)
+        for _ in range(2):  # the second call finds the accumulator zeroed
+            got = kbucket.bucket_ranks_lanes_cuda(keys, lanes, b)
+            want = kref.bucket_ranks_lanes_ref(keys, lanes, b)
+            check(all(torch.equal(a, w) for a, w in zip(got, want)),
+                  f"bucket_ranks_lanes {case} ({rows}, {m}, {q}) at B={b} "
+                  f"differs from plain")
+        cases.append(f"lanes {case} ({rows}, {m}, {q}) B={b} "
+                     f"{kbucket.launch_plan(b, rows, m, q)[:3]}")
+    check(not kbucket.scratch_of(dev).zero.any(),
+          "the lanes kernel left its accumulator non-zero")
+    seg = torch.sort(torch.randint(0, 27, (TALL_ROWS, 40), device=dev,
+                                   generator=g), dim=1)[0].to(torch.int32)
+    f32 = torch.rand((TALL_ROWS, 40), device=dev, generator=g)
+    half = TALL_ROWS // 2
+
+    def split(vals, name):
+        """The rows as two calls of at most 65,535 rows (one block a
+        row): the looping launch sums each row in the same order."""
+        return torch.cat([ops.segment_combine(vals[:half], seg[:half], 24,
+                                              name),
+                          ops.segment_combine(vals[half:], seg[half:], 24,
+                                              name)])
+
+    got = ops.segment_combine(f32, seg, 24, "sum")
+    want = kref.segment_combine_ref(f32, seg, 24, "sum")
+    seg_err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+          f"segment_combine sum on {TALL_ROWS} rows: max|err| {seg_err}")
+    check(torch.equal(got, split(f32, "sum")),
+          f"segment_combine sum on {TALL_ROWS} rows differs from its two "
+          f"calls of {half} rows")
+    i32 = torch.randint(-1000, 1000, (TALL_ROWS, 40), device=dev,
+                        dtype=torch.int32, generator=g)
+    got = ops.segment_combine(i32, seg, 24, "min")
+    check(torch.equal(got, kref.segment_combine_ref(i32, seg, 24, "min"))
+          and torch.equal(got, split(i32, "min")),
+          f"segment_combine int32 min on {TALL_ROWS} rows differs")
+    cases.append(f"segment_combine ({TALL_ROWS}, 40) into 24: f32 sum "
+                 f"max|err| {seg_err:.2g} and bit for bit its two calls of "
+                 f"{half} rows, int32 min exact")
+    torch.cuda.synchronize()
+
+    # end to end: W = 64 solo runs, W = 8 at Q = WIDE_Q, card against CPU
+    runs = {}
+    for key in WIDE_E2E:
+        spec = REGISTRY[key]
+        graph = spec.make_graph(WIDE_E2E_SCALE, 0)
+        inputs = spec.inputs(graph, 0)
+        tables = pgraph.partition_tables(graph, 64, "random",
+                                         build=spec.build)
+        cpu = Engine(mode="host", device="cpu").run(
+            spec.factory(**inputs), pgraph.from_arrays(*tables, device="cpu"))
+        pg = pgraph.from_arrays(*tables, device=dev)
+        for mode in ("host", "fused"):
+            ops.reset_launch_counts()
+            eng = Engine(mode=mode, device=dev)
+            res, wall = timed(lambda: eng.run(spec.factory(**inputs), pg))
+            check(np.array_equal(np.asarray(res.output),
+                                 np.asarray(cpu.output))
+                  and (res.steps, res.halted) == (cpu.steps, cpu.halted)
+                  and res.bytes_by_channel == cpu.bytes_by_channel
+                  and res.msgs_by_channel == cpu.msgs_by_channel,
+                  f"{key} at W=64 {mode} differs from the CPU run")
+            spec.check(graph, pg, res, inputs)
+            launches = ops.launch_counts()
+            check(launches["bucket_ranks"] > 0,
+                  f"{key} at W=64 {mode} launched no bucket_ranks")
+            runs[f"{key} W=64 {mode}"] = dict(
+                steps=res.steps, bytes=res.total_bytes, wall_ms=wall,
+                launches=launches)
+            eng.clear_cache()
+    spec = REGISTRY["reach:basic"]
+    graph = spec.make_graph(WIDE_Q_SCALE, 0)
+    queries = spec.queries(graph, 0, WIDE_Q)
+    prog = spec.factory(**spec.inputs(graph, 0))
+    tables = pgraph.partition_tables(graph, W, "random", build=spec.build)
+    cpu = Engine(mode="host", device="cpu").run_batch(
+        prog, pgraph.from_arrays(*tables, device="cpu"), queries)
+    ops.reset_launch_counts()
+    res, wall = timed(lambda: Engine(mode="host", device=dev).run_batch(
+        prog, pgraph.from_arrays(*tables, device=dev), queries))
+    check(same_batch(res, cpu),
+          f"reach:basic batched at Q={WIDE_Q} differs from the CPU run")
+    lane_launches = ops.launch_counts()["bucket_ranks_lanes"]
+    check(lane_launches > 0, f"the Q={WIDE_Q} batch launched no lanes kernel")
+    runs[f"reach:basic W={W} Q={WIDE_Q}"] = dict(
+        steps=res.steps, wall_ms=wall,
+        launches=ops.launch_counts())
+
+    # rows 1b and 3b: the new shapes' times beside their bounds, the plain
+    # versions and a stable torch.sort of the keys
+    def times(fn, plain_fn, sort_fn, what):
+        """The times, and the kernel's largest difference from the plain
+        version on these inputs (the check asks for none)."""
+        got, want = fn(), plain_fn()
+        err = max(float((a.long() - w.long()).abs().max())
+                  if a.shape == w.shape else math.inf
+                  for a, w in zip(got, want))
+        check(len(got) == len(want) and all(
+            torch.equal(a, w) for a, w in zip(got, want)),
+            f"{what} differs from plain: max|err| {err}")
+        return dict(ms=cuda_ms(fn), cold_ms=cuda_ms_cold(fn),
+                    plain_ms=cuda_ms(plain_fn, reps=3, warmup=1),
+                    library_ms=cuda_ms(sort_fn), max_abs_err=err)
+
+    b1, shape1 = 64, (64, 1 << 18)
+    row1b = {}
+    for case in ("sorted", "random"):
+        keys = keys_of(case, *shape1, b1)
+        row1b[case] = times(
+            lambda: kbucket.bucket_ranks_cuda(keys, b1),
+            lambda: kref.bucket_ranks_ref(keys, b1),
+            lambda: torch.sort(keys, dim=1, stable=True),
+            f"row 1b bucket_ranks {case} {shape1} at B={b1}")
+    bytes1 = shape1[0] * shape1[1] * 8 + shape1[0] * (b1 + 1) * 4
+    b3, shape3, q3 = W, (W, 1 << 15), WIDE_Q
+    row3b = {}
+    for case in ("sorted", "random"):
+        keys = keys_of(case, *shape3, b3)
+        lanes = lanes_of(keys, q3, b3)
+        real = int((keys < b3).sum())
+        row3b[case] = times(
+            lambda: kbucket.bucket_ranks_lanes_cuda(keys, lanes, b3),
+            lambda: kref.bucket_ranks_lanes_ref(keys, lanes, b3),
+            lambda: torch.sort(keys, dim=1, stable=True),
+            f"row 3b bucket_ranks_lanes {case} {shape3} Q={q3} at B={b3}")
+        row3b[case]["bytes"] = (shape3[0] * shape3[1] * 8 + real * q3
+                                + shape3[0] * (b3 + 1) * (q3 + 1) * 4)
+    e2e_launches = sum(r["launches"]["bucket_ranks"] for k, r in runs.items()
+                       if k.endswith("host"))
+    rows = [
+        dict(name="bucket_ranks: W=64, 65 buckets (1b)", route="cuda",
+             source="src/repro_torch/kernels/csrc/bucket_route.cu",
+             replaces="src/repro/kernels/bucket_route.py:87",
+             launches=e2e_launches,
+             launches_by_path={k: r["launches"]["bucket_ranks"]
+                               for k, r in runs.items() if "W=64" in k},
+             max_abs_err=max(r["max_abs_err"] for r in row1b.values()),
+             ms=row1b["sorted"]["ms"],
+             plain_ms=row1b["sorted"]["plain_ms"],
+             bound_ms=1e3 * bytes1 / HBM_BYTES_PER_S, bound_by="bytes",
+             library_ms=row1b["sorted"]["library_ms"],
+             library="stable torch.sort of the keys",
+             cold_ms=row1b["sorted"]["cold_ms"],
+             random_ms=row1b["random"]["ms"],
+             random_cold_ms=row1b["random"]["cold_ms"],
+             shape=list(shape1), plan=list(kbucket.launch_plan(b1, *shape1)),
+             what=f"keys in [0, {b1}] of {shape1}, the wide kernel"),
+        dict(name=f"bucket_ranks_lanes: Q={q3} (3b)", route="cuda",
+             source="src/repro_torch/kernels/csrc/bucket_route.cu",
+             replaces="src/repro/kernels/bucket_route.py:128",
+             launches=lane_launches,
+             launches_by_path={f"reach:basic W={W} Q={WIDE_Q} host":
+                               lane_launches},
+             max_abs_err=max(r["max_abs_err"] for r in row3b.values()),
+             ms=row3b["sorted"]["ms"],
+             plain_ms=row3b["sorted"]["plain_ms"],
+             bound_ms=1e3 * row3b["sorted"]["bytes"] / HBM_BYTES_PER_S,
+             bound_by="bytes", library_ms=row3b["sorted"]["library_ms"],
+             library="stable torch.sort of the keys",
+             cold_ms=row3b["sorted"]["cold_ms"],
+             random_ms=row3b["random"]["ms"],
+             random_cold_ms=row3b["random"]["cold_ms"],
+             random_bound_ms=1e3 * row3b["random"]["bytes"] / HBM_BYTES_PER_S,
+             shape=list(shape3) + [q3],
+             plan=list(kbucket.launch_plan(b3, *shape3, q3)),
+             what=f"keys in [0, {b3}] of {shape3}, {q3} lanes, half of them "
+                  f"members of each real entry"),
+    ]
+    return dict(cases=cases, runs=runs, rows=rows)
+
+
+def fault11_line(f: dict) -> str:
+    r1, r3 = f["rows"]
+    return (f"[2/5] fault 11: {len(f['cases'])} cases bit for bit against "
+            f"plain (bucket_ranks at W = {', '.join(map(str, WIDE_WORKERS))} "
+            f"and {WIDE_GLOBAL_WORKERS} (counts in global memory) and "
+            f"{TALL_ROWS} rows; the lanes kernel at Q = 1024, 4096 and 6500 "
+            f"(W=8; the last counted in global memory), W=64 Q=32, W=4096 "
+            f"and {TALL_ROWS} rows; segment_combine on {TALL_ROWS} rows); "
+            + "; ".join(f"{k}: {r['steps']} supersteps = CPU, "
+                        f"{r['wall_ms']:.1f} ms, launches {r['launches']}"
+                        for k, r in f["runs"].items())
+            + f"; row 1b {r1['shape']} sorted {r1['ms']:.4f} ms "
+            f"({r1['cold_ms']:.4f} flushed), random {r1['random_ms']:.4f} "
+            f"(bound {r1['bound_ms']:.4f}, plain {r1['plain_ms']:.3f}, stable "
+            f"sort {r1['library_ms']:.4f}); row 3b {r3['shape']} sorted "
+            f"{r3['ms']:.4f} ms ({r3['cold_ms']:.4f} flushed), random "
+            f"{r3['random_ms']:.4f} (bound {r3['bound_ms']:.4f}, plain "
+            f"{r3['plain_ms']:.3f}, stable sort {r3['library_ms']:.4f})")
 
 
 def timed(fn):
@@ -1182,9 +1467,17 @@ def escalation_run(prog, pg, plain, queries=None) -> dict:
         peak_gib=gib, launches=launches, launches_on_device=on_device)
 
 
+# bench-batch's programs in the smoke: one, the batched static channel.
+# Phase 4 holds every batchable program's Q=32 batch lane for lane to
+# its solo runs and times it batched against solo (batch_mode_runs,
+# batched_program_runs), the check and the number bench-batch makes; its
+# run here drives the command itself.
+BENCH_BATCH_KEYS = ("pagerank:personal",)
+
+
 def bench_batch_run(out_dir: Path, timeout_s: int = 420) -> dict:
-    """``python -m repro_torch bench-batch --queries 32 --scale 20`` as a
-    subprocess (every batchable program, each lane held to its serial run
+    """``python -m repro_torch bench-batch --queries 32 --scale 20 --keys
+    BENCH_BATCH_KEYS`` as a subprocess (each lane held to its serial run
     before anything is timed), writing ``bench_batch.json`` into
     ``out_dir``. It must exit 0. Returns its JSON and its wall."""
     import os
@@ -1195,7 +1488,8 @@ def bench_batch_run(out_dir: Path, timeout_s: int = 420) -> dict:
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch", "bench-batch", "--queries",
          str(NQ), "--scale", str(FULL_SCALE), "--workers", str(W),
-         "--json", str(path)], cwd=ROOT, env=env, capture_output=True,
+         "--keys", ",".join(BENCH_BATCH_KEYS), "--json", str(path)],
+        cwd=ROOT, env=env, capture_output=True,
         text=True, timeout=timeout_s)
     wall = time.perf_counter() - t0
     (out_dir / "bench_batch.log").write_text(proc.stdout + proc.stderr)
@@ -2826,6 +3120,466 @@ def lm_lines(d: dict) -> list:
     ]
 
 
+TRAIN_ARCH = "internvl2-2b"  # the largest single-card model with a prefix
+TRAIN_BATCH, TRAIN_TOKENS = 8, 768  # + 256 patch embeddings: 8,192 positions
+TRAIN_STEPS, TRAIN_MICRO = 8, 2
+TRAIN_LOSS_TOL = 1e-5  # smoke: card loss and grad_norm against the CPU's
+TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-3, 1e-2  # of a leaf's largest |grad|
+TRAIN_MB_ATOL = 2e-6  # microbatches 2 against 1: a 1e-5 first update
+RESUME_ARCH = "mamba2-130m"
+
+
+def _grads_of(cfg, params, batch):
+    """The loss and every leaf's gradient (zeros where the loss does not
+    reach a leaf), as the train step takes them."""
+    import torch
+
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import train_step as ts
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = ts.make_loss_fn(cfg, remat=True)(params, batch)
+    loss.backward()
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in leaves]
+    for p in leaves:
+        p.requires_grad_(False)
+        p.grad = None
+    return loss.detach(), grads
+
+
+def _state_leaves(state):
+    from repro_torch.models.params import tree_leaves
+
+    return (tree_leaves(state.params) + tree_leaves(state.opt.m)
+            + tree_leaves(state.opt.v) + [state.opt.step])
+
+
+def _clone_state(state):
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import train_step as ts
+
+    return ts.TrainState(tree_map(lambda t: t.clone(), state.params),
+                         state.opt._replace(
+                             step=state.opt.step.clone(),
+                             m=tree_map(lambda t: t.clone(), state.opt.m),
+                             v=tree_map(lambda t: t.clone(), state.opt.v)))
+
+
+def _checksums(tensors) -> list:
+    """An exact checksum a tensor: the int64 sum of its 32-bit (16-bit)
+    words, read with one sync."""
+    import torch
+
+    sums = []
+    for t in tensors:
+        word = {4: torch.int32, 2: torch.int16}[t.element_size()]
+        sums.append(t.view(word).sum(dtype=torch.int64))
+    return torch.stack(sums).tolist()
+
+
+def train_smoke_configs(dev) -> dict:
+    """The ten smoke configs in float32: the loss and gradients on the
+    card against the CPU's from the same weights and batch; one step on
+    the card twice from one state bit-identical (params, m, v, loss,
+    grad_norm); its loss and grad_norm against the CPU's step; and
+    microbatches=2 against 1 on the card."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import data, train_step as ts
+    from repro_torch.train.optimizer import AdamW
+
+    rows = {}
+    for i, (arch, spec) in enumerate(registry.ARCHS.items()):
+        cfg, opt = spec.smoke, AdamW(lr=1e-3)
+        cpu = ts.init_train_state(cfg, opt, torch.Generator().manual_seed(i),
+                                  device="cpu")
+        card = ts.TrainState(tree_map(lambda t: t.to(dev), cpu.params),
+                             opt.init(tree_map(lambda t: t.to(dev),
+                                               cpu.params)))
+        batch = data.SyntheticLM(cfg, 16, 4, seed=i, device="cpu").batch_at(0)
+        cbatch = {k: v.to(dev) for k, v in batch.items()}
+        l_cpu, g_cpu = _grads_of(cfg, cpu.params, batch)
+        l_card, g_card = _grads_of(cfg, card.params, cbatch)
+        check(abs(float(l_card) - float(l_cpu)) <= TRAIN_LOSS_TOL * abs(
+            float(l_cpu)), f"{arch} smoke loss: card {float(l_card)} CPU "
+                           f"{float(l_cpu)}")
+        g_err = 0.0
+        for a, w in zip(g_card, g_cpu):
+            a, scale = a.cpu(), float(w.abs().max()) or 1.0
+            err = (a - w).abs()
+            check(bool((err <= TRAIN_GRAD_ATOL * scale
+                        + TRAIN_GRAD_RTOL * w.abs()).all()),
+                  f"{arch} smoke gradient: card against CPU off by "
+                  f"{float(err.max())} of {scale}")
+            g_err = max(g_err, float(err.max()) / scale)
+        step = ts.make_train_step(cfg, opt, microbatches=1, remat=True)
+        one, m1 = step(_clone_state(card), cbatch)
+        two, m2 = step(_clone_state(card), cbatch)
+        check(all(bits_equal(a, b) for a, b in zip(
+            _state_leaves(one) + [m1["loss"], m1["grad_norm"]],
+            _state_leaves(two) + [m2["loss"], m2["grad_norm"]])),
+              f"{arch} smoke: one step twice from one state differs on the "
+              f"card")
+        _, mc = step(_clone_state(cpu), batch)
+        for k in ("loss", "grad_norm"):
+            check(abs(float(m1[k]) - float(mc[k])) <= TRAIN_LOSS_TOL * abs(
+                float(mc[k])), f"{arch} smoke step {k}: card {float(m1[k])}"
+                               f" CPU {float(mc[k])}")
+        mb, mm = ts.make_train_step(cfg, opt, microbatches=2, remat=True)(
+            _clone_state(card), cbatch)
+        mb_err = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(mb.params), tree_leaves(one.params)))
+        check(mb_err <= TRAIN_MB_ATOL and abs(
+            float(mm["loss"]) - float(m1["loss"])) <= TRAIN_LOSS_TOL * abs(
+            float(m1["loss"])), f"{arch} smoke: microbatches 2 against 1 "
+                                f"off by {mb_err} (loss {float(mm['loss'])} "
+                                f"against {float(m1['loss'])})")
+        rows[arch] = dict(loss=float(m1["loss"]),
+                          grad_norm=float(m1["grad_norm"]),
+                          loss_cpu=float(mc["loss"]), grad_rel_err=g_err,
+                          microbatch_err=mb_err)
+    return rows
+
+
+def _train_flop_bound(cfg, params) -> dict:
+    """6 x matmul params x positions, plus the attention's 4 s^2 d a layer
+    and sequence, times 3 (forward and backward), over 989 TFLOP/s."""
+    blocks = params["blocks"]
+    mat = sum(t.numel() for lp in blocks.values() for t in lp.values()
+              if t.ndim == 3)
+    mat += params["lm_head"].numel() if "lm_head" in params else \
+        params["embed"].numel()
+    s = TRAIN_TOKENS + cfg.frontend_tokens
+    flops = (6 * mat * TRAIN_BATCH * s
+             + 3 * 4 * s * s * cfg.d_model * cfg.n_layers * TRAIN_BATCH)
+    return dict(matmul_params=mat, flops=flops,
+                bound_ms=1e3 * flops / BF16_FLOP_S)
+
+
+def train_full_width(dev) -> dict:
+    """TRAIN_ARCH at full width and depth: float32 master weights and
+    AdamW state, bf16 compute, remat, TRAIN_MICRO microbatches, a global
+    batch of TRAIN_BATCH x (256 patch embeddings + TRAIN_TOKENS tokens)
+    for TRAIN_STEPS steps. Step 0 runs twice from one seeded init and the
+    two states' checksums are equal; every loss and grad_norm finite; the
+    parameters moved."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import data, train_step as ts
+    from repro_torch.train.optimizer import AdamW
+
+    cfg, opt = registry.ARCHS[TRAIN_ARCH].config, AdamW()
+    pipe = data.SyntheticLM(cfg, TRAIN_TOKENS, TRAIN_BATCH, device=dev)
+    step = ts.make_train_step(cfg, opt, microbatches=TRAIN_MICRO, remat=True)
+
+    def fresh():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return ts.init_train_state(cfg, opt, gen, device=dev)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, init_s = _sync_s(fresh)
+    n = sum(t.numel() for t in tree_leaves(state.params))
+    check(n == cfg.num_params(), "the train state is not num_params()")
+    bound = _train_flop_bound(cfg, state.params)
+    before = _checksums(tree_leaves(state.params))
+    batch0 = pipe.batch_at(0)
+    sums, metrics, walls = [], [], []
+    for rep in range(2):
+        if rep:
+            del state
+            torch.cuda.empty_cache()
+            state = fresh()
+        (state, m), wall = _sync_s(lambda: step(state, batch0))
+        sums.append(_checksums(_state_leaves(state)))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        walls.append(wall)
+    check(sums[0] == sums[1] and metrics[0] == metrics[1],
+          f"{TRAIN_ARCH}: step 0 twice from one seeded init differs")
+    after = sums[1][:len(before)]
+    moved = sum(a != b for a, b in zip(after, before))
+    check(moved == len(before), f"{TRAIN_ARCH}: {len(before) - moved} "
+                                f"parameter leaves did not move")
+    for i in range(1, TRAIN_STEPS):
+        batch = pipe.batch_at(i)
+        (state, m), wall = _sync_s(lambda: step(state, batch))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        walls.append(wall)
+    check(all(math.isfinite(x) for pair in metrics for x in pair),
+          f"{TRAIN_ARCH}: a loss or grad_norm is not finite: {metrics}")
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    ms = 1e3 * float(sorted(walls[2:])[len(walls[2:]) // 2])
+    positions = TRAIN_BATCH * (TRAIN_TOKENS + cfg.frontend_tokens)
+    state_bytes = 16 * n
+    # one entry a step (step 0's second run stands for it)
+    return dict(params=n, state_bytes=state_bytes, init_s=init_s,
+                losses=[x for x, _ in metrics[1:]],
+                grad_norms=[x for _, x in metrics[1:]],
+                step0_walls_s=walls[:2], walls_s=walls, median_ms=ms,
+                positions_per_s=positions / (ms / 1e3),
+                tokens_per_s=TRAIN_BATCH * TRAIN_TOKENS / (ms / 1e3),
+                positions=positions,
+                peak_bytes=peak, step0_checksums_equal=True,
+                leaves_moved=moved, **bound)
+
+
+def train_moe_depth2(dev) -> dict:
+    """qwen2-moe-a2.7b at full width, depth 2, float32 (the LM phase's
+    depth-2 weights): one train step twice from one seeded state, bit-identical
+    (checksums of params, m, v; loss and grad_norm): the MoE combine's
+    backward at full width."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import data, train_step as ts
+    from repro_torch.train.optimizer import AdamW
+
+    cfg = dataclasses.replace(registry.ARCHS[LM_ARCH].config, n_layers=2,
+                              dtype="float32")
+    opt = AdamW()
+    batch = data.SyntheticLM(cfg, 64, 4, seed=1, device=dev).batch_at(0)
+    step = ts.make_train_step(cfg, opt, microbatches=1, remat=True)
+    sums, metrics, walls = [], [], []
+    for _ in range(2):
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(1)
+        state = ts.init_train_state(cfg, opt, gen, device=dev)
+        (state, m), wall = _sync_s(lambda: step(state, batch))
+        sums.append(_checksums(_state_leaves(state)))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        walls.append(wall)
+        n = sum(t.numel() for t in tree_leaves(state.params))
+        del state
+    torch.cuda.empty_cache()
+    check(sums[0] == sums[1] and metrics[0] == metrics[1],
+          f"{LM_ARCH} depth 2 fp32: one train step twice differs")
+    return dict(params=n, loss=metrics[0][0], grad_norm=metrics[0][1],
+                walls_s=walls, batch=4, tokens=64)
+
+
+def train_resume(dev, tmp: Path, out_dir: Path) -> dict:
+    """``launch.train.main`` in this process on RESUME_ARCH at full width
+    (4 x 128 tokens a step): 12 steps with a checkpoint every 5, then 20
+    steps on the same directory (it resumes from step 11's checkpoint),
+    against a straight 20-step run: the two final checkpoints equal
+    array for array, bit for bit. The runs' own saves and restore are
+    timed as they happen (an async save's time is its device-to-host
+    copy; the blocking final saves and the restore are whole)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint as ckpt
+
+    argv = ["--arch", RESUME_ARCH, "--seq-len", "128", "--global-batch", "4",
+            "--save-every", "5", "--log-every", "100", "--seed", "0"]
+    a, b = tmp / "resumed", tmp / "straight"
+    times = {"async save": [], "blocking save": [], "restore": []}
+    real = ckpt.save, ckpt.restore
+
+    def save(*args, blocking=True, **kw):
+        t = time.perf_counter()
+        out = real[0](*args, blocking=blocking, **kw)
+        times["blocking save" if blocking else "async save"].append(
+            1e3 * (time.perf_counter() - t))
+        return out
+
+    def restore(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real[1](*args, **kw)
+        torch.cuda.synchronize()
+        times["restore"].append(1e3 * (time.perf_counter() - t))
+        return out
+
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    ckpt.save, ckpt.restore = save, restore
+    try:
+        with contextlib.redirect_stdout(log):
+            for steps, d in ((12, a), (20, a), (20, b)):
+                check(launch_train.main(argv + ["--steps", str(steps),
+                                                "--ckpt-dir", str(d)]) == 0,
+                      f"launch.train --steps {steps} failed")
+    finally:
+        ckpt.save, ckpt.restore = real
+    run_s = time.perf_counter() - t0
+    (out_dir / "train_resume.log").write_text(log.getvalue())
+    check("resumed from step 12" in log.getvalue(),
+          "the second launch did not resume from step 12")
+    last = 19
+    files = [d / f"step_{last:08d}" for d in (a, b)]
+    za, zb = (np.load(f / "shard_0.npz") for f in files)
+
+    def same(x, y):
+        return x.dtype == y.dtype and x.shape == y.shape and np.array_equal(
+            x.reshape(-1).view(np.uint8), y.reshape(-1).view(np.uint8))
+    check(sorted(za.files) == sorted(zb.files)
+          and all(same(za[k], zb[k]) for k in za.files),
+          "the resumed run's final checkpoint differs from the straight "
+          "run's")
+    check((files[0] / "manifest.json").read_text()
+          == (files[1] / "manifest.json").read_text(), "manifests differ")
+    torch.cuda.empty_cache()
+    return dict(arrays=len(za.files), run_s=run_s, times_ms=times,
+                bytes=(files[1] / "shard_0.npz").stat().st_size,
+                steps=(12, 20))
+
+
+def train_phase(dev, smi: str, out_dir: Path) -> dict:
+    """LM training on the card (``repro_torch.train``, ``launch.train``,
+    ``train_lm``): the parts above, each check raising; ``python -m
+    repro_torch.train_lm --steps 10`` as a subprocess beside the smoke
+    configs' checks, whose times no line reads, and ended before the
+    timed parts, which then have the card to themselves. The phase
+    launches none of the three graph kernels."""
+    import os
+
+    import torch
+
+    from repro_torch.kernels import build, ops
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    on_device = ops.device_launch_counts()
+    tmp = tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    example = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.train_lm", "--steps", "10",
+         "--ckpt-dir", str(Path(tmp.name) / "train_lm")], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        smoke = train_smoke_configs(dev)
+        t1 = time.perf_counter()
+        example_out, _ = example.communicate(timeout=300)
+    finally:
+        if example.poll() is None:
+            example.kill()
+            example.wait()
+    (out_dir / "train_lm.log").write_text(example_out)
+    check(example.returncode == 0, f"python -m repro_torch.train_lm exit "
+                                   f"{example.returncode}")
+    t2 = time.perf_counter()
+    full = train_full_width(dev)
+    t3 = time.perf_counter()
+    moe = train_moe_depth2(dev)
+    t4 = time.perf_counter()
+    resume = train_resume(dev, Path(tmp.name), out_dir)
+    t5 = time.perf_counter()
+    tmp.cleanup()
+    launches = ops.launch_counts()
+    on_device = {k: v - on_device[k]
+                 for k, v in ops.device_launch_counts().items()}
+    check(not any(launches.values()) and not any(on_device.values()),
+          f"the training path launched a graph kernel: {launches}, on the "
+          f"device {on_device}")
+    out = dict(smi=smi, smoke=smoke, full=full, moe=moe, resume=resume,
+               train_lm_tail=example_out.splitlines()[-1:],
+               kernel_launches=launches, kernel_launches_on_device=on_device,
+               seconds=dict(smoke=t1 - t0, example_wait=t2 - t1,
+                            full=t3 - t2, moe=t4 - t3, resume=t5 - t4,
+                            total=time.perf_counter() - t0))
+    (out_dir / "train.json").write_text(json.dumps(out, indent=1))
+    return out
+
+
+def train_lines(d: dict) -> list:
+    """The phase's printed lines, each with the card's name and power
+    limit."""
+    smi, f, mo, r, sec = (d["smi"], d["full"], d["moe"], d["resume"],
+                          d["seconds"])
+    smoke = "; ".join(f"{a} loss {v['loss']:.4f} grad {v['grad_rel_err']:.1e}"
+                      f" mb {v['microbatch_err']:.1e}"
+                      for a, v in d["smoke"].items())
+    return [
+        f"[train] ten smoke configs fp32, card against CPU (loss and "
+        f"grad_norm within rtol {TRAIN_LOSS_TOL}, every gradient within "
+        f"{TRAIN_GRAD_ATOL} x its leaf's largest + rtol {TRAIN_GRAD_RTOL}; "
+        f"largest gradient error over leaf scale shown), one step twice "
+        f"from one state bit-identical each, microbatches 2 against 1 "
+        f"within {TRAIN_MB_ATOL} (largest shown): {smoke} "
+        f"({sec['smoke']:.1f} s, beside python -m repro_torch.train_lm "
+        f"--steps 10, exit 0, waited {sec['example_wait']:.1f} s more) | "
+        f"{smi}",
+        f"[train] {TRAIN_ARCH} full width and depth, {f['params'] / 1e9:.3f} "
+        f"B params, fp32 master + AdamW ({f['state_bytes'] / 1e9:.1f} GB), "
+        f"bf16 compute, remat, microbatches {TRAIN_MICRO}, {TRAIN_BATCH} x "
+        f"(256 patches + {TRAIN_TOKENS} tokens) = {f['positions']} "
+        f"positions a step, {TRAIN_STEPS} steps: init {f['init_s']:.2f} s; "
+        f"step 0 twice from one seeded init, every checksum equal, all "
+        f"{f['leaves_moved']} parameter leaves moved; losses "
+        + ", ".join(f"{x:.4f}" for x in f["losses"])
+        + f", grad_norms " + ", ".join(f"{x:.3f}" for x in f["grad_norms"])
+        + f" (all finite); median {f['median_ms']:.1f} ms a step (steps "
+        f"1-{TRAIN_STEPS - 1}), {f['positions_per_s']:.0f} positions/s "
+        f"({f['tokens_per_s']:.0f} tokens/s, the {TRAIN_BATCH} x "
+        f"{TRAIN_TOKENS} tokens alone); bound "
+        f"{f['bound_ms']:.1f} ms ({f['flops'] / 1e12:.1f} TFLOP: 6 x "
+        f"{f['matmul_params'] / 1e9:.3f} B matmul params x {f['positions']}"
+        f" + attention, over 989 TFLOP/s bf16); peak "
+        f"{f['peak_bytes'] / 2**30:.2f} GiB ({sec['full']:.1f} s) | {smi}",
+        f"[train] {LM_ARCH} full width, depth 2, fp32, {mo['params'] / 1e9:.3f}"
+        f" B params: one step ({mo['batch']} x {mo['tokens']} tokens) twice "
+        f"from one seeded state bit-identical (loss {mo['loss']:.4f}, "
+        f"grad_norm {mo['grad_norm']:.3f}; walls "
+        f"{mo['walls_s'][0]:.2f} / {mo['walls_s'][1]:.2f} s) "
+        f"({sec['moe']:.1f} s) | {smi}",
+        f"[train] {RESUME_ARCH} full width through launch.train.main: "
+        f"{r['steps'][0]} steps with --save-every 5, then --steps "
+        f"{r['steps'][1]} on the same directory (resumed from step 12) = a "
+        f"straight {r['steps'][1]}-step run, all {r['arrays']} arrays of "
+        f"the final checkpoint bit for bit ({r['run_s']:.1f} s for the "
+        f"three runs, the card to themselves); checkpoints of "
+        f"{r['bytes'] / 1e9:.2f} GB: "
+        + "; ".join(f"{k} " + "/".join(f"{x:.0f}" for x in v) + " ms"
+                    for k, v in r["times_ms"].items())
+        + f"; graph kernels launched by the training path "
+        f"{d['kernel_launches']}; phase {sec['total']:.1f} s | {smi}",
+    ]
+
+
+def train_traced(dev, out_dir: Path, untraced_ms: float) -> dict:
+    """One TRAIN_ARCH train step (after a warm one) under torch.profiler:
+    device time and device kernels against the untraced median ms a step.
+    It runs after phase 5's profiled runs, as :func:`lm_traced` does."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.train import data, train_step as ts
+    from repro_torch.train.optimizer import AdamW
+
+    cfg, opt = registry.ARCHS[TRAIN_ARCH].config, AdamW()
+    torch.cuda.empty_cache()
+    state = ts.init_train_state(
+        cfg, opt, torch.Generator(device=dev).manual_seed(0), device=dev)
+    step = ts.make_train_step(cfg, opt, microbatches=TRAIN_MICRO, remat=True)
+    pipe = data.SyntheticLM(cfg, TRAIN_TOKENS, TRAIN_BATCH, device=dev)
+    state, _ = step(state, pipe.batch_at(0))
+    batch = pipe.batch_at(1)
+    out = _lm_profile(lambda: step(state, batch), 1, untraced_ms,
+                      "train_step", out_dir)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import os
 
@@ -2879,6 +3633,11 @@ def main() -> int:
     # -- the LM serving path, on a card that holds nothing else yet --------
     detail["lm"] = lm_phase(dev, smi, out_dir)
     for line in lm_lines(detail["lm"]):
+        print(line, flush=True)
+
+    # -- LM training, on a card that holds nothing else yet either --------
+    detail["train"] = train_phase(dev, smi, out_dir)
+    for line in train_lines(detail["train"]):
         print(line, flush=True)
 
     # -- 2. kernels against their plain versions on the card ----------------
@@ -3100,6 +3859,11 @@ def main() -> int:
           f"the same four launches inside a WHILE node exact, epoch "
           f"{wrap['in_a_while']['stored_epoch']} after "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
+
+    t = time.perf_counter()
+    detail["fault11"] = fault11_cases(dev, g)
+    print(fault11_line(detail["fault11"])
+          + f" ({time.perf_counter() - t:.1f} s)", flush=True)
 
     # -- 3. reference counts at scale 12 ------------------------------------
     t = time.perf_counter()
@@ -4086,8 +4850,9 @@ def main() -> int:
     # lane held to its serial run before anything is timed
     bb = bench_batch_run(out_dir)
     detail["bench_batch"] = bb
-    print(f"[4/5] bench-batch --queries {NQ} --scale {FULL_SCALE} (fused, "
-          f"every lane bit-identical to its serial run): " + "; ".join(
+    print(f"[4/5] bench-batch --queries {NQ} --scale {FULL_SCALE} --keys "
+          f"{','.join(BENCH_BATCH_KEYS)} (fused, every lane bit-identical to "
+          f"its serial run): " + "; ".join(
               f"{r['program']} serial {r['queries_per_s_serial']:.1f} q/s, "
               f"batched {r['queries_per_s_batched']:.1f} q/s = "
               f"{r['speedup']:.2f}x" for r in bb["rows"])
@@ -4531,6 +5296,7 @@ def main() -> int:
              random_cold_ms=l_t["random"]["cold_ms"],
              all_entry_bound_ms=l_bound_all),
         row_2b, row_2c, row_2d, row_2e, row_3a, row_2f,
+        *detail["fault11"]["rows"],
     ]
     detail["timings"] = dict(
         bucket_ranks=dict(shape=list(rkeys.shape), **b_t, plain_ms=b_plain,
@@ -4643,6 +5409,15 @@ def main() -> int:
         detail["lm"]["traced"] = lm_traced(dev, out_dir)
     print(lm_traced_line(detail["lm"]["traced"], smi), flush=True)
     (out_dir / "lm_serve.json").write_text(json.dumps(detail["lm"], indent=1))
+    tt = train_traced(dev, out_dir, detail["train"]["full"]["median_ms"])
+    detail["train"]["traced"] = tt
+    print(f"[5/5] {TRAIN_ARCH} train step traced: device "
+          f"{tt['device_ms']:.1f} of {tt['untraced_ms']:.1f} ms untraced "
+          f"(busy {tt['busy_vs_untraced']:.2f}), {tt['kernels_a_step']:.0f} "
+          f"device kernels a step; top {tt['top'][0][0][:50]} "
+          f"{tt['top'][0][1]:.1f} ms | {smi}", flush=True)
+    (out_dir / "train.json").write_text(json.dumps(detail["train"],
+                                                   indent=1))
     detail["total_s"] = time.perf_counter() - t_start
     plan_cache.cleanup()
     print(f"chip_smoke: all phases ok in {detail['total_s']:.1f} s",

@@ -17,7 +17,8 @@ tail -n 3 "$out/gpu_tests.txt"
 python3 chip_smoke.py > "$out/smoke_stdout.txt" 2> "$out/smoke_stderr.txt"
 rc=$?
 echo "chip_smoke exit $rc"
-for f in chip_smoke.json plan_explain_cli.txt plans_explain.txt dist_gloo.log dist_nccl.log; do
+for f in chip_smoke.json plan_explain_cli.txt plans_explain.txt dist_gloo.log dist_nccl.log \
+         lm_serve.json train.json train_resume.log train_lm.log; do
     cp "chiprun_out/$f" "$out/" 2>/dev/null
 done
 alone=$(mktemp -d)

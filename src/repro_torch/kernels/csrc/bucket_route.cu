@@ -81,9 +81,27 @@
 // on key positions; the look-back adds the same integers whichever tiles
 // it finds published, and integer atomics are order-free.
 //
-// Limits: B + 1 <= kMaxBuckets (64), rows <= 65535, and for the lanes
-// kernel a (B + 1) x (Q + 1) int32 tile of at most kMaxLaneTileBytes; the
-// wrappers raise above them.
+// Two kernels of each kind, the narrow ranks_kernel and the wide
+// wide_ranks_kernel. The narrow one, for B + 1 <= kMaxBuckets (64), at
+// most 65,535 rows (gridDim.y, a row's tiles on gridDim.x) and a lane tile
+// that fits shared memory (past 48 KB with the opt-in), keeps its
+// per-warp counts in a static (16, 64) shared array and a key + 1 in the
+// low 7 bits of a slot. The wide one takes any B + 1 up to 2^22 - 1 (a key
+// + 1 in the low 22 bits, the rank in the warp, < 512, in the 9 above): its
+// per-warp counts, the tile's counts and its exclusive prefixes, (16 + 2)
+// x (B + 1) ints, live in dynamic shared memory (the opt-in above 48 KB,
+// up to the card's per-block limit) or, beyond it, in a per-block slab of
+// global memory (`work`) that the block zeroes itself. Every warp's
+// look-back takes ceil((B + 1) / 16) buckets. A lane tile that does not
+// fit beside them is not staged in shared memory: each tile adds its lane
+// counts straight into the row's global accumulator with integer atomics,
+// and the row's last tile moves the sums out as before. The host
+// (kernels/bucket_route.py, launch_plan) picks the kernel and the places;
+// the launcher checks its byte counts against the device.
+//
+// The wide kernel puts the tiles of all rows on gridDim.x (a ticket per
+// block, at most 2^31 - 1 of them), so it also takes any number of rows:
+// the host sends more than 65,535 rows to it whatever B is.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -95,11 +113,17 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPerThread = 16;  // keys a thread holds
 constexpr int kWarpKeys = 32 * kPerThread;
 constexpr int kTile = kThreads * kPerThread;
-constexpr int kMaxBuckets = 64;
+constexpr int kMaxBuckets = 64;  // the narrow kernel's B + 1
 constexpr unsigned kFull = 0xffffffffu;
-// dynamic shared memory for the lane tile; with the static arrays it stays
-// under the 48 KB a block gets without an opt-in
-constexpr int kMaxLaneTileBytes = 32768;
+// the narrow kernel's static shared arrays take under this; the rest of the
+// device's per-block opt-in is left to the dynamic part
+constexpr long long kStaticReserve = 8192;
+// a block's dynamic shared memory without cudaFuncSetAttribute
+constexpr long long kDefaultDynamic = 48 * 1024 - kStaticReserve;
+// the wide kernel's slot: key + 1 in the low kWideKeyBits bits
+constexpr int kWideKeyBits = 22;
+constexpr long long kMaxGrid = 0x7fffffffLL;  // gridDim.x
+constexpr long long kMaxGridRows = 65535;     // gridDim.y: the narrow rows
 
 // the epochs of the status tags run 1 .. kEpochLimit
 constexpr unsigned kEpochLimit = 1u << 30;
@@ -123,6 +147,12 @@ struct Args {
   int nb;
   int q;
   bool vec16;                      // q % 16 == 0 and lanes 16-byte aligned
+  // the wide kernel's
+  bool counts_shared;              // the counts in dynamic shared memory
+  bool lanes_shared;               // the lane tile after them
+  int* work;                       // counts in global memory: per block
+                                   // (kWarps + 2) * nb ints
+  long long rows;
 };
 
 __device__ __forceinline__ unsigned long long load_status(
@@ -183,10 +213,12 @@ __device__ __forceinline__ uint4 load_bytes(const unsigned char* mine, int q0,
 }
 
 // 32 membership bytes of this thread's entry in a slot (16-byte aligned)
-// as two 16-byte loads; zeros, and no load, unless the entry is real.
+// as two 16-byte loads; zeros, and no load, unless the entry is real. The
+// slot's key + 1 lies in its kKeyMask bits.
+template <int kKeyMask = 127>
 __device__ __forceinline__ void load32(const unsigned char* slot_lanes, int q,
                                        int lane, int slot, int nb, uint4* v) {
-  const int k = (slot & 127) - 1;
+  const int k = (slot & kKeyMask) - 1;
   v[0] = v[1] = make_uint4(0u, 0u, 0u, 0u);
   if (k >= 0 && k < nb - 1) {
     const uint4* p = reinterpret_cast<const uint4*>(slot_lanes + lane * q);
@@ -244,11 +276,13 @@ __device__ __forceinline__ void end_of_call(const Args& a,
   }
 }
 
-// Launches of ranks_kernel<false> and <true> since the library loaded,
-// each counted by the block that draws ticket 0: a launch replayed from a
-// captured CUDA graph counts too, which no host-side count can see.
+// Launches of the bucket_ranks kernels (narrow and wide, [0]) and the
+// bucket_ranks_lanes kernels ([1]) since the library loaded, each counted
+// by the block that draws ticket 0: a launch replayed from a captured CUDA
+// graph counts too, which no host-side count can see.
 __device__ unsigned long long g_launches[2];
 
+// The narrow kernel: B + 1 <= kMaxBuckets, rows <= 65,535 on gridDim.y.
 template <bool kLanes>
 __global__ void __launch_bounds__(kThreads, 2)
     ranks_kernel(const Args a) {
@@ -466,32 +500,308 @@ __global__ void __launch_bounds__(kThreads, 2)
   end_of_call(a, total, s_epoch);
 }
 
+// The wide kernel: the narrow one's algorithm for any B + 1 up to 2^22 - 1
+// and any number of rows (tiles x rows on gridDim.x), its counts in
+// dynamic shared memory or global slabs and its lane counts in shared
+// memory or the global accumulator (see the header).
+template <bool kLanes>
+__global__ void __launch_bounds__(kThreads, 2)
+    wide_ranks_kernel(const Args a) {
+  __shared__ unsigned long long s_tile;
+  __shared__ unsigned s_epoch;
+  __shared__ bool s_last;
+  extern __shared__ int dyn[];  // the counts, then the lane tile, as planned
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nb = a.nb, nbits = 32 - __clz(nb);
+  constexpr int kKeyBits = kWideKeyBits;
+  constexpr int kKeyMask = (1 << kKeyBits) - 1;
+  // per-warp counts (then warp offsets) at [w * nb + b], the tile's
+  // counts, its earlier tiles' counts, and the lane tile (stride q + 1)
+  int* counts_base = a.counts_shared
+                         ? dyn
+                         : a.work + (long long)blockIdx.x * (kWarps + 2) * nb;
+  int* wcount = counts_base;
+  int* tile_agg = counts_base + kWarps * nb;
+  int* tile_excl = tile_agg + nb;
+  int* lane_tile = dyn + (kWarps + 2) * nb;
+  const bool tile_lanes = a.lanes_shared;
+  const int ws = nb;
+  const unsigned long long total = gridDim.x;
+  if (threadIdx.x == 0) {
+    // the ticket and the call's epoch in one draw; the last draw moves the
+    // word on to the next call's epoch and ticket 0
+    const unsigned long long word = atomicAdd(a.ctrl, 1ull);
+    const unsigned long long t = word & 0xffffffffull;
+    const unsigned epoch = (unsigned)(word >> 32) + 1u;
+    if (t == total - 1)
+      atomicExch(a.ctrl, (unsigned long long)(epoch == kEpochLimit ? 0u
+                                                                   : epoch)
+                             << 32);
+    if (t == 0) atomicAdd(&g_launches[kLanes], 1ull);
+    s_tile = t;
+    s_epoch = epoch;
+  }
+  for (int j = threadIdx.x; j < kWarps * ws; j += kThreads) wcount[j] = 0;
+  if (kLanes && tile_lanes)
+    for (int j = threadIdx.x; j < nb * (a.q + 1); j += kThreads)
+      lane_tile[j] = 0;
+  __syncthreads();
+
+  // tickets run over (tile, row) with the row fastest, so the tiles in
+  // flight spread over every row and each row's look-back stays short
+  const long long tile = (long long)s_tile;
+  const long long row = tile % a.rows;
+  const long long in_row = tile / a.rows;
+  // this warp's keys: first + j * 32 + lane, j < kPerThread, of the row
+  const long long first = in_row * kTile + (long long)warp * kWarpKeys;
+  const int left = (int)min(a.m - first, (long long)kWarpKeys);  // may be <= 0
+  const int* keys = a.keys + row * a.m + first;
+
+  // key + 1 (0: no bucket) in the low kKeyBits bits, the rank within the
+  // warp's keys above them
+  int slot[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int i = j * 32 + lane;
+    const int k = i < left ? keys[i] : -1;
+    slot[j] = (k >= 0 && k < nb) ? k + 1 : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int k = slot[j] - 1;
+    const unsigned peers = peers_of(k, nbits);
+    const int leader = __ffs(peers) - 1;
+    int before = 0;
+    if (lane == leader && k >= 0) {
+      before = wcount[warp * ws + k];
+      wcount[warp * ws + k] = before + __popc(peers);
+    }
+    const int within = __shfl_sync(kFull, before, leader) +
+                       __popc(peers & ((1u << lane) - 1u));
+    slot[j] |= within << kKeyBits;
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // warp offsets and the tile's counts, published at once
+  unsigned long long* status = a.status + row * a.tiles_per_row * nb;
+  const unsigned tag_agg = 2u * s_epoch, tag_incl = tag_agg + 1u;
+  auto publish = [&](int b) {
+    int run = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = wcount[w * ws + b];
+      wcount[w * ws + b] = run;
+      run += c;
+    }
+    tile_agg[b] = run;
+    if (in_row == 0) tile_excl[b] = 0;
+    store_status(status + in_row * nb + b, in_row == 0 ? tag_incl : tag_agg,
+                 (unsigned)run);
+  };
+  for (int b = threadIdx.x; b < nb; b += kThreads) publish(b);
+  __syncthreads();
+
+  // look-back: one warp per bucket, 32 earlier tiles at a time
+  if (in_row > 0) {
+    for (int b = warp; b < nb; b += kWarps) {
+      unsigned excl = 0;
+      for (long long newest = in_row - 1;; newest -= 32) {
+        const long long p = newest - lane;
+        bool incl = true;  // before the row's first tile: nothing to add
+        unsigned count = 0;
+        if (p >= 0) {
+          unsigned long long word;
+          unsigned tag;
+          do {
+            word = load_status(status + p * nb + b);
+            tag = (unsigned)(word >> 32);
+          } while (tag != tag_agg && tag != tag_incl);
+          incl = tag == tag_incl;
+          count = (unsigned)word;
+        }
+        const unsigned found = __ballot_sync(kFull, incl);
+        const int stop = found ? __ffs(found) - 1 : 31;
+        excl += __reduce_add_sync(kFull, lane <= stop ? count : 0u);
+        if (found) break;
+      }
+      if (lane == 0) {
+        tile_excl[b] = (int)excl;
+        store_status(status + in_row * nb + b, tag_incl,
+                     excl + (unsigned)tile_agg[b]);
+      }
+    }
+  }
+  __syncthreads();
+
+  int* rank = a.rank + row * a.m + first;
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int i = j * 32 + lane, k = (slot[j] & kKeyMask) - 1;
+    if (i < left)
+      rank[i] = k >= 0 ? tile_excl[k] + wcount[warp * ws + k] +
+                             (slot[j] >> kKeyBits)
+                       : 0;
+  }
+  if (in_row == a.tiles_per_row - 1)
+    for (int b = threadIdx.x; b < nb; b += kThreads)
+      a.counts[row * nb + b] = tile_excl[b] + tile_agg[b];
+  if (!kLanes) {
+    end_of_call(a, total, s_epoch);
+    return;
+  }
+
+  // lane counts, after the ranks so that no later tile waits on them. Each
+  // slot with a real (not sentinel) key reads the members' bytes; a
+  // sentinel's are never read. Counted into the shared tile, or straight
+  // into the row's accumulator when the tile does not fit.
+  const int q = a.q;
+  int* acc = a.lane_acc + row * nb * q;
+  int* counts_to = tile_lanes ? lane_tile : acc;
+  const int stride = tile_lanes ? q + 1 : q;
+  const unsigned char* lanes = a.lanes + row * a.lanes_stride + first * q;
+  if (a.vec16 && q % 32 == 0) {
+    // 32 lanes at a time (the batched plane's Q = 32: once), each entry's
+    // 32 bytes as two 16-byte loads, the next slot's issued before this
+    // one's are counted. Lane l takes column c0 + l of the slot's bit
+    // matrix and adds its members per group of equal keys: one shared
+    // atomic per group, on 32 distinct words.
+    for (int c0 = 0; c0 < q; c0 += 32) {
+      const unsigned char* base = lanes + c0;
+      uint4 cur[2], nxt[2];
+      load32<kKeyMask>(base, q, lane, slot[0], nb, cur);
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j) {
+        if (j + 1 < kPerThread)
+          load32<kKeyMask>(base + (j + 1) * 32 * q, q, lane, slot[j + 1],
+                           nb, nxt);
+        const int k = (slot[j] & kKeyMask) - 1;
+        unsigned todo = __ballot_sync(kFull, k >= 0 && k < nb - 1);
+        if (todo) {  // uniform
+          const unsigned col = column_bits(cur, lane);
+          const unsigned peers = peers_of(k, nbits);
+          do {
+            const int lead = __ffs(todo) - 1;
+            const unsigned group = __shfl_sync(kFull, peers, lead);
+            const int key = __shfl_sync(kFull, k, lead);
+            const int n = __popc(col & group);
+            if (n) atomicAdd(&counts_to[key * stride + c0 + lane], n);
+            todo &= ~group;
+          } while (todo);
+        }
+        if (j + 1 < kPerThread) {
+          cur[0] = nxt[0];
+          cur[1] = nxt[1];
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) {
+      const int i = j * 32 + lane, k = (slot[j] & kKeyMask) - 1;
+      const bool real = k >= 0 && k < nb - 1;
+      if (!__any_sync(kFull, real)) continue;  // sentinels: nothing to read
+      const unsigned peers = peers_of(k, nbits);
+      const bool leader = (peers & ((1u << lane) - 1u)) == 0u && real;
+      const unsigned char* mine = lanes + (long long)(real ? i : 0) * q;
+      for (int q0 = 0; q0 < q; q0 += 16) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (real)
+          v = a.vec16 ? *reinterpret_cast<const uint4*>(mine + q0)
+                      : load_bytes(mine, q0, q);
+        ballot_bytes(counts_to, stride, k, peers, leader, q0, q, v);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the tile's lane counts into the row's accumulator; the row's last
+  // tile to finish moves the sums out and leaves the accumulator zero
+  if (tile_lanes)
+    for (int j = threadIdx.x; j < nb * q; j += kThreads) {
+      const int t = lane_tile[(j / q) * stride + j % q];
+      if (t) atomicAdd(&acc[j], t);
+    }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(&a.row_done[row], 1u) ==
+             (unsigned)(a.tiles_per_row - 1);
+  __syncthreads();
+  if (s_last) {
+    __threadfence();
+    int* out = a.lane_counts + row * nb * q;
+    for (int j = threadIdx.x; j < nb * q; j += kThreads)
+      out[j] = atomicExch(&acc[j], 0);
+    if (threadIdx.x == 0) a.row_done[row] = 0u;
+  }
+  end_of_call(a, total, s_epoch);
+}
+
 long long tiles_per_row(long long m) { return (m + kTile - 1) / kTile; }
 
-int launch(const Args& a, int rows, bool lanes, void* stream) {
-  if (a.nb < 1 || a.nb > kMaxBuckets || rows < 1 || rows > 65535 ||
-      a.m < 1 || a.q < 0 || a.tiles_per_row != tiles_per_row(a.m) ||
-      a.tiles_per_row * rows > 0xffffffffLL ||  // tickets: 32 bits
-      a.status_words < a.tiles_per_row * rows * a.nb)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)a.tiles_per_row, (unsigned)rows);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lanes) {
-    const long long tile_bytes = (long long)a.nb * (a.q + 1) * 4;
-    if (tile_bytes > kMaxLaneTileBytes) return (int)cudaErrorInvalidValue;
-    ranks_kernel<true><<<grid, kThreads, (size_t)tile_bytes, s>>>(a);
-  } else {
-    ranks_kernel<false><<<grid, kThreads, 0, s>>>(a);
+int smem_optin() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return bytes;
+}
+
+template <bool kLanes, bool kWide>
+int start(const Args& a, long long dyn_bytes, cudaStream_t s) {
+  const auto kernel =
+      kWide ? wide_ranks_kernel<kLanes> : ranks_kernel<kLanes>;
+  if (dyn_bytes > kDefaultDynamic) {  // the opt-in; never on the narrow
+    // kernel's usual launches (a lane tile of at most 32 KB)
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn_bytes);
+    if (err != cudaSuccess) return (int)err;
   }
+  const dim3 grid = kWide ? dim3((unsigned)(a.tiles_per_row * a.rows))
+                         : dim3((unsigned)a.tiles_per_row, (unsigned)a.rows);
+  kernel<<<grid, kThreads, (size_t)dyn_bytes, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+// wide: 0 = the narrow kernel, 1 = the wide one. dyn_bytes: the dynamic
+// shared memory the host's plan gives the launch; work_words: the ints at
+// a.work (wide kernel with its counts in global memory).
+int launch(const Args& a, bool lanes, int wide, long long dyn_bytes,
+           long long work_words, void* stream) {
+  const long long counts_bytes = (long long)(kWarps + 2) * a.nb * 4;
+  const long long lane_bytes = lanes ? (long long)a.nb * (a.q + 1) * 4 : 0;
+  const long long want =
+      !wide ? lane_bytes
+            : (a.counts_shared ? counts_bytes : 0) +
+                  (a.lanes_shared ? lane_bytes : 0);
+  if (a.nb < 1 || a.rows < 1 || a.m < 1 || a.q < 0 ||
+      a.nb > (wide ? (1 << kWideKeyBits) - 1 : kMaxBuckets) ||
+      (!wide && a.rows > kMaxGridRows) ||
+      a.tiles_per_row != tiles_per_row(a.m) ||
+      a.tiles_per_row * a.rows > kMaxGrid ||  // tickets, gridDim.x
+      a.status_words < a.tiles_per_row * a.rows * a.nb ||
+      dyn_bytes != want || (a.lanes_shared && !a.counts_shared) ||
+      (wide && !a.counts_shared &&
+       work_words < a.tiles_per_row * a.rows * (kWarps + 2) * a.nb) ||
+      (dyn_bytes > kDefaultDynamic &&
+       dyn_bytes > (long long)smem_optin() - kStaticReserve))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes)
+    return wide ? start<true, true>(a, dyn_bytes, s)
+                : start<true, false>(a, dyn_bytes, s);
+  return wide ? start<false, true>(a, dyn_bytes, s)
+              : start<false, false>(a, dyn_bytes, s);
 }
 
 }  // namespace
 
 // 8-byte status words both kernels need for (rows, m) keys in nb buckets.
-extern "C" long long bucket_ranks_status_words(int rows, long long m,
+extern "C" long long bucket_ranks_status_words(long long rows, long long m,
                                                int nb) {
-  return (long long)rows * tiles_per_row(m) * nb;
+  return rows * tiles_per_row(m) * nb;
 }
 
 // out[0], out[1]: launches of bucket_ranks and bucket_ranks_lanes since
@@ -507,17 +817,24 @@ extern "C" int bucket_ranks_device_launches(unsigned long long* out) {
 // (epoch - 1) << 32 between calls.
 extern "C" unsigned bucket_ranks_epoch_limit() { return kEpochLimit; }
 
+// The current device's shared memory a block may opt in to (bytes).
+extern "C" int bucket_ranks_smem_optin() { return smem_optin(); }
+
 // keys, rank: (rows, m) int32; counts: (rows, nb) int32, all written.
 // status: status_words >= bucket_ranks_status_words(rows, m, nb) 8-byte
 // words, zero when first used, then left to the kernel (a call at the
 // epoch limit zeroes all status_words of them). ctrl: 2 8-byte words,
 // zero when first used, then left to the kernel: the epoch and the
 // ticket, and the count of finished blocks of a call at the epoch limit.
-// nb = B + 1. Returns cudaGetLastError().
+// nb = B + 1. wide, counts_shared, dyn_bytes, work, work_words: the
+// host's launch plan (kernels/bucket_route.py, launch_plan), checked here.
+// Returns cudaGetLastError().
 extern "C" int bucket_ranks_launch(const int* keys, int* rank, int* counts,
                                    void* status, long long status_words,
-                                   void* ctrl, int rows, long long m, int nb,
-                                   void* stream) {
+                                   void* ctrl, long long rows, long long m,
+                                   int nb, int wide, int counts_shared,
+                                   long long dyn_bytes, void* work,
+                                   long long work_words, void* stream) {
   Args a{};
   a.keys = keys;
   a.rank = rank;
@@ -525,10 +842,13 @@ extern "C" int bucket_ranks_launch(const int* keys, int* rank, int* counts,
   a.status = static_cast<unsigned long long*>(status);
   a.status_words = status_words;
   a.ctrl = static_cast<unsigned long long*>(ctrl);
+  a.work = static_cast<int*>(work);
+  a.rows = rows;
   a.m = m;
   a.tiles_per_row = tiles_per_row(m);
   a.nb = nb;
-  return launch(a, rows, false, stream);
+  a.counts_shared = counts_shared != 0;
+  return launch(a, false, wide, dyn_bytes, work_words, stream);
 }
 
 // As bucket_ranks_launch, plus lanes: (rows, m, q) bytes, 1 = a member,
@@ -536,16 +856,14 @@ extern "C" int bucket_ranks_launch(const int* keys, int* rank, int* counts,
 // after the last; lane_counts: (rows, nb, q) int32, all written; zero:
 // >= rows + rows * nb * q 4-byte words (the rows' finished-tile counts,
 // the lane accumulator), zero between calls (the kernel restores it).
-// Returns cudaGetLastError().
-extern "C" int bucket_ranks_lanes_launch(const int* keys,
-                                         const unsigned char* lanes,
-                                         int* rank, int* counts,
-                                         int* lane_counts, void* status,
-                                         long long status_words, void* ctrl,
-                                         void* zero, int rows, long long m,
-                                         int nb, int q,
-                                         long long lanes_stride,
-                                         void* stream) {
+// The plan as for bucket_ranks_launch, plus lanes_shared. Returns
+// cudaGetLastError().
+extern "C" int bucket_ranks_lanes_launch(
+    const int* keys, const unsigned char* lanes, int* rank, int* counts,
+    int* lane_counts, void* status, long long status_words, void* ctrl,
+    void* zero, long long rows, long long m, int nb, int q,
+    long long lanes_stride, int wide, int counts_shared, int lanes_shared,
+    long long dyn_bytes, void* work, long long work_words, void* stream) {
   Args a{};
   a.keys = keys;
   a.lanes = lanes;
@@ -557,6 +875,8 @@ extern "C" int bucket_ranks_lanes_launch(const int* keys,
   a.ctrl = static_cast<unsigned long long*>(ctrl);
   a.row_done = static_cast<unsigned*>(zero);
   a.lane_acc = static_cast<int*>(zero) + rows;
+  a.work = static_cast<int*>(work);
+  a.rows = rows;
   a.m = m;
   a.tiles_per_row = tiles_per_row(m);
   a.nb = nb;
@@ -564,5 +884,7 @@ extern "C" int bucket_ranks_lanes_launch(const int* keys,
   a.lanes_stride = lanes_stride;
   a.vec16 = q % 16 == 0 && lanes_stride % 16 == 0 &&
             (reinterpret_cast<std::uintptr_t>(lanes) & 15u) == 0;
-  return launch(a, rows, true, stream);
+  a.counts_shared = counts_shared != 0;
+  a.lanes_shared = lanes_shared != 0;
+  return launch(a, true, wide, dyn_bytes, work_words, stream);
 }

@@ -100,6 +100,7 @@ constexpr long long kTile = (long long)kThreads * kItems;
 constexpr long long kSmallGap = 8;  // elements a thread fills alone
 constexpr long long kChunk = 8192;  // output elements of a chunk fill
 constexpr int kFillBlocks = 64;     // chunk-fill blocks per row
+constexpr long long kGridRows = 65535;  // gridDim.y
 static_assert(kItems % 4 == 0, "16-byte loads of a thread's entries");
 
 template <typename T, int OP>
@@ -331,15 +332,15 @@ __device__ __forceinline__ T block_seg_scan(T val, int flag, T carry,
 // continue into the next, else 0). part[row, tile, 0, :] = that first
 // run's value, part[row, tile, 1, :] = the last run's value.
 template <typename T, int OP>
-__global__ void __launch_bounds__(kThreads)
-    tile_kernel(const T* __restrict__ vals, const int* __restrict__ seg,
-                T* __restrict__ out, int2* __restrict__ meta,
-                typename Scan<T, OP>::S* __restrict__ part,
-                unsigned* __restrict__ chunks, long long e, int n, int d,
-                long long ntiles, long long nchunks, int vec) {
+__device__ __forceinline__ void tile_row(
+    const T* __restrict__ vals, const int* __restrict__ seg,
+    T* __restrict__ out, int2* __restrict__ meta,
+    typename Scan<T, OP>::S* __restrict__ part,
+    unsigned* __restrict__ chunks, long long e, int n, int d,
+    long long ntiles, long long nchunks, int vec, long long row) {
   using S = typename Scan<T, OP>::S;
   using C = Combine<S, Scan<T, OP>::kOp>;
-  const long long row = blockIdx.y, tile = blockIdx.x;
+  const long long tile = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31;
   if (row == 0 && tile == 0 && tid == 0) atomicAdd(&g_launches[0], 1ull);
   const int* s = seg + row * e;
@@ -469,6 +470,28 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Rows ride on gridDim.y. Past 65,535 rows (kLoop) a block takes every
+// gridDim.y-th row in turn.
+template <typename T, int OP, bool kLoop>
+__global__ void __launch_bounds__(kThreads)
+    tile_kernel(const T* __restrict__ vals, const int* __restrict__ seg,
+                T* __restrict__ out, int2* __restrict__ meta,
+                typename Scan<T, OP>::S* __restrict__ part,
+                unsigned* __restrict__ chunks, long long e, int n, int d,
+                long long ntiles, long long nchunks, int vec,
+                long long rows) {
+  if constexpr (!kLoop) {
+    tile_row<T, OP>(vals, seg, out, meta, part, chunks, e, n, d, ntiles,
+                    nchunks, vec, blockIdx.y);
+  } else {
+    for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
+      tile_row<T, OP>(vals, seg, out, meta, part, chunks, e, n, d, ntiles,
+                      nchunks, vec, row);
+      __syncthreads();
+    }
+  }
+}
+
 // Pass 2, block 0 of each row: joins the segments that cross tile
 // boundaries. S[t] = (reset[t] ? 0 : S[t - 1]) + last-run partial of
 // tile t, by a segmented scan in tile order; a tile whose first run ends
@@ -476,15 +499,13 @@ __global__ void __launch_bounds__(kThreads)
 // The row's other blocks store the chunks pass 1 marked, and clear the
 // marks.
 template <typename T, int OP>
-__global__ void __launch_bounds__(kThreads)
-    join_kernel(const T* __restrict__ vals, const int2* __restrict__ meta,
-                const typename Scan<T, OP>::S* __restrict__ part,
-                unsigned* __restrict__ chunks, T* __restrict__ out,
-                long long e, long long ntiles, int n, int d,
-                long long nchunks) {
+__device__ __forceinline__ void join_row(
+    const T* __restrict__ vals, const int2* __restrict__ meta,
+    const typename Scan<T, OP>::S* __restrict__ part,
+    unsigned* __restrict__ chunks, T* __restrict__ out, long long e,
+    long long ntiles, int n, int d, long long nchunks, long long row) {
   using S = typename Scan<T, OP>::S;
   using C = Combine<S, Scan<T, OP>::kOp>;
-  const long long row = blockIdx.y;
   const int tid = threadIdx.x;
   if (row == 0 && blockIdx.x == 0 && tid == 0)
     atomicAdd(&g_launches[1], 1ull);
@@ -522,6 +543,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Rows as in tile_kernel.
+template <typename T, int OP, bool kLoop>
+__global__ void __launch_bounds__(kThreads)
+    join_kernel(const T* __restrict__ vals, const int2* __restrict__ meta,
+                const typename Scan<T, OP>::S* __restrict__ part,
+                unsigned* __restrict__ chunks, T* __restrict__ out,
+                long long e, long long ntiles, int n, int d,
+                long long nchunks, long long rows) {
+  if constexpr (!kLoop) {
+    join_row<T, OP>(vals, meta, part, chunks, out, e, ntiles, n, d, nchunks,
+                    blockIdx.y);
+  } else {
+    for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
+      join_row<T, OP>(vals, meta, part, chunks, out, e, ntiles, n, d,
+                      nchunks, row);
+      __syncthreads();
+    }
+  }
+}
+
 long long tiles_per_row(long long e) {
   return e > 0 ? (e + kTile - 1) / kTile : 1;
 }
@@ -536,14 +577,14 @@ struct Args {
   void* out;
   void* scratch;
   unsigned* chunks;
-  int rows;
+  long long rows;
   long long e;
   int n, d, vec;
   cudaStream_t stream;
 };
 
-template <typename T, int OP>
-void launch(const Args& a) {
+template <typename T, int OP, bool kLoop>
+void launch_rows(const Args& a) {
   using S = typename Scan<T, OP>::S;
   const long long ntiles = tiles_per_row(a.e);
   const long long nchunks = chunks_per_row(a.n, a.d);
@@ -554,13 +595,24 @@ void launch(const Args& a) {
   S* part = reinterpret_cast<S*>(meta + (long long)a.rows * ntiles);
   const T* vals = static_cast<const T*>(a.vals);
   T* out = static_cast<T*>(a.out);
-  tile_kernel<T, OP><<<dim3((unsigned)ntiles, (unsigned)a.rows), kThreads, 0,
+  const unsigned grid_rows = (unsigned)(a.rows < kGridRows ? a.rows
+                                                           : kGridRows);
+  tile_kernel<T, OP, kLoop><<<dim3((unsigned)ntiles, grid_rows), kThreads, 0,
                        a.stream>>>(vals, a.seg, out, meta, part, a.chunks,
-                                   a.e, a.n, a.d, ntiles, nchunks, a.vec);
-  join_kernel<T, OP><<<dim3((unsigned)(1 + fill_blocks), (unsigned)a.rows),
+                                   a.e, a.n, a.d, ntiles, nchunks, a.vec,
+                                   a.rows);
+  join_kernel<T, OP, kLoop><<<dim3((unsigned)(1 + fill_blocks), grid_rows),
                        kThreads, 0, a.stream>>>(vals, meta, part, a.chunks,
                                                 out, a.e, ntiles, a.n, a.d,
-                                                nchunks);
+                                                nchunks, a.rows);
+}
+
+template <typename T, int OP>
+void launch(const Args& a) {
+  if (a.rows > kGridRows)
+    launch_rows<T, OP, true>(a);
+  else
+    launch_rows<T, OP, false>(a);
 }
 
 template <typename T>
@@ -586,17 +638,19 @@ extern "C" int segment_combine_device_launches(unsigned long long* out) {
   return (int)err;
 }
 
-extern "C" long long segment_combine_scratch_words(int rows, long long e,
-                                                   int d, int op) {
+extern "C" long long segment_combine_scratch_words(long long rows,
+                                                   long long e, int d,
+                                                   int op) {
   const long long words = op == kArgMin ? 2 : d;
-  return (long long)rows * tiles_per_row(e) * (2 + 2 * words);
+  return rows * tiles_per_row(e) * (2 + 2 * words);
 }
 
 // 4-byte words of the chunk table for (rows, n, d): one mark per chunk of
 // kChunk output elements. The caller keeps the table from launch to
 // launch, zeroed once; every launch leaves it zero.
-extern "C" long long segment_combine_chunk_words(int rows, int n, int d) {
-  return (long long)rows * chunks_per_row(n, d);
+extern "C" long long segment_combine_chunk_words(long long rows, int n,
+                                                 int d) {
+  return rows * chunks_per_row(n, d);
 }
 
 // vals: (rows, e, d); seg: (rows, e) int32 sorted per row; out: (rows, n,
@@ -604,14 +658,16 @@ extern "C" long long segment_combine_chunk_words(int rows, int n, int d) {
 // words, 8-byte aligned; chunks: segment_combine_chunk_words(rows, n, d)
 // words, all zero (each launch leaves them so). dtype 0 = float32, 1 = int32;
 // op 0 = sum, 1 = min, 2 = max, 3 = prod, 4 = min_by_first (key in column
-// 0; rows of at most 2^32 - 2 entries). Rows ride on gridDim.y (at most
-// 65535), a row's tiles of 2048 entries on gridDim.x. Returns
+// 0; rows of at most 2^32 - 2 entries). A row's tiles of 2048 entries
+// ride on gridDim.x, the rows on gridDim.y, at most 65,535 of them, each
+// block looping over every 65,535th row beyond that. Returns
 // cudaGetLastError().
 extern "C" int segment_combine_launch(const void* vals, const int* seg,
                                       void* out, void* scratch, void* chunks,
-                                      int rows, long long e, int n, int d,
-                                      int dtype, int op, void* stream) {
-  if (rows < 1 || rows > 65535 || n < 1 || d < 1 || e < 0 || dtype < 0 ||
+                                      long long rows, long long e, int n,
+                                      int d, int dtype, int op,
+                                      void* stream) {
+  if (rows < 1 || n < 1 || d < 1 || e < 0 || dtype < 0 ||
       dtype > 1 || op < 0 || op > 4 || tiles_per_row(e) > INT_MAX ||
       (op == kArgMin && e > 0xfffffffeLL) || ((uintptr_t)scratch & 7))
     return (int)cudaErrorInvalidValue;

@@ -16,8 +16,6 @@ from repro_torch.kernels import build, scratch
 
 _OPS = {"sum": 0, "min": 1, "max": 2, "prod": 3, "min_by_first": 4}
 _DTYPES = {torch.float32: 0, torch.int32: 1}
-#: rows ride on the launch grid's y dimension
-MAX_ROWS = 65535
 
 _fns = None
 #: launches of the kernel since the last reset (kernels.ops owns resets)
@@ -73,13 +71,13 @@ def _library():
                                       lib.segment_combine_scratch_words,
                                       lib.segment_combine_chunk_words)
         launch.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         launch.restype = ctypes.c_int
-        words.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        words.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_int]
         words.restype = ctypes.c_longlong
-        chunk_words.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        chunk_words.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
         chunk_words.restype = ctypes.c_longlong
         _fns = launch, words, chunk_words
     return _fns
@@ -93,8 +91,10 @@ def segment_combine_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
     result but no out-of-bounds access). float32/int32 for sum/min/max/
     prod and ``min_by_first`` (values ``(*B, E, D)``, the key in column
     0; empty segments hold ``identity_like``); bool ``or`` runs as max
-    over 0/1 int32. At most :data:`MAX_ROWS` rows (the product of
-    ``*B``)."""
+    over 0/1 int32. Any number of rows (the product of ``*B``): past
+    65,535, the launch grid's rows, each block loops over rows. A row
+    holds up to 2,048 x (2^31 - 1) entries (its tiles of 2,048 on the
+    grid's x dimension; 2^32 - 2 for ``min_by_first``)."""
     global launches
     if not (vals.is_cuda and seg_ids.is_cuda):
         raise ValueError("segment_combine_cuda needs CUDA tensors")
@@ -113,9 +113,6 @@ def segment_combine_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
     batch, e = tuple(seg_ids.shape[:-1]), seg_ids.shape[-1]
     feat = tuple(vals.shape[seg_ids.dim():])
     rows, n, d = math.prod(batch), num_segments, math.prod(feat)
-    if rows > MAX_ROWS:
-        raise ValueError(f"segment_combine kernel takes at most {MAX_ROWS} "
-                         f"rows, got {rows}")
     v = work.reshape(rows, e, d).contiguous()
     seg = seg_ids.reshape(rows, e).to(torch.int32).contiguous()
     out = torch.empty((rows, n, d), dtype=work.dtype, device=vals.device)

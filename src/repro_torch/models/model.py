@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -81,7 +82,10 @@ def embed_input(cfg: ModelConfig, params, batch: Dict[str, Any], dtype,
         parts.append(batch["embeds"].to(dtype))
     if batch.get("tokens") is not None:
         emb = params["embed"].to(dtype)
-        parts.append(emb[batch["tokens"]])
+        # the gather of indexing; its backward sums repeated tokens in a
+        # fixed order on the CPU and the card (indexing's backward
+        # accumulates in parallel on the CPU, its sums vary run to run)
+        parts.append(F.embedding(batch["tokens"], emb))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.pos_embed == "sinusoidal":
         pos = torch.arange(start, start + x.shape[1], device=x.device)
@@ -93,6 +97,16 @@ def _block_slice(tree, i: int):
     """Block ``i`` of a tree stacked over blocks (views, so a cache slice
     is written through to the stacked cache)."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _blocks(tree, n: int):
+    """The ``n`` blocks of a parameter tree stacked over blocks, taken
+    with one ``unbind`` a leaf: the same views as :func:`_block_slice`,
+    but the backward stacks the blocks' gradients once, where n ``select``
+    backwards would each write a zero gradient of the whole stacked
+    leaf."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
 def forward(
@@ -154,8 +168,7 @@ def forward(
                 x = x + y2
         return x
 
-    for i in range(cfg.n_blocks):
-        bp = _block_slice(p["blocks"], i)
+    for i, bp in enumerate(_blocks(p["blocks"], cfg.n_blocks)):
         bc = _block_slice(cache, i) if cache is not None else None
         if remat:
             x = checkpoint(block_fn, x, bp, bc, use_reentrant=False)

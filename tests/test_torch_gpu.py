@@ -124,6 +124,122 @@ def test_bucket_ranks_lanes_kernel_chain_cases(cuda, case, rows, m, b, q):
         assert torch.equal(a, w)
 
 
+# ROADMAP fault 11: shapes the narrow kernels refused. W = 64, 256, 1,024
+# run the wide kernel with its counts in shared memory, W = 4,096 with
+# them in global memory; 70,000 rows fold into the grid's x dimension.
+_WIDE_CASES = [(c, rows, m, w) for w in (64, 256, 1024)
+               for c, rows, m in (("sorted", 8, 3 * RANK_TILE + 17),
+                                  ("random", 8, 3 * RANK_TILE + 17),
+                                  ("random", 1, 40 * RANK_TILE + 3))]
+_WIDE_CASES += [("sorted", 2, 5 * RANK_TILE + 1, 4096),
+                ("random", 2, 5 * RANK_TILE + 1, 4096),
+                ("hub", 1, 5 * RANK_TILE + 1, 1024),
+                ("out of range", 3, 2 * RANK_TILE + 9, 256),
+                ("random", 70_000, 1000, 8), ("sorted", 70_000, 1000, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,rows,m,b", _WIDE_CASES)
+def test_bucket_ranks_kernel_takes_wide_and_tall_shapes(cuda, case, rows, m,
+                                                        b):
+    """Bit for bit against the plain version past 63 buckets and 65,535
+    rows."""
+    from repro_torch.kernels import bucket_route as kbucket
+
+    keys = _rank_keys(case, rows, m, b).to(cuda)
+    rank, counts = kbucket.bucket_ranks_cuda(keys, b)
+    want_r, want_c = ref.bucket_ranks_ref(keys, b)
+    torch.cuda.synchronize()
+    assert torch.equal(rank, want_r) and torch.equal(counts, want_c)
+
+
+_WIDE_LANE_CASES = [("random", 2, 2 * RANK_TILE + 3, 8, 1024),
+                    ("sorted", 2, 2 * RANK_TILE + 3, 8, 1024),
+                    ("random", 2, RANK_TILE + 3, 8, 4096),
+                    ("random", 1, RANK_TILE + 3, 8, 6500),  # lanes global
+                    ("random", 8, 3 * RANK_TILE + 17, 64, 32),
+                    ("sorted", 8, 3 * RANK_TILE + 17, 64, 32),
+                    ("random", 2, 2 * RANK_TILE + 1, 1024, 32),
+                    ("random", 2, RANK_TILE + 1, 4096, 16),  # counts global
+                    ("random", 70_000, 100, 8, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,rows,m,b,q", _WIDE_LANE_CASES)
+def test_bucket_ranks_lanes_kernel_takes_wide_and_tall_shapes(cuda, case,
+                                                              rows, m, b, q):
+    """Bit for bit against the plain version: lane tiles past 32 KB (the
+    opt-in), past the opt-in (global atomics), past 63 buckets and 65,535
+    rows; the lane accumulator left zero for the next call."""
+    from repro_torch.kernels import bucket_route as kbucket
+
+    keys = _rank_keys(case, rows, m, b)
+    lanes = _lane_bits(keys, q, b, m).to(cuda)
+    keys = keys.to(cuda)
+    for _ in range(2):  # the second call finds the accumulator zeroed
+        got = kbucket.bucket_ranks_lanes_cuda(keys, lanes, b)
+        want = ref.bucket_ranks_lanes_ref(keys, lanes, b)
+        torch.cuda.synchronize()
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+    zero = kbucket.scratch_of(cuda).zero
+    assert not zero.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype", [("sum", torch.float32),
+                                        ("min", torch.int32)])
+def test_segment_combine_kernel_takes_70000_rows(cuda, name, dtype):
+    """Past 65,535 rows each block loops over rows; float32 sums within
+    reassociation of the plain version, int32 min exact, and both bit for
+    bit the two calls of at most 65,535 rows (one block a row) that the
+    rows split into."""
+    g = torch.Generator().manual_seed(11)
+    rows, e, n = 70_000, 40, 24
+    seg = torch.sort(torch.randint(0, n + 3, (rows, e), generator=g),
+                     dim=1)[0].to(torch.int32)
+    if dtype == torch.float32:
+        vals = torch.rand(rows, e, generator=g)
+    else:
+        vals = torch.randint(-1000, 1000, (rows, e), generator=g,
+                             dtype=torch.int32)
+    vals, seg = vals.to(cuda), seg.to(cuda)
+    got = ops.segment_combine(vals, seg, n, name)
+    want = ref.segment_combine_ref(vals, seg, n, name)
+    torch.cuda.synchronize()
+    if dtype == torch.int32:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    half = rows // 2
+    split = torch.cat([ops.segment_combine(vals[:half], seg[:half], n, name),
+                       ops.segment_combine(vals[half:], seg[half:], n, name)])
+    assert torch.equal(got, split)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", ["wcc:basic", "sv:composed"])
+@pytest.mark.parametrize("mode", ["host", "fused"])
+def test_64_workers_on_the_card_match_the_cpu_run(cuda, key, mode):
+    """W = 64 (65 buckets, the wide kernel) at scale 16: outputs,
+    supersteps and bytes and msgs per channel equal the CPU's host run."""
+    spec = REGISTRY[key]
+    graph = spec.make_graph(16, 0)
+    inputs = spec.inputs(graph, 0)
+    tables = pgraph.partition_tables(graph, 64, "random", build=spec.build)
+    cpu = Engine(mode="host", device="cpu").run(
+        spec.factory(**inputs), pgraph.from_arrays(*tables, device="cpu"))
+    pg = pgraph.from_arrays(*tables, device=cuda)
+    ops.reset_launch_counts()
+    card = Engine(mode=mode, device=cuda).run(spec.factory(**inputs), pg)
+    np.testing.assert_array_equal(card.output, cpu.output)
+    assert (card.steps, card.halted) == (cpu.steps, cpu.halted)
+    assert card.bytes_by_channel == cpu.bytes_by_channel
+    assert card.msgs_by_channel == cpu.msgs_by_channel
+    spec.check(graph, pg, card, inputs)
+    assert ops.launch_counts()["bucket_ranks"] > 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case,pad,q,dtype", [
     ("random", 1, 32, torch.bool), ("sorted", 16, 32, torch.bool),
@@ -1409,3 +1525,44 @@ def test_lm_smoke_config_on_the_card(cuda, arch):
                                        atol=2e-3)
     first = D.generate(cfg, p, toks[:, :9], 8)
     assert torch.equal(first, D.generate(cfg, p, toks[:, :9], 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_train_step_on_the_card(cuda, arch):
+    """A registry smoke config (float32): the card's loss and grad_norm
+    within rtol 1e-5 of the CPU's step from the same weights and batch,
+    one step twice from one state bit-identical, microbatches 2 within
+    2e-6 of 1 (a 1e-5 first update)."""
+    from repro_torch.configs import registry
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import data, train_step as ts
+    from repro_torch.train.optimizer import AdamW
+
+    cfg, opt = registry.ARCHS[arch].smoke, AdamW(lr=1e-3)
+
+    def state_on(dev):
+        st = ts.init_train_state(cfg, opt, torch.Generator().manual_seed(0),
+                                 device="cpu")
+        params = tree_map(lambda t: t.to(dev), st.params)
+        return ts.TrainState(params, opt.init(params))
+
+    batch = data.SyntheticLM(cfg, 16, 4, device="cpu").batch_at(0)
+    cbatch = {k: v.to(cuda) for k, v in batch.items()}
+    step = ts.make_train_step(cfg, opt)
+    _, want = step(state_on("cpu"), batch)
+    runs = [step(state_on(cuda), cbatch) for _ in range(2)]
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(runs[0][1][k]), float(want[k]),
+                                   rtol=1e-5)
+        assert bits_equal(runs[0][1][k], runs[1][1][k])
+    (a, _), (b, _) = runs
+    for x, y in zip(tree_leaves(a.params) + tree_leaves(a.opt.m)
+                    + tree_leaves(a.opt.v),
+                    tree_leaves(b.params) + tree_leaves(b.opt.m)
+                    + tree_leaves(b.opt.v)):
+        assert bits_equal(x, y)
+    mb, _ = ts.make_train_step(cfg, opt, microbatches=2)(state_on(cuda),
+                                                         cbatch)
+    for x, y in zip(tree_leaves(mb.params), tree_leaves(a.params)):
+        assert float((x - y).abs().max()) <= 2e-6

@@ -58,8 +58,32 @@ def test_bucket_ranks_rows_are_independent():
 
 
 def test_bucket_ranks_kernel_rejects_too_many_buckets():
+    """Up to 63 buckets the narrow kernel; above it the wide one, its
+    (16 + 2) x (B + 1) int32 counts in shared memory while they fit the
+    H100's 232,448-byte opt-in less the 8,192 bytes kept for static
+    arrays, else in one global slab a block. Only B + 1 above 2^22 - 1
+    (a key + 1 in 22 bits of a slot) is refused."""
+    plan = kbucket.launch_plan
+    assert plan(63, 8, 1 << 21) == kbucket.LaunchPlan(False, True, False, 0, 0)
+    for w in (64, 256, 1024):  # W workers: B + 1 = W + 1 buckets
+        assert plan(w, 8, 1 << 21) == kbucket.LaunchPlan(
+            True, True, False, 18 * (w + 1) * 4, 0)
+    room = kbucket.H100_SMEM_OPTIN - kbucket.STATIC_RESERVE
+    assert 18 * 3114 * 4 <= room < 18 * 3115 * 4
+    assert plan(3113, 1, 10)[:2] == (True, True)
+    tiles = 2 * 13  # two rows of 100,000 keys: 13 tiles of 8,192 each
+    assert plan(3114, 2, 100_000) == kbucket.LaunchPlan(
+        True, False, False, 0, tiles * 18 * 3115)
+    assert plan(4096, 2, 100_000).work_words == tiles * 18 * 4097
+    # a smaller opt-in moves the counts out sooner
+    assert not plan(1024, 1, 10, smem_optin=48 * 1024).counts_shared
+    # the wrapper takes these bucket counts; on the CPU it stops at the
+    # device check, after every size check
     keys = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="at most 63 buckets"):
+    for nb in (64, 1024, kbucket.MAX_BUCKETS - 1):
+        with pytest.raises(ValueError, match="needs a CUDA tensor"):
+            kbucket.bucket_ranks_cuda(keys, nb)
+    with pytest.raises(ValueError, match="at most 4194302 buckets"):
         kbucket.bucket_ranks_cuda(keys, kbucket.MAX_BUCKETS)
 
 
@@ -161,12 +185,32 @@ def test_bucket_ranks_out_of_range_keys_get_rank_zero_and_no_count(b, q, seed):
 
 
 def test_bucket_kernels_reject_too_many_rows():
-    keys = torch.zeros(kbucket.MAX_ROWS + 1, 1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="at most 65535 rows"):
+    """Up to 65,535 rows (the grid's y dimension) the narrow kernel; past
+    them the wide one, whose tiles of all rows share the grid's x
+    dimension: any number of rows while the tiles (one block each, 8,192
+    keys) stay within 2^31 - 1. segment_combine takes any number of
+    rows."""
+    assert kbucket.launch_plan(4, 65_535, 1000) == kbucket.LaunchPlan(
+        False, True, False, 0, 0)
+    assert kbucket.launch_plan(4, 70_000, 1000) == kbucket.LaunchPlan(
+        True, True, False, 18 * 5 * 4, 0)
+    assert kbucket.launch_plan(8, 70_000, 1000, 32) == kbucket.LaunchPlan(
+        True, True, True, (18 + 33) * 9 * 4, 0)
+    kbucket.launch_plan(4, kbucket.MAX_BLOCKS, 1)
+    with pytest.raises(ValueError, match="at most 2147483647 tiles"):
+        kbucket.launch_plan(4, kbucket.MAX_BLOCKS + 1, 1)
+    with pytest.raises(ValueError, match="at most 2147483647 tiles"):
+        kbucket.launch_plan(4, 1 << 20, 1 << 24)
+    keys = torch.zeros(70_000, 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
         kbucket.bucket_ranks_cuda(keys, 4)
-    with pytest.raises(ValueError, match="at most 65535 rows"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         kbucket.bucket_ranks_lanes_cuda(
-            keys, torch.zeros(kbucket.MAX_ROWS + 1, 1, 1, dtype=torch.bool), 4)
+            keys, torch.zeros(70_000, 1, 1, dtype=torch.bool), 4)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        kseg.segment_combine_cuda(torch.zeros(70_000, 3),
+                                  torch.zeros(70_000, 3, dtype=torch.int32),
+                                  5, cb.get("sum"))
 
 
 def test_bucket_scratch_epochs_and_growth():
@@ -211,13 +255,31 @@ def test_segment_chunk_table_growth_and_scratch_scopes():
 
 
 def test_bucket_ranks_lanes_kernel_rejects_what_it_cannot_hold():
+    """The (B + 1) x (Q + 1) int32 lane tile: in the narrow kernel's
+    shared memory up to the opt-in less the static reserve (past 48 KB
+    with the opt-in), beside the wide kernel's counts while both fit, and
+    else not staged at all: each tile adds into the row's global
+    accumulator. Keys and lanes that do not match are still refused."""
+    plan, lp = kbucket.launch_plan, kbucket.LaunchPlan
+    room = kbucket.H100_SMEM_OPTIN - kbucket.STATIC_RESERVE
+    assert plan(8, 8, 1 << 20, 32) == lp(False, True, True, 9 * 33 * 4, 0)
+    assert plan(8, 8, 1 << 20, 1024) == lp(False, True, True, 36_900, 0)
+    assert plan(8, 8, 1 << 20, 4096) == lp(False, True, True, 147_492, 0)
+    big_q = room // (9 * 4)  # the first Q whose tile passes the room
+    assert 9 * big_q * 4 <= room < 9 * (big_q + 1) * 4
+    assert plan(8, 1, 10, big_q) == lp(True, True, False, 18 * 9 * 4, 0)
+    assert plan(64, 8, 1 << 20, 32) == lp(True, True, True,
+                                          (18 + 33) * 65 * 4, 0)
+    assert plan(4096, 1, 10, 32) == lp(True, False, False, 0, 18 * 4097)
     keys = torch.zeros(2, 4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="at most 63 buckets"):
+    for b, q in ((kbucket.MAX_BUCKETS - 1, 1), (8, 1000), (8, 100_000),
+                 (64, 32)):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            kbucket.bucket_ranks_lanes_cuda(
+                keys, torch.zeros(2, 4, q, dtype=torch.bool), b)
+    with pytest.raises(ValueError, match="at most 4194302 buckets"):
         kbucket.bucket_ranks_lanes_cuda(
             keys, torch.zeros(2, 4, 1, dtype=torch.bool), kbucket.MAX_BUCKETS)
-    with pytest.raises(ValueError, match="lane tile exceeds"):
-        kbucket.bucket_ranks_lanes_cuda(
-            keys, torch.zeros(2, 4, 1000, dtype=torch.bool), 8)
     with pytest.raises(ValueError, match="do not match keys"):
         kbucket.bucket_ranks_lanes_cuda(
             keys, torch.zeros(2, 5, 3, dtype=torch.bool), 8)
