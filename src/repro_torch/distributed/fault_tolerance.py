@@ -81,7 +81,9 @@ class TrainSupervisor:
     def restore_or(self, init_fn, target=None, shardings=None):
         """Returns (state, start_step): the newest checkpoint restored into
         ``target`` (default ``init_fn()``) if one exists, else
-        ``init_fn()`` and 0. ``shardings`` waits for ROADMAP item 9.3."""
+        ``init_fn()`` and 0. ``shardings`` (a tree of
+        ``distributed.sharding.NamedSharding``) places every restored leaf
+        on its mesh, whatever mesh wrote the checkpoint."""
         from repro_torch.train import checkpoint as ckpt
         step = ckpt.latest_step(self.ckpt_dir)
         if step is None:
@@ -101,7 +103,8 @@ class TrainSupervisor:
             self._pending.join()  # one in-flight save at a time
         self._pending = ckpt.save(self.ckpt_dir, step, state,
                                   blocking=not self.async_save)
-        self._gc()
+        if ckpt.writes_here(state):
+            self._gc()
         return True
 
     def finalize(self, step: int, state):

@@ -146,21 +146,17 @@ def uniform_random(n: int, e: int, seed: int = 0, weighted: bool = False,
 
 
 def components_ground_truth(g: EdgeList) -> np.ndarray:
-    """Connected-component labels via union-find (oracle for WCC/S-V tests)."""
-    parent = np.arange(g.n, dtype=np.int64)
+    """Connected-component labels, each vertex's smallest vertex id in its
+    component (oracle for WCC/S-V tests): scipy's ``connected_components``
+    over the edges taken as undirected, every component then named by its
+    first vertex."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
 
-    def find(x):
-        root = x
-        while parent[root] != root:
-            root = parent[root]
-        while parent[x] != root:
-            parent[x], x = root, parent[x]
-        return root
-
-    for s, d in g.edges:
-        rs, rd = find(s), find(d)
-        if rs != rd:
-            parent[max(rs, rd)] = min(rs, rd)
-    labels = np.array([find(x) for x in range(g.n)], dtype=np.int64)
-    # canonical: min vertex id in component
-    return labels
+    e = np.asarray(g.edges, dtype=np.int64).reshape(-1, 2)
+    adj = coo_matrix((np.ones(len(e), np.float32), (e[:, 0], e[:, 1])),
+                     shape=(g.n, g.n)).tocsr()
+    _, comp = connected_components(adj, directed=False)
+    # np.unique's first index of each component number: its smallest vertex
+    _, first = np.unique(comp, return_index=True)
+    return first[comp].astype(np.int64)

@@ -1,4 +1,4 @@
-"""Host-side (pure python/numpy) oracles for algorithm tests."""
+"""Host-side (numpy, and scipy for the MSF) oracles for algorithm tests."""
 from __future__ import annotations
 
 import numpy as np
@@ -104,22 +104,28 @@ def scc_oracle(g: EdgeList) -> np.ndarray:
 
 
 def msf_weight_oracle(g: EdgeList) -> float:
-    """Total weight of the minimum spanning forest (Kruskal)."""
+    """Total weight of the minimum spanning forest: each vertex pair's
+    lightest edge (self-loops dropped), scipy's ``minimum_spanning_tree``
+    over those. The weights are shifted to start at 1 first (scipy reads a
+    0 as no edge; every spanning forest of a graph has the same number of
+    edges, so the shift picks the same forest) and the shift is taken off
+    the total."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import minimum_spanning_tree
+
     assert g.weights is not None
-    order = np.argsort(g.weights)
-    parent = np.arange(g.n)
-
-    def find(x):
-        while parent[x] != x:
-            parent[x] = parent[parent[x]]
-            x = parent[x]
-        return x
-
-    total = 0.0
-    for i in order:
-        s, d = g.edges[i]
-        rs, rd = find(int(s)), find(int(d))
-        if rs != rd:
-            parent[rs] = rd
-            total += float(g.weights[i])
-    return total
+    e = np.asarray(g.edges, dtype=np.int64).reshape(-1, 2)
+    w = np.asarray(g.weights, dtype=np.float64)
+    lo, hi = e.min(axis=1), e.max(axis=1)
+    keep = lo != hi
+    lo, hi, w = lo[keep], hi[keep], w[keep]
+    if not len(w):
+        return 0.0
+    order = np.lexsort((w, hi, lo))  # by pair, lightest first
+    lo, hi, w = lo[order], hi[order], w[order]
+    first = np.ones(len(w), dtype=bool)
+    first[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
+    shift = 1.0 - float(w.min())
+    tree = minimum_spanning_tree(coo_matrix(
+        (w[first] + shift, (lo[first], hi[first])), shape=(g.n, g.n)).tocsr())
+    return float(tree.data.sum() - shift * tree.nnz)

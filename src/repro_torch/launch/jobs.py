@@ -261,8 +261,17 @@ def main(argv=None) -> int:
     ap.add_argument("--transport", default="gloo",
                     choices=workers.TRANSPORTS)
     ap.add_argument("--timeout", type=float, default=120.0)
+    ap.add_argument("--jobs", default=None,
+                    help="comma-separated job names to run, a subset of "
+                         "the default set (default: all of it)")
     args = ap.parse_args(argv)
     jobs = default_jobs(args.scale, args.queries, args.world)
+    if args.jobs:
+        names = args.jobs.split(",")
+        unknown = set(names) - {j.name for j in jobs}
+        if unknown:
+            ap.error(f"--jobs: not in the default set: {sorted(unknown)}")
+        jobs = [j for j in jobs if j.name in names]
     t0 = time.perf_counter()
     ranks = workers.spawn(rank_jobs, args.world, jobs, device=args.device,
                           backend=args.transport, timeout_s=args.timeout,

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import reduced_matmul
 
 
 def _softplus(x):
@@ -98,11 +99,87 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int, init_state=None):
     return y.to(x.dtype), final
 
 
+def _scan(xin, dt, a, b_mat, c_mat, chunk: int, p: int):
+    """The SSD scan over (B, S) inputs of any S: zeros past the end up to
+    a multiple of ``chunk`` (dt = 0 leaves the state as it was), the
+    chunked scan, the padding cut. xin (B, S, H*P) -> y (B, S, H*P) and
+    the final state (B, H, P, N)."""
+    b, s, din = xin.shape
+    pad = (-s) % chunk
+    if pad:
+        padf = lambda t: F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+        xin, dt, b_mat, c_mat = map(padf, (xin, dt, b_mat, c_mat))
+    y, final_state = ssd_chunked(
+        xin.reshape(b, s + pad, din // p, p), dt.float(), a, b_mat.float(),
+        c_mat.float(), chunk)
+    return y[:, :s].reshape(b, s, din), final_state
+
+
+def _recur(xin, dt, a, b_mat, c_mat, state, p: int):
+    """One token of the SSM recurrence: xin (B, 1, H*P), dt (B, 1, H),
+    b/c (B, 1, N), state (B, H, P, N) -> y (B, 1, H*P), the new state."""
+    b, _, din = xin.shape
+    h = din // p
+    da = dt[:, 0] * a[None, :]            # (B,H)
+    xh = xin[:, 0].reshape(b, h, p).float()
+    bv = b_mat[:, 0].float()              # (B,N)
+    cv = c_mat[:, 0].float()
+    dtx = xh * dt[:, 0, :, None]          # (B,H,P)
+    st = state * torch.exp(da)[..., None, None] + torch.einsum(
+        "bhp,bn->bhpn", dtx, bv
+    )
+    y = torch.einsum("bhpn,bn->bhp", st, cv).reshape(b, 1, din)
+    return y.to(xin.dtype), st
+
+
+def _ssd(xin, dt, a, b_mat, c_mat, chunk: int, p: int):
+    """:func:`_scan`, sharded by heads on DTensors (:func:`_sharded_heads`)."""
+    return _sharded_heads(lambda *t: _scan(*t, chunk, p),
+                          (xin, dt, a, b_mat, c_mat), p)
+
+
+def _sharded_heads(fn, args, p: int):
+    """``fn(xin, dt, a, b, c[, state])``, the SSM's scan or one step of its
+    recurrence. On DTensors (the sharded model) it runs on each rank's
+    heads and batch rows under ``local_map``: the scan has no DTensor
+    sharding rule that holds in every torch release (torch 2.11 fails on
+    its padding, its multi-operand einsums on a shard's strides, and a
+    head split that the model axis does not divide), and every head
+    scans alone. The heads split over "model" when the axis divides
+    them; else every model rank runs all of them."""
+    from torch.distributed.tensor import DTensor
+
+    xin = args[0]
+    if not isinstance(xin, DTensor):
+        return fn(*args) if len(args) == 5 else fn(*args, p)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.context import current
+    from repro_torch.distributed.sharding import grad_placements
+
+    mesh = current().mesh
+    bsz, h = xin.shape[0], args[2].shape[0]
+    rows = Shard(0) if bsz % mesh.dp_size == 0 else Replicate()
+    heads = h % mesh.shape["model"] == 0
+    on_h = lambda d: (rows, Shard(d) if heads else Replicate())
+    in_pl = (on_h(2), on_h(2), (Replicate(), on_h(0)[1]),
+             (rows, Replicate()), (rows, Replicate()), on_h(1))[:len(args)]
+    split = (isinstance(rows, Shard), heads)
+    body = fn if len(args) == 5 else (lambda *t: fn(*t, p))
+    return local_map(
+        body, out_placements=(on_h(2), on_h(1)), in_placements=in_pl,
+        in_grad_placements=tuple(grad_placements(pl, split)
+                                 for pl in in_pl),
+        device_mesh=mesh.compute, redistribute_inputs=True,
+    )(*args)
+
+
 def _gated_out(cfg: ModelConfig, lp, y, z, x_dtype):
     """Gated RMSNorm (mamba2) and the output projection."""
     yf = y.float() * F.silu(z.float())
     yf = yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + cfg.norm_eps)
-    return (yf * lp["ssm_norm"]).to(x_dtype) @ lp["out_proj"]
+    return reduced_matmul((yf * lp["ssm_norm"]).to(x_dtype), lp["out_proj"])
 
 
 def _write_state(cache, ssm, cx, cb, cc):
@@ -130,23 +207,7 @@ def mamba_forward(cfg: ModelConfig, lp, x, *, cache=None, chunk: int = 128):
     cproj, conv_c_state = _causal_conv(cproj, lp["conv_c"])
 
     a = -torch.exp(lp["A_log"].float())
-    pad = (-s) % chunk
-    if pad:
-        # zeros past the end: dt = 0 leaves the state as it was
-        padf = lambda t: F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
-        xin_p, dt_p, b_p, c_p = map(padf, (xin, dt, bproj, cproj))
-    else:
-        xin_p, dt_p, b_p, c_p = xin, dt, bproj, cproj
-
-    y, final_state = ssd_chunked(
-        xin_p.reshape(b, s + pad, h, p),
-        dt_p.float(),
-        a,
-        b_p.float(),
-        c_p.float(),
-        chunk,
-    )
-    y = y[:, :s].reshape(b, s, h * p)
+    y, final_state = _ssd(xin, dt, a, bproj, cproj, chunk, p)
     y = y + xin * lp["D"].repeat_interleave(p)[None, None, :]
     out = _gated_out(cfg, lp, y, z, x.dtype)
 
@@ -173,15 +234,8 @@ def mamba_decode(cfg: ModelConfig, lp, x, cache):
     cproj, cc_ = _causal_conv(cproj, lp["conv_c"], cache["conv_c"])
 
     a = -torch.exp(lp["A_log"].float())  # (H,)
-    da = dt[:, 0] * a[None, :]            # (B,H)
-    xh = xin[:, 0].reshape(b, h, p).float()
-    bv = bproj[:, 0].float()              # (B,N)
-    cv = cproj[:, 0].float()
-    dtx = xh * dt[:, 0, :, None]          # (B,H,P)
-    st = cache["ssm"] * torch.exp(da)[..., None, None] + torch.einsum(
-        "bhp,bn->bhpn", dtx, bv
-    )
-    y = torch.einsum("bhpn,bn->bhp", st, cv).reshape(b, 1, h * p).to(x.dtype)
+    y, st = _sharded_heads(_recur, (xin, dt, a, bproj, cproj,
+                                    cache["ssm"]), p)
     y = y + xin * lp["D"].repeat_interleave(p)[None, None, :]
     out = _gated_out(cfg, lp, y, z, x.dtype)
     _write_state(cache, st, cx, cb_, cc_)

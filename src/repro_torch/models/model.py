@@ -16,6 +16,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import constrain, residual_spec
 from repro_torch.models import layers, mamba
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import tree_map
@@ -85,12 +86,72 @@ def embed_input(cfg: ModelConfig, params, batch: Dict[str, Any], dtype,
         # the gather of indexing; its backward sums repeated tokens in a
         # fixed order on the CPU and the card (indexing's backward
         # accumulates in parallel on the CPU, its sums vary run to run)
-        parts.append(F.embedding(batch["tokens"], emb))
+        parts.append(_embed(batch["tokens"], emb))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.pos_embed == "sinusoidal":
         pos = torch.arange(start, start + x.shape[1], device=x.device)
         x = x + layers.sinusoidal_pos(pos, cfg.d_model, dtype)[None]
     return x
+
+
+def _embed(tokens, table):
+    """``F.embedding``; on a DTensor table (the sharded model) each model
+    rank looks up the ids in its vocabulary rows under ``local_map`` (0
+    elsewhere) and one sum over "model" joins them: DTensor's own rule
+    for a vocabulary-sharded lookup fails in the backward once the table
+    is also sharded over the data axes."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.context import current
+    from repro_torch.distributed.sharding import grad_placements
+
+    mesh = current().mesh
+    rows = Shard(0) if tokens.shape[0] % mesh.dp_size == 0 else Replicate()
+    vocab = table.shape[0] % mesh.shape["model"] == 0
+    t_pl = (Replicate(), Shard(0) if vocab else Replicate())
+
+    def look(ids, t):
+        if not vocab:
+            return F.embedding(ids, t)
+        lo = mesh.compute.get_local_rank(1) * t.shape[0]
+        mine = (ids >= lo) & (ids < lo + t.shape[0])
+        out = F.embedding(torch.where(mine, ids - lo, 0), t)
+        return torch.where(mine[..., None], out, 0)
+
+    out = local_map(
+        look, out_placements=((rows, Partial() if vocab else Replicate()),),
+        in_placements=((rows, Replicate()), t_pl),
+        in_grad_placements=((rows, Replicate()), grad_placements(
+            t_pl, (isinstance(rows, Shard), False))),
+        device_mesh=mesh.compute, redistribute_inputs=True,
+    )(tokens, table)
+    return out.redistribute(mesh.compute, (rows, Replicate()))
+
+
+def _unshard_dp(tree):
+    """FSDP's gather: every DTensor leaf brought whole over the data axes
+    (the compute mesh's first dim), its split over "model" kept, before
+    the weights are used, as FSDP gathers a block's parameters before the
+    block runs. The gradients come back through the gather's backward as
+    a reduce-scatter onto the shards. Without it DTensor's per-op choice
+    may keep the weights split over data and move the activations
+    instead (the whole batch then runs on every data rank). Plain
+    tensors and leaves not split over data pass as they are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def one(t):
+        if not isinstance(t, DTensor) or not isinstance(t.placements[0],
+                                                          Shard):
+            return t
+        return t.redistribute(t.device_mesh,
+                              (Replicate(),) + tuple(t.placements[1:]))
+
+    return tree_map(one, tree)
 
 
 def _block_slice(tree, i: int):
@@ -129,6 +190,15 @@ def forward(
     recomputes each block in the backward pass
     (``torch.utils.checkpoint``); ``unroll`` is accepted for the JAX
     signature and changes nothing (the blocks are a Python loop).
+
+    On DTensor params under ``distributed.context.activation_sharding``,
+    ``constrain`` pins the residual after the embedding and after each
+    block (``residual_spec()``; decode keeps the sequence whole) and the
+    logits ``("dp", None, "tp")``, as the JAX forward does, and also the
+    residual after each sub-layer's add inside a block (DTensor places
+    op by op, not by whole-program propagation as GSPMD does); FSDP
+    weights are gathered over data before use (``_unshard_dp``). Outside
+    the context those calls change nothing.
     """
     del unroll
     dt = compute_dtype(cfg)
@@ -138,11 +208,15 @@ def forward(
     decode = cache_pos is not None
 
     start = int(cache_pos) if decode else 0
-    x = embed_input(cfg, p, batch, dt, start)
+    x = embed_input(cfg, dict(p, embed=_unshard_dp(p["embed"])), batch, dt,
+                    start)
+    res_spec = ("dp", None, None) if decode else residual_spec()
+    x = constrain(x, *res_spec)
     b, s, d = x.shape
     positions = torch.arange(start, start + s, device=x.device)
 
     def block_fn(x, bp, bc):
+        bp = _unshard_dp(bp)
         for li, (mixer, mlp) in enumerate(pattern):
             lp = bp[f"l{li}"]
             lc = bc[f"l{li}"] if bc is not None else None
@@ -157,7 +231,11 @@ def forward(
                     y, _ = mamba.mamba_decode(cfg, lp, h, lc)
                 else:
                     y, _ = mamba.mamba_forward(cfg, lp, h, cache=lc)
-            x = x + y
+            # a sub-layer's pending sum over "model" is reduced here (the
+            # Megatron all-reduce), as GSPMD's whole-program propagation
+            # places it; DTensor decides op by op and would otherwise carry
+            # it into the next product as a split of its contraction
+            x = constrain(x + y, *res_spec)
             if mlp != "none":
                 h2 = layers.rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
                 if mlp == "dense":
@@ -165,8 +243,8 @@ def forward(
                                           lp.get("w3"), h2)
                 else:
                     y2 = moe_fn(cfg, lp, h2)
-                x = x + y2
-        return x
+                x = constrain(x + y2, *res_spec)
+        return constrain(x, *res_spec)
 
     for i, bp in enumerate(_blocks(p["blocks"], cfg.n_blocks)):
         bc = _block_slice(cache, i) if cache is not None else None
@@ -176,10 +254,13 @@ def forward(
             x = block_fn(x, bp, bc)
 
     x = layers.rms_norm(x, p["final_norm"], cfg.norm_eps)
-    head = (p["embed"].T if cfg.tie_embeddings else p["lm_head"]).to(dt)
+    head = _unshard_dp(p["embed"].T if cfg.tie_embeddings
+                       else p["lm_head"]).to(dt)
     logits = x @ head
     if logits_f32:
         logits = logits.float()
+    # keep logits vocab-sharded through the loss/sampling (no (B,S,V) gather)
+    logits = constrain(logits, "dp", None, "tp")
     return logits, cache
 
 

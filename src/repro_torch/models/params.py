@@ -149,23 +149,35 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def _draw(shape, dtype, device, sample):
+def _draw(shape, dtype, device, sample, part=None):
     """``sample(shape)`` (a float32 draw on the generator's device) cast
-    to ``dtype`` on ``device``; a large leaf in slabs of its leading dim."""
-    out = torch.empty(shape, dtype=dtype, device=device)
+    to ``dtype`` on ``device``; a large leaf in slabs of its leading dim.
+    ``part``, a tuple of slices, keeps only that slice of the leaf: every
+    slab is still drawn, so the generator advances as for the whole leaf
+    and the slice holds the whole leaf's values."""
+    if part is None:
+        part = tuple(slice(0, n) for n in shape)
+    out = torch.empty(tuple(s.stop - s.start for s in part), dtype=dtype,
+                      device=device)
     rows = max(1, _DRAW_CHUNK // max(1, math.prod(shape[1:])))
     if len(shape) < 2 or rows >= shape[0]:
-        out.copy_(sample(shape))
+        out.copy_(sample(shape)[part])
     else:
+        r0, r1 = part[0].start, part[0].stop
         for i in range(0, shape[0], rows):
-            part = out[i:i + rows]
-            part.copy_(sample(tuple(part.shape)))
+            n = min(rows, shape[0] - i)
+            slab = sample((n,) + tuple(shape[1:]))
+            lo, hi = max(i, r0), min(i + n, r1)
+            if lo < hi:
+                out[lo - r0:hi - r0].copy_(
+                    slab[(slice(lo - i, hi - i),) + part[1:]])
     return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.float32,
-                device: Optional[Union[str, torch.device]] = None):
+                device: Optional[Union[str, torch.device]] = None,
+                shard: Optional[Callable] = None):
     """Random-init parameters (fp32 master by default) with the JAX
     package's scales: embed and conv 0.02, ``proj_in`` 1/sqrt(fan_in),
     ``proj_out`` that over sqrt(2 * n_layers), ``A_log`` the log of
@@ -173,7 +185,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     [1e-3, 1e-1]. The draws come from ``generator`` on its own device (in
     float32, then cast to ``dtype``) and land on ``device`` (default: the
     CUDA device). The values cannot equal the JAX package's: carry those
-    across with :func:`from_jax`."""
+    across with :func:`from_jax`. ``shard(shape, axes)``, if given,
+    returns (slices, wrap): only that slice of each leaf is kept, and
+    ``wrap(local)`` is the leaf (``distributed.sharding.init_params``)."""
     dev = resolve_device(device)
     gdev = generator.device
 
@@ -187,10 +201,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 lo, hi, generator=generator)
 
     def make(path, shape, axes, init):
+        part, wrap = shard(shape, axes) if shard else (None, lambda t: t)
+        local = shape if part is None else tuple(
+            s.stop - s.start for s in part)
         if init == "zero":
-            return torch.zeros(shape, dtype=dtype, device=dev)
+            return wrap(torch.zeros(local, dtype=dtype, device=dev))
         if init == "one":
-            return torch.ones(shape, dtype=dtype, device=dev)
+            return wrap(torch.ones(local, dtype=dtype, device=dev))
         if init in ("embed", "conv"):
             sample = normal(0.02)
         elif init == "proj_in":
@@ -211,7 +228,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 return dt + torch.log(-torch.expm1(-dt))
         else:
             raise ValueError(init)
-        return _draw(shape, dtype, dev, sample)
+        return wrap(_draw(shape, dtype, dev, sample, part))
 
     return build(cfg, make)
 

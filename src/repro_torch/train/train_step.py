@@ -7,10 +7,18 @@ moments into the tensors of the state it is given (the JAX step donates
 them) and returns a state holding the same tensors. Gradients go to each
 parameter's ``.grad`` (float32, the master weights' dtype), so at full
 width the step holds one gradient tree, not one a microbatch.
+
+On a sharded state (DTensor leaves placed by
+``distributed.sharding.train_state_pspecs``, the step run under
+``distributed.context.activation_sharding``) the same code runs SPMD:
+each gradient is brought to its parameter's placements (a reduce-scatter
+or all-reduce over the data axes), the update is in place on each rank's
+shards, and the clip's global norm is the whole mesh's. The metrics come
+back as plain (replicated) tensors.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -43,30 +51,67 @@ def cross_entropy(logits, labels, mask=None):
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def make_loss_fn(cfg: ModelConfig, *, remat: bool = True):
+def _replicated(x):
+    """A DTensor scalar replicated on every rank (a pending sum reduced),
+    so that its backward starts from one, not one a rank."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def _plain(x):
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def make_loss_fn(cfg: ModelConfig, *, remat: bool = True,
+                 moe_impl: Optional[Callable] = None):
     """loss_fn(params, batch) -> scalar loss; the frontend prefix (vision
     patches) carries no loss."""
     def loss_fn(params, batch):
-        logits, _ = M.forward(cfg, params, batch, remat=remat)
+        logits, _ = M.forward(cfg, params, batch, remat=remat,
+                              moe_impl=moe_impl)
         labels = batch["labels"]
         prefix = logits.shape[1] - labels.shape[1]
         if prefix:
             logits = logits[:, prefix:]
-        return cross_entropy(logits, labels, batch.get("loss_mask"))
+        return _replicated(cross_entropy(logits, labels,
+                                         batch.get("loss_mask")))
     return loss_fn
 
 
 def _split(x, microbatches: int):
+    """The microbatches of a batch leaf: contiguous parts of its rows. A
+    DTensor leaf is split on each rank (each microbatch takes a
+    contiguous part of every rank's rows), so that no microbatch moves
+    rows between ranks."""
+    from torch.distributed.tensor import DTensor
+
     b = x.shape[0]
     assert b % microbatches == 0, (b, microbatches)
+    if isinstance(x, DTensor):
+        loc = _split(x.to_local(), microbatches)
+        return [DTensor.from_local(part, x.device_mesh, x.placements,
+                                   run_check=False) for part in loc]
     return x.reshape((microbatches, b // microbatches) + tuple(x.shape[1:]))
 
 
 def _grad(p: torch.Tensor) -> torch.Tensor:
     """``p.grad``, zeros where the loss does not reach ``p`` (the token
-    embedding of an audio-frames model): JAX's gradient there."""
+    embedding of an audio-frames model): JAX's gradient there. A DTensor
+    gradient is brought to its parameter's placements first (a pending
+    sum over the data axes reduced: all-reduce, or reduce-scatter onto an
+    FSDP shard)."""
+    from torch.distributed.tensor import DTensor
+
     if p.grad is None:
         p.grad = torch.zeros_like(p)
+    elif isinstance(p, DTensor) and tuple(p.grad.placements) != tuple(
+            p.placements):
+        p.grad = p.grad.redistribute(p.device_mesh, p.placements)
     return p.grad
 
 
@@ -77,6 +122,7 @@ def make_train_step(
     microbatches: int = 1,
     remat: bool = True,
     grad_dtype=torch.float32,
+    moe_impl: Optional[Callable] = None,
 ):
     """Returns train_step(state, batch) -> (state, metrics).
 
@@ -85,8 +131,9 @@ def make_train_step(
     parameter's ``.grad`` when that is the parameters' dtype) and divided
     by ``microbatches``, and the loss is the mean over microbatches.
     Activation memory is one microbatch's. The state is updated in place
-    (see the module docstring)."""
-    loss_fn = make_loss_fn(cfg, remat=remat)
+    (see the module docstring). ``moe_impl`` replaces the MoE layer
+    (``distributed.moe_spmd.make_spmd_moe`` on a mesh)."""
+    loss_fn = make_loss_fn(cfg, remat=remat, moe_impl=moe_impl)
 
     def grads_of(leaves, params, batch):
         """Loss and each leaf's gradient (summed over microbatches)."""
@@ -106,8 +153,8 @@ def make_train_step(
                 gs = torch.autograd.grad(li, leaves)
                 with torch.no_grad():
                     if acc is None:
-                        acc = [torch.zeros(p.shape, dtype=grad_dtype,
-                                           device=p.device) for p in leaves]
+                        acc = [torch.zeros_like(p, dtype=grad_dtype)
+                               for p in leaves]
                     for a, g in zip(acc, gs):
                         a.add_(g.to(grad_dtype))
             loss = loss + li.detach()
@@ -133,19 +180,30 @@ def make_train_step(
         new_params, new_opt, gnorm = opt.update(grads, state.opt, params)
         for p in leaves:
             p.grad = None
-        metrics = {"loss": loss, "grad_norm": gnorm,
-                   "lr": opt.schedule(new_opt.step)}
+        metrics = {"loss": _plain(loss), "grad_norm": _plain(gnorm),
+                   "lr": _plain(opt.schedule(new_opt.step))}
         return TrainState(new_params, new_opt), metrics
 
     return train_step
 
 
 def init_train_state(cfg: ModelConfig, opt: AdamW,
-                     generator: torch.Generator, device=None) -> TrainState:
+                     generator: torch.Generator, device=None,
+                     mesh=None, fsdp: bool = True) -> TrainState:
     """Random-init float32 master parameters (drawn from ``generator``,
-    placed on ``device``, default the CUDA device) and zero moments."""
-    params = P.init_params(cfg, generator, device=device)
-    return TrainState(params, opt.init(params))
+    placed on ``device``, default the CUDA device) and zero moments. On a
+    ``mesh`` (``launch.mesh.Mesh``) the state is DTensors placed by
+    ``distributed.sharding.train_state_pspecs``, each rank holding only
+    its shards, with the same values."""
+    if mesh is None:
+        params = P.init_params(cfg, generator, device=device)
+        return TrainState(params, opt.init(params))
+    from repro_torch.distributed import sharding as sh
+
+    params = sh.init_params(cfg, generator, mesh, fsdp=fsdp, device=device)
+    state = opt.init(params)
+    step = sh.place(state.step, sh.NamedSharding(mesh, sh.Spec()))
+    return TrainState(params, state._replace(step=step))
 
 
 def train_state_specs(cfg: ModelConfig, opt: AdamW) -> TrainState:

@@ -203,3 +203,30 @@ def test_oracles_match_jax():
     gs = _graph(directed=False)
     np.testing.assert_array_equal(gen.components_ground_truth(gs),
                                   jgen.components_ground_truth(gs))
+
+
+def _weighted_cases():
+    """The registry's weighted R-MAT at two scales, and a hand-made graph
+    with repeated pairs, self-loops, tied, zero and negative weights and
+    isolated vertices."""
+    from repro_torch.algorithms import REGISTRY
+
+    rng = np.random.default_rng(0)
+    e = rng.integers(0, 40, (300, 2)).astype(np.int64)
+    w = rng.choice([0.0, 0.5, 1.0, -0.25, 2.0], 300).astype(np.float32)
+    return [REGISTRY["msf:channels"].make_graph(9, 0),
+            REGISTRY["msf:channels"].make_graph(12, 1),
+            gen.EdgeList(50, e, w, directed=False)]
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_msf_and_components_oracles_match_jax(case):
+    """The port's scipy-based oracles against the JAX package's Kruskal and
+    union-find: the forest's total weight within 1e-9 (another summation
+    order), the component labels exactly."""
+    g = _weighted_cases()[case]
+    np.testing.assert_allclose(oracles.msf_weight_oracle(g),
+                               joracles.msf_weight_oracle(g), rtol=1e-9,
+                               atol=1e-9)
+    np.testing.assert_array_equal(gen.components_ground_truth(g),
+                                  jgen.components_ground_truth(g))

@@ -1,8 +1,10 @@
 """The port's training substrate (``repro_torch.train``,
 ``distributed.compression``, ``TrainSupervisor``, ``launch.train``,
 ``train_lm``) against the JAX package's, the counterpart of
-tests/test_train.py (all but ``test_checkpoint_elastic_reshard``, which
-waits for the sharded LM, ROADMAP item 9.3). Inputs are made with numpy
+tests/test_train.py, ``test_checkpoint_elastic_reshard`` included: a
+checkpoint restores with ``shardings=`` onto a (1, 1) mesh of one gloo
+rank in this process, and a JAX checkpoint onto a (1, 2) mesh of two
+gloo CPU ranks (tests/torch_spmd_ranks.py). Inputs are made with numpy
 or by the JAX package and carried across as numpy.
 
 Tolerances: the optimizer is fed the same gradients in both packages and
@@ -14,6 +16,7 @@ another order) and the updated parameters within 1e-6 of a 1e-5 update:
 a gradient at rounding level that changed sign would move a parameter
 by about 2e-5 and fail it.
 """
+import contextlib
 import json
 import os
 import signal
@@ -395,10 +398,26 @@ def _torch_state(opt, seed=1):
         seed), device="cpu")
 
 
+@contextlib.contextmanager
+def one_rank_mesh(tmp_path):
+    """A gloo group of one rank in this process and its (1, 1) mesh,
+    destroyed on exit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_local_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
 def test_checkpoint_roundtrip_and_layout(tmp_path):
     """Round trip bit for bit (in place into a target that holds memory,
     new tensors for a ``meta`` target), the JAX paths and sorted order in
-    the manifest, and ``shardings=`` refused."""
+    the manifest, and ``shardings=`` placing every leaf on a mesh."""
     opt = TAdamW(v_dtype="bfloat16")
     state = _torch_state(opt)
     state.opt.v["embed"].normal_()  # bf16 bits worth keeping
@@ -428,10 +447,74 @@ def test_checkpoint_roundtrip_and_layout(tmp_path):
     specs = tts.train_state_specs(TTINY, opt)
     fresh = tckpt.restore(str(tmp_path), specs, device="cpu")
     assert torch.equal(fresh.params["embed"], state.params["embed"])
-    with pytest.raises(NotImplementedError, match="item 9.3"):
-        tckpt.restore(str(tmp_path), target, shardings=object())
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as sh
+
+    with one_rank_mesh(tmp_path) as mesh:
+        placed = tckpt.restore(str(tmp_path), specs, device="cpu",
+                               shardings=sh.named(mesh, sh.train_state_pspecs(
+                                   TTINY, mesh)))
+        assert isinstance(placed.params["embed"], DTensor)
+        assert torch.equal(placed.params["embed"].to_local(),
+                           state.params["embed"])
+        assert torch.equal(placed.opt.v["embed"].to_local().view(torch.int16),
+                           state.opt.v["embed"].view(torch.int16))
     with pytest.raises(FileNotFoundError):
         tckpt.restore(str(tmp_path / "none"), target)
+
+
+def test_checkpoint_elastic_reshard(tmp_path):
+    """The counterpart of the JAX test: a checkpoint saved unsharded
+    restores onto a (1, 1) mesh, every leaf a DTensor equal bit for bit
+    (into a sharded target in place too)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as sh
+
+    opt = TAdamW()
+    state = _torch_state(opt)
+    tckpt.save(str(tmp_path), 3, state)
+    with one_rank_mesh(tmp_path) as mesh:
+        shardings = sh.named(mesh, sh.train_state_pspecs(TTINY, mesh))
+        restored = tckpt.restore(str(tmp_path), tts.train_state_specs(
+            TTINY, opt), shardings=shardings, device="cpu")
+        leaves = tree_leaves(restored.params)
+        assert all(isinstance(t, DTensor) for t in leaves)
+        for a, b in zip(tree_leaves(state.params), leaves):
+            assert torch.equal(a, b.to_local())
+        target = tts.init_train_state(TTINY, opt, torch.Generator()
+                                      .manual_seed(9), device="cpu",
+                                      mesh=mesh)
+        again = tckpt.restore(str(tmp_path), target)
+        assert again.params["embed"] is target.params["embed"]
+        for a, b in zip(tree_leaves(state.opt.m), tree_leaves(again.opt.m)):
+            assert torch.equal(a, b.to_local())
+
+
+def test_jax_checkpoint_restores_onto_a_1x2_mesh(tmp_path):
+    """A JAX checkpoint restored with ``shardings=`` on two gloo CPU ranks:
+    every leaf a DTensor with its spec's placements, each rank holding
+    half of the model-split leaves, gathered back equal bit for bit."""
+    import torch_spmd_ranks as ranks
+
+    from repro_torch.launch import workers
+
+    jopt = JAdamW()
+    js = jts.init_train_state(JTINY, jopt, jax.random.PRNGKey(2))
+    jckpt.save(str(tmp_path), 4, js)
+    out = workers.spawn(ranks.restore, 2, (1, 2), _TINY, str(tmp_path),
+                        device="cpu", timeout_s=60, threads=1)
+    whole = sum(4 * int(np.prod(x.shape))
+                for x in jax.tree_util.tree_leaves(js.params))
+    for o in out:
+        assert o["placed"] and o["placements_ok"]
+        assert o["local_bytes"] < whole
+        assert o["step"] == int(js.opt.step)
+        for got, want in ((o["params"], js.params), (o["m"], js.opt.m)):
+            for a, b in zip(jax.tree_util.tree_leaves(got),
+                            jax.tree_util.tree_leaves(np_tree(want))):
+                np.testing.assert_array_equal(a, b)
 
 
 def test_checkpoint_is_atomic_and_async(tmp_path):
@@ -587,9 +670,15 @@ def test_launch_train_runs_and_resumes_on_the_cpu(tmp_path, capsys):
     assert tckpt.latest_step(str(tmp_path)) == 4
     assert train.main(argv + ["--steps", "5"]) == 0  # nothing left to run
     assert "nothing to run" in capsys.readouterr().out
+    # the checkpoint of the single-device run resumes on a (1, 2) mesh of
+    # two gloo ranks, whose own checkpoint holds the whole state again
+    assert train.main(argv + ["--steps", "7", "--mesh", "1x2"]) == 0
+    assert tckpt.latest_step(str(tmp_path)) == 6
+    assert train.main(argv + ["--steps", "8"]) == 0
+    assert "resumed from step 7" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        train.main(argv + ["--mesh", "2x2"])
-    assert "item 9.3" in capsys.readouterr().err
+        train.main(argv + ["--mesh", "2x"])
+    assert "--mesh" in capsys.readouterr().err
 
 
 def test_launch_train_puts_the_sigterm_handler_back(tmp_path, monkeypatch):
