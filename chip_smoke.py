@@ -199,16 +199,21 @@ plan --explain``). Phases, one or more lines each:
      multi-device phase
      (:func:`dist_phase`): ``python -m repro_torch.launch.jobs`` as a
      subprocess, W=4 ranks of one gloo group sharing the card
-     (``Engine(backend="dist")``, host mode; NCCL, one card a rank, too
-     when there are 4 cards) at scale 20 — ``wcc:basic``,
-     ``sv:composed``, ``sssp:basic``, ``pagerank:scatter``; ``wcc:switch``
-     on the ``degree`` partition mirrored at 8 and unmirrored; Q=8
-     batches of ``sssp:basic`` and
-     ``pj:reqresp`` — each held bit for bit to one process's host run at
-     W=4 on the card (state, outputs, supersteps, halts, bytes and msgs
-     per channel and per lane, and each kernel's launches on every rank),
-     with the oracles; transport, walls and ms a superstep on both
-     backends, collectives, peak memory per rank
+     (``Engine(backend="dist")``; NCCL, one card a rank, too when there
+     are 4 cards) at scale 20 — ``wcc:basic``, ``sv:composed``,
+     ``sssp:basic`` fused; ``pagerank:scatter``, ``wcc:switch`` on the
+     ``degree`` partition mirrored at 8 and unmirrored, a Q=8 batch of
+     ``pj:reqresp`` in host mode; a Q=8 batch of ``sssp:basic`` chunked
+     at K=4; ``reach:basic`` served (12 queries, 4 lanes, chunk 4);
+     ``sv:composed`` checkpointed and resumed; ``sv:composed`` under
+     ``plan="auto"`` — each held bit for bit to one process's run at W=4
+     on the card in the same mode, the device loops captured there and
+     uncaptured on the group (state, outputs, supersteps, dispatches,
+     halts, bytes and msgs per channel, per lane and per record,
+     checkpoint bytes, plan keys, and each kernel's launches on every
+     rank), a local resume from the group's checkpoint, with the
+     oracles; transport, modes, ``captured``, walls and ms a superstep
+     on both backends, collectives, peak memory per rank
      (``chiprun_out/dist_gloo.log``); the planner: every program
      planned on its scale-20 partition (the five batched ones also at
      Q=32) with a probe cache in a temporary directory, each plan on the
@@ -2618,20 +2623,30 @@ def dist_transport_finish(started, out_dir: Path, timeout_s: int) -> dict:
 def dist_phase(out_dir: Path, smi: str) -> dict:
     """The multi-device phase: ``Engine(backend="dist")``, one worker a
     process, W=4 ranks on the card at scale 20 over gloo (and over NCCL,
-    one card a rank, when there are 4 cards). Each job — ``wcc:basic``,
-    ``sv:composed``, ``sssp:basic`` and ``pagerank:scatter``; ``wcc:switch``,
-    on the ``degree`` partition mirrored at 8 and unmirrored; batched
-    ``sssp:basic`` and ``pj:reqresp`` at Q=8 (:func:`dist_jobs`) — is held
-    bit for bit to a single-process ``Engine(mode="host")``
-    run at W=4 on the same card and partition (outputs, final state,
-    supersteps, halts, bytes and messages per channel and per lane, each
-    kernel's launches on every rank against the local wrappers' count),
-    every rank agreeing with rank 0; the four `random`-partition solo
-    outputs meet their oracles and each mirrored output equals its
-    unmirrored twin. The ranks partition their graphs while this process
-    partitions its own; the local runs wait until the ranks are done, so
-    no two runs share the card. A gloo group of ranks that share one card
-    is a correctness run, not a scaling number."""
+    one card a rank, when there are 4 cards). The jobs
+    (:func:`dist_jobs`): ``wcc:basic``, ``sv:composed`` and
+    ``sssp:basic`` fused (the JAX mesh test's programs in its default
+    mode); ``pagerank:scatter``, ``wcc:switch`` on the ``degree``
+    partition mirrored at 8 and unmirrored, and a Q=8 batch of
+    ``pj:reqresp`` in host mode; a Q=8 batch of ``sssp:basic`` chunked at
+    K=4; ``reach:basic`` served, 12 queries through 4 lanes at chunk 4
+    (lanes refilled); ``sv:composed`` chunked at K=1 with a checkpoint at
+    every boundary, resumed on the group from its first; and
+    ``sv:composed`` under ``plan="auto"``. Each is held bit for bit to a
+    single-process run at W=4 on the same card and partition in the same
+    mode, the device loops there replays of a captured CUDA graph and
+    uncaptured on the group (outputs, final state, supersteps,
+    dispatches, halts, bytes and messages per channel, per lane and per
+    served record, the checkpoint files byte for byte and the resumed
+    run, the plan's key, each kernel's launches on every rank against
+    the local count), every rank agreeing with rank 0; a local run
+    resumed from the group's first checkpoint equals the local resumed
+    run; the `random`-partition solo outputs meet their oracles and each
+    mirrored output equals its unmirrored twin. The ranks partition their
+    graphs while this process partitions its own; the local runs wait
+    until the ranks are done, so no two runs share the card. A gloo
+    group of ranks that share one card is a correctness run, not a
+    scaling number."""
     import numpy as np
     import torch
 
@@ -2644,16 +2659,20 @@ def dist_phase(out_dir: Path, smi: str) -> dict:
     problems = J.Problems()
     for job in jobs:  # the host half, beside the ranks'
         problems.tables(job)
-    runs = {"gloo": dist_transport_finish(started, out_dir, 600)}
+    runs = {"gloo": dist_transport_finish(started, out_dir, 900)}
     if cards >= DIST_WORLD:
         runs["nccl"] = dist_transport_finish(
-            dist_transport_start("nccl"), out_dir, 600)
+            dist_transport_start("nccl"), out_dir, 900)
     check([j.name for j in runs["gloo"]["jobs"]] == [j.name for j in jobs],
           "the ranks ran another job list")
     dev = torch.device("cuda")
     rows, outputs = {}, {}
     for i, job in enumerate(jobs):
         local = J.run_job(job, dev, problems=problems)
+        device_loop = (job.mode != "host" or job.lanes > 0
+                       or job.plan == "auto")
+        check(local["captured"] == device_loop,
+              f"{job.name}: the local run captured={local['captured']}")
         outputs[job] = local["output"]
         if job.partitioner == "random":
             J.check_oracle(job, local, dev, problems)
@@ -2664,8 +2683,32 @@ def dist_phase(out_dir: Path, smi: str) -> dict:
                   f"{twin.name}: mirrored output differs from unmirrored")
         row = dict(steps=local["steps"], local_wall_s=local["wall_s"],
                    local_ms_per_step=local["ms_per_step"],
+                   local_compile_s=local["compile_s"],
                    local_peak_bytes=local["peak_bytes"],
-                   launches=local["launches"])
+                   launches=local["launches"], mode=local["mode"],
+                   dispatches=local["dispatches"],
+                   captured=local["captured"], plan=local["plan"])
+        if job.lanes:
+            admitted = {r["admitted"] for r in local["records"]}
+            check(len(local["records"]) == job.queries and len(admitted) > 1,
+                  f"{job.name}: {len(local['records'])} records admitted at "
+                  f"{sorted(admitted)}: no lane was refilled")
+            row.update(queries=len(local["records"]), clock=local["clock"])
+        if job.checkpoint_every is not None:
+            files = local["checkpoints"]
+            check(len(files) >= 1 and local["resumed"] is not None,
+                  f"{job.name}: no checkpoint to resume from")
+            first = min(files)
+            group_file = runs["gloo"]["ranks"][0][i]["checkpoints"][first]
+            mine = J.resume_from(job, group_file, dev, problems)
+            check(J._same(mine, local["resumed"]),
+                  f"{job.name}: the local resume from the group's "
+                  f"{first} differs from the local resumed run")
+            check(all(J._same(mine[f], local[f]) for f in (
+                "output", "state", "steps", "halted", "bytes", "msgs")),
+                  f"{job.name}: a resume differs from the uninterrupted run")
+            row.update(checkpoints={f: len(b) for f, b in files.items()},
+                       resumed_from=mine["resumed_from"])
         for transport, run in runs.items():
             check(all(not d[i] for d in run["agree"]),
                   f"{job.name}: the {transport} ranks disagree: "
@@ -2674,12 +2717,16 @@ def dist_phase(out_dir: Path, smi: str) -> dict:
             diff = J.differences(got, local)
             check(not diff, f"{job.name} on a {transport} group differs "
                   f"from the local run in {diff}")
+            check(not any(r[i]["captured"] for r in run["ranks"]),
+                  f"{job.name}: a {transport} rank reported a capture")
             walls = [r[i]["wall_s"] for r in run["ranks"]]
             row[transport] = dict(
                 wall_s=walls, ms_per_step=1e3 * max(walls) / got["steps"],
+                compile_s=max(r[i]["compile_s"] for r in run["ranks"]),
                 peak_bytes=[r[i]["peak_bytes"] for r in run["ranks"]],
                 collectives=got["collectives"],
-                collective_bytes=got["collective_bytes"])
+                collective_bytes=got["collective_bytes"],
+                captured=got["captured"])
         check(sum(local["launches"].values()) > 0,
               f"{job.name}: no kernel launched")
         rows[job.name] = row
@@ -2693,13 +2740,17 @@ def dist_phase(out_dir: Path, smi: str) -> dict:
 
 def dist_lines(d: dict) -> list:
     """The phase's printed lines: transports, device count, each job's
-    walls and ms a superstep on both backends, peak memory per rank."""
+    mode, ``captured`` on both sides, dispatches, walls and ms a
+    superstep on both backends, collectives a rank, peak memory per rank;
+    a served job's queries and supersteps a session, a checkpointed
+    job's file bytes."""
     gb = 1 / 2**30
     head = (f"[4/5] multi-device phase: W={d['world']} ranks, scale "
-            f"{FULL_SCALE}, Engine(backend=\"dist\", mode=\"host\") "
-            f"against one process's Engine(mode=\"host\") at W="
-            f"{d['world']}, bit for bit with the same launches on every "
-            f"rank | {d['smi']} | torch.cuda.device_count() {d['cards']} | "
+            f"{FULL_SCALE}, Engine(backend=\"dist\") in each job's mode "
+            f"(device loops uncaptured) against one process's Engine at W="
+            f"{d['world']} in the same mode (device loops captured), bit for "
+            f"bit with the same launches on every rank | {d['smi']} | "
+            f"torch.cuda.device_count() {d['cards']} | "
             + "; ".join(f"{t}: ranks' spawn {v['seconds']:.1f} s, "
                         f"subprocess {v['wall_s']:.1f} s"
                         for t, v in d["transports"].items())
@@ -2710,16 +2761,29 @@ def dist_lines(d: dict) -> list:
             f"number)")
     lines = [head]
     for name, r in d["rows"].items():
-        parts = [f"{name}: {r['steps']} supersteps, local wall "
-                 f"{1e3 * r['local_wall_s']:.1f} ms ("
-                 f"{r['local_ms_per_step']:.2f} ms a superstep, peak "
-                 f"{gb * r['local_peak_bytes']:.2f} GiB)"]
+        what = f"{r['mode']} (plan key {r['plan'][0]})"
+        if "queries" in r:
+            what += (f", served {r['queries']} queries, {r['steps']} "
+                     f"supersteps a session (clock {r['clock']})")
+        if "checkpoints" in r:
+            what += (", checkpoints " + ", ".join(
+                f"{f} {b} B" for f, b in r["checkpoints"].items())
+                + f", resumed at superstep {r['resumed_from']} on the group "
+                "and locally from the group's file")
+        parts = [f"{name}: {what}; {r['steps']} supersteps, "
+                 f"{r['dispatches']} dispatches; local captured="
+                 f"{r['captured']} wall {1e3 * r['local_wall_s']:.1f} ms ("
+                 f"loop build {1e3 * r['local_compile_s']:.1f} ms; "
+                 f"{r['local_ms_per_step']:.2f} ms a superstep with it, "
+                 f"peak {gb * r['local_peak_bytes']:.2f} GiB)"]
         for t in d["transports"]:
             x = r[t]
             parts.append(
-                f"{t} wall (slowest rank) {1e3 * max(x['wall_s']):.1f} ms "
-                f"({x['ms_per_step']:.2f} ms a superstep, "
-                f"{x['collectives']} collectives, "
+                f"{t} captured={x['captured']} wall (slowest rank) "
+                f"{1e3 * max(x['wall_s']):.1f} ms (loop build "
+                f"{1e3 * x['compile_s']:.1f} ms; "
+                f"{x['ms_per_step']:.2f} ms a superstep with it, "
+                f"{x['collectives']} collectives a rank, "
                 f"{x['collective_bytes'] / 2**20:.1f} MiB sent a rank, peak "
                 f"per rank {'/'.join(f'{gb * p:.2f}' for p in x['peak_bytes'])}"
                 f" GiB)")
@@ -5668,7 +5732,7 @@ def main() -> int:
           + f" ({bb['wall_s']:.1f} s)", flush=True)
 
     # the multi-device phase: Engine(backend="dist"), W=4 ranks on the
-    # card, each job bit for bit against one process's host run
+    # card, each job bit for bit against one process's run in its mode
     dist = dist_phase(out_dir, smi)
     detail["dist"] = dist
     for line in dist_lines(dist):

@@ -89,17 +89,46 @@ def direct_send(
     (``routing.route_union``) or, under ``route_batch="lane"``, one pass
     a lane."""
     capacity = ctx.scale_capacity(name, capacity)
-    if not ctx.batched:
-        routed = routing.route(ctx, dst, valid, payload, capacity)
-    elif routing.resolve_batch() == "union":
-        routed = routing.route_union(ctx, dst, valid, payload, capacity)
-    else:
-        dst_l, valid_l = routing.lane_views(ctx, dst, valid)
-        routed = routing.route(ctx, dst_l, valid_l, payload, capacity)
+    routed = _route_maybe_union(ctx, dst, valid, payload, capacity)
     remote = routing.remote_count(ctx, routed.sent_count)
     width = id_bytes + (wire_width if wire_width is not None
                         else payload_width(payload, ctx.batched))
     ctx.add_traffic(name, remote * width, remote)
+    ctx.add_overflow(name, routed.overflow)
+    return _delivery(ctx, routed, capacity)
+
+
+def _route_maybe_union(ctx, dst, valid, payload, capacity):
+    """The routed-channel dispatch: one route pass solo; under the
+    batched query plane the shared union pass (``route_batch="union"``)
+    or one pass a lane (``"lane"``)."""
+    if not ctx.batched:
+        return routing.route(ctx, dst, valid, payload, capacity)
+    if routing.resolve_batch() == "union":
+        return routing.route_union(ctx, dst, valid, payload, capacity)
+    dst_l, valid_l = routing.lane_views(ctx, dst, valid)
+    return routing.route(ctx, dst_l, valid_l, payload, capacity)
+
+
+def monolithic_send(
+    ctx: ChannelContext,
+    dst: torch.Tensor,
+    valid: torch.Tensor,
+    payload: Dict[str, torch.Tensor],
+    capacity: int,
+    *,
+    pad_width: int,
+    name: str = "pregel_message",
+) -> Delivery:
+    """Pregel-monolithic emulation (the paper's Table IV baseline): a
+    DirectMessage whose every message is padded to the program-wide
+    widest message, ``pad_width`` bytes, with no per-channel combiner; a
+    remote message costs ``4 + pad_width`` bytes (the JAX package's
+    ``monolithic_send``)."""
+    capacity = ctx.scale_capacity(name, capacity)
+    routed = _route_maybe_union(ctx, dst, valid, payload, capacity)
+    remote = routing.remote_count(ctx, routed.sent_count)
+    ctx.add_traffic(name, remote * (4 + pad_width), remote)
     ctx.add_overflow(name, routed.overflow)
     return _delivery(ctx, routed, capacity)
 

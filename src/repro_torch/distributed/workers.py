@@ -26,7 +26,14 @@ meet the same ``amin``/``amax`` as locally; only the bool votes use
 
 :class:`GroupWorkers` counts what crosses the process boundary
 (``collectives``, ``bytes``: the bytes this rank sends a call), so a run
-can report its collectives a superstep.
+can report its collectives a superstep. Its collectives are the list
+forms of ``torch.distributed`` (``all_to_all_single``, ``all_gather``,
+``all_reduce``, ``broadcast_object_list``), which the device loops'
+host-sync guard lets through: on a group those loops run eagerly, never
+captured (``repro_torch.pregel.runtime``), and each rank issues the same
+collectives in the same order. ``gather_host`` is the loops' readback
+(a host-mode superstep, a chunk boundary), ``broadcast`` the group's one
+decision (rank 0's ``Plan`` under ``plan="auto"``).
 """
 from __future__ import annotations
 
@@ -188,6 +195,17 @@ class GroupWorkers:
         if self.backend != "nccl":
             flat = flat.cpu()
         return self.gather(flat[None]).cpu()
+
+    def broadcast(self, obj):
+        """Rank 0's ``obj`` on every rank (``broadcast_object_list``; what
+        the other ranks pass is ignored): one decision for the group, such
+        as rank 0's ``Plan``."""
+        box = [obj]
+        self.collectives += 1
+        self.dist.broadcast_object_list(
+            box, src=self.dist.get_global_rank(self.group, 0),
+            group=self.group)
+        return box[0]
 
 
 def resolve(workers: Optional[object], size: int):

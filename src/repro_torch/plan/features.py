@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import workers as workers_lib
 from repro_torch.graph.pgraph import PartitionedGraph
 
 
@@ -91,16 +92,25 @@ def _plan_caps(pg: PartitionedGraph) -> Tuple[Tuple[str, int], ...]:
 
 
 def fingerprint(prog, pg: PartitionedGraph, num_queries: int = 0,
-                backend: Optional[str] = None) -> Fingerprint:
+                backend: Optional[str] = None,
+                workers=None) -> Fingerprint:
     """The fingerprint of running ``prog`` on ``pg`` with Q query lanes.
-    Two reductions over ``deg_out`` and ``v_mask``; no side effects.
-    ``backend`` overrides the graph's device type (``"cuda"``/``"cpu"``)
-    in the fingerprint, as the JAX package's override does."""
+    Reductions over ``deg_out`` and ``v_mask``, read back in one copy; no
+    side effects. ``backend`` overrides the graph's device type
+    (``"cuda"``/``"cpu"``) in the fingerprint, as the JAX package's
+    override does. On a rank of a group (``workers``, a ``GroupWorkers``:
+    ``pg`` holds one worker's rows) the reductions are the whole graph's,
+    one ``all_gather`` of every rank's partial sums and maximum, so every
+    rank and the local backend fingerprint one problem alike."""
     deg = pg.deg_out.to(torch.int64)
-    edges = int(deg.sum())
-    n = int(pg.v_mask.sum())
+    zero = deg.new_zeros(())
+    mine = torch.stack([deg.sum(), pg.v_mask.sum().to(torch.int64),
+                        deg.max() if deg.numel() else zero])
+    parts = workers_lib.resolve(workers, pg.num_workers).gather_host(
+        mine).numpy()
+    edges, n = int(parts[:, 0].sum()), int(parts[:, 1].sum())
+    max_deg = int(parts[:, 2].max())
     avg = edges / max(n, 1)
-    max_deg = int(deg.max()) if deg.numel() else 0
     caps = _plan_caps(pg)
     raw_caps = [v for k, v in caps
                 if k.startswith("raw_") and k.endswith("e_cap")]

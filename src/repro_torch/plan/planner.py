@@ -252,15 +252,19 @@ class Planner:
         return self._corpus
 
     def plan(self, prog, pg, num_queries: int = 0,
-             overrides: Optional[Dict[str, Any]] = None) -> Plan:
+             overrides: Optional[Dict[str, Any]] = None,
+             fingerprint: Optional[features.Fingerprint] = None) -> Plan:
         """Lower ``prog``-on-``pg`` (Q query lanes) to a concrete Plan.
 
         overrides: explicitly-set knob values (None entries ignored),
         taken verbatim and recorded with source "explicit".
+        fingerprint: the problem's fingerprint when the caller made it
+        (a group's, reduced over its ranks); None: ``pg``'s own.
         """
         overrides = {k: v for k, v in (overrides or {}).items()
                      if v is not None}
-        fp = features.fingerprint(prog, pg, num_queries=num_queries)
+        fp = (features.fingerprint(prog, pg, num_queries=num_queries)
+              if fingerprint is None else fingerprint)
         memo_key = (fp, tuple(sorted(overrides.items())))
         hit = self._memo.get(memo_key)
         if hit is not None:

@@ -12,8 +12,14 @@ accumulators — and replays the captured graph from there, so the resumed
 run equals the uninterrupted one bit for bit: state, supersteps, halts,
 and bytes and messages per channel.
 
+On a group (``Engine(backend="dist")``) rank 0 writes the file from the
+state gathered from every rank, the file a local run writes at the same
+boundary byte for byte, and each rank resumes its own worker's rows, so
+a checkpoint resumes on either backend.
+
 A checkpoint names the program, the hash of the graph's static surface
-(``runtime.graph_signature``) and ``max_steps``;
+(``runtime.graph_signature``: the whole partition's, on a rank too) and
+``max_steps``;
 :meth:`Checkpoint.validate` refuses a resume with another program, graph
 shape or step budget. A file is a pickled dict of plain values and numpy
 arrays with a format tag (the port's own format, not the JAX package's),

@@ -78,12 +78,22 @@ holds its own worker's rows (``pgraph.partition_graph(...,
 worker=rank)``), every cross-worker operation a collective of the group,
 bit-identical to ``"local"``. Every rank calls the same entry point with
 the same arguments and gets the whole result: state and outputs of every
-worker, and the group's bytes and messages. ``"dist"`` runs the host
-mode, solo (:meth:`Engine.run`) and batched (:meth:`Engine.run_batch`),
-and its mode defaults to ``"host"``; it refuses the device modes and
-checkpoints (ROADMAP item 8.2), :meth:`Engine.serve` (8.3) and
-``plan="auto"`` (8.4). ``repro_torch.launch.workers.spawn`` starts the
-ranks.
+worker, and the group's bytes and messages. ``"dist"`` runs every mode,
+solo (:meth:`Engine.run`) and batched (:meth:`Engine.run_batch`),
+:meth:`Engine.serve`, checkpoints and ``plan="auto"``; under
+``plan="manual"`` its mode defaults to ``"host"``. On a group the device
+modes keep their results, chunk boundaries, stat rows, lane ages and
+checkpoints, but not the capture: each rank runs the loop eagerly, since
+a gloo collective cannot be captured (``runtime`` module docstring;
+``RunResult.captured`` and ``ServeResult.captured`` are False there).
+The capture on a group, NCCL with one card a rank, is ROADMAP item 8.2.
+A group's checkpoint is written by rank 0 from the gathered state and
+equals, byte for byte, the local run's at the same boundary, so either
+backend resumes from the other's. Under ``plan="auto"`` the graph's
+features are reduced over the group, rank 0 plans (probes and their
+cache on rank 0 only) and broadcasts its ``Plan``, so every rank keys
+the same loop under the local engine's ``Plan.key()``.
+``repro_torch.launch.workers.spawn`` starts the ranks.
 """
 from __future__ import annotations
 
@@ -132,7 +142,8 @@ class Engine:
     on_nonconverged: ``None``, ``"warn"`` or ``"raise"``.
     backend: ``"local"`` (all W workers in this process) or ``"dist"``
       (one worker a rank of ``group``, a ``torch.distributed``
-      ``ProcessGroup``; None = the world group), host mode only.
+      ``ProcessGroup``; None = the world group; the device modes run
+      uncaptured there).
     """
 
     BACKENDS = ("local", "dist")
@@ -152,8 +163,8 @@ class Engine:
             raise ValueError(f"unknown backend {backend!r} (one of "
                              f"{self.BACKENDS})")
         if backend == "dist":
-            _refuse_on_group(mode, plan)
-            mode = "host" if mode is None else mode
+            if mode is None and plan == "manual":
+                mode = "host"
         elif group is not None:
             raise ValueError('group= needs backend="dist"')
         self.backend = backend
@@ -248,11 +259,26 @@ class Engine:
         planner (its probes are cached on disk, never in this engine's
         cache, never in ``stats()``)."""
         if self.plan_policy == "auto":
-            return self._planner.plan(prog, pg, num_queries=num_queries,
-                                      overrides=self._overrides())
+            return self._auto_plan(prog, pg, num_queries)
         if isinstance(self.plan_policy, planning.Plan):
             return self._given_plan()
         return self._manual()
+
+    def _auto_plan(self, prog, pg, num_queries: int) -> planning.Plan:
+        """The planner's Plan; on a group, rank 0's, broadcast: the
+        fingerprint holds the whole graph's features (reduced over the
+        group), rank 0 alone probes and writes the probe cache, and every
+        rank runs the one Plan."""
+        fp = features.fingerprint(prog, pg, num_queries=num_queries,
+                                  workers=self.workers)
+        if self.workers is not None and self.workers.rank != 0:
+            return self.workers.broadcast(None)
+        plan = self._planner.plan(prog, pg, num_queries=num_queries,
+                                  overrides=self._overrides(),
+                                  fingerprint=fp)
+        if self.workers is not None:
+            plan = self.workers.broadcast(plan)
+        return plan
 
     def _manual(self) -> planning.Plan:
         if self._manual_plan is None:
@@ -318,8 +344,8 @@ class Engine:
         return out
 
     def _fingerprint_key(self, prog, pg, num_queries: int) -> str:
-        return features.fingerprint(prog, pg,
-                                    num_queries=num_queries).cache_key()
+        return features.fingerprint(prog, pg, num_queries=num_queries,
+                                    workers=self.workers).cache_key()
 
     def _effective_scales(self, prog, pg, num_queries: int
                           ) -> Dict[str, float]:
@@ -453,13 +479,9 @@ class Engine:
         such a boundary, bit-identical to the uninterrupted run, on the
         loop the engine has cached (no new capture). Both need
         ``mode="chunked"``. Under ``on_overflow="escalate"`` an overflow
-        escalates and replays (``RunResult.recovery``)."""
-        if (checkpoint_every is not None or resume is not None) \
-                and self.backend == "dist":
-            raise ValueError(
-                'checkpoint/resume on backend="dist": checkpoints are taken '
-                "on the chunked device loop, which a group does not run yet "
-                "(ROADMAP item 8.2)")
+        escalates and replays (``RunResult.recovery``). On a group rank 0
+        writes the checkpoints (every worker's state, the file a local run
+        writes) and each rank resumes its own worker's rows."""
         ms, co = self._limits(prog, max_steps, check_overflow)
         self._check_device(pg)
         plan = self.resolve_plan(prog, pg)
@@ -477,9 +499,10 @@ class Engine:
             graph = ckpt_io.graph_hash(pg)
 
             def checkpoint_cb(snap):
-                ckpt_io.save(ckpt_io.Checkpoint(
-                    program=prog.name, graph=graph, max_steps=ms, **snap),
-                    checkpoint_dir)
+                if self.workers is None or self.workers.rank == 0:
+                    ckpt_io.save(ckpt_io.Checkpoint(
+                        program=prog.name, graph=graph, max_steps=ms,
+                        **snap), checkpoint_dir)
         if (checkpoint_every is not None or resume is not None) \
                 and plan.mode != "chunked":
             raise ValueError(
@@ -519,7 +542,7 @@ class Engine:
                     pg, prog.step, state0, mode=plan.mode, max_steps=ms,
                     check_overflow=co, chunk_size=plan.chunk_size,
                     channels=prog.channels, name=prog.name,
-                    cap_scales=scales, **knobs))
+                    cap_scales=scales, workers=self.workers, **knobs))
             res = self._stamp(loop.execute(
                 state0, checkpoint_every=checkpoint_every,
                 checkpoint_cb=checkpoint_cb, resume=resume), loop, hit)
@@ -595,7 +618,7 @@ class Engine:
                     pg, prog.step, state0, mode=plan.mode, max_steps=ms,
                     check_overflow=co, chunk_size=plan.chunk_size,
                     channels=prog.channels, name=prog.name,
-                    cap_scales=scales, **knobs))
+                    cap_scales=scales, workers=self.workers, **knobs))
             res = self._stamp(loop.execute(state0, q), loop, hit)
         res.program = prog.name
         res.plan = plan
@@ -639,11 +662,6 @@ class Engine:
             raise ValueError(
                 f"unknown on_fault {on_fault!r} "
                 "(one of ('quarantine', 'raise'))")
-        if self.backend == "dist":
-            raise ValueError(
-                'Engine.serve on backend="dist": the serving substrate is '
-                "the chunked device loop, which a group does not run yet "
-                "(ROADMAP item 8.3)")
         return self._serve(prog, pg, requests, num_lanes, chunk_size,
                            max_steps, check_overflow, faults, on_fault)
 
@@ -677,31 +695,14 @@ class Engine:
             lambda: runtime.BatchedDeviceLoop(
                 pg, prog.step, state0, mode="chunked", max_steps=ms,
                 check_overflow=co, chunk_size=chunk, channels=prog.channels,
-                name=prog.name, serve=True, **self._knobs(plan)))
+                name=prog.name, serve=True, workers=self.workers,
+                **self._knobs(plan)))
         res = serving.serve_loop(loop, prog, pg, state0, queue,
                                  faults=faults, on_fault=on_fault)
         res.program = prog.name
         res.route_batch = plan.route_batch
         res.plan = plan
         return self._stamp(res, loop, hit)
-
-
-def _refuse_on_group(mode: Optional[str], plan: Any) -> None:
-    """What ``backend="dist"`` does not run in this slice, each refusal
-    naming the ROADMAP item that will lift it."""
-    given = plan.mode if isinstance(plan, planning.Plan) else None
-    for m in (mode, given):
-        if m in ("fused", "chunked"):
-            raise ValueError(
-                f'backend="dist" runs mode="host" only, not {m!r}: the '
-                "device loops need NCCL inside captured CUDA graphs and "
-                "their conditional nodes, one card a rank (ROADMAP item "
-                "8.2)")
-    if plan == "auto":
-        raise ValueError(
-            'backend="dist" with plan="auto": one plan must be decided on '
-            "rank 0 and broadcast to the group (ROADMAP item 8.4); give "
-            'the knobs or a Plan with mode="host"')
 
 
 class ManyResults(List[runtime.RunResult]):

@@ -42,14 +42,26 @@ capture raises; nothing falls back to the eager loop.
 Voting-to-halt: the step returns per-worker halt votes; the runtime ANDs
 them (``aggregator.all_halted``).
 
-The host loops also run on a group (``workers``, a
+Every loop also runs on a group (``workers``, a
 ``repro_torch.distributed.workers.GroupWorkers``; ``Engine(backend=
 "dist")``): one worker a rank, the graph and state holding that worker's
-rows, every cross-worker step a collective of the group, and the one
-readback a superstep an ``all_gather`` of each rank's row, so every rank
-sums the same totals and takes the same halt, overflow and wrap
-verdicts; the final state is gathered to ``(W, ...)`` on every rank. The
-device modes run all W workers in one process.
+rows, every cross-worker step a collective of the group. The host loop's
+one readback a superstep is an ``all_gather`` of each rank's row, so
+every rank sums the same totals and takes the same halt, overflow and
+wrap verdicts. The device loops on a group do not capture, by
+construction (not as a fallback: the local loop's capture failure still
+raises): they run the K steps eagerly on the rank's device, as on the
+CPU, each superstep's ``go`` and each inner loop's condition read on the
+host; the halt and overflow votes that steer ``go`` are one
+``all_gather`` a superstep, so every rank takes the same branch and
+issues the same collectives in the same order; at each chunk boundary
+every rank's flags, lane rows and stat rows are gathered
+(``gather_host``) and merged into the local layout, so the totals, wrap
+and overflow errors, checkpoints and lane ages equal the local run's.
+``RunResult.captured`` says whether a replayed CUDA graph ran. The final
+state is gathered to ``(W, ...)`` on every rank; a resume takes each
+rank's own rows of a checkpoint's state. The capture on a group (NCCL,
+one card a rank) is ROADMAP item 8.2.
 
 Batched query plane (under ``Engine.run_batch``): one loop advances Q
 query instances per superstep, state leaves ``(W, Q, n_loc, ...)``.
@@ -175,6 +187,10 @@ class RunResult:
     # the engine's backend: "local" (every worker in this process) or
     # "dist" (one worker a rank of a torch.distributed group)
     backend: str = "local"
+    # True only when the run replayed a captured CUDA graph (a device
+    # mode on the card, every worker in this process); ``mode`` stays
+    # what was asked for
+    captured: bool = False
 
     @property
     def total_bytes(self) -> int:
@@ -268,21 +284,26 @@ def _gathered(workers, state):
 
 
 # the fields of a graph that name it rather than shape it: they never
-# enter a step (the JAX package's scrub_graph drops them too)
+# enter a step (the JAX package's scrub_graph drops them too), and which
+# worker's rows a rank holds
 _IDENTITY_FIELDS = frozenset({"name", "new_of_old", "device",
                               "remote_entries", "total_edges",
-                              "mirrored_edges"})
+                              "mirrored_edges", "worker"})
 
 
 def graph_signature(graph: PartitionedGraph) -> tuple:
     """Hashable static surface of a partitioned graph: every table's shape
     and dtype and every static cap, plan by plan, without the fields that
     only name the graph. Two graphs with equal signatures run the same
-    loops; a checkpoint records its hash (``checkpoint.graph_hash``)."""
+    loops; a checkpoint records its hash (``checkpoint.graph_hash``). It
+    is the whole partition's: a rank's graph (one worker's rows) gives
+    its tables' leading dim as W, so every rank of a group and the local
+    backend sign one partition alike."""
+    lead = (graph.num_workers,)
 
     def sig(x):
         if isinstance(x, torch.Tensor):
-            return ("tensor", tuple(x.shape), str(x.dtype))
+            return ("tensor", lead + tuple(x.shape[1:]), str(x.dtype))
         if dataclasses.is_dataclass(x):
             return (type(x).__name__,) + tuple(
                 (f.name, sig(getattr(x, f.name)))
@@ -363,9 +384,9 @@ def run_supersteps(
     (None: :func:`resolve_knobs`).
     workers: the cross-worker layer (``repro_torch.distributed.workers``):
     None for all W workers in this process; a ``GroupWorkers`` runs one
-    worker a rank of its group (host mode only), ``graph`` holding that
-    worker's rows, and returns every worker's state ``(W, ...)`` on every
-    rank.
+    worker a rank of its group (in every mode; the device modes
+    uncaptured), ``graph`` holding that worker's rows, and returns every
+    worker's state ``(W, ...)`` on every rank.
 
     A device mode builds its loop for this one call (warm-up and capture
     are ``compile_time_s``); hold an ``Engine`` to replay it across runs.
@@ -373,15 +394,11 @@ def run_supersteps(
     if mode not in MODES:
         raise ValueError(f"unknown execution mode {mode!r}")
     if mode != "host":
-        if workers is not None and workers.distributed:
-            raise ValueError(
-                f"mode={mode!r} on a group: the device loops run one "
-                "process's workers (ROADMAP item 8.2)")
         loop = DeviceLoop(graph, step_fn, state0, mode=mode,
                           max_steps=max_steps, check_overflow=check_overflow,
                           chunk_size=chunk_size, channels=channels,
                           name=name, cap_scales=cap_scales,
-                          dense_threshold=dense_threshold)
+                          dense_threshold=dense_threshold, workers=workers)
         try:
             res = loop.execute(state0)
         finally:
@@ -535,11 +552,13 @@ class DeviceLoop:
     then (:class:`BatchedDeviceLoop`) four ``(Q,)`` lane rows, and then,
     chunked, K stat rows or, fused, one accumulator row; a row is each
     stat key's ``(W,)`` (batched ``(W, Q)``) bytes, then their messages,
-    then each overflow key's flag (batched one a lane). ``go`` is the
-    bool the IF nodes read. The steps' contexts carry the loop's
-    :class:`DeviceLoopHooks`: eager ones for the warm-up (and every step
-    on the CPU), ones with the capture's conditional-node streams while
-    the card captures."""
+    then each overflow key's flag (batched one a lane). On a rank of a
+    group (``workers``) a row holds the rank's one worker, and
+    :meth:`_read` merges every rank's words into the ``W``-worker layout.
+    ``go`` is the bool the IF nodes read. The steps' contexts carry the
+    loop's :class:`DeviceLoopHooks`: eager ones for the warm-up (and
+    every step on the CPU and on a group), ones with the capture's
+    conditional-node streams while the card captures."""
 
     #: the query lanes of a batched loop (None: a solo loop)
     q: Optional[int] = None
@@ -552,7 +571,8 @@ class DeviceLoop:
                  chunk_size: int = 64, channels: Optional[Any] = None,
                  name: str = "", cap_scales: Optional[Dict] = None,
                  route_batch: Optional[str] = None,
-                 dense_threshold: Optional[float] = None):
+                 dense_threshold: Optional[float] = None,
+                 workers: Any = None):
         if mode not in ("fused", "chunked"):
             raise ValueError(f"a device loop runs mode 'fused' or "
                              f"'chunked', not {mode!r}")
@@ -577,9 +597,13 @@ class DeviceLoop:
         self.knobs = resolve_knobs(route_batch, dense_threshold)
         self.device = graph.device
         self.cuda = self.device.type == "cuda"
+        self.workers = _check_workers(graph, workers)
+        # a group's ranks run the loop eagerly: a gloo collective cannot
+        # be captured into a CUDA graph (module docstring)
+        self.capture = self.cuda and not self.workers.distributed
         self.token = next(_tokens)
         self.cuda_graph = self.nest = None
-        self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+        self.stream = torch.cuda.Stream(self.device) if self.capture else None
         self.guard = _HostSyncGuard(self.name)
         self.hooks = DeviceLoopHooks(read=self.guard.read)
         t = time.perf_counter()
@@ -590,7 +614,7 @@ class DeviceLoop:
             with knob_scope(self.knobs):
                 self._warm_up(state0)
                 self._allocate(state0)
-                if self.cuda:
+                if self.capture:
                     self._capture()
         except BaseException:
             self.release()
@@ -608,12 +632,14 @@ class DeviceLoop:
                               route_cap=self.graph.route_cap,
                               num_queries=self.q, query_live=live,
                               device_loop=self.hooks,
-                              cap_scales=self.cap_scales)
+                              cap_scales=self.cap_scales,
+                              workers=self.workers)
 
     @contextlib.contextmanager
     def _on_side_stream(self):
-        """The scratch scope, and on the card the loop's own stream."""
-        if not self.cuda:
+        """The scratch scope, and on a card that captures the loop's own
+        stream."""
+        if not self.capture:
             with scratch.scope(self.token):
                 yield
             return
@@ -652,9 +678,13 @@ class DeviceLoop:
                 "or dtypes; the device modes need a fixed layout")
 
     def _allocate(self, state0) -> None:
-        w, dev, lanes = self.graph.num_workers, self.device, self.q or 1
-        self.nb = 2 * len(self.bkeys) * w * lanes  # traffic columns of a row
+        w, dev, lanes = self.workers.rows, self.device, self.q or 1
+        # a row's traffic columns and length here, and in the W-worker
+        # layout that _read returns (the same locally)
+        self.nb = 2 * len(self.bkeys) * w * lanes
         self.row_len = self.nb + len(self.okeys) * lanes
+        self.host_nb = 2 * len(self.bkeys) * self.graph.num_workers * lanes
+        self.host_row_len = self.host_nb + len(self.okeys) * lanes
         rows = self.K if self.mode == "chunked" else 1
         self.state = {k: torch.empty_like(
             v, memory_format=torch.contiguous_format)
@@ -726,12 +756,22 @@ class DeviceLoop:
         return per_step
 
     def _when_go(self, fn) -> None:
-        if self.cuda:  # capturing: fn into the body of an IF node
+        if self.hooks.nest is not None:  # capturing: into an IF node's body
             with self.nest.if_node(self.go), self.guard:
                 fn()
         elif bool(self.go):
             with self.guard:
                 fn()
+
+    def _group_verdict(self, halt: torch.Tensor, ovf: torch.Tensor):
+        """The group's halt (every rank) and overflow (any rank) votes,
+        one ``all_gather`` of both: ``go`` and the lane rows follow them,
+        so every rank takes the same branch. Locally the votes as they
+        are."""
+        if not self.workers.distributed:
+            return halt, ovf
+        both = self.workers.gather(torch.stack([halt, ovf])[None])
+        return both[:, 0].all(dim=0), both[:, 1].any(dim=0)
 
     def _step(self, k: int) -> None:
         """Superstep ``i`` into the static buffers: the state, the flags,
@@ -740,8 +780,9 @@ class DeviceLoop:
         i = self.flags[0]
         new_state, halt, ovf = _call_step(self.step_fn, ctx, self.graph,
                                           self.state, i)
-        halt_all = aggregator.all_halted(ctx, halt)
-        ovf_any = on_device(ovf, self.device, torch.bool).any()
+        halt_all, ovf_any = self._group_verdict(
+            aggregator.all_halted(ctx, halt),
+            on_device(ovf, self.device, torch.bool).any())
         row = self._row(ctx)
         self._store(new_state)
         self._record(k, row)
@@ -771,8 +812,7 @@ class DeviceLoop:
         if live is not None:
             parts = [torch.where(live, p, 0) for p in parts]
             ovf = [v & live for v in ovf]
-        w = self.graph.num_workers
-        parts += [v.reshape(w, -1).any(dim=0) for v in ovf]
+        parts += [v.reshape(ctx.rows, -1).any(dim=0) for v in ovf]
         if not parts:  # a step with no channel
             return zeros.reshape(-1)[:0]
         return torch.cat([p.reshape(-1).to(torch.int32) for p in parts])
@@ -798,20 +838,59 @@ class DeviceLoop:
     # -- a run ---------------------------------------------------------------
 
     def _read(self, n: int) -> np.ndarray:
-        """The first ``n`` words of ``out`` on the host, in one copy."""
+        """The first ``n`` words of ``out`` on the host, in one copy; on a
+        group every rank's, merged (:meth:`_merged`)."""
+        if self.workers.distributed:
+            return self._merged(self.workers.gather_host(
+                self.out[:n]).numpy().astype(np.int64))
         dst = self.host[:n]
         dst.copy_(self.out[:n], non_blocking=self.cuda)
         if self.cuda:
             torch.cuda.current_stream(self.device).synchronize()
         return dst.numpy().astype(np.int64)
 
+    def _merged(self, words: np.ndarray) -> np.ndarray:
+        """Every rank's first words of ``out`` (``(R, n)``, rank order) as
+        one process's words over all W workers: the flags and lane rows,
+        which the voted ``go`` keeps equal on every rank (checked), with
+        the fused wrap latch ORed; each stat row's per-key blocks of one
+        worker laid side by side in rank order, the overflow flags
+        ORed."""
+        head = min(words.shape[1], self.head)
+        differ = (words[:, :head] != words[0, :head]).any(axis=0)
+        differ[3] = False  # the fused wrap latch is each rank's own
+        if differ.any():
+            raise RuntimeError(
+                f"{self.name}: the group's ranks disagree on the loop's "
+                f"flags or lane rows: {words[:, :head].tolist()}")
+        out = words[0, :head].copy()
+        out[3] = words[:, 3].max()
+        if words.shape[1] <= self.head:
+            return out
+        r, lanes = words.shape[0], self.q or 1
+        rows = words[:, self.head:].reshape(r, -1, self.row_len)
+        cols = 2 * len(self.bkeys)
+        traffic = rows[:, :, :self.nb].reshape(r, -1, cols, lanes)
+        traffic = traffic.transpose(1, 2, 0, 3).reshape(rows.shape[1], -1)
+        ovf = rows[:, :, self.nb:].any(axis=0).astype(np.int64)
+        return np.concatenate(
+            [out, np.concatenate([traffic, ovf], axis=1).reshape(-1)])
+
     def _dispatch(self) -> None:
-        """One chunk: a replay of the captured graph, or on the CPU the
-        K steps run under their ``go``."""
+        """One chunk: a replay of the captured graph, or (on the CPU, on
+        a group) the K steps run eagerly under their ``go``."""
         if self.cuda_graph is not None:
             self.cuda_graph.replay()
         else:
-            self._chunk()
+            with scratch.scope(self.token):
+                self._chunk()
+
+    def gathered(self, state: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """Every worker's rows of ``state`` (this rank's rows of each
+        leaf), ``(W, ...)``: the state itself locally, a collective of the
+        group on a rank."""
+        return _gathered(self.workers, state)
 
     @contextlib.contextmanager
     def replays_counted(self):
@@ -820,7 +899,8 @@ class DeviceLoop:
         ``ops.launch_counts`` (a replay launches its kernels without the
         wrappers, an inner loop as often as its condition says). Reading
         the counters synchronizes the device."""
-        launched = kops.device_launch_counts() if self.cuda else None
+        launched = (kops.device_launch_counts()
+                    if self.cuda_graph is not None else None)
         try:
             yield
         finally:
@@ -861,9 +941,9 @@ class DeviceLoop:
                 "mode='chunked' (Engine(mode='chunked')) to checkpoint at "
                 "dispatch boundaries.")
         with self.replays_counted(), knob_scope(self.knobs):
-            return _stamp_knobs(self._execute(
-                state0, checkpoint_every, checkpoint_cb, resume),
-                self.knobs)
+            res = self._execute(state0, checkpoint_every, checkpoint_cb,
+                                resume)
+        return _stamp_knobs(res, self.knobs)
 
     def _execute(self, state0, checkpoint_every=None, checkpoint_cb=None,
                  resume=None) -> RunResult:
@@ -874,7 +954,8 @@ class DeviceLoop:
         start = 0
         if resume is not None:
             start = int(resume["step"])
-            state0 = {k: torch.as_tensor(v).to(self.device)
+            # every worker's state: a rank takes its own rows
+            state0 = {k: self.graph.mine(torch.as_tensor(v)).to(self.device)
                       for k, v in resume["state"].items()}
             bytes_acc.update(resume["bytes_by_channel"])
             msgs_acc.update(resume["msgs_by_channel"])
@@ -900,7 +981,7 @@ class DeviceLoop:
             t_dev = time.perf_counter()
             steps, halted, overflow = (int(x) for x in host[:3])
             if chunked:  # the chunk's per-step rows, summed in int64
-                rows = host[4:].reshape(self.K, self.row_len)
+                rows = host[4:].reshape(self.K, self.host_row_len)
                 for j, key in enumerate(self.bkeys):
                     for acc, col in ((bytes_acc, j), (msgs_acc,
                                                       len(self.bkeys) + j)):
@@ -909,7 +990,7 @@ class DeviceLoop:
                             wrapped.add(key)
                         acc[key] += int(block.sum())
                 for j, key in enumerate(self.okeys):
-                    ovf_acc[key] |= bool(rows[:, self.nb + j].any())
+                    ovf_acc[key] |= bool(rows[:, self.host_nb + j].any())
             times.append(time.perf_counter() - ts)
             overhead += (t_enq - ts) + (time.perf_counter() - t_dev)
             overflowed = self.check_overflow and bool(overflow)
@@ -919,8 +1000,8 @@ class DeviceLoop:
                     and steps >= next_due:
                 checkpoint_cb({
                     "step": steps,
-                    "state": {k: v.cpu().numpy().copy()
-                              for k, v in self.state.items()},
+                    "state": {k: v.cpu().numpy().copy() for k, v
+                              in self.gathered(self.state).items()},
                     "bytes_by_channel": dict(bytes_acc),
                     "msgs_by_channel": dict(msgs_acc),
                     "overflow_by_channel": dict(ovf_acc),
@@ -938,16 +1019,16 @@ class DeviceLoop:
                 m = len(self.bkeys) + j
                 msgs_acc[key] = int(row[m * w:(m + 1) * w].sum())
             for j, key in enumerate(self.okeys):
-                ovf_acc[key] = bool(row[self.nb + j])
+                ovf_acc[key] = bool(row[self.host_nb + j])
             overhead += time.perf_counter() - t_r
-        state = {k: v.clone() for k, v in self.state.items()}
+        state = {k: v.clone() for k, v in self.gathered(self.state).items()}
         res = RunResult(
             state=state, steps=steps, halted=bool(halted),
             bytes_by_channel=bytes_acc, msgs_by_channel=msgs_acc,
             wall_time_s=time.perf_counter() - t0, step_times_s=times,
             mode=self.mode, dispatches=dispatches, host_overhead_s=overhead,
             converged=bool(halted), overflow_by_channel=ovf_acc,
-            resumed_from=start)
+            resumed_from=start, captured=self.cuda_graph is not None)
         if overflowed:
             raise _overflow_error(steps, ovf_acc, res)
         if wrapped:
@@ -1008,7 +1089,7 @@ def _readback_lanes(workers, halted, overflow, nbytes, nmsgs, novf):
 def _batched_result(state, steps, halted_q, overflow_q, q_bytes, q_msgs,
                     steps_q, q_real, *, mode, dispatches, wall, step_times,
                     overhead, check_overflow, ovf_by, wrapped,
-                    latch=False) -> RunResult:
+                    latch=False, captured=False) -> RunResult:
     """The batched run's result over its ``q_real`` real lanes; raises
     its overflow (with the lanes' qids) or wrap error. ``wrapped`` names
     the channels whose per-step count went negative (host and chunked
@@ -1039,6 +1120,7 @@ def _batched_result(state, steps, halted_q, overflow_q, q_bytes, q_msgs,
         pad_steps=int(steps_q[pad].sum()),
         pad_bytes=int(sum(v[pad].sum() for v in q_bytes.values())),
         pad_msgs=int(sum(v[pad].sum() for v in q_msgs.values())),
+        captured=captured,
     )
     if check_overflow and overflow_q[:q_real].any():
         qs = np.flatnonzero(overflow_q[:q_real]).tolist()
@@ -1208,7 +1290,8 @@ class BatchedDeviceLoop(DeviceLoop):
                  max_steps: int, check_overflow: bool = True,
                  chunk_size: int = 64, channels: Optional[Any] = None,
                  name: str = "", serve: bool = False,
-                 cap_scales: Optional[Dict] = None, **knobs):
+                 cap_scales: Optional[Dict] = None, workers: Any = None,
+                 **knobs):
         if serve and mode != "chunked":
             raise ValueError(f"the serving substrate is chunked, not "
                              f"{mode!r}")
@@ -1217,7 +1300,7 @@ class BatchedDeviceLoop(DeviceLoop):
         super().__init__(graph, step_fn, state0, mode=mode,
                          max_steps=max_steps, check_overflow=check_overflow,
                          chunk_size=chunk_size, channels=channels, name=name,
-                         cap_scales=cap_scales, **knobs)
+                         cap_scales=cap_scales, workers=workers, **knobs)
 
     def _step(self, k: int) -> None:
         halted, overflow, age, steps = self.lanes
@@ -1229,11 +1312,13 @@ class BatchedDeviceLoop(DeviceLoop):
         ctx = self._context(live)
         new_state, halt, ovf = _call_step(self.step_fn, ctx, self.graph,
                                           self.state, index)
-        halt_q = aggregator.all_halted(ctx, halt)
+        halt_q, ovf_q = self._group_verdict(
+            aggregator.all_halted(ctx, halt),
+            on_device(ovf, self.device, torch.bool).expand(
+                ctx.rows, self.q).any(dim=0))
         if self.serve:  # a dead lane's computation is thrown away
             halt_q = halt_q & live
-        ovf_q = on_device(ovf, self.device, torch.bool).expand(
-            self.graph.num_workers, self.q).any(dim=0) & live
+        ovf_q = ovf_q & live
         row = self._row(ctx, live)
         self._store({key: torch.where(_qmask(live, v), v, self.state[key])
                      for key, v in new_state.items()})
@@ -1272,7 +1357,7 @@ class BatchedDeviceLoop(DeviceLoop):
                     wrapped.add(key)
                 acc[key] += per.sum(axis=0)
         for j, key in enumerate(self.okeys):
-            col = self.nb + j * q
+            col = self.host_nb + j * q
             q_ovf[key] |= rows[:, col:col + q].any(axis=0)
 
     def _totals(self):
@@ -1291,9 +1376,8 @@ class BatchedDeviceLoop(DeviceLoop):
             raise ValueError("a serving loop runs a chunk at a time "
                              "(serve_chunk)")
         with self.replays_counted(), knob_scope(self.knobs):
-            return _stamp_knobs(self._execute_batch(state0,
-                                                    num_real_queries),
-                                self.knobs, batched=True)
+            res = self._execute_batch(state0, num_real_queries)
+        return _stamp_knobs(res, self.knobs, batched=True)
 
     def _execute_batch(self, state0, q_real: int) -> RunResult:
         t0 = time.perf_counter()
@@ -1332,14 +1416,15 @@ class BatchedDeviceLoop(DeviceLoop):
             self._add_rows(host[self.head:].reshape(1, -1), q_bytes, q_msgs,
                            q_ovf)
         lanes = host[4:self.head].reshape(4, self.q)
-        state = {k: v.clone() for k, v in self.state.items()}
+        state = {k: v.clone() for k, v in self.gathered(self.state).items()}
         overhead += time.perf_counter() - t_r
         return _batched_result(
             state, steps, lanes[0] != 0, lanes[1] != 0, q_bytes, q_msgs,
             lanes[3], q_real, mode=self.mode, dispatches=dispatches,
             wall=time.perf_counter() - t0, step_times=times,
             overhead=overhead, check_overflow=self.check_overflow,
-            ovf_by=q_ovf, wrapped=wrapped, latch=latch)
+            ovf_by=q_ovf, wrapped=wrapped, latch=latch,
+            captured=self.cuda_graph is not None)
 
     def serve_chunk(self, age: np.ndarray, halted: np.ndarray,
                     overflow: np.ndarray):

@@ -247,6 +247,9 @@ class ServeResult:
     # the Plan the serving loop ran under (repro_torch.plan.Plan; its
     # data-plane knobs only: the serving substrate pins mode and chunk)
     plan: Any = None
+    # True only when the chunks were replays of a captured CUDA graph (on
+    # a group's ranks the substrate runs uncaptured)
+    captured: bool = False
     # dispatch indices whose wall time the StragglerMonitor flagged as
     # outliers (> threshold x rolling median), plus the session median
     straggler_dispatches: List[int] = dataclasses.field(default_factory=list)
@@ -327,6 +330,12 @@ def serve_loop(loop, prog, pg, state0, queue: QueryQueue,
     step budget. Unoccupied lanes stay marked halted, so they are dead
     end to end: frozen state, zero traffic, out of the union route pass.
     On the card the replays' kernel launches go to ``ops.launch_counts``.
+
+    On a rank of a group the loop's state holds the rank's worker:
+    ``query_init`` on the rank's graph writes that worker's rows, and a
+    harvest gathers every worker's rows of the lane before ``extract``.
+    The lane words every decision reads come from the group's votes, so
+    every rank admits, harvests and gathers alike.
     """
     L, max_steps = loop.q, loop.max_steps
     check_overflow = loop.check_overflow
@@ -453,8 +462,8 @@ def serve_loop(loop, prog, pg, state0, queue: QueryQueue,
                 if not (halted[lane] or age[lane] >= max_steps or force):
                     continue
                 # a copy: the next replay writes the lane's buffers
-                lane_state = {key: v[:, lane].clone()
-                              for key, v in loop.state.items()}
+                lane_state = loop.gathered({key: v[:, lane].clone()
+                                            for key, v in loop.state.items()})
                 rec.output = prog.extract(pg, lane_state)
                 rec.halted = bool(halted[lane])
                 rec.status = "ok" if rec.halted else "exhausted"
@@ -480,4 +489,5 @@ def serve_loop(loop, prog, pg, state0, queue: QueryQueue,
         msgs_by_channel=sess_msgs,
         straggler_dispatches=stragglers,
         dispatch_median_s=monitor.median,
+        captured=loop.cuda_graph is not None,
     )

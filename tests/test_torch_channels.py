@@ -152,6 +152,38 @@ def test_direct_send_matches_jax():
         same(g, w)
 
 
+@pytest.mark.parametrize("cap,pad_width", [(M, 12), (M, 0), (2, 20)],
+                         ids=["fits", "no-pad", "overflows"])
+def test_monolithic_send_matches_jax(cap, pad_width):
+    """The Pregel-monolithic baseline: delivery, bytes (4 + pad_width a
+    remote message), messages and the overflow latch, as the JAX
+    function gives them."""
+    dst, valid, vals = messages(9, d=2)
+
+    def shard(d, v, x):
+        c = jctx()
+        dv = jmsg.monolithic_send(c, d, v, {"x": x}, cap,
+                                  pad_width=pad_width)
+        return (dv.dst_local, dv.payload["x"], dv.mask, dv.overflow,
+                c.stats_bytes["pregel_message"],
+                c.stats_msgs["pregel_message"],
+                c.stats_ovf["pregel_message"])
+
+    want = jvmap(shard, dst, valid, vals)
+    c = ctx()
+    dv = msg.monolithic_send(c, t(dst), t(valid), {"x": t(vals)}, cap,
+                             pad_width=pad_width)
+    got = (dv.dst_local, dv.payload["x"], dv.mask, dv.overflow,
+           c.stats_bytes["pregel_message"], c.stats_msgs["pregel_message"],
+           c.stats_ovf["pregel_message"])
+    for g, w in zip(got, want):
+        same(g, w)
+    assert bool(dv.overflow.any()) == (cap == 2)
+    np.testing.assert_array_equal(
+        c.stats_bytes["pregel_message"].numpy(),
+        (4 + pad_width) * c.stats_msgs["pregel_message"].numpy())
+
+
 @pytest.mark.parametrize("mirror", [None, 12], ids=["plain", "mirrored"])
 @pytest.mark.parametrize("comb", ["sum", "min", "max"])
 def test_broadcast_combine_matches_jax(comb, mirror):

@@ -8,10 +8,12 @@ exchange with and without a lane dim (int32, float32, bool), the
 reduction for all six combiners on int32 and float32 (float sums whose
 order matters, NaN, infinities, -0.0, ties, empty rows), the votes and
 ``gather``. A rank that skips a collective, or raises alone, ends its
-spawn with an error within the group's timeout. ``Engine(backend=
-"dist")`` refuses what this slice does not run (the device modes,
-``serve``, ``plan="auto"``, checkpoints) and a group whose size is not
-the graph's W. The four ranks run once, in a module-scoped fixture.
+spawn with an error within the group's timeout. On a group of one rank
+``Engine(backend="dist")`` runs the device modes (uncaptured), a given
+``Plan``, ``plan="auto"``, ``serve`` and checkpoints as the local
+backend does, and refuses a group whose size is not the graph's W
+(``tests/test_torch_dist_loops.py`` holds the same calls on four ranks).
+The four ranks run once, in a module-scoped fixture.
 """
 import time
 
@@ -26,6 +28,7 @@ from repro_torch.distributed.workers import GroupWorkers, LocalWorkers
 from repro_torch.graph import pgraph
 from repro_torch.launch import workers as launch
 from repro_torch.plan import planner as planning
+from repro_torch.pregel import errors, runtime
 from repro_torch.pregel.engine import Engine
 
 W = 4
@@ -121,6 +124,31 @@ def one_sided(rank: int, world: int, device):
         flag = torch.ones(1, dtype=torch.int32)
         dist.all_reduce(flag)
     return rank
+
+
+def jobs_then_resume(rank: int, world: int, device, jobs, job, data):
+    """``launch.jobs.rank_jobs``, then ``job`` resumed on the group from
+    the checkpoint whose file holds ``data`` (a local run's: each rank
+    writes it under a name of its own): the resumed run's summary
+    last."""
+    import os
+    import tempfile
+
+    from repro_torch.launch import jobs as J
+
+    done = J.rank_jobs(rank, world, device, jobs)
+    problems = J.Problems()
+    spec, _, inputs = problems.problem(job)
+    pg = pgraph.from_arrays(*problems.tables(job), device=device,
+                            worker=rank)
+    with tempfile.TemporaryDirectory() as where:
+        path = os.path.join(where, "local.ckpt")
+        with open(path, "wb") as f:
+            f.write(data)
+        res = Engine(mode=job.mode, chunk_size=job.chunk_size,
+                     device=device, backend="dist").run(
+            spec.factory(**inputs), pg, resume=path)
+    return done + [dict(J._result(res), resumed_from=res.resumed_from)]
 
 
 def raises_alone(rank: int, world: int, device):
@@ -276,41 +304,145 @@ def _graph(workers, worker=None):
         worker=worker)
 
 
+def _same_run(res, want, resumed=False):
+    """Two results equal bit for bit: outputs, state, counts (a resumed
+    run counts only its own dispatches)."""
+    assert (res.steps, res.halted) == (want.steps, want.halted)
+    assert resumed or res.dispatches == want.dispatches
+    assert (res.bytes_by_channel, res.msgs_by_channel) == (
+        want.bytes_by_channel, want.msgs_by_channel)
+    for k in want.state:
+        bits(res.state[k].numpy(), want.state[k].numpy())
+    bits(res.output, want.output)
+
+
 @pytest.mark.parametrize("mode", ["fused", "chunked"])
-def test_dist_refuses_the_device_modes(mode):
-    with pytest.raises(ValueError, match=r"ROADMAP item 8\.2"):
-        Engine(mode=mode, device="cpu", backend="dist")
-    given = planning.manual_plan(mode=mode, chunk_size=4,
+def test_dist_runs_the_device_modes(group_of_one, mode):
+    """The device modes on a group run uncaptured and equal the local
+    loop, by the engine's mode and by a given Plan."""
+    spec, pg = _graph(1, worker=0)
+    want = Engine(mode=mode, chunk_size=2, device="cpu").run(
+        spec.factory(), _graph(1)[1])
+    given = planning.manual_plan(mode=mode, chunk_size=2,
                                  route_batch="union", dense_threshold=0.1,
                                  explicit={})
-    with pytest.raises(ValueError, match=r"ROADMAP item 8\.2"):
-        Engine(plan=given, device="cpu", backend="dist")
+    for eng in (Engine(mode=mode, chunk_size=2, device="cpu",
+                       backend="dist"),
+                Engine(plan=given, device="cpu", backend="dist")):
+        res = eng.run(spec.factory(), pg)
+        assert (res.backend, res.mode, res.captured) == ("dist", mode, False)
+        _same_run(res, want)
+    # a group's manual default stays the host loop
+    assert Engine(device="cpu", backend="dist").mode == "host"
 
 
-def test_dist_refuses_plan_auto():
-    with pytest.raises(ValueError, match=r"ROADMAP item 8\.4"):
-        Engine(plan="auto", device="cpu", backend="dist")
-
-
-def test_dist_refuses_serve_and_checkpoints(group_of_one, tmp_path):
+def test_dist_plans_as_the_local_engine(group_of_one, tmp_path,
+                                        monkeypatch):
+    """``plan="auto"`` on a group gives the local engine's Plan (the
+    probe cache shared), and the planned runs are equal."""
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", str(tmp_path / "probes"))
     spec, pg = _graph(1, worker=0)
-    eng = Engine(device="cpu", backend="dist")
-    assert eng.mode == "host" and eng.workers.size == 1
-    with pytest.raises(ValueError, match=r"ROADMAP item 8\.3"):
-        eng.serve(REGISTRY["reach:basic"].factory(), pg, [0])
-    with pytest.raises(ValueError, match=r"ROADMAP item 8\.2"):
-        eng.run(spec.factory(), pg, checkpoint_every=2,
-                checkpoint_dir=str(tmp_path))
-    with pytest.raises(ValueError, match=r"ROADMAP item 8\.2"):
-        eng.run(spec.factory(), pg, resume=str(tmp_path))
-    # a one-worker graph runs on a group of one, as the local backend does
+    want = Engine(plan="auto", device="cpu").run(spec.factory(),
+                                                 _graph(1)[1])
+    eng = Engine(plan="auto", device="cpu", backend="dist")
     res = eng.run(spec.factory(), pg)
-    want = Engine(mode="host", device="cpu").run(spec.factory(),
-                                                  _graph(1)[1])
+    assert res.plan.key() == want.plan.key() and res.plan.source == "auto"
+    assert (res.plan.fingerprint.cache_key()
+            == want.plan.fingerprint.cache_key())
+    assert res.mode == want.mode == "fused"
+    _same_run(res, want)
+    assert eng.workers.collectives > 0
+
+
+def test_dist_serves_and_checkpoints(group_of_one, tmp_path):
+    """``serve`` and checkpoint/resume on a group equal the local
+    backend: the served records, the checkpoint files byte for byte,
+    and resumes that cross the backends."""
+    spec, pg = _graph(1, worker=0)
+    whole = _graph(1)[1]
+    reach = REGISTRY["reach:basic"].factory()
+    sources = [0, 5, 9]
+    served = [Engine(mode="chunked", chunk_size=2, device="cpu",
+                     backend=b).serve(reach, g, sources, num_lanes=2)
+              for b, g in (("dist", pg), ("local", whole))]
+    assert [r.captured for r in served] == [False, False]
+    for got, want in zip(*(s.records for s in served)):
+        assert (got.qid, got.lane, got.admitted, got.finished, got.steps,
+                got.halted, got.bytes_by_channel, got.msgs_by_channel) == (
+            want.qid, want.lane, want.admitted, want.finished, want.steps,
+            want.halted, want.bytes_by_channel, want.msgs_by_channel)
+        bits(got.output, want.output)
+    dirs = {b: tmp_path / b for b in ("dist", "local")}
+    engines = {"dist": Engine(mode="chunked", chunk_size=2, device="cpu",
+                              backend="dist"),
+               "local": Engine(mode="chunked", chunk_size=2, device="cpu")}
+    graphs = {"dist": pg, "local": whole}
+    plain = {b: engines[b].run(spec.factory(), graphs[b],
+                               checkpoint_every=2, checkpoint_dir=str(d))
+             for b, d in dirs.items()}
+    _same_run(plain["dist"], plain["local"])
+    files = {b: sorted(d.iterdir()) for b, d in dirs.items()}
+    assert [f.name for f in files["dist"]] == [f.name for f in files["local"]]
+    assert files["dist"], "no checkpoint written"
+    for a, b in zip(files["dist"], files["local"]):
+        assert a.read_bytes() == b.read_bytes()
+    # each backend resumes from the other's first checkpoint
+    for b, other in (("dist", "local"), ("local", "dist")):
+        res = engines[b].run(spec.factory(), graphs[b],
+                             resume=str(files[other][0]))
+        assert res.resumed_from > 0
+        _same_run(res, plain["local"], resumed=True)
+    # a one-worker graph runs on a group of one in host mode, as the
+    # local backend does
+    res = Engine(device="cpu", backend="dist").run(spec.factory(), pg)
+    want = Engine(mode="host", device="cpu").run(spec.factory(), whole)
     assert res.backend == "dist" and want.backend == "local"
     assert (res.steps, res.bytes_by_channel) == (want.steps,
                                                  want.bytes_by_channel)
     np.testing.assert_array_equal(res.output, want.output)
+
+
+def _wrap_step(ctx, gs, state, i):
+    ctx.add_traffic("big", 2**31 - 1, 1)
+    ctx.add_traffic("big", 2**31 - 1, 1)
+    return state, False
+
+
+def _overflow_step(ctx, gs, state, i):
+    ctx.add_traffic("sent", 4, 1)
+    ctx.add_overflow("sent", i >= 2)
+    return state, False, i >= 2
+
+
+def _syncing_step(ctx, gs, state, i):
+    return state, bool(state["x"].all())
+
+
+@pytest.mark.parametrize("mode,k", [("fused", 64), ("chunked", 2)])
+def test_loop_errors_on_a_group_equal_local(group_of_one, mode, k):
+    """A device loop on a group raises what the local loop raises: the
+    int32 wrap (the fused latch merged from the ranks, the chunked rows'
+    channel), the overflow at its superstep, and a host sync in a step
+    (the guard lets the collectives through and nothing else)."""
+    _, pg = _graph(1, worker=0)
+    _, whole = _graph(1)
+    group = GroupWorkers()
+    for step, error in ((_wrap_step, errors.TrafficWrapError),
+                        (_overflow_step, errors.ChannelOverflowError),
+                        (_syncing_step, RuntimeError)):
+        got = []
+        for g, workers in ((pg, group), (whole, None)):
+            with pytest.raises(error) as err:
+                runtime.run_supersteps(g, step, {"x": g.v_mask}, mode=mode,
+                                       chunk_size=k, max_steps=4,
+                                       workers=workers)
+            got.append(err.value)
+        assert str(got[0]) == str(got[1])
+        if error is not RuntimeError:
+            assert got[0].superstep == got[1].superstep
+            assert got[0].channels == got[1].channels
+            assert (got[0].result.bytes_by_channel
+                    == got[1].result.bytes_by_channel)
 
 
 def test_dist_refuses_a_group_of_another_size(group_of_one):

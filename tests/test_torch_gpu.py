@@ -1484,6 +1484,33 @@ def test_dist_programs_on_the_card_match_local(cuda):
         J.check_oracle(job, local, cuda, problems)
 
 
+@pytest.mark.gpu
+def test_device_loops_on_a_gloo_group_match_the_captured_local_runs(cuda):
+    """``wcc:basic`` and ``sv:composed`` fused and a served
+    ``reach:basic`` session (6 queries, 2 lanes, chunk 2) at scale 12 on
+    four gloo ranks of one card: the ranks run the device loops
+    uncaptured (``captured`` False), the single-process runs replay a
+    captured CUDA graph (``captured`` True), and the two agree bit for
+    bit, each kernel launched on each rank as often as locally."""
+    from repro_torch.launch import jobs as J
+    from repro_torch.launch import workers as launch
+
+    jobs = [J.Job("wcc:basic", 12, mode="fused"),
+            J.Job("sv:composed", 12, mode="fused"),
+            J.Job("reach:basic", 12, queries=6, lanes=2, mode="chunked",
+                  chunk_size=2)]
+    per_rank = launch.spawn(J.rank_jobs, 4, jobs, device="cuda",
+                            timeout_s=60, join_timeout_s=400)
+    problems = J.Problems()
+    for i, job in enumerate(jobs):
+        local = J.run_job(job, cuda, problems=problems)
+        assert local["captured"] is True
+        assert sum(local["launches"].values()) > 0
+        for rank, got in enumerate(per_rank):
+            assert got[i]["captured"] is False
+            assert J.differences(got[i], local) == [], (job.name, rank)
+
+
 LM_ARCHS = ["musicgen-medium", "mamba2-130m", "chatglm3-6b", "granite-8b",
             "qwen1.5-32b", "qwen2-7b", "mixtral-8x7b", "qwen2-moe-a2.7b",
             "internvl2-2b", "jamba-1.5-large-398b"]
