@@ -244,7 +244,11 @@ plan --explain``). Phases, one or more lines each:
      ``_request_union`` shape, both as the first batched superstep hands
      them over; row 2f: its float32 ``min`` on batched ``sssp:prop``'s 32
      columns at the three Propagation sites, each column bit-exact
-     against its D=1 call, ``scatter_reduce_`` amin the yardstick), and
+     against its D=1 call, ``scatter_reduce_`` amin the yardstick; both
+     rows must take the multi-column path's vector groups, as the
+     kernels count their launches on the device, and print the group
+     width and the batched walls of every mode, 2e beside
+     ``bench-batch``'s q/s), and
      one run of each program (the batched sssp,
      ``sv:composed``, ``pagerank:basic``, ``msf:channels``, the four
      Propagation programs and the fused ``pagerank:scatter``,
@@ -1880,6 +1884,33 @@ def column_checks(calls, what: str) -> dict:
                   f"{list(vals.shape)} differs from its D=1 call")
         shapes.append(dict(shape=list(vals.shape), segments=n))
     return dict(max_abs_err=err, calls=shapes)
+
+
+def column_paths(calls) -> list:
+    """The path ``segment_combine`` takes at each captured (values (W, E,
+    Q·D), ids, n) call, as its kernels count their own launches on the
+    device: ``"vector"`` where every tile pass of the call was the
+    multi-column path's, else ``"single"``; with the C library's group
+    width."""
+    from repro_torch.kernels import ops, segment_combine as kseg
+
+    out = []
+    for (vals, ids, n, comb), _ in calls:
+        before = kseg.device_launches()[0], kseg.group_launches()[0]
+        ops.segment_combine(vals, ids, n, comb)
+        tiles, grouped = (kseg.device_launches()[0] - before[0],
+                          kseg.group_launches()[0] - before[1])
+        out.append(dict(
+            path="vector" if tiles and grouped == tiles else "single",
+            tile_launches=tiles, group_launches=grouped,
+            group=kseg.group_columns()))
+    return out
+
+
+def batched_walls(rows: dict) -> str:
+    """The run walls of a batched program's modes (``batch_mode_runs``)."""
+    return ", ".join(f"{m} {rows['modes'][m]['run_wall_ms']:.1f} ms"
+                     for m in ("host", *MODE_RUNS))
 
 
 def amin_yardstick(v, ids, n):
@@ -5997,6 +6028,9 @@ def main() -> int:
     # _request_union shape of batched pj:reqresp
     t_q = time.perf_counter()
     qd_check = column_checks(pp_calls, "pagerank:personal Q·D")
+    qd_path = column_paths(pp_calls)
+    check(all(x["path"] == "vector" for x in qd_path),
+          f"pagerank:personal's Q·D combines left the vector path: {qd_path}")
     qd_t = column_times(pp_calls)
     ru_t = union_lanes_times(pj_calls[0])
     row_2e = dict(
@@ -6014,6 +6048,11 @@ def main() -> int:
         bound_by="bytes", library_ms=qd_t["library_ms"],
         library="index_add_", cold_ms=qd_t["cold_ms"],
         send_shape=qd_t["send"]["shape"], recv_shape=qd_t["recv"]["shape"],
+        path=qd_path, batched_walls_ms={
+            m: personal["modes"][m]["run_wall_ms"]
+            for m in ("host", *MODE_RUNS)},
+        bench_batch_qps={r["program"]: r["queries_per_s_batched"]
+                         for r in bb["rows"]},
         what=f"pagerank:personal's batched superstep at scale {FULL_SCALE}, "
              f"Q={NQ} lanes as columns, send + recv")
     row_3a = dict(
@@ -6035,10 +6074,16 @@ def main() -> int:
           f"{qd_t['send']['shape']} into {qd_t['send']['n']}, recv "
           f"{qd_t['recv']['shape']} into {qd_t['recv']['n']}): every column "
           f"bit-exact against its D=1 call, max|err| vs plain "
-          f"{qd_check['max_abs_err']:.3g}; {qd_t['ms']:.4f} ms warm [send "
+          f"{qd_check['max_abs_err']:.3g}; {qd_path[0]['path']} path, "
+          f"groups of {qd_path[0]['group']} columns; "
+          f"{qd_t['ms']:.4f} ms warm [send "
           f"{qd_t['send']['ms']:.4f}, recv {qd_t['recv']['ms']:.4f}], "
           f"{qd_t['cold_ms']:.4f} L2 flushed, plain {qd_t['plain_ms']:.3f}, "
           f"bound {qd_t['bound_ms']:.4f}, index_add_ {qd_t['library_ms']:.4f};"
+          f" batched pagerank:personal walls {batched_walls(personal)}, "
+          f"bench-batch " + ", ".join(
+              f"{r['program']} {r['queries_per_s_batched']:.1f} q/s"
+              for r in bb["rows"]) + ";"
           f" kernel 3 at the _request_union shape {ru_t['shape']} "
           f"({ru_t['real_entries']} real entries) exact, {ru_t['ms']:.4f} ms "
           f"warm, {ru_t['cold_ms']:.4f} L2 flushed, plain "
@@ -6053,6 +6098,9 @@ def main() -> int:
     t_f = time.perf_counter()
     f_sides = ("int_dst", "cut send", "cut recv")
     f_check = column_checks(spp_calls, "sssp:prop Q columns")
+    f_path = column_paths(spp_calls)
+    check(all(x["path"] == "vector" for x in f_path),
+          f"sssp:prop's Q-column combines left the vector path: {f_path}")
     for (vals, ids, n, comb), _ in spp_calls:
         check(bits_equal(ops.segment_combine(vals, ids, n, comb),
                          kref.segment_combine_ref(vals, ids, n, comb)),
@@ -6070,6 +6118,8 @@ def main() -> int:
         library_ms=f_t["library_ms"], library="scatter_reduce_ amin",
         cold_ms=f_t["cold_ms"],
         shapes={x: [f_t[x]["shape"], f_t[x]["n"]] for x in f_sides},
+        path=f_path, batched_walls_ms={
+            m: spb["modes"][m]["run_wall_ms"] for m in ("host", *MODE_RUNS)},
         what=f"batched sssp:prop's first superstep at scale {FULL_SCALE}, "
              f"Q={NQ} lanes as columns: one local-fixpoint iteration + the "
              "cut send + the cut receive")
@@ -6077,10 +6127,13 @@ def main() -> int:
           + ", ".join(f"{x} {f_t[x]['shape']} into {f_t[x]['n']} "
                       f"{f_t[x]['ms']:.4f} ms" for x in f_sides)
           + f"): every column bit-exact against its D=1 call and the whole "
-          f"against plain; {f_t['ms']:.4f} ms warm, {f_t['cold_ms']:.4f} L2 "
+          f"against plain; {f_path[0]['path']} path, groups of "
+          f"{f_path[0]['group']} columns; {f_t['ms']:.4f} ms warm, "
+          f"{f_t['cold_ms']:.4f} L2 "
           f"flushed, plain {f_t['plain_ms']:.3f}, bound "
           f"{f_t['bound_ms']:.4f}, scatter_reduce_ amin "
-          f"{f_t['library_ms']:.4f} ({time.perf_counter() - t_f:.1f} s)",
+          f"{f_t['library_ms']:.4f}; batched sssp:prop walls "
+          f"{batched_walls(spb)} ({time.perf_counter() - t_f:.1f} s)",
           flush=True)
 
     # the launches of this slice's paths, by kernel: checkpointed and

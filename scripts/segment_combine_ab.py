@@ -4,6 +4,7 @@ for the checkout's kernel and other versions of the same source, in one
 process.
 
     python3 scripts/segment_combine_ab.py [--other LABEL=DIR ...] [--rounds N]
+        [--rows 2,2a,...] [--walls LABEL,...]
 
 Needs CUDA. Builds ``src/repro_torch/kernels/csrc/segment_combine.cu``
 (the checkout's version, label "checkout") and, for each ``--other``, the
@@ -21,7 +22,11 @@ phase 5's kernel table, each send + recv at R-MAT scale 20, W = 8:
   - 2b: ``min_by_first`` on msf:channels' first-superstep candidate
     combine, as captured at the order-sensitive dispatch, stable-sorted;
   - 2c: float32 sum on pagerank:basic's first-superstep CombinedMessage,
-    captured and stable-sorted the same way.
+    captured and stable-sorted the same way;
+  - 2e: float32 sum on pagerank:personal's Q·D = 32 columns, send and
+    receive, as its first batched superstep (Q = 32) hands them over;
+  - 2f: float32 min on batched sssp:prop's 32 columns at its three sites
+    (``int_dst``, cut send, cut receive), the first call at each.
 
 A version without an op (an older kernel without ``min_by_first``) skips
 that case. For every version, case and round: the mean device time of
@@ -29,7 +34,13 @@ one wrapper call back to back (``cuda_ms``) and after an L2 flush
 (``cuda_ms_cold``), whether the result is bit-identical to the
 checkout's (and, for the exact ops, to the plain version), and from
 ``torch.profiler`` over 10 calls the device kernels and memsets a call
-runs. Details go to ``chiprun_out/segment_combine_ab.json``; one line per
+runs. Then, in the same turns, the walls of batched ``pagerank:personal``
+and ``sssp:prop`` (Q = 32, ``Engine.run_batch`` in host mode and a fused
+replay at K = 64) with each version's kernel launched through the
+checkout's wrapper, every output bit-identical to the checkout's.
+``--rows`` times only the rows named, ``--walls`` the walls of only the
+versions named (``--walls none``: no walls).
+Details go to ``chiprun_out/segment_combine_ab.json``; one line per
 measurement is printed. Exits non-zero if any result differs.
 """
 from __future__ import annotations
@@ -47,7 +58,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-W, SCALE = 8, 20
+W, SCALE, QUERIES = 8, 20, 32
 
 
 def load_other(label: str, path: Path):
@@ -81,13 +92,15 @@ def make_inputs(dev):
     from repro_torch.algorithms import REGISTRY, get_program
     from repro_torch.core import combiners as cb
     from repro_torch.graph import pgraph
+    from repro_torch.kernels import ops
     from repro_torch.pregel.engine import Engine
 
     g = torch.Generator(device=dev).manual_seed(0)
     cases = []
     spec = REGISTRY["pagerank:scatter"]
-    pr_pg = pgraph.partition_graph(spec.make_graph(SCALE, 0), W, "random",
-                                   build=spec.build, device=dev)
+    pr_graph = spec.make_graph(SCALE, 0)
+    pr_pg = pgraph.partition_graph(pr_graph, W, "random", build=spec.build,
+                                   device=dev)
     plan = pr_pg.scatter_out
     contrib = torch.rand((W, pr_pg.n_loc, 1), device=dev, generator=g)
     cases.append(("2", "send", contrib.gather(1, plan.edge_src.long()[
@@ -119,7 +132,70 @@ def make_inputs(dev):
         for side, (v, ids, n, comb) in zip(("send", "recv"), calls):
             vs, ss = cs.stable_sorted(v, ids)
             cases.append((row, side, vs, ss.contiguous(), n, comb))
-    return cases
+    batched = batched_jobs(pr_graph, pr_pg, dev)
+    spec, prog, pg, queries = batched["pagerank:personal"]
+    calls = cs.captured_calls(ops, "segment_combine", lambda: eng.run_batch(
+        prog, pg, queries, max_steps=1))
+    for side, ((v, ids, n, comb), _) in zip(("send", "recv"), calls):
+        cases.append(("2e", side, v, ids, n, comb))
+    spec, prog, pg, queries = batched["sssp:prop"]
+    calls = cs.first_calls(ops, "segment_combine", lambda: eng.run_batch(
+        prog, pg, queries))
+    for side, ((v, ids, n, comb), _) in zip(
+            ("int_dst", "cut send", "cut recv"), calls):
+        cases.append(("2f", side, v, ids, n, comb))
+    return cases, batched
+
+
+def batched_jobs(pr_graph, pr_pg, dev) -> dict:
+    """(spec, program, partition, Q queries) of the two batched programs
+    whose combines run on Q columns, as ``chip_smoke.py`` phase 4 runs
+    them."""
+    from repro_torch.algorithms import REGISTRY
+    from repro_torch.graph import pgraph
+
+    sssp = REGISTRY["sssp:basic"]
+    graph = sssp.make_graph(SCALE, 0)
+    jobs = {"pagerank:personal": (pr_graph, pr_pg),
+            "sssp:prop": (graph, pgraph.partition_graph(
+                graph, W, "random", build=sssp.build, device=dev))}
+    out = {}
+    for key, (graph, pg) in jobs.items():
+        spec = REGISTRY[key]
+        out[key] = (spec, spec.factory(**spec.inputs(graph, 0)), pg,
+                    spec.queries(graph, 0, QUERIES))
+    return out
+
+
+def batched_walls(batched, dev) -> dict:
+    """Walls in ms of each batched program: ``run_batch`` in host mode,
+    and a fused (K = 64) replay after the run that captures it (the
+    capture's wall beside it); outputs and per-query steps kept for the
+    comparison across versions."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.pregel.engine import Engine
+
+    out = {}
+    for key, (_, prog, pg, queries) in batched.items():
+        host, ms = cs.timed(lambda: Engine(mode="host", device=dev).run_batch(
+            prog, pg, queries))
+        eng = Engine(mode="fused", chunk_size=64, device=dev)
+        first, capture_ms = cs.timed(lambda: eng.run_batch(prog, pg,
+                                                           queries))
+        fused, fused_ms = cs.timed(lambda: eng.run_batch(prog, pg, queries))
+        eng.clear_cache()
+        same = fused.cache_hit and all(
+            torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+            for a, b in zip(fused.outputs, host.outputs))
+        out[key] = dict(
+            steps=host.steps, host_ms=ms, host_loop_ms=1e3 * host.wall_time_s,
+            fused_ms=fused_ms, fused_loop_ms=1e3 * fused.wall_time_s,
+            fused_first_ms=capture_ms, fused_equals_host=same,
+            outputs=[torch.as_tensor(x).cpu() for x in host.outputs],
+            query_steps=host.query_steps.tolist())
+    return out
 
 
 def main() -> int:
@@ -131,6 +207,11 @@ def main() -> int:
                     help="another segment_combine.cu and segment_combine.py")
     ap.add_argument("--rounds", type=int, default=2,
                     help="rounds; odd rounds run the versions in reverse")
+    ap.add_argument("--rows", default="2,2a,2b,2c,2e,2f",
+                    help="kernel-table rows to time")
+    ap.add_argument("--walls", default=None,
+                    help="versions whose batched walls to time (default "
+                         "all; 'none': no walls)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("segment_combine_ab: CUDA is not available", file=sys.stderr)
@@ -154,12 +235,18 @@ def main() -> int:
     order = []
     for r in range(args.rounds):
         order += labels if r % 2 == 0 else labels[::-1]
-    cases = make_inputs(dev)
+    cases, batched = make_inputs(dev)
+    rows = set(args.rows.split(","))
+    cases = [c for c in cases if c[0] in rows]
+    wall_labels = (set(labels) if args.walls is None
+                   else set(args.walls.split(",")) - {"none"})
     want = [segment_combine.segment_combine_cuda(v, s, n, c)
             for _, _, v, s, n, c in cases]
     plain = [kref.segment_combine_ref(v, s, n, c) if c.name != "sum"
              else None for _, _, v, s, n, c in cases]
     print(f"segment_combine_ab: {smi} | order {' '.join(order)}", flush=True)
+    for v, lines in ptxas.items():
+        print(f"ptxas {v}: " + " | ".join(lines), flush=True)
     results = []
     for rnd, label in enumerate(order):
         mod = versions[label][0]
@@ -184,6 +271,33 @@ def main() -> int:
                   f"{n}: exact {same}, {res['cuda_ms']:.4f} ms warm, "
                   f"{res['cuda_ms_cold']:.4f} ms L2 flushed | {split}",
                   flush=True)
+    # the batched walls, each version's kernel under the checkout's wrapper
+    mine = segment_combine._library()
+    walls, first = [], {}
+    for rnd, label in enumerate(order):
+        if label not in wall_labels:
+            continue
+        segment_combine._fns = (mine if label == "checkout"
+                                else versions[label][0]._library())
+        try:
+            got = batched_walls(batched, dev)
+        finally:
+            segment_combine._fns = mine
+        for key, x in got.items():
+            outs = x.pop("outputs")
+            ref_outs, ref_steps = first.setdefault(key, (outs,
+                                                         x["query_steps"]))
+            same = (x["fused_equals_host"] and x["query_steps"] == ref_steps
+                    and all(cs.bits_equal(a, b)
+                            for a, b in zip(outs, ref_outs)))
+            walls.append(dict(x, turn=rnd, version=label, program=key,
+                              exact=same))
+            print(f"{rnd} {label} walls {key} Q={QUERIES} ({x['steps']} "
+                  f"steps): host {x['host_ms']:.1f} ms (loop "
+                  f"{x['host_loop_ms']:.1f}), fused replay "
+                  f"{x['fused_ms']:.1f} ms (loop {x['fused_loop_ms']:.1f}; "
+                  f"capture run {x['fused_first_ms']:.1f}), outputs equal "
+                  f"{same}", flush=True)
     summary = {}
     for res in results:
         key = f"{res['version']} {res['row']}"
@@ -200,9 +314,10 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "segment_combine_ab.json").write_text(json.dumps(dict(
         nvidia_smi=smi, device=torch.cuda.get_device_name(0), order=order,
-        ptxas=ptxas, results=results, summary=summary), indent=1))
+        ptxas=ptxas, results=results, summary=summary, walls=walls),
+        indent=1))
     print(smi)
-    return 0 if all(r["exact"] for r in results) else 1
+    return 0 if all(r["exact"] for r in results + walls) else 1
 
 
 if __name__ == "__main__":

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -16,6 +16,47 @@ from repro_torch.kernels import build, scratch
 
 _OPS = {"sum": 0, "min": 1, "max": 2, "prod": 3, "min_by_first": 4}
 _DTYPES = {torch.float32: 0, torch.int32: 1}
+#: entries of a tile, one block each (256 threads x 8 entries)
+TILE = 2048
+#: columns a group of the multi-column path (its last group may hold 4)
+GROUP = 8
+
+
+class LaunchPlan(NamedTuple):
+    """What ``segment_combine.cu`` launches for one call: ``path``
+    ``"single"`` (one column scanned at a time: D = 1, ``min_by_first``,
+    and D > 1 where the vector path cannot go) or ``"vector"`` (D > 1,
+    D % 4 == 0, values and output 16-byte aligned: groups of ``group``
+    columns read as 16-byte vectors); ``tail``, the widths of the groups
+    after the last whole group; ``scratch_words``, the 4-byte words of the
+    call's tile partials."""
+
+    path: str
+    group: int
+    tail: Tuple[int, ...]
+    scratch_words: int
+
+
+def launch_plan(rows: int, e: int, d: int, op: str,
+                aligned: bool) -> LaunchPlan:
+    """The launch of the combine ``op`` (a name of ``_OPS``; bool ``or``
+    runs as ``max``) on ``rows`` rows of ``e`` entries of ``d`` columns,
+    ``aligned`` if the values and the output start 16-byte aligned; a
+    pure function of its arguments, the rule of the C dispatch
+    (``takes_groups``, ``group_width``, ``segment_combine_scratch_words``;
+    the card tests hold the two to each other through the kernels' own
+    launch counts)."""
+    if op not in _OPS:
+        raise ValueError(f"segment_combine has no op {op!r}")
+    cells = rows * max(1, -(-e // TILE))
+    if d == 1 or op == "min_by_first":
+        words = 2 if op == "min_by_first" else d
+        return LaunchPlan("single", 1, (), cells * (2 + 2 * words))
+    words = -(-2 * cells // 4) * 4 + cells * 2 * d
+    if not (aligned and d % 4 == 0):
+        return LaunchPlan("single", 1, (), words)
+    return LaunchPlan("vector", GROUP, (4,) if d % GROUP else (), words)
+
 
 _fns = None
 #: launches of the kernel since the last reset (kernels.ops owns resets)
@@ -61,6 +102,21 @@ def device_launches() -> Tuple[int, int]:
     device."""
     return build.device_counters("segment_combine",
                                  "segment_combine_device_launches")
+
+
+def group_launches() -> Tuple[int, int]:
+    """Of :func:`device_launches`, those of the multi-column path's two
+    kernels (the vector path of :func:`launch_plan`), counted the same
+    way. Synchronizes the device."""
+    return build.device_counters("segment_combine",
+                                 "segment_combine_group_launches")
+
+
+def group_columns() -> int:
+    """The C library's columns a group of the multi-column path."""
+    read = build.library("segment_combine").segment_combine_group_columns
+    read.restype = ctypes.c_int
+    return int(read())
 
 
 def _library():

@@ -858,7 +858,8 @@ def _gap_ids(rows, e, n, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,dtype,d", [("min", torch.int32, 1),
-                                          ("min_by_first", torch.float32, 4)])
+                                          ("min_by_first", torch.float32, 4),
+                                          ("sum", torch.float32, 32)])
 def test_segment_combine_replays_in_a_captured_graph(cuda, name, dtype, d):
     """The chunk table's marks are cleared by the launch that set them, so
     three replays, each with the empty gap elsewhere, fill only their own
@@ -1185,27 +1186,6 @@ def test_serve_on_the_card_equals_solo_runs(cuda, chunk):
 
 
 @pytest.mark.gpu
-def test_segment_combine_columns_equal_their_d1_calls_on_the_card(cuda):
-    """A float32 sum over 32 columns (the lanes of a batched
-    ScatterCombine) equals, column by column, the kernel's D=1 call on
-    that column alone, bit for bit: the combine order depends only on
-    entry positions."""
-    g = torch.Generator().manual_seed(5)
-    rows, e, n, cols = 8, 50_000, 4096, 32
-    seg = torch.sort(torch.randint(0, n + 5, (rows, e), generator=g,
-                                   dtype=torch.int32), dim=1)[0].to(cuda)
-    vals = torch.rand((rows, e, cols), generator=g).to(cuda)
-    out = ops.segment_combine(vals, seg, n, "sum")
-    for j in range(cols):
-        one = ops.segment_combine(vals[..., j:j + 1].contiguous(), seg, n,
-                                  "sum")
-        assert bits_equal(out[..., j:j + 1].contiguous(), one), j
-    torch.testing.assert_close(out, ref.segment_combine_ref(vals, seg, n,
-                                                            "sum"),
-                               rtol=1e-4, atol=1e-5)
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("key,route_batch", [
     ("pagerank:personal", "union"), ("pj:reqresp", "union"),
     ("pj:reqresp", "lane"), ("reach:basic", "lane")])
@@ -1247,24 +1227,120 @@ def test_new_batched_paths_equal_solo_runs_on_the_card(cuda, key,
                for x in host.state)
 
 
+def _column_case(shape, name, dtype, d):
+    """(vals, seg, n) on the CPU from a seed for a D-column combine.
+    ``"lanes"``: a batched combine's 32 lanes (8 rows of 50,000 entries
+    into 4,096; a min's lanes half +inf). ``"wide"``: row 0 one hub over
+    101 tiles, then a dropped tail; row 1 a gap of about 39,500 empty
+    segments (the chunk table's fill) between two dense windows.
+    ``"tall"``: 70,000 rows of 40 entries (the grid's rows loop). Float
+    products multiply +-1 and a few 2 and 0.5, exact in any order."""
+    g = torch.Generator().manual_seed(d * 31 + len(name) + len(shape))
+    if shape == "lanes":
+        g = torch.Generator().manual_seed(5 if name == "sum" else 6)
+        rows, e, n = 8, 50_000, 4096
+        seg = torch.sort(torch.randint(0, n + 5, (rows, e), generator=g,
+                                       dtype=torch.int32), dim=1)[0]
+    elif shape == "wide":
+        rows, e, n = 2, 101 * TILE + 3000, 40_000
+        hub = torch.full((e,), 7)
+        hub[101 * TILE + 1000:] = n + 3
+        lo = torch.randint(0, 200, (e // 2,), generator=g)
+        hi = torch.randint(n - 300, n + 2, (e - e // 2,), generator=g)
+        seg = torch.stack([hub, torch.cat([lo, hi]).sort().values])
+    else:
+        rows, e, n = 70_000, 40, 9
+        seg = torch.sort(torch.randint(0, n + 1, (rows, e), generator=g),
+                         dim=1)[0]
+    shape_v = (rows, e, d)
+    if dtype == torch.bool:
+        vals = torch.rand(shape_v, generator=g) < 0.1
+    elif dtype == torch.int32:
+        vals = torch.randint(-1000, 1000, shape_v, generator=g,
+                             dtype=torch.int32)
+    elif name == "prod":
+        pick = torch.rand(shape_v, generator=g)
+        vals = torch.where(pick < 0.5, -1.0, 1.0)
+        vals[pick < 2e-4] = 2.0
+        vals[(pick >= 2e-4) & (pick < 4e-4)] = 0.5
+    else:
+        vals = torch.rand(shape_v, generator=g)
+        if name == "min":
+            vals[torch.rand(shape_v, generator=g) < 0.5] = float("inf")
+    return vals, seg.to(torch.int32), n
+
+
+_COLUMN_CASES = [("lanes", "sum", torch.float32, 32),
+                 ("lanes", "min", torch.float32, 32),
+                 ("wide", "or", torch.bool, 32)]
+_COLUMN_CASES += [("wide", name, dtype, d)
+                  for d in (2, 3, 4, 5, 8, 31, 32, 33, 64, 96)
+                  for name in ("sum", "min", "max", "prod")
+                  for dtype in (torch.float32, torch.int32)]
+_COLUMN_CASES += [("tall", name, dtype, 4)
+                  for name in ("sum", "min", "max", "prod")
+                  for dtype in (torch.float32, torch.int32)]
+
+
 @pytest.mark.gpu
-def test_segment_combine_min_columns_equal_their_d1_calls_on_the_card(cuda):
-    """Batched ``sssp:prop``'s combines: a float32 ``min`` over 32
-    columns (the lanes, +inf where a lane has not reached a vertex)
-    equals, column by column, the kernel's D=1 call, bit for bit."""
-    g = torch.Generator().manual_seed(6)
-    rows, e, n, cols = 8, 50_000, 4096, 32
-    seg = torch.sort(torch.randint(0, n + 5, (rows, e), generator=g,
-                                   dtype=torch.int32), dim=1)[0].to(cuda)
-    vals = torch.rand((rows, e, cols), generator=g)
-    vals[torch.rand(vals.shape, generator=g) < 0.5] = float("inf")
-    vals = vals.to(cuda)
-    out = ops.segment_combine(vals, seg, n, "min")
-    for j in range(cols):
+@pytest.mark.parametrize("shape,name,dtype,d", _COLUMN_CASES)
+def test_segment_combine_columns_equal_their_d1_calls_on_the_card(
+        cuda, shape, name, dtype, d):
+    """A combine over D columns (a batched ScatterCombine's or
+    Propagation's lanes as columns; the multi-column path where D % 4 ==
+    0, one column at a time else): each column equals, bit for bit, the
+    kernel's D=1 call on that column alone, since the combine order
+    depends only on entry positions; the whole equals the plain version
+    (float sum within rtol 1e-4, atol 1e-5: reassociation; exact
+    otherwise)."""
+    vals, seg, n = _column_case(shape, name, dtype, d)
+    vals, seg = vals.to(cuda), seg.to(cuda)
+    out = ops.segment_combine(vals, seg, n, name)
+    for j in range(d):
         one = ops.segment_combine(vals[..., j:j + 1].contiguous(), seg, n,
-                                  "min")
+                                  name)
         assert bits_equal(out[..., j:j + 1].contiguous(), one), j
-    assert bits_equal(out, ref.segment_combine_ref(vals, seg, n, "min"))
+    want = ref.segment_combine_ref(vals, seg, n, cb.get(name))
+    if name == "sum" and dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+    else:
+        assert bits_equal(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,offset", [(8, 0), (32, 0), (33, 0), (3, 0),
+                                      (32, 1), (12, 2)])
+def test_segment_combine_plan_is_the_kernels(cuda, d, offset):
+    """``launch_plan`` gives the scratch words and the group width the C
+    library has, and the path the kernels count themselves launching: the
+    multi-column kernels for the vector path, the one-column kernels else
+    (D % 4 != 0, or values not 16-byte aligned: a view ``offset``
+    elements into its storage); both give the plain version's result."""
+    from repro_torch.kernels import segment_combine as kseg
+
+    words = kseg._library()[1]
+    for rows, e in ((1, 1), (8, 1 << 20), (3, 5 * TILE + 7), (70_000, 40)):
+        for op, code in kseg._OPS.items():
+            assert words(rows, e, d, code) == kseg.launch_plan(
+                rows, e, d, op, True).scratch_words
+    assert kseg.group_columns() == kseg.GROUP
+    g = torch.Generator().manual_seed(d + offset)
+    rows, e, n = 3, 4 * TILE + 9, 1000
+    seg = torch.sort(torch.randint(0, n + 2, (rows, e), generator=g),
+                     dim=1)[0].to(torch.int32).to(cuda)
+    flat = torch.randint(-99, 99, (rows * e * d + offset,), generator=g,
+                         dtype=torch.int32).to(cuda)
+    vals = flat[offset:].view(rows, e, d)
+    want = ref.segment_combine_ref(vals, seg, n, cb.SUM)
+    for v in (vals, vals.clone()):
+        plan = kseg.launch_plan(rows, e, d, "sum", v.data_ptr() % 16 == 0)
+        before = kseg.device_launches(), kseg.group_launches()
+        got = kseg.segment_combine_cuda(v, seg, n, cb.SUM)
+        after = kseg.device_launches(), kseg.group_launches()
+        grouped = int(plan.path == "vector")
+        assert [a - b for a, b in zip(after[0], before[0])] == [1, 1]
+        assert [a - b for a, b in zip(after[1], before[1])] == [grouped] * 2
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

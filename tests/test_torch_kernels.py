@@ -654,3 +654,51 @@ def test_build_keys_libraries_by_source_and_writes_inside_checkout():
         path = kbuild.library_path(name)
         assert path.parent == kbuild.BUILD_DIR
         assert path.name.startswith(name + "-") and path.suffix == ".so"
+
+
+@pytest.mark.parametrize("d,op", [(1, "sum"), (1, "min"), (1, "min_by_first"),
+                                  (4, "min_by_first"), (32, "min_by_first")])
+def test_segment_combine_plan_single_path(d, op):
+    """D = 1 and min_by_first scan one column at a time: per tile an int2
+    of flags and two D-wide partials, or two 8-byte argmin words."""
+    words = 2 if op == "min_by_first" else d
+    assert kseg.launch_plan(8, 1 << 20, d, op, True) == kseg.LaunchPlan(
+        "single", 1, (), 8 * 512 * (2 + 2 * words))
+
+
+@pytest.mark.parametrize("d,tail", [(2, None), (4, (4,)), (8, ()), (12, (4,)),
+                                    (32, ()), (36, (4,)), (64, ()),
+                                    (96, ())])
+def test_segment_combine_plan_vector_groups(d, tail):
+    """D % 4 == 0 on aligned values: groups of 8 columns, each entry's 8
+    columns one 32-byte sector read as two 16-byte vectors, then a group
+    of 4 where D % 8 == 4. D = 2 scans one column at a time."""
+    plan = kseg.launch_plan(8, 1 << 20, d, "sum", True)
+    if tail is None:
+        assert plan[:3] == ("single", 1, ())
+    else:
+        assert plan[:3] == ("vector", 8, tail)
+
+
+@pytest.mark.parametrize("d,aligned", [
+    (2, True), (3, True), (5, True), (31, True), (33, True), (32, False),
+    (6, False)])
+def test_segment_combine_plan_single_columns(d, aligned):
+    """D % 4 != 0, or values not 16-byte aligned: one column scanned at a
+    time, in the multi-column path's scratch (which the call could not
+    choose by the shape alone)."""
+    assert kseg.launch_plan(2, 5000, d, "max", aligned) == kseg.LaunchPlan(
+        "single", 1, (), 12 + 2 * 3 * 2 * d)
+
+
+def test_segment_combine_plan_pads_the_meta_table():
+    """Scratch for D > 1 (not min_by_first): the tiles' int2 flags
+    rounded up to 16 bytes, then two D-wide partials a tile."""
+    cells = 3 * 3  # three rows of 5,000 entries, three tiles each
+    assert kseg.launch_plan(3, 5000, 5, "sum", True).scratch_words == (
+        20 + cells * 2 * 5)
+    assert kseg.launch_plan(3, 5000, 32, "prod", True).scratch_words == (
+        20 + cells * 2 * 32)
+    assert kseg.launch_plan(1, 0, 2, "min", False).scratch_words == 4 + 2 * 2
+    with pytest.raises(ValueError, match="no op 'mean'"):
+        kseg.launch_plan(1, 10, 2, "mean", True)
