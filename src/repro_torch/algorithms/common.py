@@ -140,7 +140,8 @@ def pj_converge(ctx: ChannelContext, parents: torch.Tensor,
     nb = torch.zeros(ctx.rows, dtype=TRAFFIC_DTYPE, device=ctx.device)
     p, _, rounds, nb, nm = inner_loop(
         ctx, lambda c: c[1] & (c[2] < max_iters), body,
-        (parents, True, 0, nb, torch.zeros_like(nb)))
+        (parents, True, 0, nb, torch.zeros_like(nb)),
+        name="pointer_jumping")
     ctx.add_traffic(name, nb, nm)
     return p, rounds
 
@@ -187,7 +188,8 @@ def cm_propagate(ctx: ChannelContext, raw_edges, init: torch.Tensor,
     nb = torch.zeros(ctx.rows, dtype=TRAFFIC_DTYPE, device=ctx.device)
     lab, _, _, iters, nb, nm = inner_loop(
         ctx, lambda c: c[2] & (c[3] < max_iters), body,
-        (init, active0, True, 0, nb, torch.zeros_like(nb)))
+        (init, active0, True, 0, nb, torch.zeros_like(nb)),
+        name="label_propagation")
     ctx.add_traffic(name, nb, nm)
     return lab, iters
 

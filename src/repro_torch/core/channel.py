@@ -34,10 +34,13 @@ deltas (or a scalar, broadcast).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.distributed import workers as workers_lib
 
 TRAFFIC_DTYPE = torch.int32
@@ -118,12 +121,16 @@ def store(bufs: Sequence[torch.Tensor], new: Sequence) -> None:
 
 
 def inner_loop(ctx: "ChannelContext", cond: Callable, body: Callable,
-               carry: Sequence) -> tuple:
+               carry: Sequence, name: str = "loop") -> tuple:
     """``while cond(carry): carry = body(carry)`` — the port of the JAX
     package's ``lax.while_loop`` for a loop inside a superstep. ``carry``
     is a tuple of tensors (and, in host mode, Python numbers); ``cond``
     gives a 0-d bool tensor (or a Python bool) from it, ``body`` the next
     carry. Returns the last carry.
+
+    ``name`` names the loop's site for ``repro_torch.tracing``: each run
+    of the body is an ``inner:<name>`` device span (inside the WHILE
+    body when the card captures).
 
       - host mode (``ctx.device_loop`` unset): a Python loop, one
         readback of ``cond`` an iteration; Python numbers stay Python
@@ -141,9 +148,11 @@ def inner_loop(ctx: "ChannelContext", cond: Callable, body: Callable,
     """
     hooks = ctx.device_loop
     carry = tuple(carry)
+    site = "inner:" + name
     if hooks is None:
         while bool(cond(carry)):
-            carry = tuple(body(carry))
+            with tracing.device_span(site, ctx.device):
+                carry = tuple(body(carry))
         return carry
     bufs = tuple(_as_carry(x, ctx.device).clone() for x in carry)
 
@@ -157,13 +166,37 @@ def inner_loop(ctx: "ChannelContext", cond: Callable, body: Callable,
 
     if hooks.nest is None:
         while hooks.read(go()):
-            store(bufs, body(bufs))
+            with tracing.device_span(site, ctx.device):
+                store(bufs, body(bufs))
         return bufs
     pred = go().clone()
     with hooks.nest.while_node(pred):
-        store(bufs, body(bufs))
+        with tracing.device_span(site, ctx.device):
+            store(bufs, body(bufs))
         pred.copy_(go())
     return bufs
+
+
+def channel_span(ctx: "ChannelContext", *names: str):
+    """The ``channel:<full names, joined by +>`` device span of a channel
+    call (``repro_torch.tracing``); a no-op when nothing records."""
+    if tracing.active() is None:
+        return tracing.NULL
+    full = "+".join(ctx.full_name(n) for n in names)
+    return tracing.device_span("channel:" + full, ctx.device)
+
+
+def traced_channel(fn: Callable) -> Callable:
+    """A channel entry point each of whose calls is a :func:`channel_span`
+    named by its ``name`` keyword (or that keyword's default)."""
+    default = inspect.signature(fn).parameters["name"].default
+
+    @functools.wraps(fn)
+    def call(ctx, *args, **kw):
+        with channel_span(ctx, kw.get("name", default)):
+            return fn(ctx, *args, **kw)
+
+    return call
 
 
 def key_under(key: str, prefix: str) -> bool:

@@ -36,7 +36,7 @@ from repro_torch.core import message as msg
 from repro_torch.core import request_respond as rr
 from repro_torch.core.combiners import SUM
 from repro_torch.core.channel import (TRAFFIC_DTYPE, ChannelContext,
-                                      key_under, on_device)
+                                      channel_span, key_under, on_device)
 from repro_torch.core.routing import exchange
 
 #: the density-switch threshold knob (explicit > dense_threshold_scope >
@@ -146,7 +146,9 @@ class Stacked:
 
     def call(self, ctx: ChannelContext, key: str, *args, **kw):
         comp = self.components[key]
-        return comp.fn(ctx, f"{self.name}/{key}", *args, **kw)
+        name = f"{self.name}/{key}"
+        with channel_span(ctx, name):
+            return comp.fn(ctx, name, *args, **kw)
 
     def channel_names(self) -> Tuple[str, ...]:
         names: List[str] = []
@@ -227,30 +229,32 @@ def fused_exchange(ctx: ChannelContext,
     send buffers of one dtype are flattened to ``(W, W, -1)``,
     concatenated and exchanged together; each part's ``finish`` runs on
     its own slice, in ``parts`` order, and each part's traffic is
-    accounted under its own name. The parts must be data-independent."""
-    groups: Dict[torch.dtype, list] = {}
-    for pi, part in enumerate(parts):
-        for key, leaf in part.payload.items():
-            groups.setdefault(leaf.dtype, []).append((pi, key, leaf))
+    accounted under its own name. The parts must be data-independent.
+    The exchange is a ``channel:<full names joined by +>`` device span."""
+    with channel_span(ctx, *(p.name for p in parts)):
+        groups: Dict[torch.dtype, list] = {}
+        for pi, part in enumerate(parts):
+            for key, leaf in part.payload.items():
+                groups.setdefault(leaf.dtype, []).append((pi, key, leaf))
 
-    recv: List[Dict[str, torch.Tensor]] = [{} for _ in parts]
-    w = ctx.num_workers
-    for items in groups.values():
-        rows = items[0][2].shape[0]
-        cols = [leaf.reshape(rows, w, -1) for _, _, leaf in items]
-        back = exchange(ctx, torch.cat(cols, dim=2) if len(cols) > 1
-                        else cols[0])
-        off = 0
-        for (pi, key, leaf), col in zip(items, cols):
-            width = col.shape[2]
-            recv[pi][key] = back[:, :, off:off + width].reshape(leaf.shape)
-            off += width
+        recv: List[Dict[str, torch.Tensor]] = [{} for _ in parts]
+        w = ctx.num_workers
+        for items in groups.values():
+            rows = items[0][2].shape[0]
+            cols = [leaf.reshape(rows, w, -1) for _, _, leaf in items]
+            back = exchange(ctx, torch.cat(cols, dim=2) if len(cols) > 1
+                            else cols[0])
+            off = 0
+            for (pi, key, leaf), col in zip(items, cols):
+                width = col.shape[2]
+                recv[pi][key] = back[:, :, off:off + width].reshape(leaf.shape)
+                off += width
 
-    results = []
-    for pi, part in enumerate(parts):
-        ctx.add_traffic(part.name, part.nbytes, part.nmsgs)
-        results.append(part.finish(recv[pi]))
-    return results
+        results = []
+        for pi, part in enumerate(parts):
+            ctx.add_traffic(part.name, part.nbytes, part.nmsgs)
+            results.append(part.finish(recv[pi]))
+        return results
 
 
 # ---------------------------------------------------------------------------
@@ -301,18 +305,20 @@ def switch_by_density(
     Both branches run every superstep (as the JAX package traces both);
     only the chosen branch's traffic is charged, under
     ``<name>/dense/...`` and ``<name>/sparse/...``. ``threshold=None``
-    resolves through the :data:`DENSE_THRESHOLD` knob.
+    resolves through the :data:`DENSE_THRESHOLD` knob. The whole is a
+    ``channel:<full name>`` device span.
     """
-    use_dense = (on_device(density, ctx.device, torch.float32)
-                 >= resolve_dense_threshold(threshold))
-    d_ctx = child_context(ctx, f"{name}/dense")
-    s_ctx = child_context(ctx, f"{name}/sparse")
-    d_out = dense_fn(d_ctx)
-    s_out = sparse_fn(s_ctx)
-    sel = use_dense.to(TRAFFIC_DTYPE)
-    merge_child(ctx, d_ctx, f"{name}/dense", select=sel)
-    merge_child(ctx, s_ctx, f"{name}/sparse", select=1 - sel)
-    return _select(use_dense, d_out, s_out), use_dense
+    with channel_span(ctx, name):
+        use_dense = (on_device(density, ctx.device, torch.float32)
+                     >= resolve_dense_threshold(threshold))
+        d_ctx = child_context(ctx, f"{name}/dense")
+        s_ctx = child_context(ctx, f"{name}/sparse")
+        d_out = dense_fn(d_ctx)
+        s_out = sparse_fn(s_ctx)
+        sel = use_dense.to(TRAFFIC_DTYPE)
+        merge_child(ctx, d_ctx, f"{name}/dense", select=sel)
+        merge_child(ctx, s_ctx, f"{name}/sparse", select=1 - sel)
+        return _select(use_dense, d_out, s_out), use_dense
 
 
 def density_adaptive_combine(

@@ -39,7 +39,7 @@ import torch
 from repro_torch.core import combiners as cb
 from repro_torch.core import routing
 from repro_torch.core.channel import (TRAFFIC_DTYPE, ChannelContext,
-                                      payload_width)
+                                      payload_width, traced_channel)
 from repro_torch.kernels import ops as kops
 
 
@@ -70,6 +70,7 @@ def _delivery(ctx: ChannelContext, routed: routing.Routed,
                     overflow=routed.overflow)
 
 
+@traced_channel
 def direct_send(
     ctx: ChannelContext,
     dst: torch.Tensor,
@@ -110,6 +111,7 @@ def _route_maybe_union(ctx, dst, valid, payload, capacity):
     return routing.route(ctx, dst_l, valid_l, payload, capacity)
 
 
+@traced_channel
 def monolithic_send(
     ctx: ChannelContext,
     dst: torch.Tensor,
@@ -258,6 +260,7 @@ def _combined_send_union(ctx, dst, valid, v, combiner, capacity,
     return out, got.transpose(1, 2), overflow, remote
 
 
+@traced_channel
 def combined_send(
     ctx: ChannelContext,
     dst: torch.Tensor,

@@ -48,7 +48,7 @@ import torch
 
 from repro_torch.core import combiners as cb
 from repro_torch.core.channel import (TRAFFIC_DTYPE, ChannelContext,
-                                      inner_loop)
+                                      inner_loop, traced_channel)
 from repro_torch.core.routing import exchange, pack
 from repro_torch.graph.pgraph import PropPlan
 from repro_torch.kernels import ops as kops
@@ -56,6 +56,7 @@ from repro_torch.kernels import ops as kops
 
 
 
+@traced_channel
 def propagate(
     ctx: ChannelContext,
     plan: PropPlan,
@@ -151,7 +152,8 @@ def propagate(
         # "any worker still going": on a group every rank runs every
         # iteration (a frozen worker keeps its carry), as the local loop
         lab, _, iters = inner_loop(ctx, lambda c: ctx.workers.any(c[1]),
-                                   body, (lab, active, iters))
+                                   body, (lab, active, iters),
+                                   name="propagation.local")
         return lab, iters
 
     # owner of each unique cut destination (W = padding)
@@ -234,7 +236,7 @@ def propagate(
                  iters, torch.zeros(q, dtype=torch.int32, device=dev), start)
         lab, _, _, nbytes, nmsgs, iters, rounds, _ = inner_loop(
             ctx, lambda c: (c[7] & (c[6] < max_outer)).any(), lane_round,
-            carry)
+            carry, name="propagation.round")
         ctx.add_traffic(name, nbytes, nmsgs)
         lab = lab.reshape(rows, n_loc, q, d).permute(0, 2, 1,
                                                      3).contiguous()
@@ -242,6 +244,6 @@ def propagate(
     lab, _, _, nbytes, nmsgs, iters, rounds, _ = inner_loop(
         ctx, lambda c: c[7] & (c[6] < max_outer), round_,
         (lab, prev_u, prev_hub, nbytes, torch.zeros_like(nbytes), iters, 0,
-         True))
+         True), name="propagation.round")
     ctx.add_traffic(name, nbytes[:, 0], nmsgs[:, 0])
     return (lab[..., 0] if squeeze else lab), rounds, iters[:, 0]

@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import routing
-from repro_torch.core.channel import TRAFFIC_DTYPE, ChannelContext
+from repro_torch.core.channel import (TRAFFIC_DTYPE, ChannelContext,
+                                      traced_channel)
 
 
 def _request_core(ctx: ChannelContext, dst, valid, rv, capacity):
@@ -136,6 +137,7 @@ def _request_union(ctx: ChannelContext, dst, valid, rv, capacity):
     return out, overflow, remote
 
 
+@traced_channel
 def request(
     ctx: ChannelContext,
     dst: torch.Tensor,

@@ -52,6 +52,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import knobs
 from repro_torch.core.channel import TRAFFIC_DTYPE
 from repro_torch.distributed.workers import LocalWorkers
@@ -254,20 +255,21 @@ def dedup_dense(dst: torch.Tensor, valid: torch.Tensor, n_total: int,
       compact index of each id, arbitrary where the id never occurs)``,
       each with the lane dim of ``dst``.
     """
-    lead, m = tuple(dst.shape[:-1]), dst.shape[-1]
-    rows = math.prod(lead)
-    m_cap = m if m_cap is None else m_cap
-    key = torch.where(valid, dst.to(torch.int32), n_total).long()
-    got = torch.zeros((rows, n_total + 1), dtype=torch.bool,
-                      device=dst.device)
-    got.scatter_(1, key.reshape(rows, m), True)
-    got = got[:, :n_total]
-    pos = torch.cumsum(got, dim=1, dtype=torch.int32) - 1
-    ids = torch.arange(n_total, dtype=torch.int32, device=dst.device)
-    u_dst = pack(torch.where(got, pos, m_cap), ids.expand(rows, n_total),
-                 m_cap, BIG)
-    return (u_dst.reshape(lead + (m_cap,)),
-            pos.reshape(lead + (n_total,)))
+    with tracing.device_span("routing.dedup_dense", dst):
+        lead, m = tuple(dst.shape[:-1]), dst.shape[-1]
+        rows = math.prod(lead)
+        m_cap = m if m_cap is None else m_cap
+        key = torch.where(valid, dst.to(torch.int32), n_total).long()
+        got = torch.zeros((rows, n_total + 1), dtype=torch.bool,
+                          device=dst.device)
+        got.scatter_(1, key.reshape(rows, m), True)
+        got = got[:, :n_total]
+        pos = torch.cumsum(got, dim=1, dtype=torch.int32) - 1
+        ids = torch.arange(n_total, dtype=torch.int32, device=dst.device)
+        u_dst = pack(torch.where(got, pos, m_cap),
+                     ids.expand(rows, n_total), m_cap, BIG)
+        return (u_dst.reshape(lead + (m_cap,)),
+                pos.reshape(lead + (n_total,)))
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,8 @@ import torch
 
 from repro_torch.core import combiners as cb
 from repro_torch.core import compose
-from repro_torch.core.channel import TRAFFIC_DTYPE, ChannelContext
+from repro_torch.core.channel import (TRAFFIC_DTYPE, ChannelContext,
+                                      traced_channel)
 from repro_torch.core.routing import lane_live, pack
 from repro_torch.graph.pgraph import ScatterPlan
 from repro_torch.kernels import ops as kops
@@ -118,6 +119,7 @@ def plan_broadcast_combine(
     )
 
 
+@traced_channel
 def broadcast_combine(
     ctx: ChannelContext,
     plan: ScatterPlan,

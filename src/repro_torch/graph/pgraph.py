@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.graph import partition as partition_lib
 from repro_torch.graph.generators import EdgeList
@@ -540,24 +541,27 @@ def partition_tables(
     for p in build:
         if p not in PLANS:
             raise ValueError(f"unknown plan {p!r}; known: {PLANS}")
-    new_of_old = partition_lib.PARTITIONERS[partitioner](g, n_workers, seed)
-    n_loc = _round_up(-(-g.n // n_workers), align)
-    src = new_of_old[g.edges[:, 0]]
-    dst = new_of_old[g.edges[:, 1]]
-    w = g.weights
-    thr = resolve_mirror_threshold(g, mirror_threshold)
+    with tracing.span("partition.assign"):
+        new_of_old = partition_lib.PARTITIONERS[partitioner](g, n_workers,
+                                                             seed)
+        n_loc = _round_up(-(-g.n // n_workers), align)
+        src = new_of_old[g.edges[:, 0]]
+        dst = new_of_old[g.edges[:, 1]]
+        w = g.weights
+        thr = resolve_mirror_threshold(g, mirror_threshold)
 
-    W = n_workers
-    _check_int32_extent("partition (W * n_loc)", W * n_loc)
-    v_mask = np.zeros((W, n_loc), bool)
-    v_mask.reshape(-1)[np.asarray(new_of_old)] = True
-    deg = np.zeros(W * n_loc, np.int32)
-    np.add.at(deg, src, 1)
+        W = n_workers
+        _check_int32_extent("partition (W * n_loc)", W * n_loc)
+        v_mask = np.zeros((W, n_loc), bool)
+        v_mask.reshape(-1)[np.asarray(new_of_old)] = True
+        deg = np.zeros(W * n_loc, np.int32)
+        np.add.at(deg, src, 1)
 
     tables: Dict[str, Any] = {"v_mask": v_mask,
                               "deg_out": deg.reshape(W, n_loc)}
-    route_cap = max(_route_cap_bound(src, dst, W, n_loc),
-                    _route_cap_bound(dst, src, W, n_loc))
+    with tracing.span("partition.route_cap"):
+        route_cap = max(_route_cap_bound(src, dst, W, n_loc),
+                        _route_cap_bound(dst, src, W, n_loc))
     statics: Dict[str, Any] = dict(
         n=g.n, num_workers=W, n_loc=n_loc, directed=g.directed, name=g.name,
         new_of_old=new_of_old,
@@ -576,7 +580,8 @@ def partition_tables(
     }
     for p in PLANS:
         if p in build:
-            tables[p], statics[p] = builders[p]()
+            with tracing.span("partition.plan:" + p):
+                tables[p], statics[p] = builders[p]()
     return tables, statics
 
 
@@ -603,8 +608,15 @@ def partition_graph(
     ``partition_graph``).
     worker: None, or the one worker whose rows go to ``device`` (a rank
     of ``Engine(backend="dist")``; see :func:`from_arrays`).
+
+    Under ``repro_torch.tracing.recording()`` it is a ``graph.partition``
+    span holding ``partition.assign`` (the partitioner, the relabelling,
+    the degrees), ``partition.route_cap`` (its two ``np.unique``),
+    ``partition.plan:<plan>`` a plan and ``partition.to_device``.
     """
     device = resolve_device(device)
-    tables, statics = partition_tables(
-        g, n_workers, partitioner, seed, build, align, mirror_threshold)
-    return from_arrays(tables, statics, device, worker=worker)
+    with tracing.span("graph.partition"):
+        tables, statics = partition_tables(
+            g, n_workers, partitioner, seed, build, align, mirror_threshold)
+        with tracing.span("partition.to_device"):
+            return from_arrays(tables, statics, device, worker=worker)

@@ -27,6 +27,11 @@ the combiners whose result depends on the order of the combines (float
 ``segment_combine`` kernel on the card, so they use no float atomics and
 two runs are bit-identical; the rest are exact in any order and stay on
 the plain scatter reduction.
+
+Each call that launches a kernel is a ``kernel:<entry point>`` device
+span (``repro_torch.tracing``; ``segment_reduce``'s covers its sort and
+gather); a call that runs the plain version has none, so on the card a
+fused run's span counts equal its kernels' device launch counts.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import combiners as cb
 from repro_torch.kernels import bucket_route as kbucket
 from repro_torch.kernels import ref as kref
@@ -113,8 +119,9 @@ def segment_combine(vals, seg_ids, num_segments: int, combiner, *,
     contiguous range."""
     combiner = cb.get(combiner)
     if _launches_kernel(vals, use_kernel, "segment_combine"):
-        return kseg.segment_combine_cuda(vals, seg_ids, num_segments,
-                                         combiner)
+        with tracing.device_span("kernel:segment_combine", vals):
+            return kseg.segment_combine_cuda(vals, seg_ids, num_segments,
+                                             combiner)
     return kref.segment_combine_ref(vals, seg_ids, num_segments, combiner)
 
 
@@ -138,11 +145,13 @@ def segment_reduce(vals, seg_ids, num_segments: int, combiner, *,
     if not (order_sensitive(combiner, vals.dtype)
             and _launches_kernel(vals, use_kernel, "segment_reduce")):
         return combiner.segment_reduce(vals, seg_ids, num_segments)
-    seg, order = torch.sort(seg_ids, dim=-1, stable=True)
-    idx = order.reshape(order.shape + (1,) * (vals.dim() - seg_ids.dim()))
-    sorted_vals = vals.gather(seg_ids.dim() - 1, idx.expand_as(vals))
-    return kseg.segment_combine_cuda(sorted_vals, seg, num_segments,
-                                     combiner)
+    with tracing.device_span("kernel:segment_reduce", vals):
+        seg, order = torch.sort(seg_ids, dim=-1, stable=True)
+        idx = order.reshape(order.shape
+                            + (1,) * (vals.dim() - seg_ids.dim()))
+        sorted_vals = vals.gather(seg_ids.dim() - 1, idx.expand_as(vals))
+        return kseg.segment_combine_cuda(sorted_vals, seg, num_segments,
+                                         combiner)
 
 
 def bucket_ranks(keys, num_buckets: int, *,
@@ -159,7 +168,8 @@ def bucket_ranks(keys, num_buckets: int, *,
       ``(rank (*B, M) int32, counts (*B, num_buckets) int32)``.
     """
     if _launches_kernel(keys, use_kernel, "bucket_ranks"):
-        return kbucket.bucket_ranks_cuda(keys, num_buckets)
+        with tracing.device_span("kernel:bucket_ranks", keys):
+            return kbucket.bucket_ranks_cuda(keys, num_buckets)
     return kref.bucket_ranks_ref(keys, num_buckets)
 
 
@@ -180,5 +190,6 @@ def bucket_ranks_lanes(keys, lanes, num_buckets: int, *,
       num_buckets, Q))`` int32.
     """
     if _launches_kernel(keys, use_kernel, "bucket_ranks_lanes"):
-        return kbucket.bucket_ranks_lanes_cuda(keys, lanes, num_buckets)
+        with tracing.device_span("kernel:bucket_ranks_lanes", keys):
+            return kbucket.bucket_ranks_lanes_cuda(keys, lanes, num_buckets)
     return kref.bucket_ranks_lanes_ref(keys, lanes, num_buckets)

@@ -94,6 +94,14 @@ features are reduced over the group, rank 0 plans (probes and their
 cache on rank 0 only) and broadcasts its ``Plan``, so every rank keys
 the same loop under the local engine's ``Plan.key()``.
 ``repro_torch.launch.workers.spawn`` starts the ranks.
+
+Under ``repro_torch.tracing.recording()`` each :meth:`Engine.run` is an
+``engine.run`` span with the job's request id, holding ``engine.plan``,
+``engine.init``, ``engine.execute`` and ``engine.extract``
+(``engine.run_batch`` and ``engine.serve`` likewise), and drains the
+device's stamps when it ends. Whether the sites stamp is part of every
+cached loop's key: a loop captured while recording holds its stamps, and
+only a recorded run replays it.
 """
 from __future__ import annotations
 
@@ -104,6 +112,7 @@ from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import compose, routing
 from repro_torch.device import resolve_device
 from repro_torch.distributed import workers as workers_lib
@@ -431,8 +440,11 @@ class Engine:
         """The cached device loop under ``key`` and ``plan.key()``, built
         on a miss; and whether it was a hit. A key starts (program,
         ``id(pg)``, sorted capacity scales, ...); the loop holds its
-        graph, so ``id(pg)`` names one live graph object."""
-        key = key + (self.backend,) + plan.key()
+        graph, so ``id(pg)`` names one live graph object. It also holds
+        whether a recording is open: a loop captured in one holds its
+        stamps, and only a recorded run replays it."""
+        recording = tracing.active() is not None
+        key = key + (self.backend, recording) + plan.key()
         loop = self._cache.get(key)
         if loop is not None:
             self.cache_hits += 1
@@ -482,9 +494,21 @@ class Engine:
         escalates and replays (``RunResult.recovery``). On a group rank 0
         writes the checkpoints (every worker's state, the file a local run
         writes) and each rank resumes its own worker's rows."""
-        ms, co = self._limits(prog, max_steps, check_overflow)
-        self._check_device(pg)
-        plan = self.resolve_plan(prog, pg)
+        with tracing.span("engine.run", tracing.run_rid()):
+            try:
+                res = self._run_traced(prog, pg, max_steps, check_overflow,
+                                       checkpoint_every, checkpoint_dir,
+                                       resume)
+            finally:
+                tracing.drain()
+        return res
+
+    def _run_traced(self, prog, pg, max_steps, check_overflow,
+                    checkpoint_every, checkpoint_dir, resume):
+        with tracing.span("engine.plan"):
+            ms, co = self._limits(prog, max_steps, check_overflow)
+            self._check_device(pg)
+            plan = self.resolve_plan(prog, pg)
         resume_carry = None
         if resume is not None:
             ckpt = (resume if isinstance(resume, ckpt_io.Checkpoint)
@@ -527,29 +551,32 @@ class Engine:
     def _run(self, prog, pg, plan, ms, co, scales, checkpoint_every,
              checkpoint_cb, resume):
         self.runs += 1
-        state0 = prog.init(pg)
+        with tracing.span("engine.init"):
+            state0 = prog.init(pg)
         knobs = self._knobs(plan)
-        if plan.mode == "host":
-            knobs.pop("route_batch")
-            res = runtime.run_supersteps(
-                pg, prog.step, state0, max_steps=ms, check_overflow=co,
-                channels=prog.channels, cap_scales=scales,
-                workers=self.workers, **knobs)
-        else:
-            loop, hit = self._loop(
-                (prog, id(pg), tuple(sorted(scales.items())), ms, co), plan,
-                lambda: runtime.DeviceLoop(
-                    pg, prog.step, state0, mode=plan.mode, max_steps=ms,
-                    check_overflow=co, chunk_size=plan.chunk_size,
-                    channels=prog.channels, name=prog.name,
-                    cap_scales=scales, workers=self.workers, **knobs))
-            res = self._stamp(loop.execute(
-                state0, checkpoint_every=checkpoint_every,
-                checkpoint_cb=checkpoint_cb, resume=resume), loop, hit)
+        with tracing.span("engine.execute"):
+            if plan.mode == "host":
+                knobs.pop("route_batch")
+                res = runtime.run_supersteps(
+                    pg, prog.step, state0, max_steps=ms, check_overflow=co,
+                    channels=prog.channels, cap_scales=scales,
+                    workers=self.workers, **knobs)
+            else:
+                loop, hit = self._loop(
+                    (prog, id(pg), tuple(sorted(scales.items())), ms, co),
+                    plan, lambda: runtime.DeviceLoop(
+                        pg, prog.step, state0, mode=plan.mode, max_steps=ms,
+                        check_overflow=co, chunk_size=plan.chunk_size,
+                        channels=prog.channels, name=prog.name,
+                        cap_scales=scales, workers=self.workers, **knobs))
+                res = self._stamp(loop.execute(
+                    state0, checkpoint_every=checkpoint_every,
+                    checkpoint_cb=checkpoint_cb, resume=resume), loop, hit)
         res.program = prog.name
         res.plan = plan
         res.backend = self.backend
-        res.output = prog.extract(pg, res.state)
+        with tracing.span("engine.extract"):
+            res.output = prog.extract(pg, res.state)
         return res
 
     def _query_axis(self, prog: VertexProgram, pg: PartitionedGraph,
@@ -584,6 +611,15 @@ class Engine:
         ``on_overflow="escalate"`` an overflow escalates and replays, the
         overflowing lanes on each ``recovery`` entry (``qids``).
         """
+        with tracing.span("engine.run_batch", tracing.run_rid()):
+            try:
+                return self._run_batch_traced(prog, pg, queries, max_steps,
+                                              check_overflow)
+            finally:
+                tracing.drain()
+
+    def _run_batch_traced(self, prog, pg, queries, max_steps,
+                          check_overflow):
         self._query_axis(prog, pg, "batched")
         queries = list(queries)
         q = len(queries)
@@ -662,8 +698,13 @@ class Engine:
             raise ValueError(
                 f"unknown on_fault {on_fault!r} "
                 "(one of ('quarantine', 'raise'))")
-        return self._serve(prog, pg, requests, num_lanes, chunk_size,
-                           max_steps, check_overflow, faults, on_fault)
+        with tracing.span("engine.serve"):
+            try:
+                return self._serve(prog, pg, requests, num_lanes,
+                                   chunk_size, max_steps, check_overflow,
+                                   faults, on_fault)
+            finally:
+                tracing.drain()
 
     def _serve(self, prog, pg, requests, num_lanes, chunk_size, max_steps,
                check_overflow, faults, on_fault):

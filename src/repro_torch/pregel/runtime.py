@@ -99,6 +99,13 @@ boundaries and resumes from a checkpoint (:meth:`DeviceLoop.execute`,
 captured steps read, never into a launch argument frozen at capture.
 :func:`graph_signature` is a graph's static surface, which a checkpoint
 records.
+
+Under ``repro_torch.tracing.recording()`` each superstep is a
+``superstep`` device span (inside its IF node when captured), and every
+loop times its dispatches with one :class:`DispatchClock`, whose clock
+reads are the ``loop.*`` host spans and ``RunResult.step_times_s`` and
+``host_overhead_s`` alike; a device loop's build is a ``loop.build``
+span, and its warm-up step records nothing (``tracing.paused``).
 """
 from __future__ import annotations
 
@@ -112,6 +119,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch import tracing
 from repro_torch.core import aggregator, compose, routing
 from repro_torch.core.channel import (ChannelContext, ChannelRegistry,
                                       DeviceLoopHooks, on_device, store)
@@ -234,6 +242,66 @@ def _stamp_knobs(res: "RunResult", knobs: Dict[str, Any],
     if batched:
         res.route_batch = knobs["route_batch"]
     return res
+
+
+class DispatchClock:
+    """The host clock of a loop's dispatches, read once at each boundary
+    of a dispatch: its start (:meth:`dispatch`), the end of its enqueue
+    and the start of its readback (:meth:`readback`), the readback's
+    return (:meth:`read`) and the end of the host's accounting of it
+    (:meth:`done`). From the same reads come the ``loop.dispatch``,
+    ``loop.readback`` and ``loop.account`` spans (``repro_torch.tracing``,
+    when recording), :attr:`times` (each dispatch through its readback:
+    ``RunResult.step_times_s``) and :attr:`overhead_s` (the host's time
+    outside the readbacks' waits: ``RunResult.host_overhead_s``).
+    :meth:`totals` times a loop's last readback of its totals
+    (``loop.totals``), host time too."""
+
+    def __init__(self):
+        self.times: list = []
+        self._overhead = 0
+        self._t = self._t_enq = self._t_dev = 0
+        self._span = None
+
+    @property
+    def overhead_s(self) -> float:
+        return self._overhead * 1e-9
+
+    def _next(self, name: Optional[str], t: int) -> None:
+        if self._span is not None:
+            self._span.end(t)
+        self._span = None if name is None else tracing.host_span(name)
+        if self._span is not None:
+            self._span.begin(t)
+
+    def dispatch(self) -> None:
+        self._t = t = tracing.now()
+        self._next("loop.dispatch", t)
+
+    def readback(self) -> None:
+        self._t_enq = t = tracing.now()
+        self._next("loop.readback", t)
+
+    def read(self) -> None:
+        self._t_dev = t = tracing.now()
+        self._next("loop.account", t)
+        self.times.append((t - self._t) * 1e-9)
+
+    def done(self) -> None:
+        t = tracing.now()
+        self._next(None, t)
+        self._overhead += (self._t_enq - self._t) + (t - self._t_dev)
+
+    @contextlib.contextmanager
+    def totals(self):
+        t = tracing.now()
+        self._next("loop.totals", t)
+        try:
+            yield
+        finally:
+            end = tracing.now()
+            self._next(None, end)
+            self._overhead += end - t
 
 
 def _readback(workers, halt_all, overflow, nbytes, nmsgs, novf):
@@ -415,29 +483,31 @@ def run_supersteps(
     state = state0
     halted = overflowed = False
     wrapped: set = set()
-    step_times = []
-    overhead = 0.0
+    clock = DispatchClock()
     t0 = time.perf_counter()
     knobs = resolve_knobs(None, dense_threshold)
     with knob_scope(knobs):
         step = -1  # so max_steps=0 reports zero executed supersteps
         for step in range(max_steps):
-            ts = time.perf_counter()
-            ctx = ChannelContext(W, n_loc, graph.device, registry=registry,
-                                 route_cap=graph.route_cap,
-                                 cap_scales=dict(cap_scales or {}),
-                                 workers=workers)
-            state, halt, overflow = _call_step(step_fn, ctx, graph, state,
-                                               step)
-            touched |= ctx.touched
-            halt_all = aggregator.all_halted(ctx, halt)
-            overflow_any = on_device(overflow, graph.device, torch.bool).any()
-            nbytes, nmsgs = ctx.stats()
-            t_enq = time.perf_counter()
+            clock.dispatch()
+            with tracing.device_span("superstep", graph.device):
+                ctx = ChannelContext(W, n_loc, graph.device,
+                                     registry=registry,
+                                     route_cap=graph.route_cap,
+                                     cap_scales=dict(cap_scales or {}),
+                                     workers=workers)
+                state, halt, overflow = _call_step(step_fn, ctx, graph,
+                                                   state, step)
+                touched |= ctx.touched
+                halt_all = aggregator.all_halted(ctx, halt)
+                overflow_any = on_device(overflow, graph.device,
+                                         torch.bool).any()
+                nbytes, nmsgs = ctx.stats()
+            clock.readback()
             halt_now, ovf_now, db, dm, dovf = _readback(
                 workers, halt_all, overflow_any, nbytes, nmsgs,
                 ctx.stats_ovf)
-            t_dev = time.perf_counter()
+            clock.read()
             for acc, delta in ((bytes_acc, db), (msgs_acc, dm)):
                 for k, d in delta.items():
                     if d < 0:
@@ -445,8 +515,7 @@ def run_supersteps(
                     acc[k] = acc.get(k, 0) + d
             for k, v in dovf.items():
                 ovf_acc[k] = ovf_acc.get(k, False) or v
-            step_times.append(t_dev - ts)
-            overhead += (t_enq - ts) + (time.perf_counter() - t_dev)
+            clock.done()
             if check_overflow and ovf_now:
                 overflowed = True
                 break
@@ -464,10 +533,10 @@ def run_supersteps(
         bytes_by_channel=bytes_acc,
         msgs_by_channel=msgs_acc,
         wall_time_s=time.perf_counter() - t0,
-        step_times_s=step_times,
+        step_times_s=clock.times,
         mode="host",
         dispatches=step + 1,
-        host_overhead_s=overhead,
+        host_overhead_s=clock.overhead_s,
         converged=halted,
         overflow_by_channel=ovf_acc,
     )
@@ -611,8 +680,9 @@ class DeviceLoop:
         # superstep of a run: the counts go back to what they were
         before = kops.wrapper_launch_counts()
         try:
-            with knob_scope(self.knobs):
-                self._warm_up(state0)
+            with knob_scope(self.knobs), tracing.span("loop.build"):
+                with tracing.paused():
+                    self._warm_up(state0)
                 self._allocate(state0)
                 if self.capture:
                     self._capture()
@@ -750,7 +820,7 @@ class DeviceLoop:
         per_step = []
         for k in range(self.K):
             before = kops.wrapper_launch_counts()
-            self._when_go(lambda: self._step(k))
+            self._when_go(lambda: self._traced_step(k))
             after = kops.wrapper_launch_counts()
             per_step.append({n: after[n] - before[n] for n in after})
         return per_step
@@ -762,6 +832,13 @@ class DeviceLoop:
         elif bool(self.go):
             with self.guard:
                 fn()
+
+    def _traced_step(self, k: int) -> None:
+        """:meth:`_step` inside a ``superstep`` device span: its stamps lie
+        in the IF node's body, so a step that does not run stamps
+        nothing."""
+        with tracing.device_span("superstep", self.device):
+            self._step(k)
 
     def _group_verdict(self, halt: torch.Tensor, ovf: torch.Tensor):
         """The group's halt (every rank) and overflow (any rank) votes,
@@ -970,15 +1047,15 @@ class DeviceLoop:
         chunked = self.mode == "chunked"
         w = self.graph.num_workers
         wrapped: set = set()
-        times, dispatches, overhead = [], 0, 0.0
+        clock, dispatches = DispatchClock(), 0
         n_read = self.out.numel() if chunked else 4
         while True:
-            ts = time.perf_counter()
+            clock.dispatch()
             self._dispatch()
             dispatches += 1
-            t_enq = time.perf_counter()
+            clock.readback()
             host = self._read(n_read)
-            t_dev = time.perf_counter()
+            clock.read()
             steps, halted, overflow = (int(x) for x in host[:3])
             if chunked:  # the chunk's per-step rows, summed in int64
                 rows = host[4:].reshape(self.K, self.host_row_len)
@@ -991,8 +1068,7 @@ class DeviceLoop:
                         acc[key] += int(block.sum())
                 for j, key in enumerate(self.okeys):
                     ovf_acc[key] |= bool(rows[:, self.host_nb + j].any())
-            times.append(time.perf_counter() - ts)
-            overhead += (t_enq - ts) + (time.perf_counter() - t_dev)
+            clock.done()
             overflowed = self.check_overflow and bool(overflow)
             if overflowed or wrapped or halted or steps >= self.max_steps:
                 break
@@ -1010,23 +1086,23 @@ class DeviceLoop:
                 next_due = steps + checkpoint_every
         latch = False
         if not chunked:  # the totals, once
-            t_r = time.perf_counter()
-            acc = self._read(self.out.numel())
-            latch = bool(acc[3])
-            row = acc[4:]
-            for j, key in enumerate(self.bkeys):
-                bytes_acc[key] = int(row[j * w:(j + 1) * w].sum())
-                m = len(self.bkeys) + j
-                msgs_acc[key] = int(row[m * w:(m + 1) * w].sum())
-            for j, key in enumerate(self.okeys):
-                ovf_acc[key] = bool(row[self.host_nb + j])
-            overhead += time.perf_counter() - t_r
+            with clock.totals():
+                acc = self._read(self.out.numel())
+                latch = bool(acc[3])
+                row = acc[4:]
+                for j, key in enumerate(self.bkeys):
+                    bytes_acc[key] = int(row[j * w:(j + 1) * w].sum())
+                    m = len(self.bkeys) + j
+                    msgs_acc[key] = int(row[m * w:(m + 1) * w].sum())
+                for j, key in enumerate(self.okeys):
+                    ovf_acc[key] = bool(row[self.host_nb + j])
         state = {k: v.clone() for k, v in self.gathered(self.state).items()}
         res = RunResult(
             state=state, steps=steps, halted=bool(halted),
             bytes_by_channel=bytes_acc, msgs_by_channel=msgs_acc,
-            wall_time_s=time.perf_counter() - t0, step_times_s=times,
-            mode=self.mode, dispatches=dispatches, host_overhead_s=overhead,
+            wall_time_s=time.perf_counter() - t0, step_times_s=clock.times,
+            mode=self.mode, dispatches=dispatches,
+            host_overhead_s=clock.overhead_s,
             converged=bool(halted), overflow_by_channel=ovf_acc,
             resumed_from=start, captured=self.cuda_graph is not None)
         if overflowed:
@@ -1192,8 +1268,7 @@ def _host_batched(graph, step_fn, state0, num_real_queries, max_steps,
     q_ovf: Dict[str, np.ndarray] = {}
     wrapped: set = set()
     touched: set = set()
-    step_times = []
-    overhead = 0.0
+    clock = DispatchClock()
     state = state0
     steps = 0
     t0 = time.perf_counter()
@@ -1201,32 +1276,32 @@ def _host_batched(graph, step_fn, state0, num_real_queries, max_steps,
         live_np = ~halted_np
         if not live_np.any():
             break
-        ts = time.perf_counter()
+        clock.dispatch()
         live = ~halted
-        ctx = ChannelContext(W, n_loc, dev, registry=registry,
-                             route_cap=graph.route_cap, num_queries=q,
-                             query_live=live,
-                             cap_scales=dict(cap_scales or {}),
-                             workers=workers)
-        new_state, halt, overflow = _call_step(step_fn, ctx, graph, state,
-                                               step)
-        touched |= ctx.touched
-        state = {k: torch.where(_qmask(live, v), v, state[k])
-                 for k, v in new_state.items()}
-        halted = halted | aggregator.all_halted(ctx, halt)
-        ovf_q = torch.as_tensor(overflow, device=dev).to(torch.bool).expand(
-            workers.rows, q).any(dim=0) & live
-        nbytes, nmsgs = ctx.stats()
-        nbytes = {k: torch.where(live, v, 0) for k, v in nbytes.items()}
-        nmsgs = {k: torch.where(live, v, 0) for k, v in nmsgs.items()}
-        novf = {k: v & live for k, v in ctx.stats_ovf.items()}
-        t_enq = time.perf_counter()
+        with tracing.device_span("superstep", dev):
+            ctx = ChannelContext(W, n_loc, dev, registry=registry,
+                                 route_cap=graph.route_cap, num_queries=q,
+                                 query_live=live,
+                                 cap_scales=dict(cap_scales or {}),
+                                 workers=workers)
+            new_state, halt, overflow = _call_step(step_fn, ctx, graph,
+                                                   state, step)
+            touched |= ctx.touched
+            state = {k: torch.where(_qmask(live, v), v, state[k])
+                     for k, v in new_state.items()}
+            halted = halted | aggregator.all_halted(ctx, halt)
+            ovf_q = torch.as_tensor(overflow, device=dev).to(
+                torch.bool).expand(workers.rows, q).any(dim=0) & live
+            nbytes, nmsgs = ctx.stats()
+            nbytes = {k: torch.where(live, v, 0) for k, v in nbytes.items()}
+            nmsgs = {k: torch.where(live, v, 0) for k, v in nmsgs.items()}
+            novf = {k: v & live for k, v in ctx.stats_ovf.items()}
+        clock.readback()
         halted_np, ovf_now, db, dm, dovf = _readback_lanes(
             workers, halted, ovf_q, nbytes, nmsgs, novf)
         if workers.distributed:  # the group's verdict, every lane
             halted = torch.as_tensor(halted_np, device=dev)
-        t_dev = time.perf_counter()
-        step_times.append(t_dev - ts)
+        clock.read()
         steps = step + 1
         steps_q += live_np
         for acc, delta in ((q_bytes, db), (q_msgs, dm)):
@@ -1237,7 +1312,7 @@ def _host_batched(graph, step_fn, state0, num_real_queries, max_steps,
         for k, row in dovf.items():
             q_ovf[k] = q_ovf.get(k, False) | row
         overflow_np |= ovf_now
-        overhead += (t_enq - ts) + (time.perf_counter() - t_dev)
+        clock.done()
         if check_overflow and overflow_np[:q_real].any():
             break
         if wrapped:
@@ -1247,8 +1322,8 @@ def _host_batched(graph, step_fn, state0, num_real_queries, max_steps,
     return _batched_result(
         _gathered(workers, state), steps, halted_np, overflow_np, q_bytes,
         q_msgs, steps_q, q_real, mode="host", dispatches=steps,
-        wall=time.perf_counter() - t0, step_times=step_times,
-        overhead=overhead, check_overflow=check_overflow, ovf_by=q_ovf,
+        wall=time.perf_counter() - t0, step_times=clock.times,
+        overhead=clock.overhead_s, check_overflow=check_overflow, ovf_by=q_ovf,
         wrapped=wrapped)
 
 
@@ -1390,39 +1465,38 @@ class BatchedDeviceLoop(DeviceLoop):
         chunked = self.mode == "chunked"
         q_bytes, q_msgs, q_ovf = self._totals()
         wrapped: set = set()
-        times, dispatches, overhead = [], 0, 0.0
+        clock, dispatches = DispatchClock(), 0
         n_read = self.out.numel() if chunked else 4
         while True:
-            ts = time.perf_counter()
+            clock.dispatch()
             self._dispatch()
             dispatches += 1
-            t_enq = time.perf_counter()
+            clock.readback()
             host = self._read(n_read)
-            t_dev = time.perf_counter()
+            clock.read()
             steps, dead, overflow = (int(x) for x in host[:3])
             if chunked:  # the chunk's per-step rows
                 self._add_rows(host[self.head:].reshape(self.K, -1),
                                q_bytes, q_msgs, q_ovf, wrapped)
-            times.append(time.perf_counter() - ts)
-            overhead += (t_enq - ts) + (time.perf_counter() - t_dev)
+            clock.done()
             if ((self.check_overflow and overflow) or wrapped or dead
                     or steps >= self.max_steps):
                 break
-        t_r = time.perf_counter()
         latch = False
-        if not chunked:  # the lanes and the accumulators, once
-            host = self._read(self.out.numel())
-            latch = bool(host[3])
-            self._add_rows(host[self.head:].reshape(1, -1), q_bytes, q_msgs,
-                           q_ovf)
-        lanes = host[4:self.head].reshape(4, self.q)
-        state = {k: v.clone() for k, v in self.gathered(self.state).items()}
-        overhead += time.perf_counter() - t_r
+        with clock.totals():
+            if not chunked:  # the lanes and the accumulators, once
+                host = self._read(self.out.numel())
+                latch = bool(host[3])
+                self._add_rows(host[self.head:].reshape(1, -1), q_bytes,
+                               q_msgs, q_ovf)
+            lanes = host[4:self.head].reshape(4, self.q)
+            state = {k: v.clone()
+                     for k, v in self.gathered(self.state).items()}
         return _batched_result(
             state, steps, lanes[0] != 0, lanes[1] != 0, q_bytes, q_msgs,
             lanes[3], q_real, mode=self.mode, dispatches=dispatches,
-            wall=time.perf_counter() - t0, step_times=times,
-            overhead=overhead, check_overflow=self.check_overflow,
+            wall=time.perf_counter() - t0, step_times=clock.times,
+            overhead=clock.overhead_s, check_overflow=self.check_overflow,
             ovf_by=q_ovf, wrapped=wrapped, latch=latch,
             captured=self.cuda_graph is not None)
 
@@ -1446,9 +1520,14 @@ class BatchedDeviceLoop(DeviceLoop):
         live = ~(halted | (age >= self.max_steps))
         self.go.fill_(bool(live.any()) and not (
             self.check_overflow and bool(overflow.any())))
+        clock = DispatchClock()
+        clock.dispatch()
         with knob_scope(self.knobs):
             self._dispatch()
+        clock.readback()
         host = self._read(self.out.numel())
+        clock.read()
+        clock.done()
         db, dm, dovf = self._totals()
         self._add_rows(host[self.head:].reshape(self.K, -1), db, dm, dovf)
         lanes = host[4:self.head].reshape(4, q)

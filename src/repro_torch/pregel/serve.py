@@ -39,6 +39,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.distributed.fault_tolerance import StragglerMonitor
 from repro_torch.pregel import errors
 
@@ -336,6 +337,11 @@ def serve_loop(loop, prog, pg, state0, queue: QueryQueue,
     harvest gathers every worker's rows of the lane before ``extract``.
     The lane words every decision reads come from the group's votes, so
     every rank admits, harvests and gathers alike.
+
+    Under ``repro_torch.tracing.recording()`` each boundary's admission,
+    dispatch and harvest are ``serve.admit``, ``serve.dispatch`` and
+    ``serve.harvest`` spans, and each harvested query's ``extract`` is a
+    ``query.harvest`` span under its ``qid``.
     """
     L, max_steps = loop.q, loop.max_steps
     check_overflow = loop.check_overflow
@@ -358,6 +364,9 @@ def serve_loop(loop, prog, pg, state0, queue: QueryQueue,
 
     with loop.replays_counted():
         while True:
+            admit = tracing.host_span("serve.admit")
+            if admit is not None:
+                admit.begin()
             queue.mark_eligible(clock, now())
             # --- admission: FIFO by (arrival, qid) into the lowest free
             # lane, on the stream the replays run on
@@ -373,13 +382,16 @@ def serve_loop(loop, prog, pg, state0, queue: QueryQueue,
                 age[lane] = 0
                 halted[lane] = False
                 overflow[lane] = False
+                wall = now()
                 occupant[lane] = QueryRecord(
                     qid=entry.qid, query=entry.query, lane=lane,
                     arrival=entry.arrival, admitted=clock,
                     wall_eligible_s=(entry.wall_eligible_s
                                      if entry.wall_eligible_s is not None
-                                     else now()),
-                    wall_admitted_s=now())
+                                     else wall),
+                    wall_admitted_s=wall)
+            if admit is not None:
+                admit.end()
 
             if all(r is None for r in occupant):
                 nxt = queue.next_arrival()
@@ -389,90 +401,94 @@ def serve_loop(loop, prog, pg, state0, queue: QueryQueue,
                 continue
 
             # --- one chunk: up to chunk_size supersteps, all live lanes
-            t_disp = time.perf_counter()
-            age, halted, overflow, d_steps, db, dm, dovf = loop.serve_chunk(
-                age, halted, overflow)
-            if monitor.record(dispatches, time.perf_counter() - t_disp):
-                stragglers.append(dispatches)
+            with tracing.span("serve.dispatch"):
+                t_disp = time.perf_counter()
+                age, halted, overflow, d_steps, db, dm, dovf = \
+                    loop.serve_chunk(age, halted, overflow)
+                if monitor.record(dispatches, time.perf_counter() - t_disp):
+                    stragglers.append(dispatches)
             dispatches += 1
             steps_run = int(d_steps.max())
             clock += steps_run
             executed += steps_run
+            with tracing.span("serve.harvest"):
+                # --- per-tenancy accounting: this chunk's stats belong to the
+                # lanes' current occupants (admission only happens at
+                # boundaries, so a chunk is never split across tenancies)
+                occupied = [l for l in range(L) if occupant[l] is not None]
+                for acc, per_lane, delta in (
+                        (sess_bytes, "bytes_by_channel", db),
+                        (sess_msgs, "msgs_by_channel", dm)):
+                    for name, row in delta.items():
+                        acc[name] = acc.get(name, 0) + int(row.sum())
+                        for lane in occupied:
+                            d = getattr(occupant[lane], per_lane)
+                            d[name] = d.get(name, 0) + int(row[lane])
+                for lane in occupied:
+                    occupant[lane].steps += int(d_steps[lane])
 
-            # --- per-tenancy accounting: this chunk's stats belong to the
-            # lanes' current occupants (admission only happens at
-            # boundaries, so a chunk is never split across tenancies)
-            occupied = [l for l in range(L) if occupant[l] is not None]
-            for acc, per_lane, delta in (
-                    (sess_bytes, "bytes_by_channel", db),
-                    (sess_msgs, "msgs_by_channel", dm)):
-                for name, row in delta.items():
-                    acc[name] = acc.get(name, 0) + int(row.sum())
-                    for lane in occupied:
-                        d = getattr(occupant[lane], per_lane)
-                        d[name] = d.get(name, 0) + int(row[lane])
-            for lane in occupied:
-                occupant[lane].steps += int(d_steps[lane])
-
-            # --- fault injection: force failures due at this boundary
-            for lane in occupied:
-                rec = occupant[lane]
-                spec = fault_by_qid.get(rec.qid)
-                if (spec is not None and spec.kind == "overflow"
-                        and not rec.injected and rec.steps >= spec.at_step):
-                    overflow[lane] = True
-                    rec.injected = True
-
-            # --- quarantine (or raise) lanes that overflowed a channel
-            ovf_lanes = [l for l in occupied
-                         if overflow[l]
-                         and (check_overflow or occupant[l].injected)]
-            if ovf_lanes:
-                if on_fault == "raise":
-                    bad = [occupant[l].qid for l in ovf_lanes]
-                    chans = sorted(
-                        n for n, row in dovf.items()
-                        if any(row[l] for l in ovf_lanes))
-                    raise errors.ChannelOverflowError(
-                        errors.overflow_message(clock, chans, qids=bad),
-                        superstep=clock, channels=chans, qids=bad)
-                for lane in ovf_lanes:
+                # --- fault injection: force failures due at this boundary
+                for lane in occupied:
                     rec = occupant[lane]
-                    rec.status = "overflow"
-                    rec.channels = tuple(sorted(
-                        n for n, row in dovf.items() if row[lane]))
-                    rec.output = None
-                    rec.halted = False
+                    spec = fault_by_qid.get(rec.qid)
+                    if (spec is not None and spec.kind == "overflow"
+                            and not rec.injected
+                            and rec.steps >= spec.at_step):
+                        overflow[lane] = True
+                        rec.injected = True
+
+                # --- quarantine (or raise) lanes that overflowed a channel
+                ovf_lanes = [l for l in occupied
+                             if overflow[l]
+                             and (check_overflow or occupant[l].injected)]
+                if ovf_lanes:
+                    if on_fault == "raise":
+                        bad = [occupant[l].qid for l in ovf_lanes]
+                        chans = sorted(
+                            n for n, row in dovf.items()
+                            if any(row[l] for l in ovf_lanes))
+                        raise errors.ChannelOverflowError(
+                            errors.overflow_message(clock, chans, qids=bad),
+                            superstep=clock, channels=chans, qids=bad)
+                    for lane in ovf_lanes:
+                        rec = occupant[lane]
+                        rec.status = "overflow"
+                        rec.channels = tuple(sorted(
+                            n for n, row in dovf.items() if row[lane]))
+                        rec.output = None
+                        rec.halted = False
+                        rec.finished = clock
+                        rec.wall_finished_s = now()
+                        records.append(rec)
+                        occupant[lane] = None
+                        halted[lane] = True     # dead until refilled (its
+                        overflow[lane] = False  # slice is rewritten then)
+
+                # --- harvest: lanes whose query halted or ran out of budget
+                # (or whose FaultSpec exhausts it early)
+                for lane in occupied:
+                    rec = occupant[lane]
+                    if rec is None:
+                        continue              # quarantined above
+                    spec = fault_by_qid.get(rec.qid)
+                    force = (spec is not None and spec.kind == "exhaust"
+                             and rec.steps >= spec.at_step)
+                    if not (halted[lane] or age[lane] >= max_steps or force):
+                        continue
+                    with tracing.span("query.harvest", rec.qid):
+                        # a copy: the next replay writes the lane's buffers
+                        lane_state = loop.gathered(
+                            {key: v[:, lane].clone()
+                             for key, v in loop.state.items()})
+                        rec.output = prog.extract(pg, lane_state)
+                    rec.halted = bool(halted[lane])
+                    rec.status = "ok" if rec.halted else "exhausted"
+                    rec.injected = rec.injected or (force and not rec.halted)
                     rec.finished = clock
                     rec.wall_finished_s = now()
                     records.append(rec)
                     occupant[lane] = None
-                    halted[lane] = True     # dead until refilled (its
-                    overflow[lane] = False  # slice is rewritten then)
-
-            # --- harvest: lanes whose query halted or ran out of budget
-            # (or whose FaultSpec exhausts it early)
-            for lane in occupied:
-                rec = occupant[lane]
-                if rec is None:
-                    continue              # quarantined above
-                spec = fault_by_qid.get(rec.qid)
-                force = (spec is not None and spec.kind == "exhaust"
-                         and rec.steps >= spec.at_step)
-                if not (halted[lane] or age[lane] >= max_steps or force):
-                    continue
-                # a copy: the next replay writes the lane's buffers
-                lane_state = loop.gathered({key: v[:, lane].clone()
-                                            for key, v in loop.state.items()})
-                rec.output = prog.extract(pg, lane_state)
-                rec.halted = bool(halted[lane])
-                rec.status = "ok" if rec.halted else "exhausted"
-                rec.injected = rec.injected or (force and not rec.halted)
-                rec.finished = clock
-                rec.wall_finished_s = now()
-                records.append(rec)
-                occupant[lane] = None
-                halted[lane] = True      # the lane is dead until refilled
+                    halted[lane] = True      # the lane is dead until refilled
 
     records.sort(key=lambda r: r.qid)
     return ServeResult(

@@ -1669,3 +1669,112 @@ def test_train_step_on_the_card(cuda, arch):
                                                          cbatch)
     for x, y in zip(tree_leaves(mb.params), tree_leaves(a.params)):
         assert float((x - y).abs().max()) <= 2e-6
+
+
+# -- the span recorder's device stamps (repro_torch.tracing) ------------------
+
+
+def _span_counts(export, rid=None, device=None):
+    """{span name: count} of a recorder's export, of one request id and
+    of device (True) or host (False) spans when given."""
+    sp = export["spans"]
+    keep = np.ones(len(sp["name"]), bool)
+    if rid is not None:
+        keep &= sp["rid"] == rid
+    if device is not None:
+        keep &= sp["device"] == device
+    names, counts = np.unique(sp["name"][keep], return_counts=True)
+    return {export["names"][n]: int(c) for n, c in zip(names, counts)}
+
+
+def _stamp_launches():
+    from repro_torch.kernels import build
+
+    return build.device_counters("trace_stamp",
+                                 "trace_stamp_device_launches")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", ["sssp:prop", "sv:composed"])
+def test_trace_stamps_in_while_bodies_match_the_counters(cuda, key):
+    """A fused run replayed under ``recording()`` at scale 10, W = 8: one
+    ``superstep`` span a superstep, one ``inner:`` span a WHILE body run
+    (the program's own round count), ``kernel:`` spans as many as the
+    kernels' device launch counters moved, stamps monotone in device
+    time, none dropped, the same counts as a host-mode run, and the
+    clock calibration's residual and the timer's granularity reported."""
+    from repro_torch import tracing
+
+    spec = REGISTRY[key]
+    graph = spec.make_graph(10, 0)
+    inputs = spec.inputs(graph, 0)
+    pg = pgraph.partition_graph(graph, 8, "random", build=spec.build)
+    prog = spec.factory(**inputs)
+    eng = Engine(mode="fused", device=cuda)
+    with tracing.recording() as rec:
+        eng.run(prog, pg)  # builds and captures the stamped loop
+        before = ops.device_launch_counts()
+        res = eng.run(prog, pg)
+        after = ops.device_launch_counts()
+        host = Engine(mode="host", device=cuda).run(prog, pg)
+    assert res.cache_hit and res.captured
+    ex = rec.export()
+    assert ex["dropped"] == 0
+    fused = _span_counts(ex, rid=1, device=True)
+    want = {k: after[k] - before[k] for k in after}
+    assert fused["superstep"] == res.steps
+    assert (fused.get("kernel:segment_combine", 0)
+            + fused.get("kernel:segment_reduce", 0)
+            == want["segment_combine"] > 0)
+    assert fused.get("kernel:bucket_ranks", 0) == want["bucket_ranks"]
+    if key == "sssp:prop":
+        assert fused["inner:propagation.round"] == int(
+            res.state["info"][0, 0])
+    else:
+        assert fused["inner:pointer_jumping"] > 0
+    assert fused == _span_counts(ex, rid=2, device=True)
+    stamps = rec.stamps.data[:rec.stamps.n]
+    for d in np.unique(stamps[:, 3]):
+        t = stamps[stamps[:, 3] == d, 1]
+        assert (np.diff(t) >= 0).all()
+    cal = ex["calibration"]
+    assert len(cal["points"]) >= 3
+    assert 0 <= cal["residual_ns"] < 1e6 and cal["granularity_ns"] > 0
+    sp = ex["spans"]
+    dev = sp["device"]
+    assert (sp["end_ns"][dev] >= sp["start_ns"][dev]).all()
+    np.testing.assert_array_equal(res.output, host.output)
+
+
+@pytest.mark.gpu
+def test_a_loop_captured_outside_recording_holds_no_stamp(cuda):
+    """A loop built outside ``recording()`` replays without one stamp
+    launch; inside, the engine builds a stamped loop of its own (a cache
+    miss) and its run is bit-identical; a served session's ``superstep``
+    spans equal its executed supersteps."""
+    from repro_torch import tracing
+
+    spec = REGISTRY["sssp:prop"]
+    graph = spec.make_graph(10, 0)
+    pg = pgraph.partition_graph(graph, 8, "random", build=spec.build)
+    prog = spec.factory(**spec.inputs(graph, 0))
+    eng = Engine(mode="fused", device=cuda)
+    plain = eng.run(prog, pg)
+    before = _stamp_launches()
+    again = eng.run(prog, pg)
+    assert again.cache_hit and _stamp_launches() == before
+    with tracing.recording() as rec:
+        traced = eng.run(prog, pg)
+        serve_prog = spec.factory()
+        served = eng.serve(serve_prog, pg, QueryQueue.from_schedule(
+            spec.stream(graph, 0, 6, rate=0.5)), num_lanes=4, chunk_size=2)
+    assert not traced.cache_hit and _stamp_launches()[0] > before[0]
+    for k in plain.state:
+        assert bits_equal(plain.state[k], traced.state[k])
+    assert (plain.steps, plain.bytes_by_channel) == (
+        traced.steps, traced.bytes_by_channel)
+    ex = rec.export()
+    counts = _span_counts(ex, device=True)
+    assert counts["superstep"] == traced.steps + served.supersteps
+    assert ex["dropped"] == 0
+    assert eng.run(prog, pg).cache_hit  # the unstamped loop again
